@@ -1,0 +1,102 @@
+// K4: sphere casts vs the triangle soup, two entries of one kernel.
+//
+// Replaces the TPU kernels madrona_mp_env_tpu/ops/raycast_pallas.py
+// _make_sc_kernel_planar_T + _sc_sweep_lanes (layout rowsT, via
+// _get_sc_planar / sphere_cast_planar_pallas: the dense L2/L3/fall casts)
+// and _make_sc_kernel_planar(culled=True) (via _get_sc_culled /
+// sphere_cast_agent_culled: the short-table L1 batch). Plain versions:
+// ops/raycast.py _sphere_cast_dense and _sphere_cast_culled_plain.
+//
+// Bound on the H100: casts x candidates pair tests of ~200 f32 operations
+// (closest point on the triangle, the offset-plane face test, three edge
+// capsules with vertex spheres: six square roots and ~10 divides) from 24
+// bytes per cast in and 8 out: bound by operations. Slice, per step: dense
+// 4 casts x 12288 agents x 256 triangles = 1.3e7 pairs, culled 7 x 12288 x
+// the cell's K = 56 candidates = 4.8e6 pairs.
+// Design: one thread per cast. Dense entry (cells == nullptr): the block
+// stages the T triangle rows (v0 e1 e2 n valid) in shared memory and every
+// thread sweeps all of them. Culled entry: cast c of group c / cpa sweeps
+// only the K candidate rows of its group's cell (cand[cell * K + k], -1
+// padding), reading the triangle rows straight from the table (16 KB,
+// cached). Both keep the nearest t and the lowest global row among equal t
+// (the dense sweep's argmin); a miss reports row 0, as that argmin does.
+#include "tri_math.cuh"
+
+using namespace mpenv;
+
+constexpr int kStage = 13;  // v0 e1 e2 n valid
+
+__device__ __forceinline__ float cast_vs_row(V3 o, V3 d, float r, float rr, const float* t) {
+  return sphere_tri(o, d, r, rr, load3(t), load3(t + 3), load3(t + 6), load3(t + 9),
+                    t[12] > 0.0f);
+}
+
+__global__ void sphere_cast_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                         const float* __restrict__ rows, float r, int T, int R,
+                                         float* __restrict__ t_out, int* __restrict__ idx_out) {
+  extern __shared__ float s[];  // [T][13]
+  for (int i = threadIdx.x; i < T; i += blockDim.x)
+    for (int k = 0; k < kStage; ++k) s[i * kStage + k] = rows[(size_t)i * kRowCols + k];
+  __syncthreads();
+  int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= R) return;
+  V3 org = load3(o + 3 * (size_t)c);
+  V3 dir = load3(d + 3 * (size_t)c);
+  float rr = r * r;
+  float best = CUDART_INF_F;
+  int best_i = 0;
+  for (int i = 0; i < T; ++i) {
+    float t = cast_vs_row(org, dir, r, rr, s + i * kStage);
+    if (t < best) {
+      best = t;
+      best_i = i;
+    }
+  }
+  t_out[c] = best;
+  idx_out[c] = best_i;
+}
+
+__global__ void sphere_cast_culled_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                          const float* __restrict__ rows, float r, int R,
+                                          const int* __restrict__ cells,
+                                          const int* __restrict__ cand, int K, int cpa,
+                                          float* __restrict__ t_out, int* __restrict__ idx_out) {
+  int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= R) return;
+  V3 org = load3(o + 3 * (size_t)c);
+  V3 dir = load3(d + 3 * (size_t)c);
+  float rr = r * r;
+  const int* cc = cand + (size_t)cells[c / cpa] * K;
+  float best = CUDART_INF_F;
+  int best_row = 0;
+  for (int k = 0; k < K; ++k) {
+    int row = cc[k];
+    if (row < 0) continue;
+    float t = cast_vs_row(org, dir, r, rr, rows + (size_t)row * kRowCols);
+    if (t < best || (t == best && row < best_row)) {
+      best = t;
+      best_row = row;
+    }
+  }
+  t_out[c] = best;
+  idx_out[c] = best_row;
+}
+
+extern "C" int sphere_cast_launch(const float* o, const float* d, const float* rows, float r,
+                                  int T, int R, const int* cells, const int* cand, int K, int cpa,
+                                  float* t_out, int* idx_out, void* stream) {
+  if (R <= 0) return 0;
+  const int threads = 128;
+  unsigned blocks = (unsigned)((R + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cells == nullptr) {
+    size_t smem = (size_t)T * kStage * sizeof(float);
+    cudaError_t e = allow_smem(sphere_cast_dense_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    sphere_cast_dense_kernel<<<blocks, threads, smem, st>>>(o, d, rows, r, T, R, t_out, idx_out);
+  } else {
+    sphere_cast_culled_kernel<<<blocks, threads, 0, st>>>(o, d, rows, r, R, cells, cand, K, cpa,
+                                                          t_out, idx_out);
+  }
+  return (int)cudaGetLastError();
+}
