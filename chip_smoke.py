@@ -9,18 +9,27 @@ Phases, each of which fails the run loudly:
 2. build every CUDA kernel of the env step from csrc/ (one nvcc per
    source, all at once);
 3. each kernel (K1 hitscan rays, K2 sensor fans, K3 sensor rays vs
-   capsules, K4 sphere casts: dense and short-table culled) against its
-   plain PyTorch version on the card, on the inputs of every launch that
-   one real step of the slice makes (1024 worlds of Zone 6v6 on
-   simple_map, captured where the sim calls each entry), with its time,
-   the plain version's time and its bound, each summed over the step's
-   launches of that entry;
+   capsules, K4 sphere casts: dense and short-table culled, K5 the fused
+   scalar tail) against its plain PyTorch version on the card, on the
+   inputs of every launch that one real step of the slice makes (1024
+   worlds of Zone 6v6 on simple_map, captured where the sim calls each
+   entry), with its time, the plain version's time and its bound, each
+   summed over the step's launches of that entry;
 4. the slice: Env(device="cuda") at 1024 worlds, reset + 100 steps of
    bench.py's run-and-shoot action mix, with every launch counter zeroed
    before and read after; env-steps/s beside the card's name and limit;
-5. the kernel path against the plain path: the same 4-world, 16-step
-   rollout on "cuda" and on "cpu" from one seed;
-6. a line of kernel results (JSON), then the card line, then the last
+   then CUDA launches per step from torch.profiler, with the fused tail
+   and, for comparison in the same process, with the unfused chain it
+   replaced;
+5. the crossplay eval: EvalManager on the card at 1024 worlds with P = 2
+   policies at full width (weights made from seeds: the trained
+   checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
+   before and read after; agent-steps/s, env-steps/s and the policy
+   forward's ms per step;
+6. the kernel path against the plain path: the same 4-world, 16-step env
+   rollout, and the same 4-world, 16-step eval rollout, on "cuda" and on
+   "cpu" from one seed;
+7. a line of kernel results (JSON), then the card line, then the last
    line {"ok": true, "device": {...}}.
 
 Exits non-zero with no result line when there is no CUDA device or when
@@ -54,6 +63,13 @@ OPS_FAN_PAIR = 32  # K2 after hoisting: cross, 2 dots, divide, 3 scales, u+v, mi
 OPS_FAN_HOIST = 20  # per (fan, group, triangle): tvec, cross, dot
 OPS_CAPSULE = 75  # 5 dots, cylinder quadratic (~20), two cap spheres (~30)
 OPS_SPHERE_TRI = 330  # closest point (~80), face test (~45), 3 capsules
+# K5 per agent (csrc/tail_fused.cu): autoheal 2, zone distance 9,
+# membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
+# 5 per teammate pair
+OPS_TAIL_AGENT = 41
+EVAL_WORLDS = 1024
+EVAL_STEPS = 100
+EVAL_POLICIES = 2
 
 
 def log(msg):
@@ -124,6 +140,34 @@ def check_idx(name, i_k, i_p, gap, t_p):
         raise AssertionError(f"{name}: {wrong} winner indices differ")
 
 
+def check_tail(got, want, rel=1e-6):
+    """K5 against its plain version: integral and boolean leaves equal,
+    float leaves within rel * max(1, |x|) (0 expected: the kernel repeats
+    the plain version's operations). Returns the max abs float error."""
+    import torch
+
+    (sk, ck), (sp, cp) = got, want
+    torch.cuda.synchronize()
+    if not torch.equal(ck, cp):
+        raise AssertionError("K5 new_captured differs")
+    max_err = 0.0
+    for name, w in sp.leaves().items():
+        g = getattr(sk, name)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K5 {name}: {g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if not w.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError(f"K5 {name} differs")
+            continue
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        e = torch.where(same, 0.0, (g.double() - w.double()).abs())
+        if bool((e > rel * w.double().abs().clamp(min=1.0)).any()):
+            raise AssertionError(f"K5 {name}: max abs err {float(e.max())}")
+        max_err = max(max_err, float(e.max()))
+    return max_err
+
+
 def best_two_gap(t_pairs):
     """Second-best minus best t over the last axis (inf when < 2 hits)."""
     import torch
@@ -136,17 +180,20 @@ def best_two_gap(t_pairs):
 ENTRY_SITES = (
     ("combat", "ray_vs_tris"), ("observations", "ray_fans_vs_tris"),
     ("observations", "fan_capsules"), ("movement", "sphere_cast"),
-    ("movement", "sphere_cast_culled"),
+    ("movement", "sphere_cast_culled"), ("step", "tail_fused"),
 )
 
 
 def _clone(x):
     import torch
+    from madrona_mp_env_tpu_torch.sim.types import WorldState
 
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, tuple):
         return tuple(_clone(v) for v in x)
+    if isinstance(x, WorldState):
+        return x.replace(**{k: v.clone() for k, v in x.leaves().items()})
     return x
 
 
@@ -189,7 +236,7 @@ def kernel_phase(env, state, actions):
     dense: the L2 pair [W, A, 2], the L3 snap [W, A] and the fall cast
     [W, A])."""
     import torch
-    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
+    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull, tail_fused
 
     m = env.map_data
     soup = m.tris
@@ -357,6 +404,26 @@ def kernel_phase(env, state, actions):
            cuda_time_ms(culled_plain, 2),
            N7 * CPA * 32 + N7 * 4 + short.cand.numel() * 4 + T_real * 52,
            int((cand >= 0).sum()) * CPA * OPS_SPHERE_TRI, [[N7, CPA]])
+
+    # --- K5: the fused scalar tail ---
+    (cfg5, m5, st5, fr5), = calls["tail_fused"]
+
+    def tail_kernel():
+        return tail_fused.tail_fused(cfg5, m5, st5, fr5)
+
+    def tail_plain():
+        return tail_fused.tail_fused_plain(cfg5, m5, st5, fr5)
+
+    err = check_tail(tail_kernel(), tail_plain())
+    ins, outs = tail_fused.kernel_operands(cfg5, m5, st5, fr5)
+    W5, A5 = st5.hp.shape
+    ts5 = cfg5.team_size
+    record("K5 tail_fused", "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
+           "madrona_mp_env_tpu/ops/tail_pallas.py:143", tail_fused.tail_fused,
+           err, cuda_time_ms(tail_kernel, 200), cuda_time_ms(tail_plain, 20),
+           sum(x.nbytes for x in (*ins.values(), *outs.values())),
+           W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2)),
+           [[W5, A5]])
     for k in results:
         log(f"[kernel] {k['name']} at {k['shapes']}: max_abs_err "
             f"{k['max_abs_err']:.3g} kernel {k['ms']:.4f} ms/step plain "
@@ -400,6 +467,203 @@ def rollout(mt, cfg, W, steps, device, seed=5):
             "self": out["obs"]["self"],
         })
     return [{k: v.cpu().numpy() for k, v in h.items()} for h in hist]
+
+
+PROFILE_STEPS = 10
+
+
+def step_profile(env, state, actions, fused_tail=True, profile=True):
+    """PROFILE_STEPS env steps from ``state``: wall ms per step (host clock
+    around synchronized steps) and, with ``profile``, CUDA device
+    operations per step and the device us per step of K5's kernel
+    (torch.profiler). ``fused_tail=False`` runs the unfused chain that K5
+    replaced, for comparison in the same process."""
+    import torch
+    from madrona_mp_env_tpu_torch.sim import step as step_mod
+
+    saved = step_mod.use_tail_fused
+    if not fused_tail:
+        step_mod.use_tail_fused = lambda cfg: False
+    try:
+        state, _ = env.step(state, actions)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = env.step(state, actions)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        if not profile:
+            return {"wall_ms": wall_ms}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILE_STEPS):
+                state, _ = env.step(state, actions)
+            torch.cuda.synchronize()
+    finally:
+        step_mod.use_tail_fused = saved
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no CUDA kernels")
+    k5_us = sum(e.device_time_total for e in dev
+                if "tail_fused_kernel" in e.name)
+    return {"wall_ms": wall_ms, "launches": len(dev) / PROFILE_STEPS,
+            "k5_us": k5_us / PROFILE_STEPS}
+
+
+def eval_setup(mt, W, steps, chunk_steps, device):
+    """EvalManager, P seeded full-width policies and seeded normalizer
+    stats (numpy, so every device gets the same values), on ``device``."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import (EvalConfig, EvalManager,
+                                                build_actor_critic,
+                                                init_normalizer)
+
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=TEAM_SIZE,
+                       sim_flags=mt.SimFlags.SimEvalMode)
+    env = mt.Env(cfg, SCENE, num_worlds=W, seed=5, device=device)
+    ecfg = EvalConfig(num_worlds=W, num_eval_steps=steps,
+                      chunk_steps=chunk_steps, seed=10)
+    mgr = EvalManager(cfg, ecfg, env, EVAL_POLICIES, device=device)
+    policies = [build_actor_critic(seed=s, device=device)
+                for s in range(EVAL_POLICIES)]
+    _, obs, _ = mgr.init_state()
+    norm = init_normalizer(mgr._policy_obs(obs))
+    g = np.random.default_rng(7)
+    for k in sorted(norm.mu):
+        n = norm.mu[k].shape[0]
+        norm.mu[k] = torch.as_tensor(g.normal(0.0, 0.1, n), dtype=torch.float32,
+                                     device=device)
+        norm.var[k] = torch.as_tensor(g.uniform(0.5, 2.0, n),
+                                      dtype=torch.float32, device=device)
+    elo = torch.full((EVAL_POLICIES,), 1500.0, device=device)
+    return mgr, policies, norm, elo
+
+
+def eval_phase(mt, kernels, card):
+    """The crossplay eval at EVAL_WORLDS x EVAL_STEPS on the card: rates
+    over the steady chunks (after the first, which holds the reset), the
+    policy forward's time at the rollout's shapes (CUDA events), and the
+    kernels' launches during the run."""
+    import torch
+
+    chunk = 10
+    mgr, policies, norm, elo = eval_setup(mt, EVAL_WORLDS, EVAL_STEPS, chunk,
+                                          "cuda")
+    stamps = []
+
+    def on_chunk(outs):
+        # run() has synchronized for its zone-swap accounting already
+        stamps.append(time.perf_counter())
+        for k in ("values", "logits", "rewards"):
+            if not bool(torch.isfinite(outs[k]).all()):
+                raise AssertionError(f"eval: non-finite {k}")
+
+    for k in kernels:
+        k["entry"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    elo = mgr.run(policies, norm, elo, iter_cb=on_chunk, verbose=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {k["name"]: k["entry"].launches for k in kernels}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the eval: {missing}")
+    if len(stamps) != EVAL_STEPS // chunk or elo.shape != (EVAL_POLICIES,) \
+            or not bool(torch.isfinite(elo).all()):
+        raise AssertionError("eval: wrong chunk count or ELO")
+    steps_s = (len(stamps) - 1) * chunk / (stamps[-1] - stamps[0])
+    _, obs, rnn = mgr.init_state()
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: mgr.forward(policies, norm, obs, rnn),
+                              20)
+    A = mgr.A
+    log(f"[eval] crossplay, {EVAL_WORLDS} worlds x {EVAL_STEPS} sampled steps,"
+        f" P = {EVAL_POLICIES} seeded full-width policies: whole run "
+        f"{t1 - t0:.3f} s (reset included); steady chunks "
+        f"{EVAL_WORLDS * A * steps_s:.1f} agent-steps/s, "
+        f"{EVAL_WORLDS * steps_s:.1f} env-steps/s, {1e3 / steps_s:.2f} "
+        f"ms/step; policy forward {fwd_ms:.3f} ms/step "
+        f"({fwd_ms * steps_s / 10:.1f}% of the step) on {card}; launches "
+        + ", ".join(f"{n}={c}" for n, c in launches.items()))
+
+
+def _gumbel_margin(logits, key):
+    """Smallest top-two gap over the heads of log probs + the step key's
+    Gumbel noise (ActorDistributions.sample's stream): [P, B / P]."""
+    import torch
+    from madrona_mp_env_tpu_torch.train.distributions import (
+        AIM_BUCKETS, DISCRETE_BUCKETS, gumbel)
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    ks = rng.split(key, 2)
+    gaps, off = [], 0
+    for k, buckets in zip(ks, (DISCRETE_BUCKETS, AIM_BUCKETS)):
+        lp = logits[..., off:off + sum(buckets)]
+        z = lp + gumbel(k, lp.shape)
+        o = 0
+        for b in buckets:
+            two = torch.topk(z[..., o:o + b], 2, dim=-1).values
+            gaps.append(two[..., 0] - two[..., 1])
+            o += b
+        off += sum(buckets)
+    return torch.stack(gaps).amin(0)
+
+
+def eval_rollout(mt, W, S, device):
+    import torch
+    from madrona_mp_env_tpu_torch.train.infer import chunk_keys
+
+    mgr, policies, norm, elo = eval_setup(mt, W, S, S, device)
+    env_state, obs, rnn = mgr.init_state()
+    keys = chunk_keys(mgr.ecfg.seed, 1, S, device=device)[0]
+    hist = []
+    with torch.no_grad():
+        for t in range(S):
+            env_state, obs, rnn, elo, o = mgr.step(
+                policies, norm, env_state, obs, rnn, elo, keys[t])
+            hist.append({
+                "discrete": o["actions"]["discrete"], "aim": o["actions"]["aim"],
+                "values": o["values"], "logits": o["logits"],
+                "hp": env_state.hp, "alive": env_state.alive,
+                "team_points": env_state.team_points, "done": o["dones"],
+                "key": keys[t],
+            })
+    return [{k: v.cpu() for k, v in h.items()} for h in hist]
+
+
+def eval_parity(mt, W, S, margin=1e-4, rel=1e-4):
+    """The eval rollout on "cuda" against "cpu": actions equal wherever the
+    CPU run's Gumbel top-two margin exceeds ``margin``; values and logits
+    within rel * max(1, |x|); hp, alive, team points and done exact; all
+    up to the first step where an action differs."""
+    gpu = eval_rollout(mt, W, S, "cuda")
+    cpu = eval_rollout(mt, W, S, "cpu")
+    worst, compared, undecided = {}, 0, 0
+    for t, (a, b) in enumerate(zip(gpu, cpu)):
+        decided = _gumbel_margin(b["logits"], b["key"]) > margin
+        undecided += int((~decided).sum())
+        same = (a["discrete"] == b["discrete"]).all(-1) & (
+            a["aim"] == b["aim"]).all(-1)
+        if not bool(same[decided].all()):
+            raise AssertionError(f"eval step {t}: decided actions differ")
+        for k in ("values", "logits"):  # computed before this step's actions
+            e = ((a[k] - b[k]).abs() / b[k].abs().clamp(min=1.0)).max()
+            worst[k] = max(worst.get(k, 0.0), float(e))
+            if float(e) > rel:
+                raise AssertionError(f"eval step {t}: {k} rel err {float(e)}")
+        compared = t + 1
+        if not bool(same.all()):
+            break  # an undecided action parted the two runs
+        for k in ("hp", "alive", "team_points", "done"):
+            if not np.array_equal(a[k].numpy(), b[k].numpy()):
+                raise AssertionError(f"eval step {t}: {k} differs cuda vs cpu")
+    log(f"[eval parity] cuda vs cpu, {W} worlds x {S} steps: {compared} steps"
+        f" compared, actions equal where decided ({undecided} undecided of "
+        f"{compared * W * 2 * TEAM_SIZE}), hp/alive/team points/done exact, "
+        + ", ".join(f"{k} max rel err {v:.3g}" for k, v in worst.items()))
 
 
 def main() -> int:
@@ -464,8 +728,30 @@ def main() -> int:
         f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
         f"env-steps/s on {card}; launches "
         + ", ".join(f"{k['name']}={k['launches']}" for k in kernels))
+    # the same steps with the fused tail and with the unfused chain, in
+    # turns (fused, unfused, unfused, fused) from one state
+    a0 = actions_at(env, acts, 0)
+    runs = [step_profile(env, state, a0, fused_tail=f, profile=p)
+            for f, p in ((True, True), (False, True), (False, False),
+                         (True, False))]
+    fused, unfused = runs[0], runs[1]
+    wall_f = (runs[0]["wall_ms"] + runs[3]["wall_ms"]) / 2
+    wall_u = (runs[1]["wall_ms"] + runs[2]["wall_ms"]) / 2
+    if fused["k5_us"] <= 0.0 or unfused["k5_us"] != 0.0:
+        raise AssertionError("K5's kernel missing from the fused profile")
+    log(f"[launches] {NUM_WORLDS} worlds, {PROFILE_STEPS} steps each way "
+        f"(torch.profiler): CUDA launches per step {fused['launches']:.1f} "
+        f"with the fused tail (K5 device time {fused['k5_us']:.2f} us/step), "
+        f"{unfused['launches']:.1f} with the unfused chain; wall ms/step "
+        f"(fused, unfused, unfused, fused) "
+        + ", ".join(f"{r['wall_ms']:.2f}" for r in runs)
+        + f": fused {wall_f:.2f}, unfused {wall_u:.2f} on {card}")
+    del state, out, obs
 
-    # 5. kernel path vs plain path
+    # 5. the crossplay eval on the card
+    eval_phase(mt, kernels, card)
+
+    # 6. kernel path vs plain path
     W5, S5 = 4, 16
     gpu = rollout(mt, cfg, W5, S5, "cuda")
     cpu = rollout(mt, cfg, W5, S5, "cpu")
@@ -482,8 +768,9 @@ def main() -> int:
                 raise AssertionError(f"step {s}: {k} rel err {e.max()}")
     log(f"[parity] cuda vs cpu, {W5} worlds x {S5} steps: discrete exact, "
         + ", ".join(f"{k} max rel err {v:.3g}" for k, v in worst.items()))
+    eval_parity(mt, W5, S5)
 
-    # 6. results
+    # 7. results
     line = {"kernels": [
         {k2: k[k2] for k2 in ("name", "route", "source", "replaces",
                               "launches", "max_abs_err", "ms", "plain_ms",

@@ -17,7 +17,7 @@ import torch
 from .. import consts
 from ..config import EnvConfig
 from ..ops.culling import ShortTables, load_short_tables
-from ..ops.geom import norm
+from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
 from .navmesh import build_navmesh_tables
@@ -47,6 +47,9 @@ class MapData:
     zone_max: torch.Tensor
     zone_rot: torch.Tensor  # [max_zones]
     num_zones: int
+    # [max_zones, ZONE_FRAME_COLS] membership and distance constants
+    # (zone_frames); the zone system and the fused tail both read them
+    zone_frames: torch.Tensor
 
     weapon_mag_size: torch.Tensor  # [NW] i32
     weapon_reload_time: torch.Tensor
@@ -85,6 +88,30 @@ _HARDCODED_GOAL_REGIONS = [
         1.0,
     ),
 ]
+
+
+# columns of MapData.zone_frames
+ZF_CENTER = 0  # 3: 0.5 * (zone_min + zone_max)
+ZF_COS, ZF_SIN = 3, 4  # cos(-rot), sin(-rot)
+ZF_MIN = 5  # 3: zone_min rotated by -rot (x, y; z kept)
+ZF_MAX = 8  # 3: zone_max rotated by -rot
+ZONE_FRAME_COLS = 11
+
+
+def zone_frames(zmin: torch.Tensor, zmax: torch.Tensor,
+                zrot: torch.Tensor) -> torch.Tensor:
+    """Per-zone constants of zoneSystem's membership test in the zone's
+    rotated frame (reference src/sim.cpp:1920-1953) and of the distance to
+    its centre: [Z, ZONE_FRAME_COLS] float32. Computed once per map on the
+    CPU with the port's own arithmetic (geom.rotate_z), so the CPU path,
+    the card's plain path and the fused-tail kernel read the same bits."""
+    zmin, zmax, zrot = (x.detach().cpu() for x in (zmin, zmax, zrot))
+    ang = -zrot
+    return torch.cat([
+        0.5 * (zmin + zmax),
+        torch.cos(ang)[:, None], torch.sin(ang)[:, None],
+        rotate_z(zmin, ang), rotate_z(zmax, ang),
+    ], dim=-1).contiguous()
 
 
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
@@ -159,6 +186,8 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         zone_max=dev(zmax),
         zone_rot=dev(zrot),
         num_zones=nz,
+        zone_frames=zone_frames(torch.as_tensor(zmin), torch.as_tensor(zmax),
+                                torch.as_tensor(zrot)).to(device),
         weapon_mag_size=dev([w.mag_size for w in weapons], np.int32),
         weapon_reload_time=dev([w.reload_time for w in weapons], np.int32),
         weapon_dmg=dev([w.dmg_per_bullet for w in weapons], np.float32),

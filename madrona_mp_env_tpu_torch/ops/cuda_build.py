@@ -36,6 +36,8 @@ LAUNCH_ARGTYPES = {
     "fan_tris": [_P] * 7 + [_I] * 4 + [_P] * 2,
     "fan_capsules": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3,
     "sphere_cast": [_P] * 3 + [_F, _I, _I] + [_P] * 2 + [_I] * 2 + [_P] * 3,
+    # a pointer to the argument struct (ops/tail_fused.py _TailArgs)
+    "tail_fused": [_P, _P],
 }
 KERNEL_SOURCES = tuple(LAUNCH_ARGTYPES)
 

@@ -107,14 +107,18 @@ _FILTER_REGIONS = (
 _FILTER_MIN_COUNTS = (5, 1)
 
 
-def filters_system(cfg: EnvConfig, state: WorldState, shot_victims):
+def filters_system(cfg: EnvConfig, state: WorldState, shot_victims,
+                   step_override=None):
     """Filter 0: >= 5 players of a team in region A; filter 1: >= 1 in
     region B; filter 2: any player-shot event by the team. A team matches
-    when all three are active on the same step."""
+    when all three are active on the same step. ``step_override`` [W]
+    lets the fused-tail step run this system before the match-info step
+    increment while keeping the reference's post-increment step stamp."""
     W, A = state.hp.shape
     dev = state.pos.device
     teams = (torch.arange(A, device=dev) // cfg.team_size).to(torch.int32)
-    step = state.cur_step[:, None]  # [W, 1]
+    step = (state.cur_step if step_override is None
+            else step_override)[:, None]  # [W, 1]
     x, y = state.pos[..., 0], state.pos[..., 1]
     matched_cols = []
     for t in range(2):

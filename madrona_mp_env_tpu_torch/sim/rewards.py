@@ -13,8 +13,8 @@ import torch
 from .. import config as cfgmod
 from ..config import EnvConfig
 from ..assets.map_data import MapData
-from ..ops import geom
 from .types import WorldState
+from .zones import zone_center_dist
 
 
 def _team_spread_bonus(cfg: EnvConfig, m: MapData, state: WorldState,
@@ -70,9 +70,7 @@ def reward_system(cfg: EnvConfig, m: MapData, state: WorldState
         ..., cfgmod.RC_EXPLORE_SCALE]
 
     # shaped approach to the zone (10x before the agent's first death)
-    zi = state.zone_cur.long()
-    zone_center = 0.5 * (m.zone_min[zi] + m.zone_max[zi])
-    dist = geom.norm(state.pos - zone_center[:, None])
+    dist = zone_center_dist(m, state.zone_cur, state.pos)
     closer = (~state.in_zone) & (dist < state.min_dist_to_zone)
     scale = rc[..., cfgmod.RC_ZONE_DIST_SCALE] * torch.where(
         state.has_died, 1.0, 10.0

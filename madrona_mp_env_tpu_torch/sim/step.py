@@ -8,9 +8,13 @@ worlds at once:
   -> goal regions -> explore -> rewards -> done -> [reset]
   -> sensor rays -> visibility -> masks -> obs -> lidar
 
-The reset runs only on steps where some world resets, as a masked update
-of those worlds. Ported configuration: Task.Zone, RewardMode.Default,
-policy agents only (no scripted bot).
+For Task.Zone with RewardMode.Default (every configuration the port
+runs) autoheal, zone, match info, rewards and done are one fused pass
+(ops/tail_fused.py, K5) after breadcrumbs, filters, goal regions and
+explore, as in the JAX package's step. The reset runs only on steps where
+some world resets, as a masked update of those worlds. Ported
+configuration: Task.Zone, RewardMode.Default, policy agents only (no
+scripted bot).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from ..config import EnvConfig, SimFlags
 from ..assets.map_data import MapData
+from ..ops.tail_fused import tail_fused, use_tail_fused
 from ..utils import rng
 from . import breadcrumbs, combat, explore, movement, rewards, zones
 from . import reset as reset_mod
@@ -48,20 +53,34 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
         state = spawn_agents(cfg, m, state,
                              rng.system_key(stepk, rng.Salt.SPAWN),
                              is_respawn=True)
-    state = combat.autoheal_system(cfg, state)
-    state = zones.zone_system(cfg, m, state)
-    state = breadcrumbs.breadcrumb_system(cfg, state)
-    state, new_captured = zones.zone_match_info_system(
-        cfg, m, state, force_reset != 0
-    )
-    state = explore.filters_system(cfg, state, fire_events["shot_victim"])
-    state = explore.goal_regions_system(cfg, m, state)
-    state = explore.explore_visited_system(cfg, state)
-    state = rewards.reward_system(cfg, m, state)
-
-    A = cfg.num_agents
-    done = state.is_finished.to(torch.int32)[:, None].expand(-1, A)
-    state = state.replace(done=done.contiguous())
+    if use_tail_fused(cfg):
+        # the fused scalar tail (ops/tail_fused.py): autoheal -> zone ->
+        # match info -> rewards -> done in one pass. Breadcrumbs, filters,
+        # goal regions and explore read no zone or match state, so they
+        # run first; the filters take the post-increment step stamp.
+        state = breadcrumbs.breadcrumb_system(cfg, state)
+        state = explore.filters_system(
+            cfg, state, fire_events["shot_victim"],
+            step_override=state.cur_step + 1,
+        )
+        state = explore.goal_regions_system(cfg, m, state)
+        state = explore.explore_visited_system(cfg, state)
+        state, new_captured = tail_fused(cfg, m, state, force_reset)
+    else:
+        state = combat.autoheal_system(cfg, state)
+        state = zones.zone_system(cfg, m, state)
+        state = breadcrumbs.breadcrumb_system(cfg, state)
+        state, new_captured = zones.zone_match_info_system(
+            cfg, m, state, force_reset != 0
+        )
+        state = explore.filters_system(cfg, state,
+                                       fire_events["shot_victim"])
+        state = explore.goal_regions_system(cfg, m, state)
+        state = explore.explore_visited_system(cfg, state)
+        state = rewards.reward_system(cfg, m, state)
+        A = cfg.num_agents
+        done = state.is_finished.to(torch.int32)[:, None].expand(-1, A)
+        state = state.replace(done=done.contiguous())
     outputs = {
         "reward": state.reward,
         "done": state.done,

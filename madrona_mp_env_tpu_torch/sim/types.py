@@ -23,6 +23,7 @@ from .. import consts
 from ..config import EnvConfig
 
 OTHER_OB_DIM = 32  # PlayerCommon(23) + rel(5) + combat(4) / opp flags(4)
+SELF_OB_DIM = 43  # width of the "self" observation
 
 # explore grid bit-packing: 81 columns -> 3 x u32 words per row
 EXPLORE_WORDS = (consts.explore_grid_width + 31) // 32

@@ -13,7 +13,7 @@ import torch
 
 from .. import consts
 from ..config import EnvConfig
-from ..assets.map_data import MapData
+from ..assets.map_data import MapData, ZF_CENTER, ZF_COS, ZF_MAX, ZF_MIN, ZF_SIN
 from ..ops import geom
 from .types import WorldState
 
@@ -25,16 +25,26 @@ def _teams(cfg: EnvConfig, device) -> torch.Tensor:
             ).to(torch.int32)
 
 
-def _zone_membership(m: MapData, zone_idx, pos):
-    """In-zone per agent: zone_idx [W], pos [W, A, 3] (sim.cpp:1920-1953)."""
-    zi = zone_idx.long()
-    rot = m.zone_rot[zi]
-    zmin = geom.rotate_z(m.zone_min[zi], -rot)[:, None]
-    zmax = geom.rotate_z(m.zone_max[zi], -rot)[:, None]
-    lift = torch.tensor([0.0, 0.0, consts.stand_height / 2.0],
-                        device=pos.device)
-    p_f = geom.rotate_z(pos + lift, -rot[:, None])
-    return ((p_f >= zmin) & (p_f <= zmax)).all(-1)
+def zone_membership(m: MapData, zone_idx, pos):
+    """In-zone per agent: zone_idx [W], pos [W, A, 3] (sim.cpp:1920-1953).
+    The agent's point, lifted by half a standing height, is rotated into
+    the zone's frame (rotate_z by -rot) and tested against the rotated
+    box, whose corners and trig come from m.zone_frames."""
+    f = m.zone_frames[zone_idx.long()][:, None]  # [W, 1, cols]
+    c, s = f[..., ZF_COS], f[..., ZF_SIN]
+    px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
+    x = c * px - s * py
+    y = s * px + c * py
+    z = pz + consts.stand_height / 2.0
+    return ((x >= f[..., ZF_MIN]) & (x <= f[..., ZF_MAX])
+            & (y >= f[..., ZF_MIN + 1]) & (y <= f[..., ZF_MAX + 1])
+            & (z >= f[..., ZF_MIN + 2]) & (z <= f[..., ZF_MAX + 2]))
+
+
+def zone_center_dist(m: MapData, zone_idx, pos):
+    """Distance of each agent from its world's zone centre: [W, A]."""
+    center = m.zone_frames[zone_idx.long(), ZF_CENTER:ZF_CENTER + 3]
+    return geom.norm(pos - center[:, None])
 
 
 def zone_system(cfg: EnvConfig, m: MapData, state: WorldState):
@@ -53,13 +63,11 @@ def zone_system(cfg: EnvConfig, m: MapData, state: WorldState):
                                     state.zone_steps_until_point)
 
     # on rotation, reset each agent's min dist to the new zone centre
-    zi = zone_cur.long()
-    zone_center = 0.5 * (m.zone_min[zi] + m.zone_max[zi])
-    dist_center = geom.norm(state.pos - zone_center[:, None])
+    dist_center = zone_center_dist(m, zone_cur, state.pos)
     min_dist_to_zone = torch.where(rotate[:, None], dist_center,
                                    state.min_dist_to_zone)
 
-    in_zone = _zone_membership(m, zone_cur, state.pos)
+    in_zone = zone_membership(m, zone_cur, state.pos)
     num_a = (in_zone & (teams == 0)).sum(-1)
     num_b = (in_zone & (teams == 1)).sum(-1)
 

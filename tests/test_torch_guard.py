@@ -31,9 +31,16 @@ def _imported_roots(path):
             yield node.module or ""
 
 
+TRAIN_MODULES = ("__init__", "convert", "distributions", "elo", "infer",
+                 "models", "normalizer", "policy", "trainer")
+
+
 def test_port_imports_no_jax():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 30
+    train = {os.path.relpath(p, PKG) for p in files if "train" in p}
+    assert train == {f"train/{m}.py" for m in TRAIN_MODULES}
+    assert os.path.join(PKG, "ops", "tail_fused.py") in files
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]

@@ -105,6 +105,42 @@ def test_sphere_cast_kernels(gpu_map):
     assert _eq(tk, tp) and _eq(ik, ip)
 
 
+@pytest.mark.parametrize("team_size", [2, 6])
+def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
+    """K5 against its plain version on the card: every output leaf
+    bit-equal on states that rotate, contest, take and capture zones and
+    finish matches (fixtures_torch/tail_states.py)."""
+    import os
+    import sys
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.ops import tail_fused as tf
+    from madrona_mp_env_tpu_torch.sim.types import (init_world_state,
+                                                    world_state_from_numpy,
+                                                    world_state_to_numpy)
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__),
+                                    "fixtures_torch"))
+    from tail_states import NUM_WORLDS, tail_scenario
+
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=team_size)
+    m = load_map(simple_map_dir, cfg, device="cuda")
+    leaves = world_state_to_numpy(init_world_state(cfg, m.num_goal_regions,
+                                                   NUM_WORLDS))
+    fr = tail_scenario(leaves, team_size, m.zone_frames.cpu().numpy(),
+                       m.num_zones, m.world_min.cpu().numpy(),
+                       m.world_max.cpu().numpy(), cfg.episode_len)
+    st = world_state_from_numpy(leaves, device="cuda")
+    fr = torch.as_tensor(fr, device="cuda")
+    n0 = tf.tail_fused.launches
+    sk, ck = tf.tail_fused(cfg, m, st, fr)
+    assert tf.tail_fused.launches == n0 + 1
+    sp, cp = tf.tail_fused_plain(cfg, m, st, fr)
+    assert _eq(ck, cp)
+    for k, v in sp.leaves().items():
+        assert _eq(getattr(sk, k), v), k
+
+
 def test_gpu_env_matches_cpu_env(simple_map_dir, gpu_map):
     """Four steps of the kernel path against the plain path."""
     cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=2)
