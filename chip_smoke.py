@@ -6,30 +6,40 @@
 Phases, each of which fails the run loudly:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build every CUDA kernel of the env step from csrc/ (one nvcc per
-   source, all at once);
-3. each kernel (K1 hitscan rays, K2 sensor fans, K3 sensor rays vs
-   capsules, K4 sphere casts: dense and short-table culled, K5 the fused
-   scalar tail) against its plain PyTorch version on the card, on the
-   inputs of every launch that one real step of the slice makes (1024
-   worlds of Zone 6v6 on simple_map, captured where the sim calls each
-   entry), with its time, the plain version's time and its bound, each
-   summed over the step's launches of that entry;
-4. the slice: Env(device="cuda") at 1024 worlds, reset + 100 steps of
-   bench.py's run-and-shoot action mix, with every launch counter zeroed
-   before and read after; env-steps/s beside the card's name and limit;
-   then CUDA launches per step from torch.profiler, with the fused tail
-   and, for comparison in the same process, with the unfused chain it
-   replaced;
+2. build every CUDA kernel from csrc/ (one nvcc per source, all at once);
+3. each kernel against its plain PyTorch version on the card, on the
+   inputs of every launch that one real step makes at 1024 worlds of Zone
+   6v6 (captured where the sim calls each entry), with its time, the plain
+   version's time and its bound, each summed over the step's launches of
+   that entry. On data/simple_map: K1 hitscan rays, K2 sensor fans, K3
+   sensor rays vs capsules, K4 culled (the L1 casts), K4' packed (the L2,
+   L3 and fall casts), K5 the fused scalar tail, and K4 dense on the same
+   step taken with MPENV_SC_PACK=0. On data/town_map (6,144 triangles,
+   PVS tables): K1, K3, K4 culled, K4', K5, K6 the cell-culled sensor fans,
+   and K2 over the whole soup on K6's fans, with how often the two agree
+   (the PVS's quality at full width);
+4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
+   steps of bench.py's run-and-shoot action mix, every launch counter
+   zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
+   launch, K4 dense and K6 must not; env-steps/s beside the card's name
+   and limit; then CUDA launches per step from torch.profiler, with the
+   fused tail and, for comparison in the same process, with the unfused
+   chain it replaced;
 5. the crossplay eval: EvalManager on the card at 1024 worlds with P = 2
    policies at full width (weights made from seeds: the trained
    checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
    before and read after; agent-steps/s, env-steps/s and the policy
    forward's ms per step;
-6. the kernel path against the plain path: the same 4-world, 16-step env
-   rollout, and the same 4-world, 16-step eval rollout, on "cuda" and on
-   "cpu" from one seed;
-7. a line of kernel results (JSON), then the card line, then the last
+6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
+7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
+   culled, K4', K5 and K6 must launch, K2 and K4 dense must not; then 10
+   steps of the forced-dense fan route (MPENV_FAN_CULL=0), where K2 runs
+   over the 6,144-triangle soup;
+8. the kernel path against the plain path: the same 4-world, 16-step env
+   rollout on both maps, and the same 4-world, 16-step eval rollout, on
+   "cuda" and on "cpu" from one seed;
+9. a line of kernel results (JSON, one row per kernel and map, each with
+   the path whose launches it counts), then the card line, then the last
    line {"ok": true, "device": {...}}.
 
 Exits non-zero with no result line when there is no CUDA device or when
@@ -43,13 +53,16 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(REPO, "data", "simple_map")
+TOWN = os.path.join(REPO, "data", "town_map")
 NUM_WORLDS = 1024
 NUM_STEPS = 100
+FORCED_STEPS = 10  # the forced-gate paths (K4 dense, K2 on town_map)
 TEAM_SIZE = 6
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
@@ -179,8 +192,9 @@ def best_two_gap(t_pairs):
 # where the step calls each kernel's entry: (sim module, name)
 ENTRY_SITES = (
     ("combat", "ray_vs_tris"), ("observations", "ray_fans_vs_tris"),
-    ("observations", "fan_capsules"), ("movement", "sphere_cast"),
-    ("movement", "sphere_cast_culled"), ("step", "tail_fused"),
+    ("observations", "ray_fans_culled"), ("observations", "fan_capsules"),
+    ("movement", "sphere_cast"), ("movement", "sphere_cast_culled"),
+    ("movement", "sphere_cast_packed"), ("step", "tail_fused"),
 )
 
 
@@ -197,11 +211,12 @@ def _clone(x):
     return x
 
 
-def capture_step_calls(env, state, actions):
+def capture_step_calls(env, state, actions, expect):
     """Run one env.step with every kernel entry wrapped where the sim calls
     it; returns {entry name: [args of each call, in order]} (tensors
     cloned), so the kernels can be checked and timed on the main path's
-    own launches at its own shapes."""
+    own launches at its own shapes. ``expect``: the entries this path
+    must call (and only those)."""
     import importlib
 
     calls = {name: [] for _, name in ENTRY_SITES}
@@ -222,214 +237,393 @@ def capture_step_calls(env, state, actions):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    missing = [n for n, c in calls.items() if not c]
-    if missing:
-        raise AssertionError(f"the step made no call to {missing}")
+    called = sorted(n for n, c in calls.items() if c)
+    if called != sorted(expect):
+        raise AssertionError(f"the step called {called}, expected "
+                             f"{sorted(expect)}")
     return calls
 
 
-def kernel_phase(env, state, actions):
-    """Each kernel vs its plain version on the card, on the inputs of every
-    launch one real step makes (captured from the main path at 1024
-    worlds). ms, plain_ms and bound_ms are per step: the sum over that
-    step's launches of the entry (1 for K1, K2, K3 and K4 culled; 3 for K4
-    dense: the L2 pair [W, A, 2], the L3 snap [W, A] and the fall cast
-    [W, A])."""
+def chunks(n, size):
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def chunked(fn, n, size):
+    """fn(slice) over chunks of the leading axis, outputs concatenated."""
     import torch
-    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull, tail_fused
 
-    m = env.map_data
-    soup = m.tris
-    T_real = int(soup.valid.sum())
-    calls = capture_step_calls(env, state, actions)
-    results = []
+    outs = [fn(s) for s in chunks(n, size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
 
-    def chunks(n, size):
-        return [slice(i, min(i + size, n)) for i in range(0, n, size)]
 
-    def chunked(fn, n, size):
-        """fn(slice) over chunks of the leading axis, outputs concatenated."""
-        outs = [fn(s) for s in chunks(n, size)]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat(o) for o in zip(*outs))
-        return torch.cat(outs)
+def sc_gap(o, d, r, soup):
+    """best-two gap of the dense per-triangle sweep of casts o, d."""
+    from madrona_mp_env_tpu_torch.ops import raycast
 
-    def sc_gap(o, d, r):
-        """best-two gap of the dense per-triangle sweep of casts o, d."""
-        o2, d2 = o.reshape(-1, 3), d.reshape(-1, 3)
-        gap = chunked(lambda s: best_two_gap(raycast._sc_pairs(
-            o2[s][:, None], d2[s][:, None], r, soup.v0, soup.e1, soup.e2,
-            soup.normal, soup.valid)["t_tri"]), o2.shape[0], 4096)
-        return gap.reshape(o.shape[:-1])
+    o2, d2 = o.reshape(-1, 3), d.reshape(-1, 3)
+    gap = chunked(lambda s: best_two_gap(raycast._sc_pairs(
+        o2[s][:, None], d2[s][:, None], r, soup.v0, soup.e1, soup.e2,
+        soup.normal, soup.valid)["t_tri"]), o2.shape[0],
+        max(64, 2 ** 20 // soup.num_tris))
+    return gap.reshape(o.shape[:-1])
 
-    def record(name, source, replaces, entry, err, ms, pms, nbytes, nops,
-               shapes):
+
+def sc_dense_plain(o, d, r, soup):
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    return chunked(lambda s: raycast._sphere_cast_dense(o[s], d[s], r, soup),
+                   o.shape[0], max(64, 2 ** 19 // soup.num_tris))
+
+
+class KernelPhase:
+    """Each kernel against its plain version on the card, on the inputs of
+    every launch one real step makes (captured from the main path at 1024
+    worlds). ms, plain_ms and bound_ms are per step: the sum over that
+    step's launches of the entry. ``scene`` tags every row."""
+
+    def __init__(self, env, scene):
+        self.env, self.scene, self.results = env, scene, []
+        self.soup = env.map_data.tris
+        self.T_real = int(self.soup.valid.sum())
+
+    def record(self, name, source, replaces, entry, err, ms, pms, nbytes,
+               nops, shapes, **extra):
         bms, by = bound_ms(nbytes, nops)
-        results.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            entry=entry, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-            bound_by=by, shapes=shapes,
-        ))
+        row = dict(name=f"{name} [{self.scene}]", route="cuda",
+                   source=source, replaces=replaces, entry=entry,
+                   max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                   bound_by=by, shapes=shapes, scene=self.scene, **extra)
+        self.results.append(row)
+        log(f"[kernel] {row['name']} at {shapes}: max_abs_err {err:.3g} "
+            f"kernel {ms:.4f} ms/step plain {pms:.4f} ms/step bound "
+            f"{bms:.4f} ms ({by})"
+            + "".join(f" {k} {v}" for k, v in extra.items()))
+        return row
 
-    # --- K1: the fire system's hitscan rays ---
-    (o1, d1, _), = calls["ray_vs_tris"]
-    R1 = o1[..., 0].numel()
-    err = check_t("K1 ray_vs_tris", raycast.ray_vs_tris(o1, d1, soup),
-                  raycast._ray_vs_tris_dense(o1, d1, soup))
-    record("K1 ray_vs_tris", "madrona_mp_env_tpu_torch/csrc/ray_tris.cu",
-           "madrona_mp_env_tpu/ops/raycast_pallas.py:111", raycast.ray_vs_tris,
-           err, cuda_time_ms(lambda: raycast.ray_vs_tris(o1, d1, soup), 200),
-           cuda_time_ms(lambda: raycast._ray_vs_tris_dense(o1, d1, soup), 20),
-           R1 * 28 + T_real * 40, R1 * T_real * OPS_RAY_TRI,
-           [list(o1.shape[:-1])])
+    def k1(self, calls):
+        from madrona_mp_env_tpu_torch.ops import raycast
 
-    # --- K2: the sensor fans ---
+        soup = self.soup
+        (o1, d1, _), = calls["ray_vs_tris"]
+        R1 = o1[..., 0].numel()
+        err = check_t("K1 ray_vs_tris", raycast.ray_vs_tris(o1, d1, soup),
+                      raycast._ray_vs_tris_dense(o1, d1, soup))
+        self.record(
+            "K1 ray_vs_tris", "madrona_mp_env_tpu_torch/csrc/ray_tris.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:111",
+            raycast.ray_vs_tris, err,
+            cuda_time_ms(lambda: raycast.ray_vs_tris(o1, d1, soup), 200),
+            cuda_time_ms(lambda: raycast._ray_vs_tris_dense(o1, d1, soup),
+                         20),
+            R1 * 28 + self.T_real * 40, R1 * self.T_real * OPS_RAY_TRI,
+            [list(o1.shape[:-1])])
+
+    def k2(self, org, zgf, dirf, zgroups):
+        """K2 over the whole soup; returns its t for the PVS comparison."""
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        N, G = zgf.shape
+        F = dirf[0].shape[-1]
+
+        def fan_kernel():
+            return raycast.ray_fans_vs_tris(org, zgf, dirf, zgroups, soup)
+
+        def fan_plain():
+            return chunked(lambda s: raycast._ray_fans_dense(
+                org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, soup), N,
+                max(16, 2 ** 18 // soup.num_tris))
+
+        t = fan_kernel()
+        err = check_t("K2 ray_fans_vs_tris", t, fan_plain())
+        self.record(
+            "K2 ray_fans_vs_tris", "madrona_mp_env_tpu_torch/csrc/fan_tris.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:383",
+            raycast.ray_fans_vs_tris, err, cuda_time_ms(fan_kernel, 10),
+            cuda_time_ms(fan_plain, 1),
+            N * (12 + 4 * G) + 3 * N * F * 4 + self.T_real * 40 + N * F * 4,
+            N * F * self.T_real * OPS_FAN_PAIR
+            + N * G * self.T_real * OPS_FAN_HOIST,
+            [[N, F, soup.num_tris]])
+        return t
+
+    def k6(self, calls):
+        """K6 over each fan's PVS cell; then K2 on the same fans (the soup
+        of a big map), and how often the two agree."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        (org, zgf, dirf, zgroups, cells, tables, _), = calls[
+            "ray_fans_culled"]
+        N, G = zgf.shape
+        F = dirf[0].shape[-1]
+
+        def kernel():
+            return raycast.ray_fans_culled(org, zgf, dirf, zgroups, cells,
+                                           tables, soup)
+
+        def plain():
+            return chunked(lambda s: raycast._ray_fans_culled_plain(
+                org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, cells[s],
+                tables, soup), N, 256)
+
+        t6 = kernel()
+        err = check_t("K6 ray_fans_culled", t6, plain())
+        n_valid = (tables.cand_idx >= 0).sum(-1)[cells.long()]  # [N]
+        pairs = int(n_valid.sum()) * F
+        row = self.record(
+            "K6 ray_fans_culled",
+            "madrona_mp_env_tpu_torch/csrc/fan_culled.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:465",
+            raycast.ray_fans_culled, err, cuda_time_ms(kernel, 10),
+            cuda_time_ms(plain, 1),
+            N * (16 + 4 * G) + 3 * N * F * 4 + tables.cand_idx.numel() * 4
+            + self.T_real * 40 + N * F * 4,
+            pairs * OPS_FAN_PAIR + int(n_valid.sum()) * G * OPS_FAN_HOIST,
+            [[N, F, tables.K]],
+            mean_valid_candidates=round(float(n_valid.float().mean()), 1))
+        t2 = self.k2(org, zgf, dirf, zgroups)
+        torch.cuda.synchronize()
+        same = float(((t6 == t2) | (torch.isinf(t6) & torch.isinf(t2)))
+                     .float().mean())
+        hitmiss = float((torch.isfinite(t6) == torch.isfinite(t2))
+                        .float().mean())
+        row["pvs_t_equal"] = same
+        row["pvs_hit_agree"] = hitmiss
+        log(f"[pvs] {self.scene}: K6 t equals K2's dense t on {same:.6f} of "
+            f"{t6.numel()} rays; hit/miss agree on {hitmiss:.6f}")
+
+    def k3(self, calls):
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast_cull
+
+        (pos, zoff, dirs, alive), = calls["fan_capsules"]
+        W, A, F = zoff.shape
+
+        def cap_kernel():
+            return raycast_cull.fan_capsules(pos, zoff, dirs, alive)
+
+        def cap_plain():
+            return chunked(lambda s: raycast_cull._fan_capsules_plain(
+                pos[s], zoff[s], tuple(c[s] for c in dirs), alive[s]), W, 128)
+
+        (tk, ik), (tp, ip) = cap_kernel(), cap_plain()
+        err = check_t("K3 fan_capsules", tk, tp)
+        me = torch.arange(A, device=pos.device)
+        self_mask = (me[:, None] == me[None, :])[None, :, None, :]
+
+        def cap_gap(s):
+            zero = torch.zeros_like(zoff[s])
+            o = pos[s][:, :, None, :] + torch.stack([zero, zero, zoff[s]],
+                                                    dim=-1)
+            tc = raycast_cull.ray_vs_capsules(
+                o, torch.stack([c[s] for c in dirs], dim=-1),
+                pos[s][:, None, None], alive[s][:, None, None])
+            return best_two_gap(torch.where(self_mask, float("inf"), tc))
+
+        check_idx("K3 fan_capsules", ik, ip, chunked(cap_gap, W, 128), tp)
+        live = alive.sum(-1, keepdim=True) - alive.to(torch.int64)  # [W, A]
+        self.record(
+            "K3 fan_capsules", "madrona_mp_env_tpu_torch/csrc/fan_capsules.cu",
+            "madrona_mp_env_tpu/ops/raycast_cull.py:120",
+            raycast_cull.fan_capsules, err, cuda_time_ms(cap_kernel, 50),
+            cuda_time_ms(cap_plain, 2),
+            W * A * 13 + W * A * F * 16 + W * A * F * 8,
+            int((live * F).sum()) * OPS_CAPSULE, [[W, A, F]])
+
+    def k4_dense(self, calls):
+        """The L2 pair, the L3 snap and the fall cast over the whole soup
+        (a step with MPENV_SC_PACK=0)."""
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        sc_calls = calls["sphere_cast"]
+        if len(sc_calls) != 3:
+            raise AssertionError(f"step made {len(sc_calls)} dense casts")
+        err, ms, pms, R4, shapes = 0.0, 0.0, 0.0, 0, []
+        for i, (o4, d4, r, _) in enumerate(sc_calls):
+            def sc_plain(o4=o4, d4=d4, r=r):
+                return sc_dense_plain(o4, d4, r, soup)
+
+            def sc_kernel(o4=o4, d4=d4, r=r):
+                return raycast.sphere_cast(o4, d4, r, soup)
+
+            (tk, ik), (tp, ip) = sc_kernel(), sc_plain()
+            name = f"K4 sphere_cast launch {i} {list(o4.shape[:-1])}"
+            err = max(err, check_t(name, tk, tp))
+            check_idx(name, ik, ip, sc_gap(o4, d4, r, soup), tp)
+            ms += cuda_time_ms(sc_kernel, 50)
+            pms += cuda_time_ms(sc_plain, 2)
+            R4 += o4[..., 0].numel()
+            shapes.append(list(o4.shape[:-1]))
+        self.record(
+            "K4 sphere_cast (dense)",
+            "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:1384",
+            raycast.sphere_cast, err, ms, pms,
+            R4 * 32 + 3 * self.T_real * 52,
+            R4 * self.T_real * OPS_SPHERE_TRI, shapes)
+
+    def k4_culled(self, calls):
+        """The L1 batch of 7 casts per agent against the short tables."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.sim import movement
+
+        soup = self.soup
+        (o7, d7, r, cells, short, _), = calls["sphere_cast_culled"]
+        N7, CPA = o7.shape[:2]
+
+        def culled_kernel():
+            return raycast.sphere_cast_culled(o7, d7, r, cells, short, soup)
+
+        def culled_plain():
+            return chunked(lambda s: raycast._sphere_cast_culled_plain(
+                o7[s], d7[s], r, cells[s], short, soup), N7, 2048)
+
+        (tk, ik), (tp, ip) = culled_kernel(), culled_plain()
+        err = check_t("K4 sphere_cast_culled", tk, tp)
+        # the short tables are exact for the range the step consumes
+        # (movement.UNSTICK_RANGE): equal t and row there, beyond it both
+        # far. A standing agent's casts have no direction: they touch every
+        # triangle at t = 0, each entry reports its lowest row, and the step
+        # does not read them (no_move), so they are left out here.
+        td, idd = sc_dense_plain(o7, d7, r, soup)
+        swept = (d7 != 0.0).any(dim=-1)
+        near = (td <= movement.UNSTICK_RANGE) & swept
+        far = ~near & swept
+        if not (torch.equal(td[near], tp[near])
+                and torch.equal(idd[near], ip[near])
+                and bool((tp[far] > movement.UNSTICK_RANGE).all())):
+            raise AssertionError("culled plain cast differs from the dense")
+        check_idx("K4 sphere_cast_culled", ik, ip, sc_gap(o7, d7, r, soup),
+                  tp)
+        cand = short.cand.reshape(-1, short.K)[cells.long()]
+        self.record(
+            "K4 sphere_cast_culled",
+            "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:1549",
+            raycast.sphere_cast_culled, err, cuda_time_ms(culled_kernel, 50),
+            cuda_time_ms(culled_plain, 2),
+            N7 * CPA * 32 + N7 * 4 + short.cand.numel() * 4
+            + self.T_real * 52,
+            int((cand >= 0).sum()) * CPA * OPS_SPHERE_TRI, [[N7, CPA]])
+
+    def k4_packed(self, calls):
+        """K4': the L2 pair, the L3 snap and the fall cast against the
+        MOVE_MARGIN short tables. Against the dense sweep: every down cast
+        equal at any depth; no cast nearer than the dense one (a subset's
+        minimum)."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        pk_calls = calls["sphere_cast_packed"]
+        if len(pk_calls) != 3:
+            raise AssertionError(f"step made {len(pk_calls)} packed casts")
+        err, ms, pms, nbytes, pairs, shapes = 0.0, 0.0, 0.0, 0, 0, []
+        for i, (o, d, r, cells, short, _) in enumerate(pk_calls):
+            N, CPA = o.shape[:2]
+
+            def kernel(o=o, d=d, r=r, cells=cells, short=short):
+                return raycast.sphere_cast_packed(o, d, r, cells, short, soup)
+
+            def plain(o=o, d=d, r=r, cells=cells, short=short, N=N):
+                return chunked(lambda s: raycast._sphere_cast_culled_plain(
+                    o[s], d[s], r, cells[s], short, soup), N, 4096)
+
+            (tk, ik), (tp, ip) = kernel(), plain()
+            name = f"K4' sphere_cast_packed launch {i} {[N, CPA]}"
+            err = max(err, check_t(name, tk, tp))
+            check_idx(name, ik, ip, sc_gap(o, d, r, soup), tp)
+            td, _ = sc_dense_plain(o, d, r, soup)
+            down = (d[..., 0] == 0.0) & (d[..., 1] == 0.0) & (d[..., 2] < 0.0)
+            if not (torch.equal(td[down], tp[down])
+                    and bool((td <= tp).all())):
+                raise AssertionError(f"{name}: packed cast differs from the "
+                                     "dense cast")
+            ms += cuda_time_ms(kernel, 50)
+            pms += cuda_time_ms(plain, 2)
+            # casts in (24 B) and out (8 B), cells, the table, the rows
+            nbytes += (N * CPA * 32 + N * 4 + short.cand.numel() * 4
+                       + self.T_real * 52)
+            cand = short.cand.reshape(-1, short.K)[cells.long()]
+            pairs += int((cand >= 0).sum()) * CPA
+            shapes.append([N, CPA])
+        self.record(
+            "K4' sphere_cast_packed",
+            "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:2028",
+            raycast.sphere_cast_packed, err, ms, pms, nbytes,
+            pairs * OPS_SPHERE_TRI, shapes)
+
+    def k5(self, calls):
+        from madrona_mp_env_tpu_torch.ops import tail_fused
+
+        (cfg5, m5, st5, fr5), = calls["tail_fused"]
+
+        def tail_kernel():
+            return tail_fused.tail_fused(cfg5, m5, st5, fr5)
+
+        def tail_plain():
+            return tail_fused.tail_fused_plain(cfg5, m5, st5, fr5)
+
+        err = check_tail(tail_kernel(), tail_plain())
+        ins, outs = tail_fused.kernel_operands(cfg5, m5, st5, fr5)
+        W5, A5 = st5.hp.shape
+        ts5 = cfg5.team_size
+        self.record(
+            "K5 tail_fused", "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
+            "madrona_mp_env_tpu/ops/tail_pallas.py:143", tail_fused.tail_fused,
+            err, cuda_time_ms(tail_kernel, 200), cuda_time_ms(tail_plain, 20),
+            sum(x.nbytes for x in (*ins.values(), *outs.values())),
+            W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2)),
+            [[W5, A5]])
+
+
+SIMPLE_ENTRIES = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
+                  "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+TOWN_ENTRIES = ("ray_vs_tris", "ray_fans_culled", "fan_capsules",
+                "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+
+
+def simple_kernels(env, state, actions):
+    """simple_map: K1, K2, K3, K4 culled, K4' and K5 on one default step;
+    K4 dense on the same step with MPENV_SC_PACK=0."""
+    ph = KernelPhase(env, "simple_map")
+    calls = capture_step_calls(env, state, actions, SIMPLE_ENTRIES)
+    ph.k1(calls)
     (org, zgf, dirf, zgroups, _), = calls["ray_fans_vs_tris"]
-    N, G = zgf.shape
-    F = dirf[0].shape[-1]
+    ph.k2(org, zgf, dirf, zgroups)
+    ph.k3(calls)
+    ph.k4_culled(calls)
+    ph.k4_packed(calls)
+    ph.k5(calls)
+    with mock.patch.dict(os.environ, MPENV_SC_PACK="0"):
+        dense = capture_step_calls(
+            env, state, actions,
+            tuple(e for e in SIMPLE_ENTRIES if e != "sphere_cast_packed")
+            + ("sphere_cast",))
+    ph.k4_dense(dense)
+    return ph.results
 
-    def fan_kernel():
-        return raycast.ray_fans_vs_tris(org, zgf, dirf, zgroups, soup)
 
-    def fan_plain():
-        return chunked(lambda s: raycast._ray_fans_dense(
-            org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, soup), N, 1024)
-
-    err = check_t("K2 ray_fans_vs_tris", fan_kernel(), fan_plain())
-    record("K2 ray_fans_vs_tris", "madrona_mp_env_tpu_torch/csrc/fan_tris.cu",
-           "madrona_mp_env_tpu/ops/raycast_pallas.py:383",
-           raycast.ray_fans_vs_tris, err, cuda_time_ms(fan_kernel, 20),
-           cuda_time_ms(fan_plain, 2),
-           N * (12 + 4 * G) + 3 * N * F * 4 + T_real * 40 + N * F * 4,
-           N * F * T_real * OPS_FAN_PAIR + N * G * T_real * OPS_FAN_HOIST,
-           [[N, F]])
-
-    # --- K3: the sensor rays vs the agents' capsules ---
-    (pos, zoff, dirs, alive), = calls["fan_capsules"]
-    W, A, F = zoff.shape
-
-    def cap_kernel():
-        return raycast_cull.fan_capsules(pos, zoff, dirs, alive)
-
-    def cap_plain():
-        return chunked(lambda s: raycast_cull._fan_capsules_plain(
-            pos[s], zoff[s], tuple(c[s] for c in dirs), alive[s]), W, 128)
-
-    (tk, ik), (tp, ip) = cap_kernel(), cap_plain()
-    err = check_t("K3 fan_capsules", tk, tp)
-    me = torch.arange(A, device=pos.device)
-    self_mask = (me[:, None] == me[None, :])[None, :, None, :]
-
-    def cap_gap(s):
-        zero = torch.zeros_like(zoff[s])
-        o = pos[s][:, :, None, :] + torch.stack([zero, zero, zoff[s]], dim=-1)
-        tc = raycast_cull.ray_vs_capsules(
-            o, torch.stack([c[s] for c in dirs], dim=-1),
-            pos[s][:, None, None], alive[s][:, None, None])
-        return best_two_gap(torch.where(self_mask, float("inf"), tc))
-
-    check_idx("K3 fan_capsules", ik, ip, chunked(cap_gap, W, 128), tp)
-    live = alive.sum(-1, keepdim=True) - alive.to(torch.int64)  # [W, A]
-    record("K3 fan_capsules", "madrona_mp_env_tpu_torch/csrc/fan_capsules.cu",
-           "madrona_mp_env_tpu/ops/raycast_cull.py:120",
-           raycast_cull.fan_capsules, err, cuda_time_ms(cap_kernel, 50),
-           cuda_time_ms(cap_plain, 2),
-           W * A * 13 + W * A * F * 16 + W * A * F * 8,
-           int((live * F).sum()) * OPS_CAPSULE, [[W, A, F]])
-
-    # --- K4 dense: the L2 pair, the L3 snap and the fall cast ---
-    sc_calls = calls["sphere_cast"]
-    if len(sc_calls) != 3:
-        raise AssertionError(f"step made {len(sc_calls)} dense casts, not 3")
-    err, ms, pms, R4, shapes = 0.0, 0.0, 0.0, 0, []
-    for i, (o4, d4, r, _) in enumerate(sc_calls):
-        n = o4.shape[0]
-
-        def sc_plain(o4=o4, d4=d4, r=r, n=n):
-            return chunked(lambda s: raycast._sphere_cast_dense(
-                o4[s], d4[s], r, soup), n, 256)
-
-        def sc_kernel(o4=o4, d4=d4, r=r):
-            return raycast.sphere_cast(o4, d4, r, soup)
-
-        (tk, ik), (tp, ip) = sc_kernel(), sc_plain()
-        name = f"K4 sphere_cast launch {i} {list(o4.shape[:-1])}"
-        err = max(err, check_t(name, tk, tp))
-        check_idx(name, ik, ip, sc_gap(o4, d4, r), tp)
-        ms += cuda_time_ms(sc_kernel, 50)
-        pms += cuda_time_ms(sc_plain, 2)
-        R4 += o4[..., 0].numel()
-        shapes.append(list(o4.shape[:-1]))
-    record("K4 sphere_cast (dense)",
-           "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
-           "madrona_mp_env_tpu/ops/raycast_pallas.py:1384",
-           raycast.sphere_cast, err, ms, pms, R4 * 32 + 3 * T_real * 52,
-           R4 * T_real * OPS_SPHERE_TRI, shapes)
-
-    # --- K4 culled: the L1 batch of 7 casts per agent ---
-    (o7, d7, r, cells, short, _), = calls["sphere_cast_culled"]
-    N7, CPA = o7.shape[:2]
-
-    def culled_kernel():
-        return raycast.sphere_cast_culled(o7, d7, r, cells, short, soup)
-
-    def culled_plain():
-        return chunked(lambda s: raycast._sphere_cast_culled_plain(
-            o7[s], d7[s], r, cells[s], short, soup), N7, 2048)
-
-    (tk, ik), (tp, ip) = culled_kernel(), culled_plain()
-    err = check_t("K4 sphere_cast_culled", tk, tp)
-    # the short tables are exact for the range the step consumes
-    # (movement.UNSTICK_RANGE): equal t and row there, beyond it both far.
-    # A standing agent's casts have no direction: they touch every
-    # triangle at t = 0, each entry reports its lowest row, and the step
-    # does not read them (no_move), so they are left out here.
-    from madrona_mp_env_tpu_torch.sim import movement
-
-    td, idd = chunked(lambda s: raycast._sphere_cast_dense(
-        o7[s], d7[s], r, soup), N7, 2048)
-    swept = (d7 != 0.0).any(dim=-1)
-    near = (td <= movement.UNSTICK_RANGE) & swept
-    far = ~near & swept
-    if not (torch.equal(td[near], tp[near]) and torch.equal(idd[near],
-                                                            ip[near])
-            and bool((tp[far] > movement.UNSTICK_RANGE).all())):
-        raise AssertionError("culled plain cast differs from the dense cast")
-    check_idx("K4 sphere_cast_culled", ik, ip, sc_gap(o7, d7, r), tp)
-    cand = short.cand.reshape(-1, short.K)[cells.long()]
-    record("K4 sphere_cast_culled",
-           "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
-           "madrona_mp_env_tpu/ops/raycast_pallas.py:1549",
-           raycast.sphere_cast_culled, err, cuda_time_ms(culled_kernel, 50),
-           cuda_time_ms(culled_plain, 2),
-           N7 * CPA * 32 + N7 * 4 + short.cand.numel() * 4 + T_real * 52,
-           int((cand >= 0).sum()) * CPA * OPS_SPHERE_TRI, [[N7, CPA]])
-
-    # --- K5: the fused scalar tail ---
-    (cfg5, m5, st5, fr5), = calls["tail_fused"]
-
-    def tail_kernel():
-        return tail_fused.tail_fused(cfg5, m5, st5, fr5)
-
-    def tail_plain():
-        return tail_fused.tail_fused_plain(cfg5, m5, st5, fr5)
-
-    err = check_tail(tail_kernel(), tail_plain())
-    ins, outs = tail_fused.kernel_operands(cfg5, m5, st5, fr5)
-    W5, A5 = st5.hp.shape
-    ts5 = cfg5.team_size
-    record("K5 tail_fused", "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
-           "madrona_mp_env_tpu/ops/tail_pallas.py:143", tail_fused.tail_fused,
-           err, cuda_time_ms(tail_kernel, 200), cuda_time_ms(tail_plain, 20),
-           sum(x.nbytes for x in (*ins.values(), *outs.values())),
-           W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2)),
-           [[W5, A5]])
-    for k in results:
-        log(f"[kernel] {k['name']} at {k['shapes']}: max_abs_err "
-            f"{k['max_abs_err']:.3g} kernel {k['ms']:.4f} ms/step plain "
-            f"{k['plain_ms']:.4f} ms/step bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']})")
-    return results
+def town_kernels(env, state, actions):
+    """town_map: K1, K3, K4 culled, K4', K5 and K6 on one default step, and
+    K2 over the 6,144-triangle soup on K6's fans (the forced-dense
+    route's launch)."""
+    ph = KernelPhase(env, "town_map")
+    calls = capture_step_calls(env, state, actions, TOWN_ENTRIES)
+    ph.k1(calls)
+    ph.k6(calls)
+    ph.k3(calls)
+    ph.k4_culled(calls)
+    ph.k4_packed(calls)
+    ph.k5(calls)
+    return ph.results
 
 
 def bench_actions(W, A, steps, seed=0):
@@ -453,8 +647,8 @@ def actions_at(env, acts, s):
                         for k, v in acts.items()})
 
 
-def rollout(mt, cfg, W, steps, device, seed=5):
-    env = mt.Env(cfg, SCENE, num_worlds=W, seed=seed, device=device)
+def rollout(mt, cfg, scene, W, steps, device, seed=5):
+    env = mt.Env(cfg, scene, num_worlds=W, seed=seed, device=device)
     acts = bench_actions(W, cfg.num_agents, steps)
     state, obs = env.reset()
     hist = []
@@ -666,6 +860,83 @@ def eval_parity(mt, W, S, margin=1e-4, rel=1e-4):
         + ", ".join(f"{k} max rel err {v:.3g}" for k, v in worst.items()))
 
 
+def all_entries():
+    """Every kernel entry of the port, by name; each counts its launches."""
+    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull, tail_fused
+
+    return {f.__name__: f for f in (
+        raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
+        raycast.ray_fans_culled, raycast_cull.fan_capsules,
+        raycast.sphere_cast, raycast.sphere_cast_culled,
+        raycast.sphere_cast_packed, tail_fused.tail_fused)}
+
+
+def drive_path(label, env, acts, steps, rows, not_launched, card):
+    """Reset + ``steps`` steps of ``env`` with every launch counter zeroed
+    just before and read just after. Each row of ``rows`` (this path's
+    kernels) gets its entry's count as ``launches`` and must be > 0; the
+    entries named in ``not_launched`` must stay at 0 (a gate that fell
+    back fails the run). Returns (state, out, env-steps/s)."""
+    import torch
+
+    entries = all_entries()
+    for f in entries.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, obs = env.reset()
+    t_reset = time.perf_counter()
+    for s in range(steps):
+        state, out = env.step(state, actions_at(env, acts, s))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = {n: f.launches for n, f in entries.items()}
+    for name, x in out["obs"].items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: non-finite obs {name}")
+    for row in rows:
+        row["launches"] = row["entry"].launches
+        row["path"] = label
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    wrong = [n for n in not_launched if counts[n]]
+    if wrong:
+        raise AssertionError(f"{label}: launched {wrong}, which this path "
+                             f"must not: {counts}")
+    sps = env.num_worlds * steps / (t1 - t_reset)
+    log(f"[{label}] {env.num_worlds} worlds x {steps} steps: reset "
+        f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
+        f"env-steps/s on {card}; launches "
+        + ", ".join(f"{n}={c}" for n, c in counts.items()))
+    return state, out, sps
+
+
+def env_parity(mt, cfg, scene, W, S):
+    """The env rollout on "cuda" against "cpu" from one seed: hp, alive,
+    team points and done exact; pos and reward within 1e-4, lidar and
+    self observations within 1e-3, each times max(1, |x|)."""
+    gpu = rollout(mt, cfg, scene, W, S, "cuda")
+    cpu = rollout(mt, cfg, scene, W, S, "cpu")
+    worst = {}
+    name = os.path.basename(scene)
+    for s, (a, b) in enumerate(zip(gpu, cpu)):
+        for k in ("hp", "alive", "team_points", "done"):
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{name} step {s}: {k} differs cuda vs "
+                                     "cpu")
+        for k, rel in (("pos", 1e-4), ("reward", 1e-4), ("fwd_lidar", 1e-3),
+                       ("self", 1e-3)):
+            e = np.abs(a[k] - b[k]) / np.maximum(1.0, np.abs(b[k]))
+            worst[k] = max(worst.get(k, 0.0), float(e.max()))
+            if e.max() > rel:
+                raise AssertionError(f"{name} step {s}: {k} rel err "
+                                     f"{e.max()}")
+    log(f"[parity] {name} cuda vs cpu, {W} worlds x {S} steps: discrete "
+        "exact, " + ", ".join(f"{k} max rel err {v:.3g}"
+                              for k, v in worst.items()))
+
+
 def main() -> int:
     import torch
 
@@ -695,39 +966,30 @@ def main() -> int:
         task=mt.Task.Zone, team_size=TEAM_SIZE,
         sim_flags=mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams,
     )
-
-    # 3. kernels vs plain versions on one real step's launches
-    env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5, device="cuda")
     acts = bench_actions(NUM_WORLDS, cfg.num_agents, NUM_STEPS)
-    state, _ = env.reset()
-    kernels = kernel_phase(env, state, actions_at(env, acts, 0))
-    del state
 
-    # 4. the slice on the card
-    for k in kernels:
-        k["entry"].launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, obs = env.reset()
-    t_reset = time.perf_counter()
-    for s in range(NUM_STEPS):
-        state, out = env.step(state, actions_at(env, acts, s))
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for k in kernels:
-        k["launches"] = k["entry"].launches
-    for name, x in out["obs"].items():
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"non-finite obs {name}")
-    missing = [k["name"] for k in kernels if k["launches"] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    sps = NUM_WORLDS * NUM_STEPS / (t1 - t_reset)
-    log(f"[slice] {NUM_WORLDS} worlds x {NUM_STEPS} steps: reset "
-        f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
-        f"env-steps/s on {card}; launches "
-        + ", ".join(f"{k['name']}={k['launches']}" for k in kernels))
+    # 3. kernels vs plain versions on one real step's launches, each map
+    env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5, device="cuda")
+    state, _ = env.reset()
+    simple = simple_kernels(env, state, actions_at(env, acts, 0))
+    town_env = mt.Env(cfg, TOWN, num_worlds=NUM_WORLDS, seed=5,
+                      device="cuda")
+    state, _ = town_env.reset()
+    town = town_kernels(town_env, state, actions_at(town_env, acts, 0))
+    del state
+    kernels = simple + town
+
+    def rows(scene, *names):
+        return [k for k in kernels if k["scene"] == scene
+                and k["name"].split(" [")[0] in names]
+
+    # 4. the simple_map path on the card
+    main_simple = rows("simple_map", "K1 ray_vs_tris", "K2 ray_fans_vs_tris",
+                       "K3 fan_capsules", "K4 sphere_cast_culled",
+                       "K4' sphere_cast_packed", "K5 tail_fused")
+    state, out, _ = drive_path(
+        "slice simple_map", env, acts, NUM_STEPS, main_simple,
+        ("sphere_cast", "ray_fans_culled"), card)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -746,35 +1008,43 @@ def main() -> int:
         f"(fused, unfused, unfused, fused) "
         + ", ".join(f"{r['wall_ms']:.2f}" for r in runs)
         + f": fused {wall_f:.2f}, unfused {wall_u:.2f} on {card}")
-    del state, out, obs
+    del state, out
 
-    # 5. the crossplay eval on the card
-    eval_phase(mt, kernels, card)
+    # 5. the crossplay eval on the card (simple_map's kernels)
+    eval_phase(mt, main_simple, card)
 
-    # 6. kernel path vs plain path
-    W5, S5 = 4, 16
-    gpu = rollout(mt, cfg, W5, S5, "cuda")
-    cpu = rollout(mt, cfg, W5, S5, "cpu")
-    worst = {}
-    for s, (a, b) in enumerate(zip(gpu, cpu)):
-        for k in ("hp", "alive", "team_points", "done"):
-            if not np.array_equal(a[k], b[k]):
-                raise AssertionError(f"step {s}: {k} differs cuda vs cpu")
-        for k, rel in (("pos", 1e-4), ("reward", 1e-4), ("fwd_lidar", 1e-3),
-                       ("self", 1e-3)):
-            e = np.abs(a[k] - b[k]) / np.maximum(1.0, np.abs(b[k]))
-            worst[k] = max(worst.get(k, 0.0), float(e.max()))
-            if e.max() > rel:
-                raise AssertionError(f"step {s}: {k} rel err {e.max()}")
-    log(f"[parity] cuda vs cpu, {W5} worlds x {S5} steps: discrete exact, "
-        + ", ".join(f"{k} max rel err {v:.3g}" for k, v in worst.items()))
-    eval_parity(mt, W5, S5)
+    # 6. K4 dense: the L2/L3/fall casts over the soup (MPENV_SC_PACK=0)
+    with mock.patch.dict(os.environ, MPENV_SC_PACK="0"):
+        drive_path("dense casts simple_map", env, acts, FORCED_STEPS,
+                   rows("simple_map", "K4 sphere_cast (dense)"),
+                   ("sphere_cast_packed",), card)
+    del env
 
-    # 7. results
+    # 7. the town_map path on the card, then its forced-dense fan route
+    drive_path("slice town_map", town_env, acts, NUM_STEPS,
+               rows("town_map", "K1 ray_vs_tris", "K3 fan_capsules",
+                    "K4 sphere_cast_culled", "K4' sphere_cast_packed",
+                    "K5 tail_fused", "K6 ray_fans_culled"),
+               ("ray_fans_vs_tris", "sphere_cast"), card)
+    with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
+        drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
+                   rows("town_map", "K2 ray_fans_vs_tris"),
+                   ("ray_fans_culled",), card)
+    del town_env
+
+    # 8. kernel path vs plain path
+    env_parity(mt, cfg, SCENE, 4, 16)
+    env_parity(mt, cfg, TOWN, 4, 16)
+    eval_parity(mt, 4, 16)
+
+    # 9. results
+    missing = [k["name"] for k in kernels if "launches" not in k]
+    if missing:
+        raise AssertionError(f"no path drove {missing}")
     line = {"kernels": [
         {k2: k[k2] for k2 in ("name", "route", "source", "replaces",
                               "launches", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by")}
+                              "bound_ms", "bound_by", "path")}
         | {"library_ms": None}
         for k in kernels
     ]}

@@ -1,8 +1,9 @@
 """Device-resident map data bundle.
 
 Everything the reference's Manager::Impl::init uploads (reference
-src/mgr.cpp:1213-1913) that this port's step reads: collision soup,
-short-range culling tables, navmesh spawn tables, spawn boxes, zones,
+src/mgr.cpp:1213-1913) that this port's step reads: collision soup, the
+PVS cell tables of big maps, the short-range culling tables (two
+margins), navmesh spawn tables, spawn boxes, zones,
 weapon stats and goal regions. Tensors live on the Env's device.
 """
 
@@ -10,13 +11,15 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import consts
 from ..config import EnvConfig
-from ..ops.culling import ShortTables, load_short_tables
+from ..ops.culling import (MOVE_MARGIN, CellTables, ShortTables,
+                           load_cell_tables, load_short_tables)
 from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
@@ -28,7 +31,10 @@ class MapData:
     tris: TriSoup
     world_min: torch.Tensor  # [3]
     world_max: torch.Tensor  # [3]
-    short: ShortTables
+    # PVS tables of the sensor fans (None: the map has no culling.npz)
+    cells: Optional[CellTables]
+    short: ShortTables  # SHORT_MARGIN: the L1 7-cast batch
+    short_mv: ShortTables  # MOVE_MARGIN: the L2, L3 and fall casts
 
     nav_verts: torch.Tensor  # [V, 3]
     nav_tri_indices: torch.Tensor  # [T, 3] i64
@@ -117,7 +123,8 @@ def zone_frames(zmin: torch.Tensor, zmax: torch.Tensor,
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
              tri_pad: int = 128) -> MapData:
     """Load a map directory (collisions.bin, navmesh.bin, spawns.bin,
-    zones.bin, culling_short.npz) onto ``device``."""
+    zones.bin, culling.npz when present, culling_short.npz and
+    culling_short_mv.npz) onto ``device``."""
     col = formats.load_collision_data(
         os.path.join(scene_dir, "collisions.bin")
     )
@@ -131,7 +138,10 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
     # culling tables: candidate rows address the soup's rows
     tri_verts = morton_sort_tris(col.tri_verts)
     soup = make_tri_soup(tri_verts, pad_to=tri_pad, device=device)
+    cells = load_cell_tables(tri_verts, scene_dir, device=device)
     short = load_short_tables(tri_verts, scene_dir, device=device)
+    short_mv = load_short_tables(tri_verts, scene_dir, margin=MOVE_MARGIN,
+                                 tag="_mv", device=device)
 
     a_sp, b_sp = spawns.a_spawns, spawns.b_spawns
     n_side = max(len(a_sp), len(b_sp), 1)
@@ -172,7 +182,9 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         tris=soup,
         world_min=dev(col.world_bounds_min),
         world_max=dev(col.world_bounds_max),
+        cells=cells,
         short=short,
+        short_mv=short_mv,
         nav_verts=dev(nav.verts),
         nav_tri_indices=dev(nav.tri_indices, np.int64),
         nav_centroids=dev(nav.centroids),

@@ -4,27 +4,33 @@
 // _make_sc_kernel_planar_T + _sc_sweep_lanes (layout rowsT, via
 // _get_sc_planar / sphere_cast_planar_pallas: the dense L2/L3/fall casts)
 // and _make_sc_kernel_planar(culled=True) (via _get_sc_culled /
-// sphere_cast_agent_culled: the short-table L1 batch). Plain versions:
-// ops/raycast.py _sphere_cast_dense and _sphere_cast_culled_plain.
+// sphere_cast_agent_culled: the short-table L1 batch; via _get_sc_packed /
+// sphere_cast_packed, K4', the MOVE_MARGIN-table L2, L3 and fall casts:
+// its 8-lane same-cell packing is TPU lane economics with no counterpart
+// at one thread per cast, so the culled entry serves it as it is). Plain
+// versions: ops/raycast.py _sphere_cast_dense and _sphere_cast_culled_plain.
 //
 // Bound on the H100: casts x candidates pair tests of ~200 f32 operations
 // (closest point on the triangle, the offset-plane face test, three edge
 // capsules with vertex spheres: six square roots and ~10 divides) from 24
-// bytes per cast in and 8 out: bound by operations. Slice, per step: dense
-// 4 casts x 12288 agents x 256 triangles = 1.3e7 pairs, culled 7 x 12288 x
-// the cell's K = 56 candidates = 4.8e6 pairs.
+// bytes per cast in and 8 out: bound by operations. Per step at 1024
+// worlds x 12 agents on simple_map: culled L1 7 x 12288 casts x the cell's
+// K = 56 candidates = 4.8e6 pairs, packed L2 + L3 + fall 4 x 12288 x
+// K_mv = 48 = 2.4e6 (the dense entry, now off the default path, 1.3e7).
 // Design: one thread per cast. Dense entry (cells == nullptr): the block
-// stages the T triangle rows (v0 e1 e2 n valid) in shared memory and every
-// thread sweeps all of them. Culled entry: cast c of group c / cpa sweeps
-// only the K candidate rows of its group's cell (cand[cell * K + k], -1
-// padding), reading the triangle rows straight from the table (16 KB,
-// cached). Both keep the nearest t and the lowest global row among equal t
-// (the dense sweep's argmin); a miss reports row 0, as that argmin does.
+// stages the triangle rows (v0 e1 e2 n valid) in shared memory kScTile at
+// a time, in order, and every thread sweeps each tile. Culled entry: cast
+// c of group c / cpa sweeps only the K candidate rows of its group's cell
+// (cand[cell * K + k], -1 padding), reading the triangle rows straight
+// from the table (L1-cached). Both keep the nearest t and the lowest
+// global row among equal t (the dense sweep's argmin); a miss reports row
+// 0, as that argmin does.
 #include "tri_math.cuh"
 
 using namespace mpenv;
 
 constexpr int kStage = 13;  // v0 e1 e2 n valid
+constexpr int kScTile = 512;  // dense entry: triangle rows staged per pass
 
 __device__ __forceinline__ float cast_vs_row(V3 o, V3 d, float r, float rr, const float* t) {
   return sphere_tri(o, d, r, rr, load3(t), load3(t + 3), load3(t + 6), load3(t + 9),
@@ -34,24 +40,30 @@ __device__ __forceinline__ float cast_vs_row(V3 o, V3 d, float r, float rr, cons
 __global__ void sphere_cast_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                          const float* __restrict__ rows, float r, int T, int R,
                                          float* __restrict__ t_out, int* __restrict__ idx_out) {
-  extern __shared__ float s[];  // [T][13]
-  for (int i = threadIdx.x; i < T; i += blockDim.x)
-    for (int k = 0; k < kStage; ++k) s[i * kStage + k] = rows[(size_t)i * kRowCols + k];
-  __syncthreads();
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= R) return;
-  V3 org = load3(o + 3 * (size_t)c);
-  V3 dir = load3(d + 3 * (size_t)c);
+  extern __shared__ float s[];  // [kScTile][13]
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = c < R;
+  V3 org = live ? load3(o + 3 * (size_t)c) : v3(0.0f, 0.0f, 0.0f);
+  V3 dir = live ? load3(d + 3 * (size_t)c) : v3(0.0f, 0.0f, 0.0f);
   float rr = r * r;
   float best = CUDART_INF_F;
   int best_i = 0;
-  for (int i = 0; i < T; ++i) {
-    float t = cast_vs_row(org, dir, r, rr, s + i * kStage);
-    if (t < best) {
-      best = t;
-      best_i = i;
+  for (int base = 0; base < T; base += kScTile) {
+    const int nt = min(kScTile, T - base);
+    __syncthreads();  // the previous tile's sweep is done with shared memory
+    for (int i = threadIdx.x; i < nt; i += blockDim.x)
+      for (int k = 0; k < kStage; ++k) s[i * kStage + k] = rows[(size_t)(base + i) * kRowCols + k];
+    __syncthreads();
+    if (!live) continue;
+    for (int i = 0; i < nt; ++i) {
+      float t = cast_vs_row(org, dir, r, rr, s + i * kStage);
+      if (t < best) {
+        best = t;
+        best_i = base + i;
+      }
     }
   }
+  if (!live) return;
   t_out[c] = best;
   idx_out[c] = best_i;
 }
@@ -90,7 +102,7 @@ extern "C" int sphere_cast_launch(const float* o, const float* d, const float* r
   unsigned blocks = (unsigned)((R + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   if (cells == nullptr) {
-    size_t smem = (size_t)T * kStage * sizeof(float);
+    size_t smem = (size_t)min(T, kScTile) * kStage * sizeof(float);
     cudaError_t e = allow_smem(sphere_cast_dense_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     sphere_cast_dense_kernel<<<blocks, threads, smem, st>>>(o, d, rows, r, T, R, t_out, idx_out);

@@ -34,6 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCH_ARGTYPES = {
     "ray_tris": [_P] * 3 + [_I] * 2 + [_P] * 2,
     "fan_tris": [_P] * 7 + [_I] * 4 + [_P] * 2,
+    "fan_culled": [_P] * 9 + [_I] * 4 + [_P] * 2,
     "fan_capsules": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3,
     "sphere_cast": [_P] * 3 + [_F, _I, _I] + [_P] * 2 + [_I] * 2 + [_P] * 3,
     # a pointer to the argument struct (ops/tail_fused.py _TailArgs)

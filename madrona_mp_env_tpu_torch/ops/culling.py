@@ -1,6 +1,15 @@
-"""Short-range candidate tables for the movement sphere casts.
+"""Per-cell candidate tables: the full PVS tables of the sensor fans and
+the short-range tables of the movement sphere casts.
 
-Movement casts are xy-bounded: the unstick probes are range-clamped at
+PVS tables (``<map>/culling.npz``, big maps only): the map's xy extent is
+cut into nx x ny columns plus one dead cell (the dead-agent teleport box
+at z > 5000); each cell lists the triangles that can be the nearest hit
+of a ray starting in it. The JAX package builds them (sampled batteries,
+its ops/culling.py ``build_cell_tables``); the port only loads them, keyed
+by TABLE_VERSION and ``_tri_hash``, and a map without a matching file has
+none (the sensor fans then sweep the whole soup).
+
+Short tables: movement casts are xy-bounded: the unstick probes are range-clamped at
 UNSTICK_RANGE (64) and start <= 2r from the agent, forward and slide
 travel is <= max_run_velocity * dt + buf (~20), and every straight-down
 cast stays within r of its origin column. So the per-cell candidate set
@@ -8,7 +17,16 @@ cast stays within r of its origin column. So the per-cell candidate set
 these casts by construction. The tables are committed per map
 (``<map>/culling_short.npz``) and keyed by ``_tri_hash`` of the Morton-
 ordered soup; a missing or stale cache is rebuilt here (pure AABB tests,
-milliseconds) without writing anything.
+milliseconds) without writing anything. A second set with the smaller
+MOVE_MARGIN (``culling_short_mv.npz``) serves the 1-2-cast movement
+batches (L2, L3, fall): forward casts there are consumed only within
+move_dist + buf (~20) of the agent and down casts stay within 2r + r of
+its column, so 64 covers both.
+
+Cell indices divide by a tensor, never by a Python float: ATen's CUDA
+division by a Python scalar multiplies by its reciprocal, which would
+put a position on a cell boundary in another cell on the card than on
+the CPU.
 """
 
 from __future__ import annotations
@@ -21,8 +39,33 @@ from typing import Optional
 import numpy as np
 import torch
 
+TABLE_VERSION = 4  # the JAX package's PVS table format
 SHORT_TABLE_VERSION = 1
 SHORT_MARGIN = 130.0
+MOVE_MARGIN = 64.0
+DEAD_Z = 5000.0  # above this an agent is in the dead-agent teleport box
+
+
+@dataclass
+class CellTables:
+    """PVS candidate tables: C = nx * ny grid cells + 1 dead cell, K
+    candidates per cell (global soup rows, -1 padding)."""
+
+    cand_idx: torch.Tensor  # [C, K] i32
+    grid_min_x: float
+    grid_min_y: float
+    cell_size: float
+    nx: int
+    ny: int
+    K: int
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny + 1
+
+    @property
+    def dead_cell(self) -> int:
+        return self.nx * self.ny
 
 
 @dataclass
@@ -43,13 +86,57 @@ def _tri_hash(tri_verts: np.ndarray) -> str:
     ).hexdigest()[:16]
 
 
+def _grid_xy(pos, x0, y0, cell_size, nx, ny):
+    """Clamped integer column (ix, iy) of pos [..., 3], float32 math; the
+    cell size is a tensor so that every device divides."""
+    cs = torch.full((), float(np.float32(cell_size)), device=pos.device)
+    ix = ((pos[..., 0] - float(np.float32(x0))) / cs).to(torch.int32)
+    iy = ((pos[..., 1] - float(np.float32(y0))) / cs).to(torch.int32)
+    return torch.clamp(ix, 0, nx - 1), torch.clamp(iy, 0, ny - 1)
+
+
 def short_cell_index(st: ShortTables, pos: torch.Tensor) -> torch.Tensor:
-    """pos [..., 3] -> clamped xy cell index [...] i32 (float32 math)."""
-    x0, y0 = (float(np.float32(g)) for g in st.grid_min)
-    cs = float(np.float32(st.cell_size))
-    gx = torch.clamp(((pos[..., 0] - x0) / cs).to(torch.int32), 0, st.nx - 1)
-    gy = torch.clamp(((pos[..., 1] - y0) / cs).to(torch.int32), 0, st.ny - 1)
+    """pos [..., 3] -> clamped xy cell index [...] i32, y-major."""
+    gx, gy = _grid_xy(pos, st.grid_min[0], st.grid_min[1], st.cell_size,
+                      st.nx, st.ny)
     return gy * st.nx + gx
+
+
+def cell_index(tables: CellTables, pos: torch.Tensor) -> torch.Tensor:
+    """pos [..., 3] -> PVS cell [...] i32: x-major (ix * ny + iy, the
+    opposite of short_cell_index), xy clamped into the grid, z > 5000
+    (the dead-agent box) the dead cell."""
+    ix, iy = _grid_xy(pos, tables.grid_min_x, tables.grid_min_y,
+                      tables.cell_size, tables.nx, tables.ny)
+    cid = ix * tables.ny + iy
+    return torch.where(pos[..., 2] > DEAD_Z,
+                       torch.full_like(cid, tables.dead_cell), cid)
+
+
+def load_cell_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
+                     device=None) -> Optional[CellTables]:
+    """``<cache_dir>/culling.npz`` when its version and triangle hash match,
+    else None (the port does not build PVS tables)."""
+    if cache_dir is None:
+        return None
+    path = os.path.join(cache_dir, "culling.npz")
+    if not os.path.exists(path):
+        return None
+    raw = dict(np.load(path))
+    if (int(raw.get("version", -1)) != TABLE_VERSION
+            or str(raw.get("tri_hash", "")) != _tri_hash(tri_verts)):
+        return None
+    cand = np.asarray(raw["cand_idx"], np.int32)
+    gmin = np.asarray(raw["grid_min"], np.float64)
+    return CellTables(
+        cand_idx=torch.as_tensor(cand, device=device),
+        grid_min_x=float(gmin[0]),
+        grid_min_y=float(gmin[1]),
+        cell_size=float(raw["cell_size"]),
+        nx=int(raw["nx"]),
+        ny=int(raw["ny"]),
+        K=int(cand.shape[1]),
+    )
 
 
 def build_short_tables(tri_verts: np.ndarray, cells_per_side: int = 12,
@@ -111,13 +198,13 @@ def _short_tables(raw: dict, device=None) -> ShortTables:
 
 
 def load_short_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
-                      margin: float = SHORT_MARGIN, device=None
-                      ) -> ShortTables:
-    """``<cache_dir>/culling_short.npz`` when it matches these triangles and
-    margin, else tables built in memory."""
+                      margin: float = SHORT_MARGIN, tag: str = "",
+                      device=None) -> ShortTables:
+    """``<cache_dir>/culling_short<tag>.npz`` when it matches these
+    triangles and margin, else tables built in memory."""
     key = _tri_hash(tri_verts)
     path = None if cache_dir is None else os.path.join(
-        cache_dir, "culling_short.npz"
+        cache_dir, f"culling_short{tag}.npz"
     )
     if path is not None and os.path.exists(path):
         raw = dict(np.load(path))

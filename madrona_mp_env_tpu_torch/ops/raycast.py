@@ -1,17 +1,21 @@
 """Batched ray / sphere-cast queries against the static triangle soup.
 
-Game maps are a few hundred triangles, so every (ray, triangle) pair is
-evaluated densely. Each query has two implementations side by side:
+Every (ray, triangle) pair is evaluated densely, over the whole soup or
+over a cell's candidate rows (ops/culling.py tables). Each query has two
+implementations side by side:
 
   * a plain PyTorch version (``_..._dense``), the arithmetic of the JAX
     package's dense CPU path written out op for op, and
   * a hand-written CUDA kernel (``csrc/*.cu``) that repeats the same
     arithmetic per (ray, triangle) pair in registers.
 
-The public entry (``ray_vs_tris``, ``ray_fans_vs_tris``, ``sphere_cast``,
-``sphere_cast_culled``) dispatches on the device of its input: a CPU tensor
-goes to the plain version, a CUDA tensor to the kernel, anything else
-raises. Each entry counts its kernel launches in ``<entry>.launches``.
+The public entry (``ray_vs_tris``, ``ray_fans_vs_tris``,
+``ray_fans_culled``, ``sphere_cast``, ``sphere_cast_culled``,
+``sphere_cast_packed``) dispatches on the device of its input: a CPU
+tensor goes to the plain version, a CUDA tensor to the kernel, anything
+else raises. Each entry counts its kernel launches in ``<entry>.launches``.
+Which entry the step calls is decided by the gates ``use_fan_cull`` here
+and ``sim/movement.py use_sc_pack``, as the JAX package decides it.
 
 Conventions: miss => t = +inf; sphere casts return (t, winner row) where
 the winner is the lowest triangle row among equal t (the dense path's
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -171,25 +176,30 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 # K1: nearest-hit rays (hitscan)
 # ---------------------------------------------------------------------------
 
-def _ray_vs_tris_dense(o, d, soup: TriSoup):
-    """Two-sided Moller-Trumbore over all triangles: o, d [..., 3] ->
-    nearest t [...] (inf on miss)."""
-    o = o[..., None, :]
-    d = d[..., None, :]
-    pvec = cross(d, soup.e2)
-    det = dot(soup.e1, pvec)
+def _ray_tri_t(o, d, v0, e1, e2, valid):
+    """Two-sided Moller-Trumbore per (ray, triangle) pair: every argument
+    broadcasts to [..., T(, 3)] -> t [..., T] (inf on miss)."""
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
     det_ok = torch.abs(det) > 1e-12
     inv_det = torch.where(det_ok, 1.0 / det, torch.zeros_like(det))
-    tvec = o - soup.v0
+    tvec = o - v0
     u = dot(tvec, pvec) * inv_det
-    qvec = cross(tvec, soup.e1)
+    qvec = cross(tvec, e1)
     v = dot(d, qvec) * inv_det
-    t = dot(soup.e2, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
     hit = (
         det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-        & soup.valid
+        & valid
     )
-    return _where_inf(hit, t).amin(dim=-1)
+    return _where_inf(hit, t)
+
+
+def _ray_vs_tris_dense(o, d, soup: TriSoup):
+    """Nearest hit over all triangles: o, d [..., 3] -> t [...] (inf on
+    miss)."""
+    return _ray_tri_t(o[..., None, :], d[..., None, :], soup.v0, soup.e1,
+                      soup.e2, soup.valid).amin(dim=-1)
 
 
 def ray_vs_tris(o, d, soup: TriSoup):
@@ -217,15 +227,20 @@ ray_vs_tris.launches = 0
 # K2: shared-origin sensor fans
 # ---------------------------------------------------------------------------
 
-def _ray_fans_dense(origins, zg, dirs, zgroups, soup: TriSoup):
-    """origins [N, 3]; zg [N, G] per-group z offsets; dirs = (dx, dy, dz)
-    each [N, F] with F = sum(zgroups) -> t [N, F]. Ray f of group g starts
-    at origins + (0, 0, zg[:, g])."""
+def _fan_rays(origins, zg, dirs, zgroups):
+    """Per-ray origins o [N, F, 3] (ray f of group g starts at origins +
+    (0, 0, zg[:, g])) and directions d [N, F, 3]."""
     reps = torch.as_tensor(zgroups, device=zg.device)
     zoff = torch.repeat_interleave(zg, reps, dim=-1)  # [N, F]
     zero = torch.zeros_like(zoff)
     o = origins[:, None, :] + torch.stack([zero, zero, zoff], dim=-1)
-    return _ray_vs_tris_dense(o, torch.stack(dirs, dim=-1), soup)
+    return o, torch.stack(dirs, dim=-1)
+
+
+def _ray_fans_dense(origins, zg, dirs, zgroups, soup: TriSoup):
+    """origins [N, 3]; zg [N, G] per-group z offsets; dirs = (dx, dy, dz)
+    each [N, F] with F = sum(zgroups) -> t [N, F]."""
+    return _ray_vs_tris_dense(*_fan_rays(origins, zg, dirs, zgroups), soup)
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,22 +252,25 @@ def _group_of_ray(zgroups: tuple, device: torch.device) -> torch.Tensor:
     ).to(device)
 
 
-def ray_fans_vs_tris(origins, zg, dirs, zgroups, soup: TriSoup):
-    """Nearest hit of every sensor ray of N fans. Rays within a z-group run
-    share their origin, so the kernel hoists the origin terms per
-    (fan, group, triangle) (csrc/fan_tris.cu). Any run lengths work."""
-    if not _route(origins):
-        return _ray_fans_dense(origins, zg, dirs, zgroups, soup)
+def _fan_args(origins, zg, dirs, zgroups):
     N, G = zg.shape
     F = int(sum(zgroups))
     if len(zgroups) != G or dirs[0].shape != (N, F):
         raise ValueError("fan shapes do not match zgroups")
-    dev = origins.device
-    group_of_ray = _group_of_ray(tuple(zgroups), dev)
-    org = _f32(origins)
-    zgc = _f32(zg)
-    dx, dy, dz = (_f32(c) for c in dirs)
-    out = torch.empty((N, F), device=dev, dtype=torch.float32)
+    return (N, F, G, _group_of_ray(tuple(zgroups), origins.device),
+            _f32(origins), _f32(zg), *(_f32(c) for c in dirs))
+
+
+def ray_fans_vs_tris(origins, zg, dirs, zgroups, soup: TriSoup):
+    """Nearest hit of every sensor ray of N fans over the whole soup. Rays
+    within a z-group run share their origin, so the kernel hoists the
+    origin terms per (fan, group, triangle) (csrc/fan_tris.cu). Any run
+    lengths and any soup size work."""
+    if not _route(origins):
+        return _ray_fans_dense(origins, zg, dirs, zgroups, soup)
+    N, F, G, group_of_ray, org, zgc, dx, dy, dz = _fan_args(
+        origins, zg, dirs, zgroups)
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("fan_tris")(
         _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
         _ptr(group_of_ray), _ptr(soup.tri_rows), N, F, G, soup.num_tris,
@@ -263,6 +281,67 @@ def ray_fans_vs_tris(origins, zg, dirs, zgroups, soup: TriSoup):
 
 
 ray_fans_vs_tris.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: sensor fans against their PVS cell's candidates (big maps)
+# ---------------------------------------------------------------------------
+
+def use_fan_cull(soup: TriSoup, tables) -> bool:
+    """Whether the sensor fans sweep their PVS cells (K6) rather than the
+    soup (K2). MPENV_FAN_CULL: "1" whenever the map has PVS tables, "0"
+    never, "auto" (default) when the candidate sets are much smaller than
+    the soup, T >= 4 K (the JAX package's ops/raycast.py fan_cull_wins):
+    town_map 6144 >= 4 x 1152."""
+    if tables is None:
+        return False
+    mode = os.environ.get("MPENV_FAN_CULL", "auto")
+    if mode in ("0", "1"):
+        return mode == "1"
+    return soup.num_tris >= 4 * tables.K
+
+
+def _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells, tables,
+                           soup: TriSoup, t_max=INF):
+    """_ray_fans_dense restricted to each fan's candidate rows
+    tables.cand_idx[cells[n]] (-1 padding skipped); hits beyond t_max
+    count as misses. -> t [N, F]."""
+    cand = tables.cand_idx[cells.long()]  # [N, K]
+    ok = cand >= 0
+    rows = torch.where(ok, cand, torch.zeros_like(cand)).long()
+    o, d = _fan_rays(origins, zg, dirs, zgroups)
+    t = _ray_tri_t(o[:, :, None, :], d[:, :, None, :],
+                   soup.v0[rows][:, None], soup.e1[rows][:, None],
+                   soup.e2[rows][:, None],
+                   (soup.valid[rows] & ok)[:, None]).amin(dim=-1)
+    return t if t_max == INF else _where_inf(t <= t_max, t)
+
+
+def ray_fans_culled(origins, zg, dirs, zgroups, cells, tables,
+                    soup: TriSoup, t_max=INF):
+    """Nearest hit of every sensor ray of N fans among its fan's PVS cell
+    candidates (cells [N], ops/culling.py CellTables): the big-map fan.
+    CUDA: csrc/fan_culled.cu, K2's hoisted sweep over the cell's rows."""
+    if not _route(origins):
+        return _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells,
+                                      tables, soup, t_max)
+    N, F, G, group_of_ray, org, zgc, dx, dy, dz = _fan_args(
+        origins, zg, dirs, zgroups)
+    if cells.shape != (N,):
+        raise ValueError("one cell per fan expected")
+    cand = tables.cand_idx.to(torch.int32).contiguous()
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_culled")(
+        _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
+        _ptr(group_of_ray), _ptr(soup.tri_rows),
+        _ptr(cells.to(torch.int32).contiguous()), _ptr(cand), N, F, G,
+        tables.K, _ptr(out), _stream(origins),
+    ), "fan_culled")
+    ray_fans_culled.launches += 1
+    return out if t_max == INF else _where_inf(out <= t_max, out)
+
+
+ray_fans_culled.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +553,29 @@ def sphere_cast_culled(o, d, r: float, cells, short, soup: TriSoup):
 
 
 sphere_cast_culled.launches = 0
+
+
+def sphere_cast_packed(o, d, r: float, cells, short, soup: TriSoup):
+    """K4': the 1-2-cast movement batches (L2, L3, fall; o, d [N, CPA, 3],
+    CPA in {1, 2, 4}) against the MOVE_MARGIN short tables, one cell per
+    group (cells [N]). The same culled sweep as ``sphere_cast_culled``
+    (same plain version, same kernel entry), counted apart: the JAX
+    package's sphere_cast_packed is a kernel of its own whose 8-lane
+    same-cell packing has no counterpart at one thread per cast. Exact
+    where the step reads it: down casts at any depth, forward casts within
+    move_dist + buf (ops/culling.py notes)."""
+    if not _route(o):
+        return _sphere_cast_culled_plain(o, d, r, cells, short, soup)
+    N, CPA = o.shape[0], o.shape[1]
+    t, idx = _sc_launch(
+        _f32(o.reshape(N * CPA, 3)), _f32(d.reshape(N * CPA, 3)), r, soup,
+        cells.to(torch.int32).contiguous(), short, CPA,
+    )
+    sphere_cast_packed.launches += 1
+    return t.reshape(N, CPA), idx.reshape(N, CPA)
+
+
+sphere_cast_packed.launches = 0
 
 
 def _sc_launch(o, d, r, soup, cells, short, cpa):

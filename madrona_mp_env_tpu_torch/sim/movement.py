@@ -6,11 +6,16 @@ applyVelocitySystem (sim.cpp:889-1028) and fallSystem (sim.cpp:1041-1095)
 over all worlds and agents at once ([W, A] leaves). The sphere casts are
 batched into four launches by data dependency: L1 = 7 casts per agent
 from the start position (slope, low, high, 4 unstick probes) against the
-agent's short-table cell, L2 = slide + unstick ground check, L3 = ground
-snap, and the fall cast; L2/L3/fall sweep the whole soup.
+agent's short-table cell (K4 culled), L2 = slide + unstick ground check,
+L3 = ground snap, and the fall cast. L2, L3 and fall go through the
+MOVE_MARGIN short tables (K4' packed) when ``use_sc_pack`` says so, which
+it does on every map the repo ships; else they sweep the whole soup (K4
+dense).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -19,7 +24,8 @@ from ..config import EnvConfig
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..ops.culling import short_cell_index
-from ..ops.raycast import sc_normals_from_idx, sphere_cast, sphere_cast_culled
+from ..ops.raycast import (sc_normals_from_idx, sphere_cast,
+                           sphere_cast_culled, sphere_cast_packed)
 from .types import Actions, Pose, WorldState
 
 # unstick probes treat anything clear beyond this as fully open: the
@@ -177,6 +183,40 @@ def l1_casts(x, v_norm, top, low):
     return o1, d1, un_dirs
 
 
+def use_sc_pack(m: MapData) -> bool:
+    """MPENV_SC_PACK: "1" sends the L2, L3 and fall casts through the
+    packed short-table entry (K4'), "0" through the dense sweep (K4 dense),
+    "auto" (default) packs when T >= 4 K_mv, the JAX package's gate (its
+    sim/movement.py _use_sc_pack): simple_map 256 >= 4 x 48, town_map
+    6144 >= 4 x 256."""
+    mode = os.environ.get("MPENV_SC_PACK", "auto")
+    if mode in ("0", "1"):
+        return mode == "1"
+    return m.tris.num_tris >= 4 * m.short_mv.K
+
+
+def move_cells(m: MapData, pos: torch.Tensor):
+    """The MOVE_MARGIN short-table cell [W * A] of each agent for the L2,
+    L3 and fall casts, or None when they sweep the whole soup."""
+    if not use_sc_pack(m):
+        return None
+    return short_cell_index(m.short_mv, pos).reshape(-1)
+
+
+def _late_casts(m: MapData, o, d, mv_cells):
+    """The L2, L3 and fall casts o, d [W, A, CPA, 3] -> t [W, A, CPA]: the
+    packed entry against each agent's MOVE_MARGIN cell, or the dense
+    sweep when ``mv_cells`` is None. Neither's winner row is read."""
+    r = consts.agent_radius
+    if mv_cells is None:
+        return sphere_cast(o, d, r, m.tris)[0]
+    W, A, CPA = o.shape[:3]
+    t, _ = sphere_cast_packed(o.reshape(W * A, CPA, 3),
+                              d.reshape(W * A, CPA, 3), r, mv_cells,
+                              m.short_mv, m.tris)
+    return t.reshape(W, A, CPA)
+
+
 def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
     """Capsule collide-and-slide via sphere casts; the new position and
     velocity are committed at once (updateMoveStateSystem)."""
@@ -248,8 +288,10 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
     o_slide = x + v_norm * low_dist[..., None] + up * torch.where(
         high_closer, top, low
     )[..., None]
-    t2, _ = sphere_cast(torch.stack([o_slide, un_gc], dim=-2),
-                        torch.stack([slide_dir, down], dim=-2), r, m.tris)
+    # the agent's cell of record is its start position x, as in JAX
+    mv_cells = move_cells(m, x)
+    t2 = _late_casts(m, torch.stack([o_slide, un_gc], dim=-2),
+                     torch.stack([slide_dir, down], dim=-2), mv_cells)
     t_slide = t2[..., 0]
     t_ground_un = t2[..., 1]
 
@@ -265,7 +307,8 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
 
     # ---- L3: ground snap under the slid position ----
     gc_pos = hit_pos + up * top[..., None]
-    t_ground, _ = sphere_cast(gc_pos, down, r, m.tris)
+    t_ground = _late_casts(m, gc_pos[..., None, :], down[..., None, :],
+                           mv_cells)[..., 0]
 
     need_unstick = (t_ground <= 0.0) | stuck
     un = need_unstick & any_dir
@@ -293,7 +336,9 @@ def fall_system(cfg: EnvConfig, m: MapData, state: WorldState):
     cast_offset = r
     up = _up(state.pos)
     o = state.pos + up * (r + cast_offset)
-    t_ground, _ = sphere_cast(o, torch.broadcast_to(-up, o.shape), r, m.tris)
+    t_ground = _late_casts(m, o[..., None, :],
+                           torch.broadcast_to(-up, o.shape)[..., None, :],
+                           move_cells(m, state.pos))[..., 0]
 
     no_fall = torch.isinf(t_ground) | (t_ground < cast_offset)
     fall_dist = torch.clamp(t_ground - cast_offset,

@@ -7,8 +7,9 @@ isAgentVisible in src/utils.cpp:186-271), pvpOpponentMasksSystem
 pvpLidarSystem (sim.cpp:3324-3506) over [W, A, ...] tensors. All of an
 agent's sensor rays (4 LOS samples per opponent + 2x32 forward + 2x8 rear
 lidar) share its position as origin with a z offset per run, and go
-through two launches per step: the fan vs the soup (kernel K2) and the
-same rays vs the agent capsules (kernel K3).
+through two launches per step: the fan vs the world (kernel K2 over the
+whole soup, or K6 over the agent's PVS cell on big maps, ops/raycast.py
+use_fan_cull) and the same rays vs the agent capsules (kernel K3).
 
 Observation keys match the reference trainInterface (mgr.cpp:2383-2430).
 """
@@ -25,7 +26,8 @@ from .. import consts
 from ..config import EnvConfig
 from ..assets.map_data import MapData
 from ..ops import geom
-from ..ops.raycast import ray_fans_vs_tris
+from ..ops.culling import cell_index
+from ..ops.raycast import ray_fans_culled, ray_fans_vs_tris, use_fan_cull
 from ..ops.raycast_cull import fan_capsules
 from .combat import eye_offset, view_height
 from .types import WorldState
@@ -143,17 +145,22 @@ def sensor_fan(cfg: EnvConfig, state: WorldState):
 
 
 def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState):
-    """All sensor rays of every agent in two launches (soup fan K2,
-    capsule fan K3). Returns the LOS geometry and world/capsule hits."""
+    """All sensor rays of every agent in two launches (world fan K2 or
+    K6, capsule fan K3). Returns the LOS geometry and world/capsule hits."""
     W, A = state.hp.shape
     los, dirs, zg, zgroups = sensor_fan(cfg, state)
     n_tgt = los["opp_idx"].shape[1]
     n_los = n_tgt * 4
     Fn = dirs[0].shape[-1]
-    t = ray_fans_vs_tris(
-        state.pos.reshape(W * A, 3), zg.reshape(W * A, -1),
-        tuple(c.reshape(W * A, Fn) for c in dirs), zgroups, m.tris,
-    ).reshape(W, A, Fn)
+    fan = (state.pos.reshape(W * A, 3), zg.reshape(W * A, -1),
+           tuple(c.reshape(W * A, Fn) for c in dirs), zgroups)
+    if use_fan_cull(m.tris, m.cells):
+        # the fans start at state.pos, so its cell is the cell of record
+        cells = cell_index(m.cells, fan[0])
+        t = ray_fans_culled(*fan, cells, m.cells, m.tris)
+    else:
+        t = ray_fans_vs_tris(*fan, m.tris)
+    t = t.reshape(W, A, Fn)
     zoff = torch.repeat_interleave(
         zg, torch.as_tensor(zgroups, device=zg.device), dim=-1
     )
@@ -307,7 +314,10 @@ def _zone_ob(cfg: EnvConfig, m: MapData, state: WorldState, teams):
             per_world(state.zone_steps_remaining.float()
                       / consts.num_steps_per_zone),
         ], dim=-1),
-        F.one_hot(zi, 4).float()[:, None].expand(W, A, 4),
+        # 4 slots as in the reference; a fifth zone (town_map has five)
+        # gets all zeros, as jax.nn.one_hot gives out of range
+        (zi[:, None] == torch.arange(4, device=zi.device)).float()[
+            :, None].expand(W, A, 4),
     ], dim=-1)
 
 

@@ -1,9 +1,11 @@
 """Where one env step's time goes on the GPU (torch.profiler).
 
-    python -m madrona_mp_env_tpu_torch.tools.profile_step [--num-worlds 1024]
+    python -m madrona_mp_env_tpu_torch.tools.profile_step \
+        [--num-worlds 1024] [--scene simple_map|town_map|<map dir>]
 
-Runs the Zone 6v6 step on data/simple_map with bench.py's run-and-shoot
-action mix, then times --steps steps without and then with the profiler, and prints one
+Runs the Zone 6v6 step on a map (data/simple_map unless --scene names
+another; a bare name is a directory under data/) with bench.py's
+run-and-shoot action mix, then times --steps steps without and then with the profiler, and prints one
 JSON line: wall ms per step (host clock around synchronized steps, both
 ways), device-busy ms per step (sum of CUDA kernel times in the profiled
 window), the idle share of that window, CUDA kernel launches per step,
@@ -29,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-worlds", type=int, default=1024)
+    ap.add_argument("--scene", default="simple_map")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
@@ -41,8 +44,9 @@ def main(argv=None):
         sim_flags=mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams,
     )
     W = args.num_worlds
-    env = mt.Env(cfg, os.path.join(REPO, "data", "simple_map"),
-                 num_worlds=W, seed=5)
+    scene = args.scene if os.sep in args.scene else os.path.join(
+        REPO, "data", args.scene)
+    env = mt.Env(cfg, scene, num_worlds=W, seed=5)
     g = np.random.default_rng(0)
     shape = (W, cfg.num_agents)
     a = env.zero_actions().replace(**{
@@ -81,6 +85,7 @@ def main(argv=None):
     S = args.steps
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "scene": os.path.basename(os.path.normpath(scene)),
         "num_worlds": W,
         "steps": S,
         "wall_ms_per_step": plain_wall * 1e3 / S,

@@ -81,10 +81,12 @@ def record(hist, state, obs, reward=None, done=None):
         hist.setdefault("done", []).append(np.asarray(done))
 
 
-def jax_rollout(chain_state=None):
-    """The reference rollout: {name: [steps(+1), ...]} numpy arrays (state
-    and obs leaves have the reset as entry 0). ``chain_state``, a list,
-    receives the state after step CHAIN_STEP."""
+def jax_rollout(chain_state=None, scene="simple_map", on_step=None):
+    """The reference rollout on ``data/<scene>``: {name: [steps(+1), ...]}
+    numpy arrays (state and obs leaves have the reset as entry 0).
+    ``chain_state``, a list, receives the state after step CHAIN_STEP;
+    ``on_step(s, state)`` is called with the state after each step s + 1
+    (s = -1: the reset)."""
     os.environ["MPENV_TAIL_FUSED"] = "0"
     import jax
     import jax.numpy as jnp
@@ -103,19 +105,23 @@ def jax_rollout(chain_state=None):
         task=mp.Task.Zone, team_size=TEAM_SIZE,
         sim_flags=mp.SimFlags.StaggerStarts | mp.SimFlags.RandomFlipTeams,
     )
-    env = mp.Env(cfg, os.path.join(REPO, "data", "simple_map"),
+    env = mp.Env(cfg, os.path.join(REPO, "data", scene),
                  num_worlds=NUM_WORLDS, seed=SEED)
     acts = draw_actions()
     hist = {k: v for k, v in acts.items()}
     state, obs = env.reset()
     rec = {}
     record(rec, state, obs)
+    if on_step is not None:
+        on_step(-1, state)
     zf = jnp.zeros((NUM_WORLDS, cfg.num_agents), jnp.float32)
     for s in range(NUM_STEPS):
         a = Actions(**{k: jnp.asarray(v[s]) for k, v in acts.items()},
                     aim_yaw_rate=zf, aim_pitch_rate=zf)
         state, out = env.step(state, a)
         record(rec, state, out["obs"], out["reward"], out["done"])
+        if on_step is not None:
+            on_step(s, state)
         if chain_state is not None and s + 1 == CHAIN_STEP:
             chain_state.append((env, state))
     hist.update({k: np.stack(v) for k, v in rec.items()})

@@ -6,7 +6,8 @@ machine run them with
 
 Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
-capsule indices exact.
+capsule indices exact. The big-map kernels (K6, K4' packed, and K2 and K4
+dense over town_map's 6,144-triangle soup) run on data/town_map.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
-from madrona_mp_env_tpu_torch.ops.culling import short_cell_index
+from madrona_mp_env_tpu_torch.ops.culling import cell_index, short_cell_index
 from madrona_mp_env_tpu_torch.sim import movement
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +30,18 @@ def gpu_map(simple_map_dir):
     from madrona_mp_env_tpu_torch.assets.map_data import load_map
 
     return load_map(simple_map_dir, mt.EnvConfig(team_size=6), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def town_map(simple_map_dir):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+
+    return load_map(os.path.join(os.path.dirname(simple_map_dir), "town_map"),
+                    mt.EnvConfig(team_size=6), device="cuda")
 
 
 def _points(m, n, seed, lift):
@@ -72,6 +85,65 @@ def test_fan_kernel(gpu_map, zgroups):
     t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, gpu_map.tris)
     assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups,
                                           gpu_map.tris))
+
+
+def _town_fans(m, N, seed):
+    zgroups = (24, 32, 32, 8, 8)
+    org = _points(m, N, seed, (0, 5))
+    org[::16, 2] = 10000.0  # dead agents: the PVS's dead cell
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    zg = 10.0 + 50.0 * torch.rand((N, len(zgroups)), generator=g,
+                                  device="cuda")
+    d = _dirs(N * sum(zgroups), seed + 1).reshape(N, -1, 3)
+    return org, zg, tuple(d[..., k].contiguous() for k in range(3)), zgroups
+
+
+def test_fan_culled_kernel(town_map):
+    """K6 over each fan's PVS cell on town_map."""
+    org, zg, dirs, zgroups = _town_fans(town_map, 384, 20)
+    cells = cell_index(town_map.cells, org)
+    assert bool((cells == town_map.cells.dead_cell).any())
+    n0 = raycast.ray_fans_culled.launches
+    t = raycast.ray_fans_culled(org, zg, dirs, zgroups, cells,
+                                town_map.cells, town_map.tris)
+    assert raycast.ray_fans_culled.launches == n0 + 1
+    assert _eq(t, raycast._ray_fans_culled_plain(
+        org, zg, dirs, zgroups, cells, town_map.cells, town_map.tris))
+    assert bool(torch.isfinite(t).float().mean() > 0.3)
+
+
+def test_fan_kernel_big_soup(town_map):
+    """K2 over the 6,144-triangle soup (tiled shared memory)."""
+    org, zg, dirs, zgroups = _town_fans(town_map, 128, 22)
+    t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, town_map.tris)
+    assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups,
+                                          town_map.tris))
+
+
+@pytest.mark.parametrize("scene", ["simple_map", "town_map"])
+def test_sphere_cast_packed_kernel(gpu_map, town_map, scene):
+    """K4' on the L2 pair and a ground snap against the MOVE_MARGIN
+    tables, and K4's dense entry on the same casts (on town_map: tiled
+    over 6,144 triangles)."""
+    m = gpu_map if scene == "simple_map" else town_map
+    N = 1024
+    x = _points(m, N, 24, (0, 2))
+    v = _dirs(N, 25, flat=True)
+    up = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    cells = short_cell_index(m.short_mv, x)
+    for o, d in ((torch.stack([x + v * 5.0 + up * 30.0, x + up * 50.0], 1),
+                  torch.stack([v, -up.expand(N, 3)], 1)),
+                 ((x + up * 30.0)[:, None], -up.expand(N, 1, 3))):
+        n0 = raycast.sphere_cast_packed.launches
+        tk, ik = raycast.sphere_cast_packed(o, d, R, cells, m.short_mv,
+                                            m.tris)
+        assert raycast.sphere_cast_packed.launches == n0 + 1
+        tp, ip = raycast._sphere_cast_culled_plain(o, d, R, cells,
+                                                   m.short_mv, m.tris)
+        assert _eq(tk, tp) and _eq(ik, ip)
+        tk, ik = raycast.sphere_cast(o, d, R, m.tris)
+        tp, ip = raycast._sphere_cast_dense(o, d, R, m.tris)
+        assert _eq(tk, tp) and _eq(ik, ip)
 
 
 def test_fan_capsules_kernel(gpu_map):
@@ -141,10 +213,14 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
         assert _eq(getattr(sk, k), v), k
 
 
-def test_gpu_env_matches_cpu_env(simple_map_dir, gpu_map):
+@pytest.mark.parametrize("scene", ["simple_map", "town_map"])
+def test_gpu_env_matches_cpu_env(simple_map_dir, gpu_map, scene):
     """Four steps of the kernel path against the plain path."""
+    import os
+
     cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=2)
-    envs = [mt.Env(cfg, simple_map_dir, num_worlds=2, device=dev)
+    path = os.path.join(os.path.dirname(simple_map_dir), scene)
+    envs = [mt.Env(cfg, path, num_worlds=2, device=dev)
             for dev in ("cuda", "cpu")]
     outs = []
     for env in envs:

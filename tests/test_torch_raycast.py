@@ -8,8 +8,11 @@ sphere casts by up to 1e-3 relative and can change their winner.
 Tolerances: t within 1e-5 * max(1, |t|) where both hit, the same rays hit,
 winner rows and capsule indices exact, normals within 1e-5. The culled
 cast is checked against the port's own dense cast: bit-equal within the
-range the step consumes.
+range the step consumes, and so is the packed cast (K4') of the L2, L3
+and fall batches.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,21 @@ from madrona_mp_env_tpu_torch.sim import movement
 
 R = 15.0  # agent radius
 SEG_H = 35.0  # capsule segment height
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_under_xdist():
+    """One intra-op thread per pytest-xdist worker: several workers share
+    the machine's cores, and ATen's OpenMP threads of every worker spinning
+    on the plain versions' big elementwise ops slowed this file's
+    sphere-cast cases four- to tenfold there."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -174,3 +192,29 @@ def test_culled_cast_equals_dense(maps):
     assert torch.equal(tc[near], td[near]) and torch.equal(ic[near],
                                                            idd[near])
     assert bool((tc[~near] > movement.UNSTICK_RANGE).all())
+
+
+def test_packed_cast_equals_dense(maps):
+    """The L2 pair (slide + unstick ground check) and the L3 / fall ground
+    snaps through the MOVE_MARGIN short tables, as simple_map's step runs
+    them (movement.use_sc_pack): the dense cast's t, bit for bit, for
+    every down cast and every forward cast within move_dist + buf."""
+    _, tm = maps
+    assert movement.use_sc_pack(tm)
+    N = 256
+    x = torch.as_tensor(_walkable(tm, N, 12, lift=(0.0, 2.0)))
+    v = torch.as_tensor(_dirs(N, 13, flat=True))
+    up = torch.tensor([0.0, 0.0, 1.0])
+    off = torch.as_tensor(np.random.default_rng(14).uniform(0, 20, (N, 1)),
+                          dtype=torch.float32)
+    o = torch.stack([x + v * off + up * 30.0, x - v * 30.0 + up * 50.0,
+                     x + up * 30.0], dim=1)
+    d = torch.stack([v, -up.expand(N, 3), -up.expand(N, 3)], dim=1)
+    cells = movement.move_cells(tm, x)
+    tp, _ = raycast.sphere_cast_packed(o, d, R, cells, tm.short_mv, tm.tris)
+    td, _ = raycast.sphere_cast(o, d, R, tm.tris)
+    assert torch.equal(tp[:, 1:], td[:, 1:])
+    near = td[:, 0] <= 20.0
+    assert near.float().mean() > 0.1
+    assert torch.equal(tp[near, 0], td[near, 0])
+    assert bool((tp[~near, 0] > 20.0).all())
