@@ -13,18 +13,24 @@ Phases, each of which fails the run loudly:
    version's time and its bound, each summed over the step's launches of
    that entry. On data/simple_map: K1 hitscan rays, K2 sensor fans, K3
    sensor rays vs capsules, K4 culled (the L1 casts), K4' packed (the L2,
-   L3 and fall casts), K5 the fused scalar tail, and K4 dense on the same
-   step taken with MPENV_SC_PACK=0. On data/town_map (6,144 triangles,
-   PVS tables): K1, K3, K4 culled, K4', K5, K6 the cell-culled sensor fans,
-   and K2 over the whole soup on K6's fans, with how often the two agree
-   (the PVS's quality at full width);
+   L3 and fall casts), K5 the fused scalar tail, K4 dense on the same
+   step taken with MPENV_SC_PACK=0, and K9 (the sensor fans over the
+   sensor-ray tables) on the same step taken with MPENV_FAN_V9=1, with
+   how often its t equals K2's on the same rays (hits and misses must
+   agree on >= 99.5%); then the unfused system chain against the fused
+   order through tail_fused_plain, bit for bit, on the step's tail
+   inputs. On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
+   culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
+   soup on K6's fans, with how often the two agree (the PVS's quality at
+   full width);
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch, K4 dense and K6 must not; env-steps/s beside the card's name
-   and limit; then CUDA launches per step from torch.profiler, with the
-   fused tail and, for comparison in the same process, with the unfused
-   chain it replaced;
+   launch, K4 dense, K6 and K9 must not; env-steps/s beside the card's
+   name and limit; then CUDA launches per step from torch.profiler, with
+   the fused tail and, for comparison in the same process, with the
+   unfused chain it replaced; then the same path with MPENV_FAN_V9=1,
+   where K9 must launch and K2 must not;
 5. the crossplay eval: EvalManager on the card at 1024 worlds with P = 2
    policies at full width (weights made from seeds: the trained
    checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
@@ -35,10 +41,16 @@ Phases, each of which fails the run loudly:
    culled, K4', K5 and K6 must launch, K2 and K4 dense must not; then 10
    steps of the forced-dense fan route (MPENV_FAN_CULL=0), where K2 runs
    over the 6,144-triangle soup;
-8. the kernel path against the plain path: the same 4-world, 16-step env
-   rollout on both maps, and the same 4-world, 16-step eval rollout, on
-   "cuda" and on "cpu" from one seed;
-9. a line of kernel results (JSON, one row per kernel and map, each with
+8. the training path: the train CLI's TrainingManager at 1024 worlds x
+   40 steps per update, the LSTM-512 policy, E = 1: 3 updates on the
+   default fan route (K2), then 2 with MPENV_FAN_V9=1 (K9); updates/s,
+   samples/s and each update's rollout and PPO-update ms (CUDA events);
+   finite losses, parameters that move;
+9. the kernel path against the plain path: the same 4-world, 16-step env
+   rollout on both maps, the same 4-world, 16-step eval rollout, and the
+   trainer's 4-world, 8-step rollout and one PPO update, on "cuda" and on
+   "cpu" from one seed;
+10. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts), then the card line, then the last
    line {"ok": true, "device": {...}}.
 
@@ -48,6 +60,7 @@ the port's package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -192,7 +205,8 @@ def best_two_gap(t_pairs):
 # where the step calls each kernel's entry: (sim module, name)
 ENTRY_SITES = (
     ("combat", "ray_vs_tris"), ("observations", "ray_fans_vs_tris"),
-    ("observations", "ray_fans_culled"), ("observations", "fan_capsules"),
+    ("observations", "ray_fans_culled"),
+    ("observations", "ray_fans_culled_v9"), ("observations", "fan_capsules"),
     ("movement", "sphere_cast"), ("movement", "sphere_cast_culled"),
     ("movement", "sphere_cast_packed"), ("step", "tail_fused"),
 )
@@ -396,6 +410,59 @@ class KernelPhase:
         log(f"[pvs] {self.scene}: K6 t equals K2's dense t on {same:.6f} of "
             f"{t6.numel()} rays; hit/miss agree on {hitmiss:.6f}")
 
+    def k9(self, calls, t2):
+        """K9 over each fan's sensor-ray table cell (a step taken with
+        MPENV_FAN_V9=1), bit-equal to its plain version; then how often
+        it agrees with K2's whole-soup t (``t2``) on the same rays."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        (org, zoff, dirf, cells, rt, _), = calls["ray_fans_culled_v9"]
+        N, F = zoff.shape
+
+        def kernel():
+            return raycast.ray_fans_culled_v9(org, zoff, dirf, cells, rt,
+                                              soup)
+
+        def plain():
+            return chunked(lambda s: raycast._ray_fans_v9_plain(
+                org[s], zoff[s], tuple(c[s] for c in dirf), cells[s], rt,
+                soup), N, 1024)
+
+        t9, tp = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bool(((t9 == tp) | (torch.isinf(t9) & torch.isinf(tp)))
+                    .all()):
+            raise AssertionError("K9 differs from its plain version")
+        err = check_t("K9 ray_fans_culled_v9", t9, tp)
+        n_valid = (rt.cand_idx >= 0).sum(-1)[cells.long()]  # [N]
+        # z-groups of each fan: runs of equal z offsets (the kernel's own)
+        runs = int((zoff[:, 1:] != zoff[:, :-1]).sum()) + N
+        row = self.record(
+            "K9 ray_fans_culled_v9",
+            "madrona_mp_env_tpu_torch/csrc/fan_v9.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:743",
+            raycast.ray_fans_culled_v9, err, cuda_time_ms(kernel, 50),
+            cuda_time_ms(plain, 2),
+            N * (12 + 4) + 4 * N * F * 4 + rt.cand_idx.numel() * 4
+            + self.T_real * 40 + N * F * 4,
+            int(n_valid.sum()) * F * OPS_FAN_PAIR
+            + int((n_valid * runs / N).sum()) * OPS_FAN_HOIST,
+            [[N, F, rt.K]],
+            mean_valid_candidates=round(float(n_valid.float().mean()), 1))
+        same = float(((t9 == t2) | (torch.isinf(t9) & torch.isinf(t2)))
+                     .float().mean())
+        hitmiss = float((torch.isfinite(t9) == torch.isfinite(t2))
+                        .float().mean())
+        row["tables_t_equal"] = same
+        row["tables_hit_agree"] = hitmiss
+        log(f"[ray tables] {self.scene}: K9 t equals K2's whole-soup t on "
+            f"{same:.6f} of {t9.numel()} rays; hit/miss agree on "
+            f"{hitmiss:.6f}")
+        if hitmiss < 0.995:
+            raise AssertionError(f"K9 hit/miss agreement {hitmiss} < 0.995")
+
     def k3(self, calls):
         import torch
         from madrona_mp_env_tpu_torch.ops import raycast_cull
@@ -588,6 +655,46 @@ SIMPLE_ENTRIES = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
                   "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
 TOWN_ENTRIES = ("ray_vs_tris", "ray_fans_culled", "fan_capsules",
                 "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+V9_ENTRIES = ("ray_vs_tris", "ray_fans_culled_v9", "fan_capsules",
+              "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+
+
+def tail_chain_check(env, state, actions):
+    """The unfused system chain (the reference's order) on the card
+    equals the fused order through tail_fused_plain bit for bit, from the
+    tail's inputs of one real step (captured where the step calls
+    fused_tail)."""
+    import torch
+    from madrona_mp_env_tpu_torch.ops import tail_fused
+    from madrona_mp_env_tpu_torch.sim import step as step_mod
+
+    seen = []
+    fused = step_mod.fused_tail
+
+    def rec(*args, **kw):
+        seen.append(_clone(args))
+        return fused(*args, **kw)
+
+    step_mod.fused_tail = rec
+    try:
+        env.step(state, actions)
+    finally:
+        step_mod.fused_tail = fused
+    (cfg, m, st, victims, fr), = seen
+    sf, cf = fused(cfg, m, _clone(st), victims, fr,
+                   tail=tail_fused.tail_fused_plain)
+    su, cu = step_mod.unfused_tail(cfg, m, _clone(st), victims, fr)
+    torch.cuda.synchronize()
+    bad = [k for k, v in su.leaves().items()
+           if not bool(((v == getattr(sf, k)) | (
+               v.isnan() & getattr(sf, k).isnan()
+               if v.dtype.is_floating_point else False)).all())]
+    if bad or not torch.equal(cf, cu):
+        raise AssertionError(f"unfused chain differs from tail_fused_plain "
+                             f"on the card: {bad}")
+    log(f"[tail chain] {st.hp.shape[0]} worlds: the unfused chain equals "
+        f"tail_fused_plain bit for bit on the card "
+        f"({len(su.leaves())} leaves)")
 
 
 def simple_kernels(env, state, actions):
@@ -597,7 +704,7 @@ def simple_kernels(env, state, actions):
     calls = capture_step_calls(env, state, actions, SIMPLE_ENTRIES)
     ph.k1(calls)
     (org, zgf, dirf, zgroups, _), = calls["ray_fans_vs_tris"]
-    ph.k2(org, zgf, dirf, zgroups)
+    t2 = ph.k2(org, zgf, dirf, zgroups)
     ph.k3(calls)
     ph.k4_culled(calls)
     ph.k4_packed(calls)
@@ -608,6 +715,11 @@ def simple_kernels(env, state, actions):
             tuple(e for e in SIMPLE_ENTRIES if e != "sphere_cast_packed")
             + ("sphere_cast",))
     ph.k4_dense(dense)
+    # the same step on the sensor-ray tables: the same fans, K9 for K2
+    with mock.patch.dict(os.environ, MPENV_FAN_V9="1"):
+        v9 = capture_step_calls(env, state, actions, V9_ENTRIES)
+    ph.k9(v9, t2)
+    tail_chain_check(env, state, actions)
     return ph.results
 
 
@@ -866,7 +978,8 @@ def all_entries():
 
     return {f.__name__: f for f in (
         raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
-        raycast.ray_fans_culled, raycast_cull.fan_capsules,
+        raycast.ray_fans_culled, raycast.ray_fans_culled_v9,
+        raycast_cull.fan_capsules,
         raycast.sphere_cast, raycast.sphere_cast_culled,
         raycast.sphere_cast_packed, tail_fused.tail_fused)}
 
@@ -937,6 +1050,162 @@ def env_parity(mt, cfg, scene, W, S):
                               for k, v in worst.items()))
 
 
+TRAIN_WORLDS = 1024
+TRAIN_STEPS = 40  # steps_per_update, the JAX bench's train row
+TRAIN_UPDATES = {"default": 3, "v9": 2}
+
+
+def train_phase(card):
+    """The training path at full width through the train CLI's own
+    builder: TrainingManager at TRAIN_WORLDS worlds x TRAIN_STEPS steps
+    per update (4 BPTT chunks, 2 epochs x 4 minibatches), the LSTM-512
+    policy, E = 1, weights from a seed. TRAIN_UPDATES["default"] updates
+    on the default fan route (K2), then TRAIN_UPDATES["v9"] with
+    MPENV_FAN_V9=1 (K9). Each update's rollout and PPO update are timed
+    by CUDA events; every launch counter is zeroed before each run and
+    read after it; the loss must be finite and the parameters must
+    move."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    for route, n in TRAIN_UPDATES.items():
+        env_vars = {"MPENV_FAN_V9": "1" if route == "v9" else "0"}
+        with mock.patch.dict(os.environ, env_vars):
+            args = train_cli.parse_args([
+                "--scene", SCENE, "--num-worlds", str(TRAIN_WORLDS),
+                "--steps-per-update", str(TRAIN_STEPS),
+                "--team-size", str(TEAM_SIZE)])
+            _, tcfg, env, mgr = train_cli.build(args)
+            ts = mgr.init()
+            p0 = {k: v.clone() for k, v in ts.params[0].items()}
+            entries = all_entries()
+            for f in entries.values():
+                f.launches = 0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            roll_ms, ppo_ms, losses = [], [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ev[0].record()
+                ts, starts, outs, boot = mgr.rollout(ts)
+                ev[1].record()
+                ts, metrics = mgr.ppo_update(ts, starts, outs, boot)
+                ev[2].record()
+                torch.cuda.synchronize()
+                roll_ms.append(ev[0].elapsed_time(ev[1]))
+                ppo_ms.append(ev[1].elapsed_time(ev[2]))
+                losses.append(float(metrics["loss"][0]))
+            t1 = time.perf_counter()
+        counts = {k: f.launches for k, f in entries.items()}
+        moved = max(float((ts.params[0][k] - v).abs().max())
+                    for k, v in p0.items())
+        if not all(np.isfinite(losses)) or moved == 0.0:
+            raise AssertionError(f"train {route}: losses {losses}, params "
+                                 f"moved {moved}")
+        fan = "ray_fans_culled_v9" if route == "v9" else "ray_fans_vs_tris"
+        other = "ray_fans_vs_tris" if route == "v9" else "ray_fans_culled_v9"
+        if counts[fan] != n * TRAIN_STEPS or counts[other] or \
+                counts["ray_fans_culled"]:
+            raise AssertionError(f"train {route}: fan launches {counts}")
+        samples = TRAIN_WORLDS * 2 * TEAM_SIZE * TRAIN_STEPS
+        ups = n / (t1 - t0)
+        log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
+            f"{n} updates, LSTM-512, E = 1: {ups:.4f} updates/s, "
+            f"{ups * samples:.1f} samples/s; rollout ms "
+            + ", ".join(f"{x:.1f}" for x in roll_ms) + "; PPO update ms "
+            + ", ".join(f"{x:.1f}" for x in ppo_ms)
+            + f" (CUDA events); losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; params moved up to {moved:.3g}; launches "
+            + ", ".join(f"{k}={c}" for k, c in counts.items())
+            + f" on {card}")
+        del ts, mgr, env
+
+
+def train_parity(W=4, S=8):
+    """The trainer on "cuda" against "cpu" from one seed at W worlds x S
+    steps: the rollouts' actions equal where the CPU run's Gumbel top-two
+    margin exceeds 1e-4, values and rewards within 1e-4 relative, up to
+    the first step an action differs; then one PPO update of each device
+    on the CPU rollout's data: loss terms within 1e-4 * max(1, |x|) and
+    parameters within 2.5 lr."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = train_cli.parse_args([
+            "--scene", SCENE, "--num-worlds", str(W), "--steps-per-update",
+            str(S), "--num-bptt-chunks", "2", "--num-minibatches", "2",
+            "--team-size", str(TEAM_SIZE)] + (["--cpu"] if dev == "cpu"
+                                              else []))
+        _, tcfg, env, mgr = train_cli.build(args)
+        ts = mgr.init()
+        logits = []
+        apply = mgr.apply_blocks
+
+        def rec(*a, _apply=apply, _logits=logits):
+            out = _apply(*a)
+            _logits.append(out[0])
+            return out
+
+        mgr.apply_blocks = rec
+        ro = mgr.rollout(ts)
+        mgr.apply_blocks = apply
+        runs[dev] = (mgr, ts, ro, logits[:S])
+    (mg, tg, (_, _, og, _), _), (mc, tc, (tc1, sc, oc, bc), lc) = (
+        runs["cuda"], runs["cpu"])
+    keys = rng.split(rng.split(tc.key, 2)[1], S)  # the rollout's steps
+    compared, undecided = 0, 0
+    for t in range(S):
+        margin = _gumbel_margin(torch.cat(
+            [lc[t].discrete.packed_log_probs(),
+             lc[t].aim.packed_log_probs()], -1),
+            rng.split(keys[t], 2)[0]).reshape(-1)
+        decided = margin > 1e-4
+        undecided += int((~decided).sum())
+        ag = og["act_pack"].reshape((S,) + og["act_pack"].shape[2:])[t]
+        ac = oc["act_pack"].reshape((S,) + oc["act_pack"].shape[2:])[t]
+        same = (ag.cpu() == ac).all(-1).reshape(-1)
+        if not bool(same[decided].all()):
+            raise AssertionError(f"train parity step {t}: decided actions "
+                                 "differ")
+        for k in ("values", "rewards"):
+            a = og[k].reshape((S, -1))[t].cpu()
+            b = oc[k].reshape((S, -1))[t]
+            e = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+            if e > 1e-4:
+                raise AssertionError(f"train parity step {t}: {k} {e}")
+        compared = t + 1
+        if not bool(same.all()):
+            break
+    # one PPO update of each device on the CPU rollout
+    to = {k: (v.cuda() if isinstance(v, torch.Tensor)
+              else {kk: vv.cuda() for kk, vv in v.items()})
+          for k, v in oc.items()}
+    tsg = dataclasses.replace(tg, key=tc1.key.cuda())
+    ug, mgm = mg.ppo_update(tsg, sc.cuda(), to, bc.cuda())
+    uc, mcm = mc.ppo_update(tc1, sc, oc, bc)
+    worst = 0.0
+    for k in mcm:
+        e = float(((mgm[k].cpu() - mcm[k]).abs()
+                   / mcm[k].abs().clamp(min=1.0)).max())
+        worst = max(worst, e)
+        if e > 1e-4:
+            raise AssertionError(f"train parity: {k} rel err {e}")
+    dp = max(float((ug.params[0][k].cpu() - v).abs().max())
+             for k, v in uc.params[0].items())
+    lr = mc.tcfg.lr
+    if dp > 2.5 * lr:
+        raise AssertionError(f"train parity: params differ by {dp}")
+    log(f"[train parity] cuda vs cpu, {W} worlds x {S} steps: {compared} "
+        f"steps compared, actions equal where decided ({undecided} "
+        f"undecided), values and rewards within 1e-4; PPO update on one "
+        f"rollout: loss terms max rel err {worst:.3g}, params max abs diff "
+        f"{dp:.3g} ({dp / lr:.3g} lr)")
+
+
 def main() -> int:
     import torch
 
@@ -989,7 +1258,7 @@ def main() -> int:
                        "K4' sphere_cast_packed", "K5 tail_fused")
     state, out, _ = drive_path(
         "slice simple_map", env, acts, NUM_STEPS, main_simple,
-        ("sphere_cast", "ray_fans_culled"), card)
+        ("sphere_cast", "ray_fans_culled", "ray_fans_culled_v9"), card)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -1010,6 +1279,13 @@ def main() -> int:
         + f": fused {wall_f:.2f}, unfused {wall_u:.2f} on {card}")
     del state, out
 
+    # 4b. the same path on the sensor-ray tables (MPENV_FAN_V9=1): K9 for K2
+    with mock.patch.dict(os.environ, MPENV_FAN_V9="1"):
+        drive_path("sensor-ray tables simple_map", env, acts, NUM_STEPS,
+                   rows("simple_map", "K9 ray_fans_culled_v9"),
+                   ("ray_fans_vs_tris", "ray_fans_culled", "sphere_cast"),
+                   card)
+
     # 5. the crossplay eval on the card (simple_map's kernels)
     eval_phase(mt, main_simple, card)
 
@@ -1025,19 +1301,24 @@ def main() -> int:
                rows("town_map", "K1 ray_vs_tris", "K3 fan_capsules",
                     "K4 sphere_cast_culled", "K4' sphere_cast_packed",
                     "K5 tail_fused", "K6 ray_fans_culled"),
-               ("ray_fans_vs_tris", "sphere_cast"), card)
+               ("ray_fans_vs_tris", "ray_fans_culled_v9", "sphere_cast"),
+               card)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
                    rows("town_map", "K2 ray_fans_vs_tris"),
                    ("ray_fans_culled",), card)
     del town_env
 
-    # 8. kernel path vs plain path
+    # 8. the training path: full width on the card, then against the CPU
+    train_phase(card)
+
+    # 9. kernel path vs plain path
     env_parity(mt, cfg, SCENE, 4, 16)
     env_parity(mt, cfg, TOWN, 4, 16)
     eval_parity(mt, 4, 16)
+    train_parity()
 
-    # 9. results
+    # 10. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

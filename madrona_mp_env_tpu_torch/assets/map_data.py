@@ -2,9 +2,10 @@
 
 Everything the reference's Manager::Impl::init uploads (reference
 src/mgr.cpp:1213-1913) that this port's step reads: collision soup, the
-PVS cell tables of big maps, the short-range culling tables (two
-margins), navmesh spawn tables, spawn boxes, zones,
-weapon stats and goal regions. Tensors live on the Env's device.
+PVS cell tables of big maps, the sensor-ray tables where the map has
+them, the short-range culling tables (two margins), navmesh spawn
+tables, spawn boxes, zones, weapon stats and goal regions. Tensors live
+on the Env's device.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 
 from .. import consts
 from ..config import EnvConfig
-from ..ops.culling import (MOVE_MARGIN, CellTables, ShortTables,
-                           load_cell_tables, load_short_tables)
+from ..ops.culling import (MOVE_MARGIN, CellTables, RayTables, ShortTables,
+                           load_cell_tables, load_ray_tables,
+                           load_short_tables)
 from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
@@ -33,6 +35,9 @@ class MapData:
     world_max: torch.Tensor  # [3]
     # PVS tables of the sensor fans (None: the map has no culling.npz)
     cells: Optional[CellTables]
+    # sensor-ray tables (None: no culling_ray.npz); the fans sweep them
+    # under MPENV_FAN_V9=1 (ops/raycast.py use_fan_v9)
+    ray_cells: Optional[RayTables]
     short: ShortTables  # SHORT_MARGIN: the L1 7-cast batch
     short_mv: ShortTables  # MOVE_MARGIN: the L2, L3 and fall casts
 
@@ -123,8 +128,8 @@ def zone_frames(zmin: torch.Tensor, zmax: torch.Tensor,
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
              tri_pad: int = 128) -> MapData:
     """Load a map directory (collisions.bin, navmesh.bin, spawns.bin,
-    zones.bin, culling.npz when present, culling_short.npz and
-    culling_short_mv.npz) onto ``device``."""
+    zones.bin, culling.npz and culling_ray.npz when present,
+    culling_short.npz and culling_short_mv.npz) onto ``device``."""
     col = formats.load_collision_data(
         os.path.join(scene_dir, "collisions.bin")
     )
@@ -139,6 +144,7 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
     tri_verts = morton_sort_tris(col.tri_verts)
     soup = make_tri_soup(tri_verts, pad_to=tri_pad, device=device)
     cells = load_cell_tables(tri_verts, scene_dir, device=device)
+    ray_cells = load_ray_tables(tri_verts, scene_dir, device=device)
     short = load_short_tables(tri_verts, scene_dir, device=device)
     short_mv = load_short_tables(tri_verts, scene_dir, margin=MOVE_MARGIN,
                                  tag="_mv", device=device)
@@ -183,6 +189,7 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         world_min=dev(col.world_bounds_min),
         world_max=dev(col.world_bounds_max),
         cells=cells,
+        ray_cells=ray_cells,
         short=short,
         short_mv=short_mv,
         nav_verts=dev(nav.verts),

@@ -33,9 +33,9 @@ __global__ void fan_culled_kernel(const float* __restrict__ org, const float* __
                                   const float* __restrict__ rows, const int* __restrict__ cells,
                                   const int* __restrict__ cand, int F, int G, int K,
                                   float* __restrict__ out) {
-  const int n = blockIdx.x;
-  fan_sweep(n, org, zg, dx, dy, dz, group_of_ray, rows, cand + (size_t)cells[n] * K, K, F, G,
-            out);
+  const size_t n = blockIdx.x, ray0 = n * F;
+  fan_sweep(org[3 * n], org[3 * n + 1], org[3 * n + 2], zg + n * G, group_of_ray, G, dx + ray0,
+            dy + ray0, dz + ray0, rows, cand + (size_t)cells[n] * K, K, F, out + ray0);
 }
 
 extern "C" int fan_culled_launch(const float* org, const float* zg, const float* dx,

@@ -22,7 +22,9 @@ __global__ void fan_tris_kernel(const float* __restrict__ org, const float* __re
                                 const float* __restrict__ dz, const int* __restrict__ group_of_ray,
                                 const float* __restrict__ rows, int F, int G, int T,
                                 float* __restrict__ out) {
-  fan_sweep(blockIdx.x, org, zg, dx, dy, dz, group_of_ray, rows, nullptr, T, F, G, out);
+  const size_t n = blockIdx.x, ray0 = n * F;
+  fan_sweep(org[3 * n], org[3 * n + 1], org[3 * n + 2], zg + n * G, group_of_ray, G, dx + ray0,
+            dy + ray0, dz + ray0, rows, nullptr, T, F, out + ray0);
 }
 
 extern "C" int fan_tris_launch(const float* org, const float* zg, const float* dx,

@@ -23,6 +23,14 @@ batches (L2, L3, fall): forward casts there are consumed only within
 move_dist + buf (~20) of the agent and down casts stay within 2r + r of
 its column, so 64 covers both.
 
+Sensor-ray tables (``<map>/culling_ray.npz``, simple_map): the same
+per-cell layout as the PVS tables, but sampled for sensor rays only,
+whose origins are exactly the cell-of-record position, so a cell holds
+far fewer candidates (K = 80 on simple_map against its 256 triangles).
+The JAX package's opt-in v9 fan reads them (``MPENV_FAN_V9=1``); the
+port loads them keyed by RAY_TABLE_VERSION and ``_tri_hash``, and builds
+none.
+
 Cell indices divide by a tensor, never by a Python float: ATen's CUDA
 division by a Python scalar multiplies by its reciprocal, which would
 put a position on a cell boundary in another cell on the card than on
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 TABLE_VERSION = 4  # the JAX package's PVS table format
+RAY_TABLE_VERSION = 1  # its sensor-ray table format
 SHORT_TABLE_VERSION = 1
 SHORT_MARGIN = 130.0
 MOVE_MARGIN = 64.0
@@ -66,6 +75,14 @@ class CellTables:
     @property
     def dead_cell(self) -> int:
         return self.nx * self.ny
+
+
+class RayTables(CellTables):
+    """Sensor-ray candidate tables, in the CellTables layout (x-major grid
+    + one dead cell, global soup rows, -1 padding). The JAX package's TPU
+    layout of the same tables (``dir9`` / ``org9``, bf16 direction
+    coefficients for its matrix unit) is not kept: the port's kernel reads
+    the soup's rows."""
 
 
 @dataclass
@@ -113,22 +130,31 @@ def cell_index(tables: CellTables, pos: torch.Tensor) -> torch.Tensor:
                        torch.full_like(cid, tables.dead_cell), cid)
 
 
-def load_cell_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
-                     device=None) -> Optional[CellTables]:
-    """``<cache_dir>/culling.npz`` when its version and triangle hash match,
-    else None (the port does not build PVS tables)."""
+def ray_cell_index(tables: RayTables, pos: torch.Tensor) -> torch.Tensor:
+    """pos [..., 3] -> sensor-ray table cell [...] i32, by cell_index's
+    rule (the JAX package's ray_cell_index)."""
+    return cell_index(tables, pos)
+
+
+def _load_cached(tri_verts, cache_dir, name, version):
+    """The raw arrays of ``<cache_dir>/<name>`` when its version and
+    triangle hash match, else None."""
     if cache_dir is None:
         return None
-    path = os.path.join(cache_dir, "culling.npz")
+    path = os.path.join(cache_dir, name)
     if not os.path.exists(path):
         return None
     raw = dict(np.load(path))
-    if (int(raw.get("version", -1)) != TABLE_VERSION
+    if (int(raw.get("version", -1)) != version
             or str(raw.get("tri_hash", "")) != _tri_hash(tri_verts)):
         return None
+    return raw
+
+
+def _grid_tables(cls, raw, device):
     cand = np.asarray(raw["cand_idx"], np.int32)
     gmin = np.asarray(raw["grid_min"], np.float64)
-    return CellTables(
+    return cls(
         cand_idx=torch.as_tensor(cand, device=device),
         grid_min_x=float(gmin[0]),
         grid_min_y=float(gmin[1]),
@@ -137,6 +163,23 @@ def load_cell_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
         ny=int(raw["ny"]),
         K=int(cand.shape[1]),
     )
+
+
+def load_cell_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
+                     device=None) -> Optional[CellTables]:
+    """``<cache_dir>/culling.npz`` when its version and triangle hash match,
+    else None (the port does not build PVS tables)."""
+    raw = _load_cached(tri_verts, cache_dir, "culling.npz", TABLE_VERSION)
+    return None if raw is None else _grid_tables(CellTables, raw, device)
+
+
+def load_ray_tables(tri_verts: np.ndarray, cache_dir: Optional[str],
+                    device=None) -> Optional[RayTables]:
+    """``<cache_dir>/culling_ray.npz`` when its version and triangle hash
+    match, else None (the port does not build sensor-ray tables)."""
+    raw = _load_cached(tri_verts, cache_dir, "culling_ray.npz",
+                       RAY_TABLE_VERSION)
+    return None if raw is None else _grid_tables(RayTables, raw, device)
 
 
 def build_short_tables(tri_verts: np.ndarray, cells_per_side: int = 12,

@@ -10,12 +10,13 @@ implementations side by side:
     arithmetic per (ray, triangle) pair in registers.
 
 The public entry (``ray_vs_tris``, ``ray_fans_vs_tris``,
-``ray_fans_culled``, ``sphere_cast``, ``sphere_cast_culled``,
-``sphere_cast_packed``) dispatches on the device of its input: a CPU
-tensor goes to the plain version, a CUDA tensor to the kernel, anything
-else raises. Each entry counts its kernel launches in ``<entry>.launches``.
-Which entry the step calls is decided by the gates ``use_fan_cull`` here
-and ``sim/movement.py use_sc_pack``, as the JAX package decides it.
+``ray_fans_culled``, ``ray_fans_culled_v9``, ``sphere_cast``,
+``sphere_cast_culled``, ``sphere_cast_packed``) dispatches on the device
+of its input: a CPU tensor goes to the plain version, a CUDA tensor to
+the kernel, anything else raises. Each entry counts its kernel launches
+in ``<entry>.launches``. Which entry the step calls is decided by the
+gates ``use_fan_v9`` and ``use_fan_cull`` here and ``sim/movement.py
+use_sc_pack``, as the JAX package decides it.
 
 Conventions: miss => t = +inf; sphere casts return (t, winner row) where
 the winner is the lowest triangle row among equal t (the dense path's
@@ -301,20 +302,26 @@ def use_fan_cull(soup: TriSoup, tables) -> bool:
     return soup.num_tris >= 4 * tables.K
 
 
-def _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells, tables,
-                           soup: TriSoup, t_max=INF):
-    """_ray_fans_dense restricted to each fan's candidate rows
-    tables.cand_idx[cells[n]] (-1 padding skipped); hits beyond t_max
-    count as misses. -> t [N, F]."""
-    cand = tables.cand_idx[cells.long()]  # [N, K]
+def _culled_rays_plain(o, d, cells, cand_idx, soup: TriSoup, t_max=INF):
+    """Rays o, d [N, F, 3] against the candidate rows cand_idx[cells[n]]
+    of their fan (-1 padding skipped); hits beyond t_max count as
+    misses. -> t [N, F]."""
+    cand = cand_idx[cells.long()]  # [N, K]
     ok = cand >= 0
     rows = torch.where(ok, cand, torch.zeros_like(cand)).long()
-    o, d = _fan_rays(origins, zg, dirs, zgroups)
     t = _ray_tri_t(o[:, :, None, :], d[:, :, None, :],
                    soup.v0[rows][:, None], soup.e1[rows][:, None],
                    soup.e2[rows][:, None],
                    (soup.valid[rows] & ok)[:, None]).amin(dim=-1)
     return t if t_max == INF else _where_inf(t <= t_max, t)
+
+
+def _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells, tables,
+                           soup: TriSoup, t_max=INF):
+    """_ray_fans_dense restricted to each fan's candidate rows
+    tables.cand_idx[cells[n]]. -> t [N, F]."""
+    o, d = _fan_rays(origins, zg, dirs, zgroups)
+    return _culled_rays_plain(o, d, cells, tables.cand_idx, soup, t_max)
 
 
 def ray_fans_culled(origins, zg, dirs, zgroups, cells, tables,
@@ -621,3 +628,56 @@ def sc_normals_from_idx(o, d, r: float, idx, soup: TriSoup):
     tri_n = torch.where((p["t_face"] <= p["t_edge"])[..., None], face_n,
                         edge_n)
     return torch.where(p["overlap"][..., None], depen_n, tri_n)
+
+
+# ---------------------------------------------------------------------------
+# K9: sensor fans against their cell's sensor-ray table candidates
+# ---------------------------------------------------------------------------
+
+def use_fan_v9(ray_tables) -> bool:
+    """Whether the sensor fans sweep the sensor-ray tables (K9). Opt-in,
+    as in the JAX package (its ops/raycast.py): MPENV_FAN_V9=1 and the map
+    has culling_ray.npz; it takes precedence over the PVS fan (K6) and the
+    whole-soup fan (K2)."""
+    return ray_tables is not None and os.environ.get("MPENV_FAN_V9",
+                                                     "0") == "1"
+
+
+def _ray_fans_v9_plain(origins, zoff, dirs, cells, ray_tables,
+                       soup: TriSoup, t_max=INF):
+    """origins [N, 3]; zoff [N, F] per-ray origin z offsets; dirs = (dx,
+    dy, dz) each [N, F]; cells [N] ray-table cells -> t [N, F]: the dense
+    two-sided Moller-Trumbore sweep over each fan's candidate rows."""
+    zero = torch.zeros_like(zoff)
+    o = origins[:, None, :] + torch.stack([zero, zero, zoff], dim=-1)
+    return _culled_rays_plain(o, torch.stack(dirs, dim=-1), cells,
+                              ray_tables.cand_idx, soup, t_max)
+
+
+def ray_fans_culled_v9(origins, zoff, dirs, cells, ray_tables,
+                       soup: TriSoup, t_max=INF):
+    """Nearest hit of every sensor ray of N fans among its fan's
+    sensor-ray table candidates (cells [N], ops/culling.py RayTables),
+    each ray starting at origins + (0, 0, zoff[n, f]). CUDA:
+    csrc/fan_v9.cu, which finds the runs of equal z offsets of each fan
+    and sweeps them with K2's hoisted sweep."""
+    if not _route(origins):
+        return _ray_fans_v9_plain(origins, zoff, dirs, cells, ray_tables,
+                                  soup, t_max)
+    N, F = zoff.shape
+    if origins.shape != (N, 3) or cells.shape != (N,) or any(
+            c.shape != (N, F) for c in dirs):
+        raise ValueError("fan shapes disagree")
+    dx, dy, dz = (_f32(c) for c in dirs)
+    cand = ray_tables.cand_idx.to(torch.int32).contiguous()
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_v9")(
+        _ptr(_f32(origins)), _ptr(_f32(zoff)), _ptr(dx), _ptr(dy), _ptr(dz),
+        _ptr(soup.tri_rows), _ptr(cells.to(torch.int32).contiguous()),
+        _ptr(cand), N, F, ray_tables.K, _ptr(out), _stream(origins),
+    ), "fan_v9")
+    ray_fans_culled_v9.launches += 1
+    return out if t_max == INF else _where_inf(out <= t_max, out)
+
+
+ray_fans_culled_v9.launches = 0

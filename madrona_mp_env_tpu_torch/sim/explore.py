@@ -21,7 +21,9 @@ from .types import EXPLORE_WORDS, WorldState
 def explore_visited_system(cfg: EnvConfig, state: WorldState):
     W, A = state.hp.shape
     delta = state.pos - state.start_pos
-    cell_size = consts.agent_radius * 2.0
+    # a tensor divisor: ATen's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which could move a cell boundary between devices
+    cell_size = torch.full((), consts.agent_radius * 2.0, device=delta.device)
     x = ((delta[..., 0] + 0.5) / cell_size).to(torch.int32)
     y = ((delta[..., 1] + 0.5) / cell_size).to(torch.int32)
     cx = x + consts.explore_grid_max_x

@@ -8,8 +8,9 @@ pvpLidarSystem (sim.cpp:3324-3506) over [W, A, ...] tensors. All of an
 agent's sensor rays (4 LOS samples per opponent + 2x32 forward + 2x8 rear
 lidar) share its position as origin with a z offset per run, and go
 through two launches per step: the fan vs the world (kernel K2 over the
-whole soup, or K6 over the agent's PVS cell on big maps, ops/raycast.py
-use_fan_cull) and the same rays vs the agent capsules (kernel K3).
+whole soup, K6 over the agent's PVS cell on big maps, ops/raycast.py
+use_fan_cull, or K9 over its sensor-ray table cell with MPENV_FAN_V9=1,
+use_fan_v9) and the same rays vs the agent capsules (kernel K3).
 
 Observation keys match the reference trainInterface (mgr.cpp:2383-2430).
 """
@@ -26,8 +27,9 @@ from .. import consts
 from ..config import EnvConfig
 from ..assets.map_data import MapData
 from ..ops import geom
-from ..ops.culling import cell_index
-from ..ops.raycast import ray_fans_culled, ray_fans_vs_tris, use_fan_cull
+from ..ops.culling import cell_index, ray_cell_index
+from ..ops.raycast import (ray_fans_culled, ray_fans_culled_v9,
+                           ray_fans_vs_tris, use_fan_cull, use_fan_v9)
 from ..ops.raycast_cull import fan_capsules
 from .combat import eye_offset, view_height
 from .types import WorldState
@@ -145,25 +147,30 @@ def sensor_fan(cfg: EnvConfig, state: WorldState):
 
 
 def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState):
-    """All sensor rays of every agent in two launches (world fan K2 or
-    K6, capsule fan K3). Returns the LOS geometry and world/capsule hits."""
+    """All sensor rays of every agent in two launches (world fan K2, K6
+    or K9, capsule fan K3). Returns the LOS geometry and world/capsule hits."""
     W, A = state.hp.shape
     los, dirs, zg, zgroups = sensor_fan(cfg, state)
     n_tgt = los["opp_idx"].shape[1]
     n_los = n_tgt * 4
     Fn = dirs[0].shape[-1]
-    fan = (state.pos.reshape(W * A, 3), zg.reshape(W * A, -1),
-           tuple(c.reshape(W * A, Fn) for c in dirs), zgroups)
-    if use_fan_cull(m.tris, m.cells):
-        # the fans start at state.pos, so its cell is the cell of record
-        cells = cell_index(m.cells, fan[0])
-        t = ray_fans_culled(*fan, cells, m.cells, m.tris)
-    else:
-        t = ray_fans_vs_tris(*fan, m.tris)
-    t = t.reshape(W, A, Fn)
     zoff = torch.repeat_interleave(
         zg, torch.as_tensor(zgroups, device=zg.device), dim=-1
     )
+    pos = state.pos.reshape(W * A, 3)
+    flat_dirs = tuple(c.reshape(W * A, Fn) for c in dirs)
+    # the fans start at state.pos, so its cell is the cell of record
+    if use_fan_v9(m.ray_cells):
+        t = ray_fans_culled_v9(pos, zoff.reshape(W * A, Fn), flat_dirs,
+                               ray_cell_index(m.ray_cells, pos),
+                               m.ray_cells, m.tris)
+    elif use_fan_cull(m.tris, m.cells):
+        t = ray_fans_culled(pos, zg.reshape(W * A, -1), flat_dirs, zgroups,
+                            cell_index(m.cells, pos), m.cells, m.tris)
+    else:
+        t = ray_fans_vs_tris(pos, zg.reshape(W * A, -1), flat_dirs, zgroups,
+                             m.tris)
+    t = t.reshape(W, A, Fn)
     t_cap, cap_idx = fan_capsules(state.pos, zoff, dirs, state.alive > 0.0)
 
     H_f, W_f = consts.fwd_lidar_height, consts.fwd_lidar_width

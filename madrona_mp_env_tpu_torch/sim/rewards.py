@@ -111,7 +111,9 @@ def reward_system(cfg: EnvConfig, m: MapData, state: WorldState
     # team mean + team-spirit blend; members summed in index order
     ts = cfg.team_size
     team_sum = _seq_sum(r.reshape(W, 2, ts))
-    team_mean = team_sum / float(ts)
+    # divide by a tensor: ATen's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which the CPU and K5 do not
+    team_mean = team_sum / torch.full((), float(ts), device=r.device)
     spirit = rc[..., cfgmod.RC_TEAM_SPIRIT]
     blended = r * (1.0 - spirit) + team_mean[:, teams.long()] * spirit
     return state.replace(reward=blended, team_rewards=team_mean)

@@ -34,6 +34,40 @@ from .spawn import spawn_agents
 from .types import Actions, WorldState
 
 
+def fused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
+               force_reset: torch.Tensor, tail=None):
+    """The fused scalar tail (ops/tail_fused.py): autoheal -> zone ->
+    match info -> rewards -> done in one pass (``tail``: K5's entry by
+    default, or its plain version). Breadcrumbs, filters, goal regions and explore read no zone
+    or match state, so they run first; the filters take the
+    post-increment step stamp. Returns (state, new_captured)."""
+    state = breadcrumbs.breadcrumb_system(cfg, state)
+    state = explore.filters_system(cfg, state, shot_victim,
+                                   step_override=state.cur_step + 1)
+    state = explore.goal_regions_system(cfg, m, state)
+    state = explore.explore_visited_system(cfg, state)
+    return (tail or tail_fused)(cfg, m, state, force_reset)
+
+
+def unfused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
+                 force_reset: torch.Tensor):
+    """The reference's system order, one system at a time; equal to
+    fused_tail bit for bit on every device. Returns (state,
+    new_captured)."""
+    state = combat.autoheal_system(cfg, state)
+    state = zones.zone_system(cfg, m, state)
+    state = breadcrumbs.breadcrumb_system(cfg, state)
+    state, new_captured = zones.zone_match_info_system(cfg, m, state,
+                                                       force_reset != 0)
+    state = explore.filters_system(cfg, state, shot_victim)
+    state = explore.goal_regions_system(cfg, m, state)
+    state = explore.explore_visited_system(cfg, state)
+    state = rewards.reward_system(cfg, m, state)
+    done = state.is_finished.to(torch.int32)[:, None].expand(
+        -1, cfg.num_agents)
+    return state.replace(done=done.contiguous()), new_captured
+
+
 def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
                     actions: Actions, force_reset: torch.Tensor
                     ) -> Tuple[WorldState, Dict]:
@@ -53,34 +87,9 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
         state = spawn_agents(cfg, m, state,
                              rng.system_key(stepk, rng.Salt.SPAWN),
                              is_respawn=True)
-    if use_tail_fused(cfg):
-        # the fused scalar tail (ops/tail_fused.py): autoheal -> zone ->
-        # match info -> rewards -> done in one pass. Breadcrumbs, filters,
-        # goal regions and explore read no zone or match state, so they
-        # run first; the filters take the post-increment step stamp.
-        state = breadcrumbs.breadcrumb_system(cfg, state)
-        state = explore.filters_system(
-            cfg, state, fire_events["shot_victim"],
-            step_override=state.cur_step + 1,
-        )
-        state = explore.goal_regions_system(cfg, m, state)
-        state = explore.explore_visited_system(cfg, state)
-        state, new_captured = tail_fused(cfg, m, state, force_reset)
-    else:
-        state = combat.autoheal_system(cfg, state)
-        state = zones.zone_system(cfg, m, state)
-        state = breadcrumbs.breadcrumb_system(cfg, state)
-        state, new_captured = zones.zone_match_info_system(
-            cfg, m, state, force_reset != 0
-        )
-        state = explore.filters_system(cfg, state,
-                                       fire_events["shot_victim"])
-        state = explore.goal_regions_system(cfg, m, state)
-        state = explore.explore_visited_system(cfg, state)
-        state = rewards.reward_system(cfg, m, state)
-        A = cfg.num_agents
-        done = state.is_finished.to(torch.int32)[:, None].expand(-1, A)
-        state = state.replace(done=done.contiguous())
+    tail = fused_tail if use_tail_fused(cfg) else unfused_tail
+    state, new_captured = tail(cfg, m, state, fire_events["shot_victim"],
+                               force_reset)
     outputs = {
         "reward": state.reward,
         "done": state.done,

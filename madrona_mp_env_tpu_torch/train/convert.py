@@ -12,7 +12,10 @@ writes such a checkpoint to an ``.npz`` of flat "/"-joined keys:
 
 ``load_policy_npz`` reads that file with numpy alone and builds the
 port's policies; ``params_from_jax`` and ``normalizer_from_jax`` do the
-mapping on nested dicts of arrays.
+mapping on nested dicts of arrays. ``opt_state_from_jax`` carries a JAX
+TrainState's Adam moments (the optax chain's ScaleByAdamState, stacked
+[E, ...] like the params) across, so a port trainer can start where a
+JAX one stands.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from .normalizer import EMANormalizerState
 from .policy import ActorCriticNet, build_actor_critic
+from .trainer import AdamState
 
 _LSTM_GATES = ("i", "f", "g", "o")
 _EMBEDS = ("fwd_lidar_embed", "rear_lidar_embed", "self_embed",
@@ -122,6 +126,17 @@ def normalizer_from_jax(d) -> EMANormalizerState:
         mu={k: t(v) for k, v in d["mu"].items()},
         var={k: t(v) for k, v in d["var"].items()},
         count=torch.tensor(np.asarray(d["count"]), dtype=torch.int32))
+
+
+def opt_state_from_jax(mu, nu, count) -> List[AdamState]:
+    """ScaleByAdamState leaves (mu, nu: flax param trees with [E, ...]
+    leaves; count [E]) -> E AdamStates with the port's parameter names,
+    float32 on the CPU."""
+    count = np.asarray(count).reshape(-1)
+    return [AdamState(count=torch.tensor(int(c), dtype=torch.int32),
+                      mu=m, nu=n)
+            for c, m, n in zip(count, params_from_jax(mu),
+                               params_from_jax(nu))]
 
 
 def load_policy_npz(path: str, device=None

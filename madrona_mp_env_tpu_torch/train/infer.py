@@ -2,7 +2,8 @@
 package's train/infer.py EvalManager).
 
 P policies share the worlds by the trainer's static block routing
-((world w, team t) -> policy (2w + t) % P); every step normalizes the
+((world w, team t) -> policy (2w + t) % P, pbt.make_matchmaking's
+cross-play); every step normalizes the
 observations, runs each policy on its block, samples (or takes the best)
 actions, steps the env, folds finished matches into the crossplay ELO and
 clears the recurrent state of agents whose episode ended.
@@ -37,7 +38,8 @@ from .elo import elo_update_masked
 from .normalizer import EMANormalizerState, normalize_obs
 from .policy import (ActorCriticNet, clear_rnn_states, get_episode_scores,
                      init_rnn_states)
-from .trainer import POLICY_OBS_KEYS, TrainConfig, _static_assignment
+from .pbt import PBTConfig, make_matchmaking
+from .trainer import POLICY_OBS_KEYS, _train_permutation
 
 EVAL_SIM_CTRL = (1, 0, 0)  # [evalMode, randomizeEpisodeLength, flipTeams]
 
@@ -89,14 +91,13 @@ class EvalManager:
         self.B = self.W * self.A
         self.BP = self.B // self.P
 
-        assign, perm, inv_perm = _static_assignment(
-            cfg, TrainConfig(num_worlds=self.W,
-                             num_train_policies=num_policies))
+        assign, _ = make_matchmaking(self.W, self.A, cfg.team_size,
+                                     PBTConfig(num_train_policies=self.P))
+        perm = _train_permutation(assign, self.P).reshape(-1)
         dev = self.device
         self.assignment = torch.as_tensor(assign, device=dev)
-        self.perm = torch.as_tensor(perm, dtype=torch.int64, device=dev)
-        self.inv_perm = torch.as_tensor(inv_perm, dtype=torch.int64,
-                                        device=dev)
+        self.perm = torch.as_tensor(perm, device=dev)
+        self.inv_perm = torch.as_tensor(np.argsort(perm), device=dev)
         self.team_policies = self.assignment[:, ::cfg.team_size]  # [W, 2]
         self._no_reset = torch.zeros(self.W, dtype=torch.int32, device=dev)
 

@@ -70,13 +70,33 @@ class PolicyLSTM(nn.Module):
         """Zero the state where episodes ended; should_clear [B]."""
         return torch.where(should_clear[None, ..., None], 0.0, rnn_state)
 
-    def forward(self, rnn_state, x):
-        c, h = rnn_state[0], rnn_state[1]
-        y = self.h_proj(h) + self.x_proj(x)
+    def _gates(self, y, c):
+        """y: pre-activation [B, 4H] in (i, f, g, o) order -> (c, h)."""
         i, f, g, o = torch.split(y, self.hidden_dim, dim=-1)
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_c, torch.sigmoid(o) * torch.tanh(new_c)
+
+    def forward(self, rnn_state, x):
+        c, h = rnn_state[0], rnn_state[1]
+        new_c, new_h = self._gates(self.h_proj(h) + self.x_proj(x), c)
         return self.out_ln(new_h), torch.stack([new_c, new_h])
+
+    def sequence(self, rnn_start_state, dones, xs):
+        """BPTT over xs [T, B, C] from rnn_start_state [2, B, H], zeroing
+        the state after steps where dones [T, B] != 0 -> outputs [T, B,
+        H]. The x-projection of all T steps is one matmul; each step adds
+        only the h-recurrence, and the LayerNorm runs over [T, B, H] at
+        once."""
+        xp = self.x_proj(xs)
+        c, h = rnn_start_state[0], rnn_start_state[1]
+        outs = []
+        for t in range(xs.shape[0]):
+            c, h = self._gates(self.h_proj(h) + xp[t], c)
+            outs.append(h)
+            ended = (dones[t] != 0)[..., None]
+            c = torch.where(ended, 0.0, c)
+            h = torch.where(ended, 0.0, h)
+        return self.out_ln(torch.stack(outs))
 
 
 class DenseLayerDiscreteActor(nn.Module):

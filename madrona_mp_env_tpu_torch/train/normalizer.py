@@ -1,8 +1,8 @@
 """EMA observation normalizer (the JAX package's train/normalizer.py).
 
 Per-feature running mean and variance, with a skip-list of observations
-that are already bounded (positions, masks, filter bits). Only what the
-eval path reads is here; ``update_normalizer`` comes with the trainer.
+that are already bounded (positions, masks, filter bits), folded in from
+each rollout step's batch by ``update_normalizer``.
 """
 
 from __future__ import annotations
@@ -65,3 +65,22 @@ def normalize_obs(state: EMANormalizerState, obs: Dict[str, torch.Tensor]
         else:
             out[k] = (v - state.mu[k]) * torch.rsqrt(state.var[k] + 1e-5)
     return out
+
+
+def update_normalizer(state: EMANormalizerState,
+                      obs: Dict[str, torch.Tensor],
+                      decay: float = EMA_DECAY) -> EMANormalizerState:
+    """Fold a batch of raw observations into the EMA stats (every leading
+    axis is batch). One update with decay^B equals B sequential
+    per-sample EMA updates against the batch statistics."""
+    mu, var = dict(state.mu), dict(state.var)
+    for k in state.mu:
+        v = obs[k].to(torch.float32)
+        v = v.reshape(-1, v.shape[-1])
+        batch_mu = v.mean(0)
+        batch_var = v.var(0, correction=0)
+        eff = decay ** v.shape[0]
+        mu[k] = eff * state.mu[k] + (1.0 - eff) * batch_mu
+        var[k] = eff * state.var[k] + (1.0 - eff) * (
+            batch_var + (batch_mu - state.mu[k]) ** 2)
+    return EMANormalizerState(mu=mu, var=var, count=state.count + 1)

@@ -4,9 +4,9 @@ Per-group observation embeddings with a 16-frequency sinusoidal position
 encoding, opponent masking on the actor side, MaxPoolNet (self + lidars +
 max-pool over entities -> MLP 512 x 3) feeding an LSTM(512) + LayerNorm,
 separate actor and critic encoders, dense discrete heads {move: [3, 8, 3,
-3], aim: [13, 7]} and a dense critic. Float32 throughout. Only the single
-step the eval rollout runs is here; the BPTT ``sequence`` comes with the
-trainer (ROADMAP M10).
+3], aim: [13, 7]} and a dense critic. Float32 throughout. ``forward`` is
+the single step of the rollouts, ``sequence`` the BPTT recomputation of
+the PPO loss.
 """
 
 from __future__ import annotations
@@ -115,23 +115,39 @@ class ActorCriticNet(nn.Module):
         self.actor_head_aim = DenseLayerDiscreteActor(RNN_HIDDEN, AIM_BUCKETS)
         self.critic_head = DenseLayerCritic(RNN_HIDDEN)
 
-    def forward(self, rnn_states, obs: Dict[str, torch.Tensor]):
-        """One step. rnn_states [2 (actor/critic), 2 (c/h), B, H] ->
-        (ActorDistributions, value [B], new rnn_states)."""
+    def _features(self, obs: Dict[str, torch.Tensor]):
+        """(actor, critic) encoder outputs [..., 512]."""
         feats = self.prefix(obs)
         # the actor sees only the opponents its team knows about
         actor_feats = dict(feats)
         actor_feats["opponents"] = torch.where(
             feats["opponent_masks"][..., None] == 1.0, feats["opponents"],
             0.0)
-        a_out, a_state = self.actor_rnn(rnn_states[0],
-                                        self.actor_net(actor_feats))
-        c_out, c_state = self.critic_rnn(rnn_states[1],
-                                         self.critic_net(feats))
-        dists = ActorDistributions(discrete=self.actor_head_discrete(a_out),
-                                   aim=self.actor_head_aim(a_out))
-        return dists, self.critic_head(c_out), torch.stack([a_state,
-                                                            c_state])
+        return self.actor_net(actor_feats), self.critic_net(feats)
+
+    def _heads(self, a_out):
+        return ActorDistributions(discrete=self.actor_head_discrete(a_out),
+                                  aim=self.actor_head_aim(a_out))
+
+    def forward(self, rnn_states, obs: Dict[str, torch.Tensor]):
+        """One step. rnn_states [2 (actor/critic), 2 (c/h), B, H] ->
+        (ActorDistributions, value [B], new rnn_states)."""
+        a, c = self._features(obs)
+        a_out, a_state = self.actor_rnn(rnn_states[0], a)
+        c_out, c_state = self.critic_rnn(rnn_states[1], c)
+        return (self._heads(a_out), self.critic_head(c_out),
+                torch.stack([a_state, c_state]))
+
+    def sequence(self, rnn_start_states, dones, obs_seq, actions):
+        """BPTT over a stored trajectory chunk: obs_seq leaves [T, B, ...],
+        dones [T, B], rnn_start_states [2, 2, B, H], actions {"discrete":
+        [T, B, 4], "aim": [T, B, 2]} -> (log_probs, entropies, values
+        [T, B]), the PPO loss's recomputation."""
+        a, c = self._features(obs_seq)
+        a_outs = self.actor_rnn.sequence(rnn_start_states[0], dones, a)
+        c_outs = self.critic_rnn.sequence(rnn_start_states[1], dones, c)
+        log_probs, entropies = self._heads(a_outs).action_stats(actions)
+        return log_probs, entropies, self.critic_head(c_outs)
 
 
 def _seeded_init(net: ActorCriticNet, seed: int) -> None:

@@ -2,7 +2,7 @@
 
 Reproduces ``jax.random`` with ``jax_threefry_partitionable=True`` (the
 default from jax 0.5 on): ``fold_in``, ``split``, ``uniform`` and
-``randint`` give the same bits as the JAX package, so the port's spawns,
+``randint`` and ``permutation`` give the same bits as the JAX package, so the port's spawns,
 resets and recoil draw the same numbers from the same keys.
 
 A key is an int64 tensor ``[..., 2]`` holding the two uint32 words of the
@@ -16,6 +16,8 @@ chains (reference src/sim.cpp:743-749): every draw is keyed by
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -142,3 +144,17 @@ def step_key(episode_key_data: torch.Tensor, cur_step) -> torch.Tensor:
 
 def system_key(stepk: torch.Tensor, salt: int) -> torch.Tensor:
     return fold_in(stepk, salt)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.permutation(key, n): a permutation of arange(n), int64
+    [n], for one key [2]. JAX's _shuffle: ceil(3 ln n / ln(2^32 - 1))
+    rounds of (key, sub = split(key); a stable sort of the values by
+    32-bit random_bits(sub))."""
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -32,7 +32,8 @@ def _imported_roots(path):
 
 
 TRAIN_MODULES = ("__init__", "convert", "distributions", "elo", "infer",
-                 "models", "normalizer", "policy", "trainer")
+                 "metrics", "models", "normalizer", "pbt", "policy", "ppo",
+                 "train", "trainer")
 
 
 def test_port_imports_no_jax():
@@ -41,6 +42,7 @@ def test_port_imports_no_jax():
     train = {os.path.relpath(p, PKG) for p in files if "train" in p}
     assert train == {f"train/{m}.py" for m in TRAIN_MODULES}
     assert os.path.join(PKG, "ops", "tail_fused.py") in files
+    assert os.path.join(PKG, "ops", "culling.py") in files
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -71,3 +73,16 @@ def test_unported_config_raises(simple_map_dir):
     cfg = mt.EnvConfig(task=mt.Task.TDM, team_size=2)
     with pytest.raises(NotImplementedError):
         mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
+
+
+def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):
+    """The train CLI runs on the card unless --cpu asks for the CPU."""
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--num-worlds", "1", "--team-size", "2", "--scene",
+            simple_map_dir]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.build(train_cli.parse_args(args))
+    _, _, env, mgr = train_cli.build(train_cli.parse_args(args + ["--cpu"]))
+    assert env.device.type == mgr.device.type == "cpu"

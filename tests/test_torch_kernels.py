@@ -7,7 +7,8 @@ machine run them with
 Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
 capsule indices exact. The big-map kernels (K6, K4' packed, and K2 and K4
-dense over town_map's 6,144-triangle soup) run on data/town_map.
+dense over town_map's 6,144-triangle soup) run on data/town_map; K9 on
+simple_map's sensor-ray tables.
 """
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch
 
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
-from madrona_mp_env_tpu_torch.ops.culling import cell_index, short_cell_index
+from madrona_mp_env_tpu_torch.ops.culling import (cell_index, ray_cell_index,
+                                                   short_cell_index)
 from madrona_mp_env_tpu_torch.sim import movement
 
 pytestmark = pytest.mark.cuda
@@ -109,6 +111,39 @@ def test_fan_culled_kernel(town_map):
     assert raycast.ray_fans_culled.launches == n0 + 1
     assert _eq(t, raycast._ray_fans_culled_plain(
         org, zg, dirs, zgroups, cells, town_map.cells, town_map.tris))
+    assert bool(torch.isfinite(t).float().mean() > 0.3)
+
+
+@pytest.mark.parametrize("runs", ["sensor", "every_ray", "long_fan"])
+def test_fan_v9_kernel(gpu_map, runs):
+    """K9 over each fan's sensor-ray table cell, per-ray z offsets: the
+    sensor fan's 5 runs; a run per ray (104 groups, hoisted 8 at a time);
+    and 300-ray fans of 30 runs (run detection over several blocks of
+    threads). Dead agents take the dead cell."""
+    N = 384
+    F = 300 if runs == "long_fan" else 104
+    org = _points(gpu_map, N, 30, (0, 5))
+    org[::16, 2] = 10000.0
+    g = torch.Generator(device="cuda").manual_seed(31)
+    if runs == "sensor":
+        reps = torch.tensor([24, 32, 32, 8, 8], device="cuda")
+        zg = 10.0 + 50.0 * torch.rand((N, 5), generator=g, device="cuda")
+        zoff = torch.repeat_interleave(zg, reps, dim=-1)
+    elif runs == "every_ray":
+        zoff = 10.0 + 50.0 * torch.rand((N, F), generator=g, device="cuda")
+    else:
+        zg = 10.0 + 50.0 * torch.rand((N, 30), generator=g, device="cuda")
+        zoff = torch.repeat_interleave(zg, 10, dim=-1)
+    d = _dirs(N * F, 32).reshape(N, F, 3)
+    dirs = tuple(d[..., k].contiguous() for k in range(3))
+    rt = gpu_map.ray_cells
+    cells = ray_cell_index(rt, org)
+    assert bool((cells == rt.dead_cell).any())
+    n0 = raycast.ray_fans_culled_v9.launches
+    t = raycast.ray_fans_culled_v9(org, zoff, dirs, cells, rt, gpu_map.tris)
+    assert raycast.ray_fans_culled_v9.launches == n0 + 1
+    assert _eq(t, raycast._ray_fans_v9_plain(org, zoff, dirs, cells, rt,
+                                             gpu_map.tris))
     assert bool(torch.isfinite(t).float().mean() > 0.3)
 
 
@@ -211,6 +246,47 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
     assert _eq(ck, cp)
     for k, v in sp.leaves().items():
         assert _eq(getattr(sk, k), v), k
+
+
+@pytest.mark.parametrize("team_size", [2, 6])
+def test_unfused_tail_equals_fused_plain_on_card(simple_map_dir, gpu_map,
+                                                 team_size):
+    """The reference's unfused system chain on the card equals the fused
+    order through tail_fused_plain bit for bit (on the card ATen divides
+    by a Python scalar through its reciprocal; both divide by tensors)."""
+    import os
+    import sys
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.ops import tail_fused as tf
+    from madrona_mp_env_tpu_torch.sim import step as step_mod
+    from madrona_mp_env_tpu_torch.sim.types import (init_world_state,
+                                                    world_state_from_numpy,
+                                                    world_state_to_numpy)
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__),
+                                    "fixtures_torch"))
+    from tail_states import NUM_WORLDS, tail_scenario
+
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=team_size)
+    m = load_map(simple_map_dir, cfg, device="cuda")
+    leaves = world_state_to_numpy(init_world_state(cfg, m.num_goal_regions,
+                                                   NUM_WORLDS))
+    fr = tail_scenario(leaves, team_size, m.zone_frames.cpu().numpy(),
+                       m.num_zones, m.world_min.cpu().numpy(),
+                       m.world_max.cpu().numpy(), cfg.episode_len)
+    fr = torch.as_tensor(fr, device="cuda")
+    victims = torch.as_tensor(np.random.default_rng(4).integers(
+        -1, cfg.num_agents, (NUM_WORLDS, cfg.num_agents)), device="cuda")
+    sf, cf = step_mod.fused_tail(cfg, m, world_state_from_numpy(
+        leaves, device="cuda"), victims, fr, tail=tf.tail_fused_plain)
+    su, cu = step_mod.unfused_tail(cfg, m, world_state_from_numpy(
+        leaves, device="cuda"), victims, fr)
+    assert _eq(cf, cu)
+    for k, v in su.leaves().items():
+        w = getattr(sf, k)
+        assert torch.equal(v, w) or (v.dtype.is_floating_point and bool(
+            ((v == w) | (torch.isnan(v) & torch.isnan(w))).all())), k
 
 
 @pytest.mark.parametrize("scene", ["simple_map", "town_map"])

@@ -218,3 +218,165 @@ def test_packed_cast_equals_dense(maps):
     assert near.float().mean() > 0.1
     assert torch.equal(tp[near, 0], td[near, 0])
     assert bool((tp[~near, 0] > 20.0).all())
+
+
+# ---------------------------------------------------------------------------
+# K9: the sensor fans over the sensor-ray tables (MPENV_FAN_V9=1)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def v9_fans(maps):
+    """The sensor fans of a Zone 6v6 reset at 2 worlds on simple_map, as
+    the step hands them to K9: (origins [N, 3], per-ray zoff [N, F], dirs
+    (dx, dy, dz) [N, F], ray-table cells [N])."""
+    from madrona_mp_env_tpu_torch.ops.culling import ray_cell_index
+    from madrona_mp_env_tpu_torch.sim.observations import sensor_fan
+
+    tm = maps[1]
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=6)
+    env = mt.Env(cfg, os.path.join(os.path.dirname(__file__), "..", "data",
+                                   "simple_map"), num_worlds=2, seed=3,
+                 device="cpu")
+    state, _ = env.reset()
+    _, dirs, zg, zgroups = sensor_fan(cfg, state)
+    W, A = state.hp.shape
+    zoff = torch.repeat_interleave(zg, torch.as_tensor(zgroups), dim=-1)
+    org = state.pos.reshape(W * A, 3)
+    return (org, zoff.reshape(W * A, -1),
+            tuple(c.reshape(W * A, -1) for c in dirs),
+            ray_cell_index(tm.ray_cells, org))
+
+
+def _v9_rays(org, zoff, dirs):
+    zero = torch.zeros_like(zoff)
+    o = org[:, None, :] + torch.stack([zero, zero, zoff], dim=-1)
+    return o.numpy(), torch.stack(dirs, dim=-1).numpy()
+
+
+def test_ray_tables_match_jax(maps):
+    """The port loads simple_map's culling_ray.npz as JAX does (candidate
+    rows and grid), and its ray-table cells equal JAX's ray_cell_index on
+    random, boundary and dead positions; a stale hash loads nothing."""
+    from madrona_mp_env_tpu.ops import culling as jcull
+    from madrona_mp_env_tpu_torch.ops import culling
+
+    jm, tm = maps
+    jt, tt = jm.ray_cells, tm.ray_cells
+    assert tt.K == jt.K == 80 and tt.num_cells == 257
+    assert np.array_equal(tt.cand_idx.numpy(), np.asarray(jt.cand_idx))
+    assert (tt.grid_min_x, tt.grid_min_y, tt.cell_size, tt.nx, tt.ny) == (
+        jt.grid_min_x, jt.grid_min_y, jt.cell_size, jt.nx, jt.ny)
+    g = np.random.default_rng(11)
+    edge = np.float32(tt.grid_min_x + 3 * np.float32(tt.cell_size))
+    pos = np.concatenate([
+        g.uniform(-2500, 2500, (512, 3)),
+        np.stack([np.full(64, edge), g.uniform(-2000, 2000, 64),
+                  g.uniform(0, 100, 64)], -1),
+        np.stack([np.nextafter(np.full(64, edge, np.float32), -np.inf),
+                  g.uniform(-2000, 2000, 64), g.uniform(0, 100, 64)], -1),
+        [[0.0, 0.0, 10000.0], [5.0, -3.0, 5000.5]],
+    ]).astype(np.float32)
+    want = np.asarray(jcull.ray_cell_index(jt, jnp.asarray(pos)))
+    got = culling.ray_cell_index(tt, torch.as_tensor(pos)).numpy()
+    assert np.array_equal(got, want) and (want == 256).sum() == 2
+    tri = tm.tris.v0.numpy()[:4, None].repeat(3, 1)
+    assert culling.load_ray_tables(
+        tri, os.path.dirname(__file__) + "/../data/simple_map") is None
+
+
+def test_fan_v9_plain_matches_jax_sweep(maps, v9_fans):
+    """K9's plain version against the JAX package's jnp sweep over each
+    ray's candidate rows (ops/culling.py verify_ray_tables's pair), within
+    1e-6 relative; the wrapper takes it on the CPU and t_max cuts hits."""
+    from madrona_mp_env_tpu.ops import culling as jcull
+
+    jm, tm = maps
+    org, zoff, dirs, cells = v9_fans
+    got = raycast._ray_fans_v9_plain(org, zoff, dirs, cells, tm.ray_cells,
+                                     tm.tris).numpy()
+    o, d = _v9_rays(org, zoff, dirs)
+    F = zoff.shape[1]
+    ids = np.asarray(jm.ray_cells.cand_idx)[np.repeat(cells.numpy(), F)]
+    safe = np.maximum(ids, 0)
+    s = jm.tris
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda oo, dd, a, b, c, vv: jcull._dense_ray_idx(
+            oo, dd, a, b, c, vv)[0]))(
+        o.reshape(-1, 3), d.reshape(-1, 3), s.v0[safe], s.e1[safe],
+        s.e2[safe], s.valid[safe] & jnp.asarray(ids >= 0))).reshape(got.shape)
+    assert np.array_equal(np.isfinite(want), np.isfinite(got))
+    hit = np.isfinite(want)
+    assert hit.mean() > 0.3
+    assert np.all(np.abs(got[hit] - want[hit])
+                  <= 1e-6 * np.maximum(1.0, np.abs(want[hit])))
+    assert np.array_equal(got, raycast.ray_fans_culled_v9(
+        org, zoff, dirs, cells, tm.ray_cells, tm.tris).numpy())
+    cut = raycast.ray_fans_culled_v9(org, zoff, dirs, cells, tm.ray_cells,
+                                     tm.tris, t_max=500.0).numpy()
+    assert np.array_equal(cut, np.where(got <= 500.0, got, np.inf))
+
+
+def test_fan_v9_plain_vs_jax_interpret_kernel(maps, v9_fans, monkeypatch):
+    """The TPU kernel itself (Pallas interpret mode) on the same fans and
+    tables, held to its own test's bar (tests/test_pallas_parity.py
+    TestFanKernelV9): its direction dots are bf16, so t within 2e-2
+    relative where both hit and hits and misses disagree on <= 2% of the
+    rays."""
+    monkeypatch.setenv("MPENV_PALLAS", "interpret")
+    from madrona_mp_env_tpu.ops.raycast_pallas import ray_fans_culled_v9
+
+    jm, tm = maps
+    org, zoff, dirs, cells = v9_fans
+    want = np.asarray(ray_fans_culled_v9(
+        jnp.asarray(org.numpy()), jnp.asarray(zoff.numpy()),
+        tuple(jnp.asarray(c.numpy()) for c in dirs),
+        jnp.asarray(cells.numpy()), jm.ray_cells))
+    got = raycast._ray_fans_v9_plain(org, zoff, dirs, cells, tm.ray_cells,
+                                     tm.tris).numpy()
+    assert (np.isfinite(want) != np.isfinite(got)).mean() <= 0.02
+    both = np.isfinite(want) & np.isfinite(got)
+    assert both.mean() > 0.3
+    rel = np.abs(got[both] - want[both]) / np.maximum(1.0, want[both])
+    assert rel.max() <= 2e-2
+
+
+def test_fan_v9_agrees_with_whole_soup(maps, v9_fans):
+    """The sensor-ray tables are sampled, not exact: hits and misses agree
+    with the whole-soup sweep on >= 99.5% of the rays (the PVS bar)."""
+    _, tm = maps
+    org, zoff, dirs, cells = v9_fans
+    got = raycast._ray_fans_v9_plain(org, zoff, dirs, cells, tm.ray_cells,
+                                     tm.tris)
+    o, d = (torch.as_tensor(x) for x in _v9_rays(org, zoff, dirs))
+    dense = raycast._ray_vs_tris_dense(o, d, tm.tris)
+    agree = float((torch.isfinite(got) == torch.isfinite(dense))
+                  .float().mean())
+    assert agree >= 0.995, agree
+
+
+def test_fan_v9_gate_routes_the_step(maps, monkeypatch):
+    """MPENV_FAN_V9=1 on a map with sensor-ray tables sends the step's
+    fans to K9's entry, ahead of the PVS and whole-soup fans; without the
+    variable, or on a map without the tables, it does not."""
+    from madrona_mp_env_tpu_torch.sim import observations
+
+    _, tm = maps
+    assert not raycast.use_fan_v9(tm.ray_cells)
+    monkeypatch.setenv("MPENV_FAN_V9", "1")
+    assert raycast.use_fan_v9(tm.ray_cells) and not raycast.use_fan_v9(None)
+    called = []
+    for name in ("ray_fans_culled_v9", "ray_fans_culled",
+                 "ray_fans_vs_tris"):
+        fn = getattr(observations, name)
+
+        def rec(*a, _fn=fn, _name=name, **k):
+            called.append(_name)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(observations, name, rec)
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=2)
+    env = mt.Env(cfg, os.path.join(os.path.dirname(__file__), "..", "data",
+                                   "simple_map"), num_worlds=1, device="cpu")
+    state, _ = env.reset()
+    env.step(state, env.zero_actions())
+    assert called == ["ray_fans_culled_v9"] * 2  # reset and step
