@@ -29,10 +29,6 @@ class ParamExplore:
     min_scale: float
     max_scale: float
     log10_scale: bool = False
-    clip_perturb: bool = False
-    # multiplicative perturbation range on population update
-    perturb_lo: float = 0.8
-    perturb_hi: float = 1.25
 
     @property
     def lo(self) -> float:
@@ -60,8 +56,6 @@ class PBTConfig:
     self_play_portion: float = 0.0
     cross_play_portion: float = 1.0
     past_play_portion: float = 0.0
-    # population update selection: bottom k replaced from top k
-    selection_fraction: float = 0.25
 
 
 def make_matchmaking(num_worlds: int, num_agents: int, team_size: int,

@@ -142,7 +142,6 @@ def build(args):
         pbt=pbt,
         lr_explore=lr_explore,
         seed=args.seed,
-        metrics_buffer_size=args.metrics_buffer_size,
     )
     device = "cpu" if args.cpu else None
     scene = args.scene or os.path.join(REPO, "data", "simple_map")

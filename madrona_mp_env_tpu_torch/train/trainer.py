@@ -91,7 +91,6 @@ class TrainConfig:
     pbt: Optional[PBTConfig] = None  # play portions (past policies: later)
     lr_explore: Optional[ParamExplore] = None  # per-policy lr spread
     seed: int = 5
-    metrics_buffer_size: int = 5
 
     @property
     def chunk_len(self) -> int:
@@ -124,9 +123,6 @@ class TrainState:
     update_idx: int
     elo: torch.Tensor  # [E] per-policy rating
     hyper_params: Dict[str, torch.Tensor]  # per policy, {"lr": [E]}
-    assignment: torch.Tensor  # [W, A] i32 policy slot per actor
-    train_perm: torch.Tensor  # [E, BE] flat-actor indices per block
-    pending_reset: bool  # force-reset every world on the next rollout
 
 
 def _train_permutation(assign: np.ndarray, E: int) -> np.ndarray:
@@ -203,32 +199,31 @@ class TrainingManager:
                 "past policies come with the PBT slice (ROADMAP M10 rest)")
         assign, _ = make_matchmaking(self.W, self.A, cfg.team_size, self.pbt)
         dev = self.device
-        self.assignment0 = torch.as_tensor(assign, device=dev)
-        self.train_perm0 = torch.as_tensor(_train_permutation(assign, self.E),
-                                           device=dev)
-        self.BE = self.train_perm0.shape[1]
+        self.assignment = torch.as_tensor(assign, device=dev)  # [W, A] slot
+        # [E, BE] flat-actor indices of each train block
+        self.train_perm = torch.as_tensor(_train_permutation(assign, self.E),
+                                          device=dev)
+        self.BE = self.train_perm.shape[1]
         self.model = ActorCriticNet().to(dev).requires_grad_(False)
         self._seq = _Sequence(self.model)
         self._obs_slots = None
 
     # -------------------------------------------------- block routing
-    def to_blocks(self, x, train_perm=None):
+    def to_blocks(self, x):
         """[W, A, ...] -> train blocks [E, BE, ...]. One policy: a
         reshape (every actor is in block 0, in index order)."""
         if self.E == 1:
             return x.reshape((1, self.B) + x.shape[2:])
-        perm = self.train_perm0 if train_perm is None else train_perm
-        return x.reshape((self.B,) + x.shape[2:])[perm]
+        return x.reshape((self.B,) + x.shape[2:])[self.train_perm]
 
-    def from_blocks(self, train_b, train_perm=None):
+    def from_blocks(self, train_b):
         """Train blocks [E, BE, ...] back to [W, A, ...]."""
         tail = train_b.shape[2:]
         if self.E == 1:
             return train_b.reshape((self.W, self.A) + tail)
-        perm = self.train_perm0 if train_perm is None else train_perm
         flat = torch.zeros((self.B,) + tail, dtype=train_b.dtype,
                            device=train_b.device)
-        flat[perm.reshape(-1)] = train_b.reshape((-1,) + tail)
+        flat[self.train_perm.reshape(-1)] = train_b.reshape((-1,) + tail)
         return flat.reshape((self.W, self.A) + tail)
 
     def _policy_obs(self, obs):
@@ -295,14 +290,12 @@ class TrainingManager:
             lr0 = torch.full((self.E,), self.tcfg.lr, dtype=torch.float32)
         return TrainState(
             params=params, opt_state=opt_state, normalizer=normalizer,
-            env_state=env_state.replace(policy_idx=self.assignment0.clone()),
+            env_state=env_state.replace(policy_idx=self.assignment.clone()),
             cur_obs=pobs,
             rnn_states=init_rnn_states((self.E, self.BE), device=dev),
             key=k_state, update_idx=0,
             elo=torch.full((self.E,), 1000.0, device=dev),
             hyper_params={"lr": lr0.to(dev)},
-            assignment=self.assignment0.clone(),
-            train_perm=self.train_perm0.clone(), pending_reset=False,
         )
 
     # -------------------------------------------------- policy apply
@@ -333,11 +326,6 @@ class TrainingManager:
         K, L = tcfg.num_bptt_chunks, tcfg.chunk_len
         key, sub = rng.split(ts.key, 2)
         step_keys = rng.split(sub, K * L)
-        force = torch.zeros((K * L, self.W), dtype=torch.int32,
-                            device=self.device)
-        if ts.pending_reset:
-            force[0] = 1
-        perm = ts.train_perm
         env_state, obs, rnn, norm = (ts.env_state, ts.cur_obs, ts.rnn_states,
                                      ts.normalizer)
         zf = torch.zeros((self.W, self.A), dtype=torch.float32,
@@ -347,18 +335,18 @@ class TrainingManager:
             if t % L == 0:
                 rnn_starts.append(rnn)
             k_train = rng.split(step_keys[t], 2)[0]
-            obs_blocks = {k: self.to_blocks(v, perm) for k, v in obs.items()}
+            obs_blocks = {k: self.to_blocks(v) for k, v in obs.items()}
             norm_obs = normalize_obs(norm, obs_blocks)
             dists, values, rnn = self.apply_blocks(ts.params, rnn, norm_obs)
             actions, log_probs = dists.sample(k_train)
-            da = self.from_blocks(actions["discrete"], perm)
-            aa = self.from_blocks(actions["aim"], perm)
+            da = self.from_blocks(actions["discrete"])
+            aa = self.from_blocks(actions["aim"])
             env_state, out = self.env.step(env_state, Actions(
                 move_amount=da[..., 0], move_angle=da[..., 1],
                 fire=da[..., 2], stand=da[..., 3], aim_yaw=aa[..., 0],
                 aim_pitch=aa[..., 1], aim_yaw_rate=zf, aim_pitch_rate=zf,
-            ), TRAIN_SIM_CTRL, force[t])
-            done_b = self.to_blocks(out["done"], perm)
+            ), TRAIN_SIM_CTRL)
+            done_b = self.to_blocks(out["done"])
             rnn = clear_rnn_states(rnn, done_b != 0)
             obs = self._policy_obs(out["obs"])
             norm = update_normalizer(norm, obs_blocks)
@@ -368,16 +356,16 @@ class TrainingManager:
                 "act_pack": torch.cat([actions["discrete"], actions["aim"]],
                                       dim=-1),
                 "log_probs": log_probs, "values": values,
-                "rewards": self.to_blocks(out["reward"], perm),
+                "rewards": self.to_blocks(out["reward"]),
                 "dones": done_b, "win_result": res["win_result"],
                 "match_finished": res["match_finished"],
             })
         outs = _stack(steps, (K, L))
-        final = {k: self.to_blocks(v, perm) for k, v in obs.items()}
+        final = {k: self.to_blocks(v) for k, v in obs.items()}
         _, bootstrap, _ = self.apply_blocks(ts.params, rnn,
                                             normalize_obs(norm, final))
         ts = replace(ts, env_state=env_state, cur_obs=obs, rnn_states=rnn,
-                     normalizer=norm, key=key, pending_reset=False)
+                     normalizer=norm, key=key)
         return ts, torch.stack(rnn_starts), outs, bootstrap
 
     # -------------------------------------------------- ppo update
@@ -486,7 +474,7 @@ class TrainingManager:
             finished = outs["match_finished"]
             metrics["episodes_finished"] = finished.to(torch.int32).sum()
             # ELO between ensemble members from every finished match
-            team_policies = ts.assignment[:, ::self.cfg.team_size]  # [W, 2]
+            team_policies = self.assignment[:, ::self.cfg.team_size]  # [W, 2]
             n = finished.numel()
             pairs = team_policies.expand(finished.shape + (2,)).reshape(n, 2)
             win = outs["win_result"].reshape(n)

@@ -33,6 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
 import make_eval_fixture as fx  # noqa: E402
 from policy_weights import random_flax_params  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 REL = 1e-4
 MARGIN = 1e-4

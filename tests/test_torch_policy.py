@@ -43,6 +43,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
 from policy_weights import random_flax_params, random_obs  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 B, STEPS = 64, 3
 TOL = 1e-4

@@ -13,6 +13,7 @@ and fall batches.
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,23 +30,12 @@ from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
 from madrona_mp_env_tpu_torch.ops.culling import short_cell_index
 from madrona_mp_env_tpu_torch.sim import movement
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "fixtures_torch"))
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
+
 R = 15.0  # agent radius
 SEG_H = 35.0  # capsule segment height
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread_under_xdist():
-    """One intra-op thread per pytest-xdist worker: several workers share
-    the machine's cores, and ATen's OpenMP threads of every worker spinning
-    on the plain versions' big elementwise ops slowed this file's
-    sphere-cast cases four- to tenfold there."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        yield
-        return
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

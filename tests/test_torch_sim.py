@@ -16,6 +16,7 @@ an ulp of 1.2e-4, so an absolute 1e-4 would demand bit equality there.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from madrona_mp_env_tpu_torch.sim.types import (
 from madrona_mp_env_tpu_torch.utils import rng
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 FIXTURE = os.path.join(HERE, "fixtures_torch", "zone_simple_map_systems.npz")
 SLICE = os.path.join(HERE, "fixtures_torch", "zone_simple_map_slice.npz")
 CHAIN_STEP = 6  # make_slice_fixture.CHAIN_STEP

@@ -29,6 +29,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures_torch")
 sys.path.insert(0, FIXTURES)
 import make_slice_fixture as fx  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 EXACT = ("hp", "alive", "team_points", "done", "obs_opponent_masks",
          "obs_filters_state", "obs_hp", "obs_magazine", "obs_alive",

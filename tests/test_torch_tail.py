@@ -45,6 +45,7 @@ from madrona_mp_env_tpu_torch.sim.types import (init_world_state,
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
 from tail_states import NUM_WORLDS, tail_scenario  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 SYSTEMS = os.path.join(HERE, "fixtures_torch", "zone_simple_map_systems.npz")
 REL = 1e-5

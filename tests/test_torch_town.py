@@ -54,21 +54,8 @@ FAN_STEPS = (0, 8, 15)  # make_town_fixture.FAN_STEPS
 R = 15.0
 sys.path.insert(0, HERE)
 from test_torch_slice import compare, port_rollout  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread_under_xdist():
-    """One intra-op thread per pytest-xdist worker: several workers share
-    the machine's cores, and ATen's OpenMP threads of every worker spinning
-    on the plain versions' big elementwise ops slowed this file twentyfold
-    there (a forced-dense town rollout took 402 s instead of 6 s)."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        yield
-        return
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(team_size=2):

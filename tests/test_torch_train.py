@@ -21,14 +21,19 @@ the JAX TrainingManager at 2 worlds, Zone 2v2, 8 steps in 2 BPTT chunks,
 same weights, zero Adam moments, env seed and key:
 
 - the rollout: actions equal where the Gumbel top-two margin exceeds 1e-4
-  (ATen's and XLA's log differ by an ulp), dones exact, rewards within
-  1e-4 and values within 1e-3 relative (the env's own bars against
-  jitted JAX: tests/test_torch_slice.py);
+  (ATen's and XLA's log differ by an ulp), dones exact, rewards and the
+  sampled actions' log probs within 1e-4 and values within 1e-3 relative
+  (the env's own bars against jitted JAX: tests/test_torch_slice.py);
+  where every action agreed, the bootstrap values within 1e-3 and the
+  BPTT chunk start states within 1e-4 too;
 - GAE on the fixture's rollout within 1e-5 relative;
 - the first minibatch's order exact, its loss terms and gradient global
   norm within 1e-4 * max(1, |x|);
 - the parameters after one update_iter within 2.5 lr of JAX's on a fixed
-  sample of every leaf (Adam's first steps are ~lr * sign(g) each).
+  sample of every leaf (Adam's first steps are ~lr * sign(g) each); where
+  every rollout action agreed, also within 0.5 lr, moved the same way
+  wherever JAX's change exceeds lr, and the update's loss, pg_loss and
+  v_loss within 1e-4 relative.
 
 The train CLI runs two tiny updates on the CPU with two policies,
 checkpoints, restores, and raises on the flags it does not support.
@@ -66,19 +71,7 @@ FIXTURE = os.path.join(HERE, "fixtures_torch", "zone_train.npz")
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
 import make_train_fixture as mtf  # noqa: E402
 from policy_weights import random_flax_params  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread_under_xdist():
-    """One intra-op thread per pytest-xdist worker (tests/test_torch_town.py:
-    ATen's OpenMP threads of several workers oversubscribe the cores)."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        yield
-        return
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 
 def _close(got, want, rel, atol=0.0, scale_floor=1.0):
@@ -336,7 +329,7 @@ def test_initial_key_matches_fixture(trainer):
 def test_rollout_matches_fixture(trainer):
     """Step by step up to the first step where an action differs (only
     where the Gumbel margin is below 1e-4 may one differ)."""
-    fx, mgr, _, (ts1, _, outs, _), margin = trainer
+    fx, mgr, _, (ts1, rnn_starts, outs, bootstrap), margin = trainer
     T = mtf.STEPS
 
     def steps(x):
@@ -353,12 +346,17 @@ def test_rollout_matches_fixture(trainer):
         _close(steps(outs["values"])[t], steps(fx["values"])[t], 1e-3)
         np.testing.assert_array_equal(steps(outs["dones"])[t],
                                       steps(fx["dones"])[t])
+        for head in ("discrete", "aim"):
+            _close(steps(outs["log_probs"][head])[t][same],
+                   steps(fx[f"log_probs_{head}"])[t][same], 1e-4)
         compared += 1
         if not same.all():
             break  # an undecided action parted the two rollouts
     assert compared >= 4
     if compared == T:
         np.testing.assert_array_equal(ts1.key.numpy(), fx["key1"])
+        _close(bootstrap, fx["bootstrap"], 1e-3)
+        _close(rnn_starts, fx["rnn_starts"], 1e-4)
 
 
 def test_gae_matches_fixture(trainer):
@@ -394,20 +392,31 @@ def test_first_minibatch_matches_fixture(trainer):
 
 
 def test_update_params_match_fixture(trainer):
-    fx, mgr, ts0, _, _ = trainer
+    """2.5 lr always; where the rollout's actions all agreed (so both
+    updates saw the same data), 0.5 lr, JAX's direction wherever its change
+    exceeds lr, and the update's loss terms within 1e-4 relative."""
+    fx, mgr, ts0, (_, _, outs, _), _ = trainer
     ts2, metrics = mgr.update_iter(ts0)
     assert ts2.update_idx == 1
     assert int(ts2.opt_state[0].count) == int(fx["update/count"][0])
+    same_rollout = bool((outs["act_pack"].numpy() == fx["act_pack"]).all())
     lr = mgr.tcfg.lr
     moved = 0
     for k, p0 in ts0.params[0].items():
         i = torch.as_tensor(mtf.sample_index(k, p0.numel()))
-        got = (ts2.params[0][k] - p0).reshape(-1)[i]
-        _close(got, fx[f"delta/{k}"], 0.0, atol=2.5 * lr)
+        got = (ts2.params[0][k] - p0).reshape(-1)[i].numpy()
+        want = fx[f"delta/{k}"]
+        _close(got, want, 0.0, atol=2.5 * lr)
+        if same_rollout:
+            _close(got, want, 0.0, atol=0.5 * lr)
+            big = np.abs(want) > lr
+            assert (np.sign(got[big]) == np.sign(want[big])).all(), k
         moved += int((got != 0).sum())
     assert moved > 0
     for k in ("loss", "pg_loss", "v_loss"):
         assert np.isfinite(metrics[k].numpy()).all()
+        if same_rollout:
+            _close(metrics[k], fx[f"update/{k}"], 1e-4)
 
 
 # ------------------------------------------------------------------ CLI
