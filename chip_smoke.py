@@ -22,7 +22,15 @@ Phases, each of which fails the run loudly:
    inputs. On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
-   full width);
+   full width). Zone 3v3 (team size 3: a LOS run of 12 rays, not a
+   multiple of 8) on each map: K7, the stacked-direction fan over the
+   whole soup, and K5 on one real step's launches; K8 on that step's L1
+   casts over the whole soup and K3x on its sensor rays with explicit
+   origins (equal to K3's hits too), and the unfused tail chain at team
+   size 3. The kernel bench's shapes (tools/kernel_bench.py make_inputs,
+   1024 worlds, team sizes 6 and 3, each map): K7, K8 with and without
+   normals and K3x, each bit-equal to its plain version, then the kernel
+   bench itself, whose launches those rows count;
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
@@ -40,16 +48,18 @@ Phases, each of which fails the run loudly:
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
    culled, K4', K5 and K6 must launch, K2 and K4 dense must not; then 10
    steps of the forced-dense fan route (MPENV_FAN_CULL=0), where K2 runs
-   over the 6,144-triangle soup;
+   over the 6,144-triangle soup; then Zone 3v3 on each map, reset + 50
+   steps at 1024 worlds: K7 and K5 must launch, K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
-   40 steps per update, the LSTM-512 policy, E = 1: 3 updates on the
-   default fan route (K2), then 2 with MPENV_FAN_V9=1 (K9); updates/s,
-   samples/s and each update's rollout and PPO-update ms (CUDA events);
-   finite losses, parameters that move;
+   40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
+   on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), then 1 of
+   Zone 3v3 (K7) on each map; updates/s, samples/s and each update's
+   rollout and PPO-update ms (CUDA events); finite losses, parameters
+   that move;
 9. the kernel path against the plain path: the same 4-world, 16-step env
-   rollout on both maps, the same 4-world, 16-step eval rollout, and the
-   trainer's 4-world, 8-step rollout and one PPO update, on "cuda" and on
-   "cpu" from one seed;
+   rollout on both maps for Zone 6v6 and Zone 3v3, the same 4-world,
+   16-step eval rollout, and the trainer's 4-world, 8-step rollout and
+   one PPO update, on "cuda" and on "cpu" from one seed;
 10. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts), then the card line, then the last
    line {"ok": true, "device": {...}}.
@@ -76,6 +86,7 @@ TOWN = os.path.join(REPO, "data", "town_map")
 NUM_WORLDS = 1024
 NUM_STEPS = 100
 FORCED_STEPS = 10  # the forced-gate paths (K4 dense, K2 on town_map)
+TEAM3_STEPS = 50  # the Zone 3v3 paths
 TEAM_SIZE = 6
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
@@ -89,6 +100,10 @@ OPS_FAN_PAIR = 32  # K2 after hoisting: cross, 2 dots, divide, 3 scales, u+v, mi
 OPS_FAN_HOIST = 20  # per (fan, group, triangle): tvec, cross, dot
 OPS_CAPSULE = 75  # 5 dots, cylinder quadratic (~20), two cap spheres (~30)
 OPS_SPHERE_TRI = 330  # closest point (~80), face test (~45), 3 capsules
+# K8's normal per cast, after recomputing the winner's pair terms: the
+# closest point at the hit (~80), the hit centre (6), a norm and three
+# divides (~9)
+OPS_SC_NORMAL = 95
 # K5 per agent (csrc/tail_fused.cu): autoheal 2, zone distance 9,
 # membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
 # 5 per teammate pair
@@ -125,6 +140,39 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), ms of that one call by CUDA events): for the plain versions,
+    whose ATen kernels need no build and no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_equal(name, *pairs):
+    """(kernel, plain) output pairs bit-equal (the kernels repeat their
+    plain versions op for op, built with --fmad=false). Returns the max
+    abs error over the finite values of the first pair."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = pairs[0]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+    for i, (g, w) in enumerate(pairs):
+        if not torch.equal(g, w):
+            n = int((g != w).sum())
+            raise AssertionError(f"{name}: output {i} differs from its "
+                                 f"plain version at {n} of {w.numel()}")
+    return err
 
 
 def bound_ms(nbytes, nops):
@@ -206,6 +254,7 @@ def best_two_gap(t_pairs):
 ENTRY_SITES = (
     ("combat", "ray_vs_tris"), ("observations", "ray_fans_vs_tris"),
     ("observations", "ray_fans_culled"),
+    ("observations", "ray_fans_vs_tris_flat"),
     ("observations", "ray_fans_culled_v9"), ("observations", "fan_capsules"),
     ("movement", "sphere_cast"), ("movement", "sphere_cast_culled"),
     ("movement", "sphere_cast_packed"), ("step", "tail_fused"),
@@ -284,6 +333,17 @@ def sc_gap(o, d, r, soup):
     return gap.reshape(o.shape[:-1])
 
 
+def sc_normal_plain(o, d, r, soup):
+    """K8's plain version over chunks of the leading axis of o, d [N, ...,
+    3], each chunk ~2^23 (cast, triangle) pairs."""
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    per = o[..., 0].numel() // o.shape[0]
+    return chunked(lambda s: raycast._sphere_cast_normal_plain(
+        o[s], d[s], r, soup), o.shape[0],
+        max(1, 2 ** 23 // soup.num_tris // per))
+
+
 def sc_dense_plain(o, d, r, soup):
     from madrona_mp_env_tpu_torch.ops import raycast
 
@@ -297,9 +357,9 @@ class KernelPhase:
     worlds). ms, plain_ms and bound_ms are per step: the sum over that
     step's launches of the entry. ``scene`` tags every row."""
 
-    def __init__(self, env, scene):
-        self.env, self.scene, self.results = env, scene, []
-        self.soup = env.map_data.tris
+    def __init__(self, soup, scene):
+        self.scene, self.results = scene, []
+        self.soup = soup
         self.T_real = int(self.soup.valid.sum())
 
     def record(self, name, source, replaces, entry, err, ms, pms, nbytes,
@@ -462,6 +522,104 @@ class KernelPhase:
             f"{hitmiss:.6f}")
         if hitmiss < 0.995:
             raise AssertionError(f"K9 hit/miss agreement {hitmiss} < 0.995")
+
+    def k7(self, org, zoff, dirs, reps=10):
+        """K7 over the whole soup: stacked directions, per-ray z offsets
+        (each fan's runs found by the kernel). Bit-equal to its plain
+        version; returns its t."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        N, F = zoff.shape
+
+        def kernel():
+            return raycast.ray_fans_vs_tris_flat(org, zoff, dirs, soup)
+
+        def plain():
+            return chunked(lambda s: raycast._ray_fans_flat_plain(
+                org[s], zoff[s], dirs[s], soup), N,
+                max(16, 2 ** 18 // soup.num_tris))
+
+        t, (tp, pms) = kernel(), timed_once(plain)
+        err = check_equal("K7 ray_fans_vs_tris_flat", (t, tp))
+        runs = int((zoff[:, 1:] != zoff[:, :-1]).sum()) + N
+        self.record(
+            "K7 ray_fans_vs_tris_flat",
+            "madrona_mp_env_tpu_torch/csrc/fan_flat.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:265",
+            raycast.ray_fans_vs_tris_flat, err, cuda_time_ms(kernel, reps),
+            pms, N * 12 + N * F * 16 + self.T_real * 40 + N * F * 4,
+            N * F * self.T_real * OPS_FAN_PAIR
+            + runs * self.T_real * OPS_FAN_HOIST,
+            [[N, F, soup.num_tris]], runs_per_fan=round(runs / N, 3),
+            hit_share=round(float(torch.isfinite(t).float().mean()), 4))
+        return t
+
+    def k8(self, o, d, r, reps=10):
+        """K8 over the whole soup with the winner's contact normal: t and
+        normal bit-equal to the plain version; without normals, the same
+        t and zero normals."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        R = o[..., 0].numel()
+
+        def kernel(with_normal=True):
+            return raycast.sphere_cast_vs_tris(o, d, r, soup,
+                                               with_normal=with_normal)
+
+        (tk, nk), ((tp, np_), pms) = kernel(), timed_once(
+            lambda: sc_normal_plain(o, d, r, soup))
+        err = check_equal("K8 sphere_cast_vs_tris", (tk, tp), (nk, np_))
+        t0, n0 = kernel(False)
+        torch.cuda.synchronize()
+        if not torch.equal(t0, tk) or bool(n0.any()):
+            raise AssertionError("K8 without normals: t differs or a "
+                                 "normal is not 0")
+        self.record(
+            "K8 sphere_cast_vs_tris",
+            "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:1364",
+            raycast.sphere_cast_vs_tris, err, cuda_time_ms(kernel, reps),
+            pms, R * 24 + R * 16 + self.T_real * 52,
+            R * self.T_real * OPS_SPHERE_TRI
+            + R * (OPS_SPHERE_TRI + OPS_SC_NORMAL), [list(o.shape[:-1])],
+            no_normal_ms=round(cuda_time_ms(lambda: kernel(False), reps), 4),
+            hit_share=round(float(torch.isfinite(tk).float().mean()), 4))
+
+    def k3x(self, o, d, self_idx, pos, alive, reps=50):
+        """K3x: explicit origins, a capsule to skip per ray; t and hit
+        index bit-equal to the plain version."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast_cull
+
+        W, A, F = self_idx.shape
+
+        def kernel():
+            return raycast_cull.fan_capsules_explicit(o, d, self_idx, pos,
+                                                      alive)
+
+        def plain():
+            return chunked(lambda s: raycast_cull._fan_capsules_explicit_plain(
+                o[s], d[s], self_idx[s], pos[s], alive[s]), W, 128)
+
+        (tk, ik), ((tp, ip), pms) = kernel(), timed_once(plain)
+        err = check_equal("K3x fan_capsules_explicit", (tk, tp), (ik, ip))
+        # capsules each ray tests: its world's live ones but the skipped
+        al = alive.to(torch.int64)
+        skipped_live = torch.gather(al, 1, self_idx.long().reshape(W, A * F))
+        tested = int((al.sum(-1, keepdim=True) - skipped_live).sum())
+        self.record(
+            "K3x fan_capsules_explicit",
+            "madrona_mp_env_tpu_torch/csrc/fan_capsules.cu",
+            "madrona_mp_env_tpu/ops/raycast_cull.py:120",
+            raycast_cull.fan_capsules_explicit, err,
+            cuda_time_ms(kernel, reps), pms,
+            W * A * F * 28 + W * A * 13 + W * A * F * 8,
+            tested * OPS_CAPSULE, [[W, A, F]])
+        return tk, ik
 
     def k3(self, calls):
         import torch
@@ -700,7 +858,7 @@ def tail_chain_check(env, state, actions):
 def simple_kernels(env, state, actions):
     """simple_map: K1, K2, K3, K4 culled, K4' and K5 on one default step;
     K4 dense on the same step with MPENV_SC_PACK=0."""
-    ph = KernelPhase(env, "simple_map")
+    ph = KernelPhase(env.map_data.tris, "simple_map")
     calls = capture_step_calls(env, state, actions, SIMPLE_ENTRIES)
     ph.k1(calls)
     (org, zgf, dirf, zgroups, _), = calls["ray_fans_vs_tris"]
@@ -727,7 +885,7 @@ def town_kernels(env, state, actions):
     """town_map: K1, K3, K4 culled, K4', K5 and K6 on one default step, and
     K2 over the 6,144-triangle soup on K6's fans (the forced-dense
     route's launch)."""
-    ph = KernelPhase(env, "town_map")
+    ph = KernelPhase(env.map_data.tris, "town_map")
     calls = capture_step_calls(env, state, actions, TOWN_ENTRIES)
     ph.k1(calls)
     ph.k6(calls)
@@ -735,6 +893,107 @@ def town_kernels(env, state, actions):
     ph.k4_culled(calls)
     ph.k4_packed(calls)
     ph.k5(calls)
+    return ph.results
+
+
+TEAM3_ENTRIES = ("ray_vs_tris", "ray_fans_vs_tris_flat", "fan_capsules",
+                 "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+
+
+def team3_kernels(env, state, actions, scene):
+    """Zone 3v3 (a LOS run of 12 rays, not a multiple of 8): K7 and K5 on
+    one step's launches; K8 on the step's L1 casts over the whole soup and
+    K3x on its sensor rays with the origins made explicit (K3x's t and hit
+    indices must equal K3's on the same rays); the unfused tail chain at
+    team size 3."""
+    import torch
+    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
+
+    ph = KernelPhase(env.map_data.tris, f"{scene} Zone 3v3")
+    calls = capture_step_calls(env, state, actions, TEAM3_ENTRIES)
+    (org, zoff, dirs, _), = calls["ray_fans_vs_tris_flat"]
+    ph.k7(org, zoff, dirs)
+    ph.k5(calls)
+    soup = ph.soup
+    (o7, d7, r, *_), = calls["sphere_cast_culled"]
+
+    def k8():
+        return raycast.sphere_cast_vs_tris(o7, d7, r, soup)
+
+    (tk, nk), ((tp, np_), pms) = k8(), timed_once(
+        lambda: sc_normal_plain(o7, d7, r, soup))
+    check_equal("K8 on the step's L1 casts", (tk, tp), (nk, np_))
+    log(f"[kernel] K8 sphere_cast_vs_tris [{ph.scene}] on the step's L1 "
+        f"casts {list(o7.shape[:-1])}: bit-equal, kernel "
+        f"{cuda_time_ms(k8, 20):.4f} ms plain {pms:.4f} ms")
+    (pos, zf, df, alive), = calls["fan_capsules"]
+    W, A, F = zf.shape
+    zero = torch.zeros_like(zf)
+    o = pos[:, :, None, :] + torch.stack([zero, zero, zf], dim=-1)
+    d = torch.stack(df, dim=-1)
+    own = torch.arange(A, dtype=torch.int32, device=pos.device)
+    self_idx = own[None, :, None].expand(W, A, F).contiguous()
+
+    def k3x():
+        return raycast_cull.fan_capsules_explicit(o, d, self_idx, pos, alive)
+
+    (tx, ix), ((tp, ip), pms) = k3x(), timed_once(
+        lambda: raycast_cull._fan_capsules_explicit_plain(o, d, self_idx,
+                                                          pos, alive))
+    check_equal("K3x on the step's sensor rays", (tx, tp), (ix, ip))
+    t3, i3 = raycast_cull.fan_capsules(pos, zf, df, alive)
+    check_equal("K3x against K3 on the step's sensor rays", (tx, t3),
+                (ix, i3))
+    log(f"[kernel] K3x fan_capsules_explicit [{ph.scene}] on the step's "
+        f"sensor rays {[W, A, F]}: bit-equal to its plain version and to "
+        f"K3, kernel {cuda_time_ms(k3x, 50):.4f} ms plain {pms:.4f} ms")
+    tail_chain_check(env, state, actions)
+    return ph.results
+
+
+BENCH_ITERS = 5
+
+
+def bench_kernels(mt, scene, team_size, card):
+    """K7, K8 and K3x at the kernel bench's own shapes and inputs
+    (tools/kernel_bench.py make_inputs) at NUM_WORLDS worlds, each
+    bit-equal to its plain version and timed; then the kernel bench
+    itself (its main, as the command line runs it) with every launch
+    counter zeroed just before and read just after: its launches are
+    these rows'."""
+    import torch
+    from madrona_mp_env_tpu_torch import consts
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.tools import kernel_bench
+
+    name = os.path.basename(scene)
+    m = load_map(scene, mt.EnvConfig(team_size=team_size), device="cuda")
+    x = kernel_bench.make_inputs(NUM_WORLDS, team_size, "cuda")
+    ph = KernelPhase(m.tris, f"{name} bench ts{team_size}")
+    ph.k7(x["origins"], x["zoff"], x["dirs"])
+    ph.k8(x["o_sc"], x["d_sc"], consts.agent_radius)
+    ph.k3x(x["o_caps"], x["d_caps"], x["self_idx"], x["cap_pos"],
+           x["alive"])
+    del x, m
+    entries = all_entries()
+    for f in entries.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = kernel_bench.main(["--worlds", str(NUM_WORLDS), "--team-size",
+                             str(team_size), "--scene", scene, "--iters",
+                             str(BENCH_ITERS)])
+    torch.cuda.synchronize()
+    label = f"kernel bench {name} ts {team_size}"
+    for row in ph.results:
+        row["launches"] = row["entry"].launches
+        row["path"] = label
+    missing = [r["name"] for r in ph.results if r["launches"] == 0]
+    if missing or not all(np.isfinite(v) and v > 0 for v in res.values()):
+        raise AssertionError(f"{label}: kernels not launched {missing} or "
+                             f"a bad time {res}")
+    log(f"[{label}] {time.perf_counter() - t0:.1f} s on {card}; launches "
+        + ", ".join(f"{n}={f.launches}" for n, f in entries.items()))
     return ph.results
 
 
@@ -979,8 +1238,9 @@ def all_entries():
     return {f.__name__: f for f in (
         raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
         raycast.ray_fans_culled, raycast.ray_fans_culled_v9,
-        raycast_cull.fan_capsules,
-        raycast.sphere_cast, raycast.sphere_cast_culled,
+        raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
+        raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
+        raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
         raycast.sphere_cast_packed, tail_fused.tail_fused)}
 
 
@@ -1045,36 +1305,44 @@ def env_parity(mt, cfg, scene, W, S):
             if e.max() > rel:
                 raise AssertionError(f"{name} step {s}: {k} rel err "
                                      f"{e.max()}")
-    log(f"[parity] {name} cuda vs cpu, {W} worlds x {S} steps: discrete "
+    log(f"[parity] {name} Zone {cfg.team_size}v{cfg.team_size} cuda vs cpu, "
+        f"{W} worlds x {S} steps: discrete "
         "exact, " + ", ".join(f"{k} max rel err {v:.3g}"
                               for k, v in worst.items()))
 
 
 TRAIN_WORLDS = 1024
 TRAIN_STEPS = 40  # steps_per_update, the JAX bench's train row
-TRAIN_UPDATES = {"default": 3, "v9": 2}
+# route: (map, team size, MPENV_FAN_V9, updates, the sensor fan's entry)
+TRAIN_ROUTES = {
+    "default": (SCENE, TEAM_SIZE, "0", 3, "ray_fans_vs_tris"),
+    "v9": (SCENE, TEAM_SIZE, "1", 2, "ray_fans_culled_v9"),
+    "zone3v3": (SCENE, 3, "0", 1, "ray_fans_vs_tris_flat"),
+    "zone3v3 town_map": (TOWN, 3, "0", 1, "ray_fans_vs_tris_flat"),
+}
+FAN_ENTRIES = ("ray_fans_vs_tris", "ray_fans_culled", "ray_fans_culled_v9",
+               "ray_fans_vs_tris_flat")
 
 
 def train_phase(card):
     """The training path at full width through the train CLI's own
     builder: TrainingManager at TRAIN_WORLDS worlds x TRAIN_STEPS steps
     per update (4 BPTT chunks, 2 epochs x 4 minibatches), the LSTM-512
-    policy, E = 1, weights from a seed. TRAIN_UPDATES["default"] updates
-    on the default fan route (K2), then TRAIN_UPDATES["v9"] with
-    MPENV_FAN_V9=1 (K9). Each update's rollout and PPO update are timed
-    by CUDA events; every launch counter is zeroed before each run and
-    read after it; the loss must be finite and the parameters must
-    move."""
+    policy, E = 1, weights from a seed, on each of TRAIN_ROUTES: Zone 6v6
+    on the default fan route (K2), then with MPENV_FAN_V9=1 (K9), then
+    Zone 3v3 (K7) on each map. Each update's rollout and PPO update are
+    timed by CUDA events; every launch counter is zeroed before each run
+    and read after it; the loss must be finite, the parameters must move,
+    and the sensor fans must go through the route's entry alone."""
     import torch
     from madrona_mp_env_tpu_torch.train import train as train_cli
 
-    for route, n in TRAIN_UPDATES.items():
-        env_vars = {"MPENV_FAN_V9": "1" if route == "v9" else "0"}
-        with mock.patch.dict(os.environ, env_vars):
+    for route, (scene, ts_, v9, n, fan) in TRAIN_ROUTES.items():
+        with mock.patch.dict(os.environ, {"MPENV_FAN_V9": v9}):
             args = train_cli.parse_args([
-                "--scene", SCENE, "--num-worlds", str(TRAIN_WORLDS),
+                "--scene", scene, "--num-worlds", str(TRAIN_WORLDS),
                 "--steps-per-update", str(TRAIN_STEPS),
-                "--team-size", str(TEAM_SIZE)])
+                "--team-size", str(ts_)])
             _, tcfg, env, mgr = train_cli.build(args)
             ts = mgr.init()
             p0 = {k: v.clone() for k, v in ts.params[0].items()}
@@ -1102,12 +1370,10 @@ def train_phase(card):
         if not all(np.isfinite(losses)) or moved == 0.0:
             raise AssertionError(f"train {route}: losses {losses}, params "
                                  f"moved {moved}")
-        fan = "ray_fans_culled_v9" if route == "v9" else "ray_fans_vs_tris"
-        other = "ray_fans_vs_tris" if route == "v9" else "ray_fans_culled_v9"
-        if counts[fan] != n * TRAIN_STEPS or counts[other] or \
-                counts["ray_fans_culled"]:
+        if counts[fan] != n * TRAIN_STEPS or any(
+                counts[f] for f in FAN_ENTRIES if f != fan):
             raise AssertionError(f"train {route}: fan launches {counts}")
-        samples = TRAIN_WORLDS * 2 * TEAM_SIZE * TRAIN_STEPS
+        samples = TRAIN_WORLDS * 2 * ts_ * TRAIN_STEPS
         ups = n / (t1 - t0)
         log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
             f"{n} updates, LSTM-512, E = 1: {ups:.4f} updates/s, "
@@ -1246,7 +1512,23 @@ def main() -> int:
     state, _ = town_env.reset()
     town = town_kernels(town_env, state, actions_at(town_env, acts, 0))
     del state
-    kernels = simple + town
+    # Zone 3v3 on each map: K7 (and K5 at team size 3) on a real step
+    cfg3 = dataclasses.replace(cfg, team_size=3)
+    acts3 = bench_actions(NUM_WORLDS, cfg3.num_agents, TEAM3_STEPS)
+    team3 = {}
+    for scene in (SCENE, TOWN):
+        env3 = mt.Env(cfg3, scene, num_worlds=NUM_WORLDS, seed=5,
+                      device="cuda")
+        state, _ = env3.reset()
+        name = os.path.basename(scene)
+        team3[name] = (env3, team3_kernels(env3, state,
+                                           actions_at(env3, acts3, 0), name))
+        del state
+    # K7, K8 and K3x at the kernel bench's shapes, and the bench itself
+    bench = [row for scene in (SCENE, TOWN) for ts in (TEAM_SIZE, 3)
+             for row in bench_kernels(mt, scene, ts, card)]
+    kernels = (simple + town + [r for _, rs in team3.values() for r in rs]
+               + bench)
 
     def rows(scene, *names):
         return [k for k in kernels if k["scene"] == scene
@@ -1258,7 +1540,8 @@ def main() -> int:
                        "K4' sphere_cast_packed", "K5 tail_fused")
     state, out, _ = drive_path(
         "slice simple_map", env, acts, NUM_STEPS, main_simple,
-        ("sphere_cast", "ray_fans_culled", "ray_fans_culled_v9"), card)
+        ("sphere_cast", "ray_fans_culled", "ray_fans_culled_v9",
+         "ray_fans_vs_tris_flat"), card)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -1283,8 +1566,8 @@ def main() -> int:
     with mock.patch.dict(os.environ, MPENV_FAN_V9="1"):
         drive_path("sensor-ray tables simple_map", env, acts, NUM_STEPS,
                    rows("simple_map", "K9 ray_fans_culled_v9"),
-                   ("ray_fans_vs_tris", "ray_fans_culled", "sphere_cast"),
-                   card)
+                   ("ray_fans_vs_tris", "ray_fans_culled", "sphere_cast",
+                    "ray_fans_vs_tris_flat"), card)
 
     # 5. the crossplay eval on the card (simple_map's kernels)
     eval_phase(mt, main_simple, card)
@@ -1301,13 +1584,20 @@ def main() -> int:
                rows("town_map", "K1 ray_vs_tris", "K3 fan_capsules",
                     "K4 sphere_cast_culled", "K4' sphere_cast_packed",
                     "K5 tail_fused", "K6 ray_fans_culled"),
-               ("ray_fans_vs_tris", "ray_fans_culled_v9", "sphere_cast"),
-               card)
+               ("ray_fans_vs_tris", "ray_fans_culled_v9", "sphere_cast",
+                "ray_fans_vs_tris_flat"), card)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
                    rows("town_map", "K2 ray_fans_vs_tris"),
                    ("ray_fans_culled",), card)
     del town_env
+
+    # 7b. Zone 3v3 on each map: the world fan is K7 alone, on town_map too
+    for name, (env3, rows3) in team3.items():
+        drive_path(f"Zone 3v3 {name}", env3, acts3, TEAM3_STEPS, rows3,
+                   ("ray_fans_vs_tris", "ray_fans_culled",
+                    "ray_fans_culled_v9", "sphere_cast"), card)
+    del team3, env3
 
     # 8. the training path: full width on the card, then against the CPU
     train_phase(card)
@@ -1315,6 +1605,8 @@ def main() -> int:
     # 9. kernel path vs plain path
     env_parity(mt, cfg, SCENE, 4, 16)
     env_parity(mt, cfg, TOWN, 4, 16)
+    env_parity(mt, cfg3, SCENE, 4, 16)
+    env_parity(mt, cfg3, TOWN, 4, 16)
     eval_parity(mt, 4, 16)
     train_parity()
 

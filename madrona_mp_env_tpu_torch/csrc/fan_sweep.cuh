@@ -1,8 +1,9 @@
 // One sensor fan (one block) swept over a list of triangle rows, tiled.
 //
 // Shared by K2 (csrc/fan_tris.cu: every row of the soup), K6
-// (csrc/fan_culled.cu: the fan's PVS cell candidates) and K9
-// (csrc/fan_v9.cu: the fan's sensor-ray table candidates). All rays of a
+// (csrc/fan_culled.cu: the fan's PVS cell candidates), K9
+// (csrc/fan_v9.cu: the fan's sensor-ray table candidates) and K7
+// (csrc/fan_flat.cu: every row of the soup, stacked directions). All rays of a
 // z-group share their origin, so the origin terms of Moller-Trumbore
 // (tvec = o - v0, qvec = tvec x e1 and e2 . qvec) are computed once per
 // (group, row) into shared memory, as the TPU kernels hoist them; each
@@ -36,11 +37,45 @@ __host__ __device__ inline size_t fan_sweep_smem(int G) {
          (size_t)kFanTile * sizeof(int);
 }
 
+// The runs of bitwise-equal z offsets among one fan's F rays (zoff: the
+// fan's per-ray offsets), found with a warp-ballot prefix count: each
+// ray's run goes to group_of_ray[f], each run's offset to zg[g]. Returns
+// the number of runs. Every thread of the block (kFanThreads) calls it.
+__device__ inline int find_runs(const float* __restrict__ zoff, int F, int* group_of_ray,
+                                float* zg) {
+  __shared__ int warp_total[kFanThreads / 32];
+  __shared__ int runs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) runs = 0;
+  __syncthreads();
+  for (int base = 0; base < F; base += kFanThreads) {
+    const int f = base + threadIdx.x;
+    const bool starts =
+        f < F && (f == 0 || __float_as_uint(zoff[f]) != __float_as_uint(zoff[f - 1]));
+    const unsigned m = __ballot_sync(0xffffffffu, starts);
+    if (lane == 31) warp_total[warp] = __popc(m);
+    __syncthreads();
+    int g = runs - 1 + __popc(m & (0xffffffffu >> (31 - lane)));
+    for (int w = 0; w < warp; ++w) g += warp_total[w];
+    if (f < F) {
+      group_of_ray[f] = g;
+      if (starts) zg[g] = zoff[f];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 0; w < kFanThreads / 32; ++w) runs += warp_total[w];
+    __syncthreads();
+  }
+  return runs;
+}
+
 // One fan: its F rays start at (ox, oy, oz + zg[group_of_ray[f]]) along
-// (dx, dy, dz)[f] (pointers already at the fan's first ray), G groups;
-// row k of the sweep is cand[k] (cand == nullptr: row k itself), k <
-// count. Writes the nearest t (inf on a miss) to out[0 .. F). zg and
+// (dx, dy, dz)[DS * f] (pointers already at the fan's first ray; DS = 1
+// for direction planes, 3 for stacked [F, 3] directions), G groups; row
+// k of the sweep is cand[k] (cand == nullptr: row k itself), k < count.
+// Writes the nearest t (inf on a miss) to out[0 .. F). zg and
 // group_of_ray may point into shared memory beyond fan_sweep_smem(G).
+template <int DS = 1>
 __device__ inline void fan_sweep(float ox, float oy, float oz, const float* zg,
                                  const int* group_of_ray, int G, const float* __restrict__ dx,
                                  const float* __restrict__ dy, const float* __restrict__ dz,
@@ -93,7 +128,7 @@ __device__ inline void fan_sweep(float ox, float oy, float oz, const float* zg,
       for (int f = threadIdx.x; f < F; f += blockDim.x) {
         const int g = group_of_ray[f] - g0;
         if (g < 0 || g >= gn) continue;
-        V3 d = v3(dx[f], dy[f], dz[f]);
+        V3 d = v3(dx[DS * f], dy[DS * f], dz[DS * f]);
         const float* hg = hoist + (size_t)g * kFanTile * 7;
         float best = out[f];
         for (int i = 0; i < nt; ++i) {

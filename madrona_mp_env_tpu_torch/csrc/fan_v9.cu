@@ -29,7 +29,7 @@
 // Design: one block per fan. The block first finds the runs of equal
 // (bitwise) z offsets among its rays with a warp-ballot prefix count,
 // which gives each ray its z-group (the sensor fan has 5: LOS, and one
-// per lidar row), then runs K2's sweep (csrc/fan_sweep.cuh) over the
+// per lidar row; csrc/fan_sweep.cuh find_runs), then runs K2's sweep (csrc/fan_sweep.cuh) over the
 // cell's candidates with the origin terms hoisted per (group, candidate):
 // at K = 80 the whole cell is one tile, ~13 KB of hoisted terms. Any z
 // offsets work: a fan with more than kHoistGroups runs is swept in
@@ -48,32 +48,9 @@ __global__ void __launch_bounds__(kFanThreads)
   // past fan_sweep's region: each ray's group and each group's z offset
   int* group_of_ray = (int*)((char*)s + fan_sweep_smem(kHoistGroups));
   float* zg = (float*)(group_of_ray + F);
-  __shared__ int warp_total[kFanThreads / 32];
-  __shared__ int runs;
 
   const size_t n = blockIdx.x, ray0 = n * F;
-  const float* z = zoff + ray0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) runs = 0;
-  __syncthreads();
-  for (int base = 0; base < F; base += kFanThreads) {
-    const int f = base + threadIdx.x;
-    const bool starts =
-        f < F && (f == 0 || __float_as_uint(z[f]) != __float_as_uint(z[f - 1]));
-    const unsigned m = __ballot_sync(0xffffffffu, starts);
-    if (lane == 31) warp_total[warp] = __popc(m);
-    __syncthreads();
-    int g = runs - 1 + __popc(m & (0xffffffffu >> (31 - lane)));
-    for (int w = 0; w < warp; ++w) g += warp_total[w];
-    if (f < F) {
-      group_of_ray[f] = g;
-      if (starts) zg[g] = z[f];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int w = 0; w < kFanThreads / 32; ++w) runs += warp_total[w];
-    __syncthreads();
-  }
+  const int runs = find_runs(zoff + ray0, F, group_of_ray, zg);
   fan_sweep(org[3 * n], org[3 * n + 1], org[3 * n + 2], zg, group_of_ray, runs, dx + ray0,
             dy + ray0, dz + ray0, rows, cand + (size_t)cells[n] * K, K, F, out + ray0);
 }

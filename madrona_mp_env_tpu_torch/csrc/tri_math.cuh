@@ -132,19 +132,27 @@ __device__ __forceinline__ float ray_capsule(V3 o, V3 d, V3 p0, V3 seg, float se
   return min2(t_cyl, min2(t0, t1));
 }
 
-// _sc_pairs -> t_tri: sphere of radius r swept from o along d vs one
-// triangle (start overlap 0, face via the offset plane, edge capsules with
-// vertex spheres); rr = r * r
-__device__ __forceinline__ float sphere_tri(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
-                                            V3 n, bool valid) {
+// _sc_pairs: the per-(cast, triangle) terms of a sphere of radius r
+// swept from o along d vs one triangle (start overlap -> t = 0, face via
+// the offset plane, edge capsules with vertex spheres); rr = r * r
+struct ScPair {
+  float t_tri, t_face, t_edge, t_sweep, dist2, sign;
+  V3 to_center;
+  bool overlap;
+};
+
+__device__ __forceinline__ ScPair sc_pair(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
+                                          V3 n, bool valid) {
+  ScPair p;
   V3 closest = closest_point_on_tri(o, v0, e1, e2);
-  V3 to_center = o - closest;
-  float dist2 = dot(to_center, to_center);
-  bool overlap = dist2 <= rr && valid;
+  p.to_center = o - closest;
+  p.dist2 = dot(p.to_center, p.to_center);
+  p.overlap = p.dist2 <= rr && valid;
 
   float ndotd = dot(n, d);
   float h = dot(o - v0, n);
   float sign = h > 0.0f ? 1.0f : (h < 0.0f ? -1.0f : 1.0f);
+  p.sign = sign;
   bool nd_ok = fabsf(ndotd) > 1e-9f;
   float t_face = (sign * r - h) / (nd_ok ? ndotd : 1.0f);
   V3 contact = (o + t_face * d) - (sign * r) * n;
@@ -159,16 +167,47 @@ __device__ __forceinline__ float sphere_tri(V3 o, V3 d, float r, float rr, V3 v0
   float bv = (d11 * d20 - d01 * d21) * inv_denom;
   float bw = (d00 * d21 - d01 * d20) * inv_denom;
   bool face_ok = nd_ok && t_face >= 0.0f && bv >= 0.0f && bw >= 0.0f && bv + bw <= 1.0f && valid;
-  t_face = sel_inf(face_ok, t_face);
+  p.t_face = sel_inf(face_ok, t_face);
 
   V3 v1 = v0 + e1;
   float t_e0 = ray_capsule(o, d, v0, e1, dot(e1, e1), rr);
   float t_e1 = ray_capsule(o, d, v0, e2, dot(e2, e2), rr);
   V3 e12 = e2 - e1;
   float t_e2 = ray_capsule(o, d, v1, e12, dot(e12, e12), rr);
-  float t_edge = sel_inf(valid, min2(t_e0, min2(t_e1, t_e2)));
-  float t_sweep = min2(t_face, t_edge);
-  return overlap ? 0.0f : t_sweep;
+  p.t_edge = sel_inf(valid, min2(t_e0, min2(t_e1, t_e2)));
+  p.t_sweep = min2(p.t_face, p.t_edge);
+  p.t_tri = p.overlap ? 0.0f : p.t_sweep;
+  return p;
+}
+
+// _sc_pairs -> t_tri
+__device__ __forceinline__ float sphere_tri(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
+                                            V3 n, bool valid) {
+  return sc_pair(o, d, r, rr, v0, e1, e2, n, valid).t_tri;
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_lo(float x, float lo) { return x < lo ? lo : x; }
+
+// sc_normals_from_idx for one winner triangle: the depenetration
+// direction on start overlap, else the face normal signed toward the
+// cast when the face hit is no later than the edge hit, else the
+// direction from the closest point to the sphere's centre at the hit
+__device__ __forceinline__ V3 sc_normal(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2, V3 n,
+                                        bool valid) {
+  ScPair p = sc_pair(o, d, r, rr, v0, e1, e2, n, valid);
+  const V3 up = v3(0.0f, 0.0f, 1.0f);
+  if (p.overlap) {
+    float dist = sqrtf(clamp_lo(p.dist2, 0.0f));
+    float dc = clamp_lo(dist, 1e-30f);
+    return dist > 0.0f ? v3(p.to_center.x / dc, p.to_center.y / dc, p.to_center.z / dc) : up;
+  }
+  if (p.t_face <= p.t_edge) return p.sign * n;
+  V3 hit_center = o + p.t_sweep * d;
+  V3 edge_raw = hit_center - closest_point_on_tri(hit_center, v0, e1, e2);
+  float edge_len = sqrtf(dot(edge_raw, edge_raw));
+  float ec = clamp_lo(edge_len, 1e-30f);
+  return edge_len > 1e-12f ? v3(edge_raw.x / ec, edge_raw.y / ec, edge_raw.z / ec) : up;
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (``build/torch_kernels/lib<name>.so`` under the
-checkout) and loaded with ``ctypes``. Nothing is built when a module is
+checkout), one ``<entry>_launch`` function per kernel entry, and loaded
+with ``ctypes``. Nothing is built when a module is
 imported: ``launcher`` builds on first use, and ``build_all`` starts one
 ``nvcc`` per source at once so that a first run pays for the slowest file
 only.
@@ -29,19 +30,27 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# argument types of each source's ``<name>_launch`` (pointers and the
-# stream as c_void_p); every launch function returns a cudaError_t
-LAUNCH_ARGTYPES = {
-    "ray_tris": [_P] * 3 + [_I] * 2 + [_P] * 2,
-    "fan_tris": [_P] * 7 + [_I] * 4 + [_P] * 2,
-    "fan_culled": [_P] * 9 + [_I] * 4 + [_P] * 2,
-    "fan_v9": [_P] * 8 + [_I] * 3 + [_P] * 2,
-    "fan_capsules": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3,
-    "sphere_cast": [_P] * 3 + [_F, _I, _I] + [_P] * 2 + [_I] * 2 + [_P] * 3,
+# each launch function ``<entry>_launch``: the source that defines it and
+# its argument types (pointers and the stream as c_void_p); every launch
+# function returns a cudaError_t
+LAUNCHES = {
+    "ray_tris": ("ray_tris", [_P] * 3 + [_I] * 2 + [_P] * 2),
+    "fan_tris": ("fan_tris", [_P] * 7 + [_I] * 4 + [_P] * 2),
+    "fan_culled": ("fan_culled", [_P] * 9 + [_I] * 4 + [_P] * 2),
+    "fan_v9": ("fan_v9", [_P] * 8 + [_I] * 3 + [_P] * 2),
+    "fan_flat": ("fan_flat", [_P] * 4 + [_I] * 3 + [_P] * 2),
+    "fan_capsules": ("fan_capsules",
+                     [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3),
+    "fan_capsules_explicit": ("fan_capsules",
+                              [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 3),
+    "sphere_cast": ("sphere_cast", [_P] * 3 + [_F, _I, _I] + [_P] * 2
+                    + [_I] * 2 + [_P] * 3),
+    "sphere_cast_normal": ("sphere_cast", [_P] * 3 + [_F, _I, _I, _F, _I]
+                           + [_P] * 3),
     # a pointer to the argument struct (ops/tail_fused.py _TailArgs)
-    "tail_fused": [_P, _P],
+    "tail_fused": ("tail_fused", [_P, _P]),
 }
-KERNEL_SOURCES = tuple(LAUNCH_ARGTYPES)
+KERNEL_SOURCES = tuple(dict.fromkeys(src for src, _ in LAUNCHES.values()))
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -101,17 +110,18 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
-def launcher(name: str):
-    """``<name>_launch`` of ``csrc/<name>.cu`` with its signature declared,
-    the library built and loaded on first use."""
-    fn = _LAUNCHERS.get(name)
+def launcher(entry: str):
+    """``<entry>_launch`` of the source that defines it, with its
+    signature declared, the library built and loaded on first use."""
+    fn = _LAUNCHERS.get(entry)
     if fn is None:
-        if _stale(name):
-            build_all([name])
-        fn = getattr(ctypes.CDLL(_paths(name)[1]), f"{name}_launch")
-        fn.argtypes = LAUNCH_ARGTYPES[name]
+        src, argtypes = LAUNCHES[entry]
+        if _stale(src):
+            build_all([src])
+        fn = getattr(ctypes.CDLL(_paths(src)[1]), f"{entry}_launch")
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LAUNCHERS[name] = fn
+        _LAUNCHERS[entry] = fn
     return fn
 
 

@@ -10,18 +10,21 @@ implementations side by side:
     arithmetic per (ray, triangle) pair in registers.
 
 The public entry (``ray_vs_tris``, ``ray_fans_vs_tris``,
-``ray_fans_culled``, ``ray_fans_culled_v9``, ``sphere_cast``,
-``sphere_cast_culled``, ``sphere_cast_packed``) dispatches on the device
-of its input: a CPU tensor goes to the plain version, a CUDA tensor to
-the kernel, anything else raises. Each entry counts its kernel launches
-in ``<entry>.launches``. Which entry the step calls is decided by the
-gates ``use_fan_v9`` and ``use_fan_cull`` here and ``sim/movement.py
-use_sc_pack``, as the JAX package decides it.
+``ray_fans_vs_tris_flat``, ``ray_fans_culled``, ``ray_fans_culled_v9``,
+``sphere_cast``, ``sphere_cast_vs_tris``, ``sphere_cast_culled``,
+``sphere_cast_packed``) dispatches on the device of its input: a CPU
+tensor goes to the plain version, a CUDA tensor to the kernel, anything
+else raises. Each entry counts its kernel launches in
+``<entry>.launches``. Which fan entry the step calls is decided by
+``fan_route`` (with the gates ``use_fan_v9`` and ``use_fan_cull``) and
+which cast entry by ``sim/movement.py use_sc_pack``, as the JAX package
+decides it.
 
 Conventions: miss => t = +inf; sphere casts return (t, winner row) where
 the winner is the lowest triangle row among equal t (the dense path's
 argmin), row 0 on a miss; ``sc_normals_from_idx`` rebuilds the dense
-path's contact normal for a winner row.
+path's contact normal for a winner row, and ``sphere_cast_vs_tris``
+returns that normal (0 on a miss) in place of the row.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .geom import cross, dot, sqrt
+from .geom import dot, sqrt
 
 INF = float("inf")
 
@@ -179,16 +182,23 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 def _ray_tri_t(o, d, v0, e1, e2, valid):
     """Two-sided Moller-Trumbore per (ray, triangle) pair: every argument
-    broadcasts to [..., T(, 3)] -> t [..., T] (inf on miss)."""
-    pvec = cross(d, e2)
-    det = dot(e1, pvec)
+    broadcasts to [..., T(, 3)] -> t [..., T] (inf on miss). geom.cross
+    and geom.dot written out on the x, y, z planes (the same operations
+    in the same order, without materializing [..., T, 3] products)."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    ax, ay, az = e1.unbind(-1)
+    bx, by, bz = e2.unbind(-1)
+    px, py, pz = dy * bz - dz * by, dz * bx - dx * bz, dx * by - dy * bx
+    det = ax * px + ay * py + az * pz
     det_ok = torch.abs(det) > 1e-12
     inv_det = torch.where(det_ok, 1.0 / det, torch.zeros_like(det))
-    tvec = o - v0
-    u = dot(tvec, pvec) * inv_det
-    qvec = cross(tvec, e1)
-    v = dot(d, qvec) * inv_det
-    t = dot(e2, qvec) * inv_det
+    vx, vy, vz = v0.unbind(-1)
+    tx, ty, tz = ox - vx, oy - vy, oz - vz
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx, qy, qz = ty * az - tz * ay, tz * ax - tx * az, tx * ay - ty * ax
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (bx * qx + by * qy + bz * qz) * inv_det
     hit = (
         det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
         & valid
@@ -196,11 +206,34 @@ def _ray_tri_t(o, d, v0, e1, e2, valid):
     return _where_inf(hit, t)
 
 
+# (ray, triangle) pairs per pass of the plain sweeps on the CPU: the
+# [rays, T] temporaries stay in cache
+_CPU_PAIRS = 2 ** 18
+
+
+def _cpu_passes(sweep, o, d, T: int):
+    """sweep(o, d) of rays o, d [..., 3] against T triangles, on the CPU
+    in passes of _CPU_PAIRS // T rays (each ray's result depends on that
+    ray alone, so the bits do not change). Returns sweep's tensor, or
+    tuple of tensors, over the rays' batch shape."""
+    o, d = torch.broadcast_tensors(o, d)
+    n = max(1, _CPU_PAIRS // T)
+    if o.device.type != "cpu" or o[..., 0].numel() <= n:
+        return sweep(o, d)
+    o2, d2 = o.reshape(-1, 3), d.reshape(-1, 3)
+    outs = [sweep(o2[i:i + n], d2[i:i + n])
+            for i in range(0, o2.shape[0], n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x).reshape(o.shape[:-1]) for x in zip(*outs))
+    return torch.cat(outs).reshape(o.shape[:-1])
+
+
 def _ray_vs_tris_dense(o, d, soup: TriSoup):
     """Nearest hit over all triangles: o, d [..., 3] -> t [...] (inf on
     miss)."""
-    return _ray_tri_t(o[..., None, :], d[..., None, :], soup.v0, soup.e1,
-                      soup.e2, soup.valid).amin(dim=-1)
+    return _cpu_passes(lambda o, d: _ray_tri_t(
+        o[..., None, :], d[..., None, :], soup.v0, soup.e1, soup.e2,
+        soup.valid).amin(dim=-1), o, d, soup.num_tris)
 
 
 def ray_vs_tris(o, d, soup: TriSoup):
@@ -285,6 +318,61 @@ ray_fans_vs_tris.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K7: sensor fans in the stacked layout, z offsets per ray
+# ---------------------------------------------------------------------------
+
+def _ray_zoffs(zoffs, zgroups):
+    """Per-ray z offsets [N, F]: zoffs itself, or the per-group offsets
+    [N, G] spread over the run lengths zgroups."""
+    if zgroups is None:
+        return zoffs
+    return zoffs.index_select(1, _group_of_ray(tuple(zgroups),
+                                               zoffs.device))
+
+
+def _ray_fans_flat_plain(origins, zoffs, dirs, soup: TriSoup, t_max=INF,
+                         zgroups=None):
+    """_ray_vs_tris_dense on origins + (0, 0, z) per ray: origins [N, 3],
+    zoffs [N, F] (or [N, G] with zgroups), dirs [N, F, 3] -> t [N, F]."""
+    zoff = _ray_zoffs(zoffs, zgroups)
+    zero = torch.zeros_like(zoff)
+    o = origins[:, None, :] + torch.stack([zero, zero, zoff], dim=-1)
+    t = _ray_vs_tris_dense(o, dirs, soup)
+    return t if t_max == INF else _where_inf(t <= t_max, t)
+
+
+def ray_fans_vs_tris_flat(origins, zoffs, dirs, soup: TriSoup, t_max=INF,
+                          zgroups=None):
+    """Nearest hit of every ray of N fans over the whole soup, in the JAX
+    package's stacked layout (its ray_fans_vs_tris_pallas): origins [N,
+    3]; zoffs [N, F] per ray, or [N, G] per group when zgroups (run
+    lengths summing to F) is given; dirs [N, F, 3] of any scale (t is in
+    units of |d|). -> t [N, F], inf on a miss or beyond t_max. CUDA:
+    csrc/fan_flat.cu, which finds each fan's runs of equal offsets and
+    sweeps them with K2's hoisted sweep, so runs of any length work."""
+    if not _route(origins):
+        return _ray_fans_flat_plain(origins, zoffs, dirs, soup, t_max,
+                                    zgroups)
+    N, F = dirs.shape[:2]
+    # held in locals until the launch: a freed temporary's memory could
+    # be handed to the next argument's copy
+    org, zoff, dr = _f32(origins), _f32(_ray_zoffs(zoffs, zgroups)), _f32(
+        dirs)
+    if org.shape != (N, 3) or zoff.shape != (N, F) or dr.shape != (N, F, 3):
+        raise ValueError("fan shapes disagree")
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_flat")(
+        _ptr(org), _ptr(zoff), _ptr(dr), _ptr(soup.tri_rows), N, F,
+        soup.num_tris, _ptr(out), _stream(origins),
+    ), "fan_flat")
+    ray_fans_vs_tris_flat.launches += 1
+    return out if t_max == INF else _where_inf(out <= t_max, out)
+
+
+ray_fans_vs_tris_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K6: sensor fans against their PVS cell's candidates (big maps)
 # ---------------------------------------------------------------------------
 
@@ -336,13 +424,13 @@ def ray_fans_culled(origins, zg, dirs, zgroups, cells, tables,
         origins, zg, dirs, zgroups)
     if cells.shape != (N,):
         raise ValueError("one cell per fan expected")
+    cl = cells.to(torch.int32).contiguous()
     cand = tables.cand_idx.to(torch.int32).contiguous()
     out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("fan_culled")(
         _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
-        _ptr(group_of_ray), _ptr(soup.tri_rows),
-        _ptr(cells.to(torch.int32).contiguous()), _ptr(cand), N, F, G,
-        tables.K, _ptr(out), _stream(origins),
+        _ptr(group_of_ray), _ptr(soup.tri_rows), _ptr(cl), _ptr(cand), N, F,
+        G, tables.K, _ptr(out), _stream(origins),
     ), "fan_culled")
     ray_fans_culled.launches += 1
     return out if t_max == INF else _where_inf(out <= t_max, out)
@@ -497,10 +585,13 @@ def _sphere_cast_dense(o, d, r, soup: TriSoup):
     """o, d [..., 3] -> (t [...], winner row [...] i32) over all
     triangles; argmin picks the lowest row among equal t (row 0 on a
     miss)."""
-    p = _sc_pairs(o[..., None, :], d[..., None, :], r, soup.v0, soup.e1,
-                  soup.e2, soup.normal, soup.valid)
-    t, idx = p["t_tri"].min(dim=-1)
-    return t, idx.to(torch.int32)
+    def sweep(o, d):
+        p = _sc_pairs(o[..., None, :], d[..., None, :], r, soup.v0, soup.e1,
+                      soup.e2, soup.normal, soup.valid)
+        t, idx = p["t_tri"].min(dim=-1)
+        return t, idx.to(torch.int32)
+
+    return _cpu_passes(sweep, o, d, soup.num_tris)
 
 
 def sphere_cast(o, d, r: float, soup: TriSoup):
@@ -630,6 +721,55 @@ def sc_normals_from_idx(o, d, r: float, idx, soup: TriSoup):
     return torch.where(p["overlap"][..., None], depen_n, tri_n)
 
 
+def _sphere_cast_normal_plain(o, d, r: float, soup: TriSoup, t_max=INF,
+                              with_normal=True):
+    """_sphere_cast_dense + sc_normals_from_idx: (t [...], normal [...,
+    3]); a miss or t > t_max gives t = inf and normal 0, and so does
+    every normal when not with_normal."""
+    t, idx = _sphere_cast_dense(o, d, r, soup)
+    missed = torch.isinf(t) | (t > t_max)
+    t = _where_inf(~missed, t)
+    if not with_normal:
+        return t, torch.zeros(o.shape, device=o.device, dtype=torch.float32)
+    n = sc_normals_from_idx(o, d, r, idx, soup)
+    return t, torch.where(missed[..., None], torch.zeros_like(n), n)
+
+
+def sphere_cast_vs_tris(o, d, r: float, soup: TriSoup, t_max=INF,
+                        with_normal=True):
+    """K8: sphere sweep of radius r from o along unit d against the soup,
+    with the winner's contact normal (the JAX package's
+    sphere_cast_vs_tris, its dense path's normal rule). o, d [..., 3] ->
+    (t [...], normal [..., 3]); a miss or t > t_max gives t = inf and
+    normal 0; with_normal=False returns zero normals. CUDA: the normal
+    entry of csrc/sphere_cast.cu, one thread per cast, which computes
+    the normal of its winner row in the same kernel."""
+    if not _route(o):
+        return _sphere_cast_normal_plain(o, d, r, soup, t_max, with_normal)
+    shape = o.shape[:-1]
+    R = int(np.prod(shape)) if shape else 1
+    o2, d2 = _f32(o.reshape(R, 3)), _f32(d.reshape(R, 3))
+    t = torch.empty(R, device=o.device, dtype=torch.float32)
+    n = torch.empty((R, 3), device=o.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_normal")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris,
+        R, float(t_max), int(with_normal), _ptr(t), _ptr(n), _stream(o),
+    ), "sphere_cast_normal")
+    sphere_cast_vs_tris.launches += 1
+    return t.reshape(shape), n.reshape(shape + (3,))
+
+
+sphere_cast_vs_tris.launches = 0
+
+
+def sphere_cast_grouped(o, d, r: float, soup: TriSoup, t_max=INF,
+                        with_normal=True):
+    """Grouped casts o, d [..., CPA, 3] (CPA per casting agent): the JAX
+    package's sphere_cast_grouped, which is sphere_cast_vs_tris (its
+    culling arguments are unused there and not taken here)."""
+    return sphere_cast_vs_tris(o, d, r, soup, t_max, with_normal)
+
+
 # ---------------------------------------------------------------------------
 # K9: sensor fans against their cell's sensor-ray table candidates
 # ---------------------------------------------------------------------------
@@ -641,6 +781,20 @@ def use_fan_v9(ray_tables) -> bool:
     whole-soup fan (K2)."""
     return ray_tables is not None and os.environ.get("MPENV_FAN_V9",
                                                      "0") == "1"
+
+
+def fan_route(zgroups, m) -> str:
+    """Which kernel sweeps the sensor fans of map ``m`` (assets MapData)
+    with z-group run lengths ``zgroups``, the JAX package's dispatch
+    (its ops/raycast.py ray_fans_vs_tris): "v9" (K9) when use_fan_v9,
+    whatever the runs; else, when every run is a multiple of 8, "culled"
+    (K6) when use_fan_cull and "dense" (K2) otherwise; else "flat" (K7)
+    over the whole soup, on any map (an odd team size's LOS run)."""
+    if use_fan_v9(m.ray_cells):
+        return "v9"
+    if any(g % 8 for g in zgroups):
+        return "flat"
+    return "culled" if use_fan_cull(m.tris, m.cells) else "dense"
 
 
 def _ray_fans_v9_plain(origins, zoff, dirs, cells, ray_tables,
@@ -668,13 +822,17 @@ def ray_fans_culled_v9(origins, zoff, dirs, cells, ray_tables,
     if origins.shape != (N, 3) or cells.shape != (N,) or any(
             c.shape != (N, F) for c in dirs):
         raise ValueError("fan shapes disagree")
+    # held in locals until the launch: a freed temporary's memory could
+    # be handed to the next argument's copy
+    org, zo = _f32(origins), _f32(zoff)
     dx, dy, dz = (_f32(c) for c in dirs)
+    cl = cells.to(torch.int32).contiguous()
     cand = ray_tables.cand_idx.to(torch.int32).contiguous()
     out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("fan_v9")(
-        _ptr(_f32(origins)), _ptr(_f32(zoff)), _ptr(dx), _ptr(dy), _ptr(dz),
-        _ptr(soup.tri_rows), _ptr(cells.to(torch.int32).contiguous()),
-        _ptr(cand), N, F, ray_tables.K, _ptr(out), _stream(origins),
+        _ptr(org), _ptr(zo), _ptr(dx), _ptr(dy), _ptr(dz),
+        _ptr(soup.tri_rows), _ptr(cl), _ptr(cand), N, F, ray_tables.K,
+        _ptr(out), _stream(origins),
     ), "fan_v9")
     ray_fans_culled_v9.launches += 1
     return out if t_max == INF else _where_inf(out <= t_max, out)

@@ -1,9 +1,11 @@
 """Agent-capsule queries + the packed sphere-cast constants table.
 
-  * ray_vs_capsules / fan_capsules — rays vs the z-aligned agent capsules
-    (checkCapsuleEntity, reference src/utils.cpp:34-54). ``fan_capsules``
-    is the sensor sweep: every sensor ray of every agent against its
-    world's capsules, caster excluded; CUDA kernel csrc/fan_capsules.cu.
+  * ray_vs_capsules / fan_capsules / fan_capsules_explicit — rays vs the
+    z-aligned agent capsules (checkCapsuleEntity, reference
+    src/utils.cpp:34-54). ``fan_capsules`` is the sensor sweep: every
+    sensor ray of every agent against its world's capsules, caster
+    excluded; ``fan_capsules_explicit`` takes each ray's origin and the
+    capsule it excludes; CUDA kernel csrc/fan_capsules.cu (two entries).
   * pack_sc2_consts — the [40, T] per-triangle table of the JAX package's
     sphere-cast kernels (the JAX short tables carry it per candidate). The
     port's kernels read the soup's [T, 16] ``tri_rows`` instead; the table
@@ -97,20 +99,14 @@ def ray_vs_capsules(o, d, base_pos, mask):
 
 def _fan_capsules_plain(pos, zoff, dirs, alive):
     """pos [W, A, 3]; zoff, dx, dy, dz [W, A, F]; alive [W, A] bool ->
-    (t [W, A, F], capsule index [W, A, F] i32, -1 on miss)."""
+    (t [W, A, F], capsule index [W, A, F] i32, -1 on miss): the explicit
+    sweep from pos + (0, 0, zoff), each ray skipping its caster."""
     W, A, F = zoff.shape
     zero = torch.zeros_like(zoff)
     o = pos[:, :, None, :] + torch.stack([zero, zero, zoff], dim=-1)
-    d = torch.stack(dirs, dim=-1)
-    t_caps = ray_vs_capsules(
-        o, d, pos[:, None, None, :, :], alive[:, None, None, :]
-    )  # [W, A, F, A]
-    me = torch.arange(A, device=pos.device)
-    is_self = (me[:, None] == me[None, :])[None, :, None, :]
-    t_caps = torch.where(is_self, torch.full_like(t_caps, INF), t_caps)
-    t, idx = t_caps.min(dim=-1)
-    idx = torch.where(torch.isinf(t), torch.full_like(idx, -1), idx)
-    return t, idx.to(torch.int32)
+    own = torch.arange(A, device=pos.device)[None, :, None].expand(W, A, F)
+    return _fan_capsules_explicit_plain(o, torch.stack(dirs, dim=-1), own,
+                                        pos, alive)
 
 
 def fan_capsules(pos, zoff, dirs, alive):
@@ -139,3 +135,49 @@ def fan_capsules(pos, zoff, dirs, alive):
 
 
 fan_capsules.launches = 0
+
+
+def _fan_capsules_explicit_plain(o, dirs, self_idx, cap_pos, alive):
+    """ray_vs_capsules with each ray's self_idx column masked, then the
+    argmin: (t [W, A, F], capsule index [W, A, F] i32, -1 on miss)."""
+    A = cap_pos.shape[1]
+    other = torch.arange(A, device=o.device) != self_idx[..., None].long()
+    t_caps = ray_vs_capsules(o, dirs, cap_pos[:, None, None],
+                             alive[:, None, None, :] & other)
+    t, idx = t_caps.min(dim=-1)
+    idx = torch.where(torch.isinf(t), torch.full_like(idx, -1), idx)
+    return t, idx.to(torch.int32)
+
+
+def fan_capsules_explicit(o, dirs, self_idx, cap_pos, alive):
+    """Rays with explicit origins vs their world's agent capsules: the JAX
+    package's ``fan_capsules`` (ops/raycast_cull.py:418, its
+    _make_cap_kernel with derive_origins=False), batched over worlds. o,
+    dirs [W, A, F, 3]; self_idx [W, A, F] i32, the capsule each ray
+    skips; cap_pos [W, A, 3]; alive [W, A] bool. Returns (t [W, A, F],
+    hit_idx [W, A, F] i32), the lowest capsule index among equal t, -1 on
+    a miss. CUDA: one thread per ray (csrc/fan_capsules.cu, explicit
+    entry)."""
+    if not _route(o):
+        return _fan_capsules_explicit_plain(o, dirs, self_idx, cap_pos,
+                                            alive)
+    W, A, F = self_idx.shape
+    if o.shape != (W, A, F, 3) or dirs.shape != o.shape or \
+            cap_pos.shape != (W, A, 3) or alive.shape != (W, A):
+        raise ValueError("capsule fan shapes disagree")
+    # held in locals until the launch (see ops/raycast.py)
+    oc, dc, pc = _f32(o), _f32(dirs), _f32(cap_pos)
+    si = self_idx.to(torch.int32).contiguous()
+    al = alive.to(torch.uint8).contiguous()
+    t = torch.empty((W, A, F), device=o.device, dtype=torch.float32)
+    idx = torch.empty((W, A, F), device=o.device, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("fan_capsules_explicit")(
+        _ptr(oc), _ptr(dc), _ptr(si), _ptr(pc), _ptr(al), W, A, F,
+        float(consts.agent_radius), float(CAPSULE_SEG_H), _ptr(t), _ptr(idx),
+        _stream(o),
+    ), "fan_capsules_explicit")
+    fan_capsules_explicit.launches += 1
+    return t, idx
+
+
+fan_capsules_explicit.launches = 0

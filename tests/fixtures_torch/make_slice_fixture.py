@@ -81,7 +81,8 @@ def record(hist, state, obs, reward=None, done=None):
         hist.setdefault("done", []).append(np.asarray(done))
 
 
-def jax_rollout(chain_state=None, scene="simple_map", on_step=None):
+def jax_rollout(chain_state=None, scene="simple_map", on_step=None,
+                team_size=TEAM_SIZE):
     """The reference rollout on ``data/<scene>``: {name: [steps(+1), ...]}
     numpy arrays (state and obs leaves have the reset as entry 0).
     ``chain_state``, a list, receives the state after step CHAIN_STEP;
@@ -102,12 +103,12 @@ def jax_rollout(chain_state=None, scene="simple_map", on_step=None):
     from madrona_mp_env_tpu.sim.types import Actions
 
     cfg = mp.EnvConfig(
-        task=mp.Task.Zone, team_size=TEAM_SIZE,
+        task=mp.Task.Zone, team_size=team_size,
         sim_flags=mp.SimFlags.StaggerStarts | mp.SimFlags.RandomFlipTeams,
     )
     env = mp.Env(cfg, os.path.join(REPO, "data", scene),
                  num_worlds=NUM_WORLDS, seed=SEED)
-    acts = draw_actions()
+    acts = draw_actions(num_agents=2 * team_size)
     hist = {k: v for k, v in acts.items()}
     state, obs = env.reset()
     rec = {}

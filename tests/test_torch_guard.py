@@ -86,3 +86,12 @@ def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):
         train_cli.build(train_cli.parse_args(args))
     _, _, env, mgr = train_cli.build(train_cli.parse_args(args + ["--cpu"]))
     assert env.device.type == mgr.device.type == "cpu"
+
+
+def test_kernel_bench_defaults_to_cuda(monkeypatch):
+    """tools/kernel_bench.py runs on the card unless --device cpu."""
+    from madrona_mp_env_tpu_torch.tools import kernel_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_bench.main(["--worlds", "1"])

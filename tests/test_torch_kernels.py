@@ -8,7 +8,8 @@ Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
 capsule indices exact. The big-map kernels (K6, K4' packed, and K2 and K4
 dense over town_map's 6,144-triangle soup) run on data/town_map; K9 on
-simple_map's sensor-ray tables.
+simple_map's sensor-ray tables; K7, K8 and K3x (the kernel bench's and
+Zone 3v3's) on both maps.
 """
 
 import numpy as np
@@ -181,6 +182,90 @@ def test_sphere_cast_packed_kernel(gpu_map, town_map, scene):
         assert _eq(tk, tp) and _eq(ik, ip)
 
 
+@pytest.mark.parametrize("scene, runs", [
+    ("simple_map", "ts6"), ("simple_map", "ts3"), ("simple_map", "per_ray"),
+    ("town_map", "ts3")])
+def test_flat_fan_kernel(gpu_map, town_map, scene, runs):
+    """K7 over the whole soup, stacked directions of any scale: the
+    sensor fan's runs at team sizes 6 (aligned) and 3 (a 12-ray LOS run),
+    given per ray and per group, and a z offset per ray; on town_map the
+    soup is swept in tiles."""
+    m = gpu_map if scene == "simple_map" else town_map
+    N = 384
+    zgroups = ((4 * (6 if runs == "ts6" else 3),) + (32, 32, 8, 8))
+    F = sum(zgroups)
+    org = _points(m, N, 40, (0, 5))
+    org[::16, 2] = 10000.0
+    g = torch.Generator(device="cuda").manual_seed(41)
+    zg = 10.0 + 50.0 * torch.rand((N, len(zgroups)), generator=g,
+                                  device="cuda")
+    zoff = torch.repeat_interleave(
+        zg, torch.tensor(zgroups, device="cuda"), dim=-1)
+    if runs == "per_ray":
+        zoff = 10.0 + 50.0 * torch.rand((N, F), generator=g, device="cuda")
+    d = _dirs(N * F, 42).reshape(N, F, 3) * (
+        0.5 + torch.rand((N, F, 1), generator=g, device="cuda"))
+    n0 = raycast.ray_fans_vs_tris_flat.launches
+    t = raycast.ray_fans_vs_tris_flat(org, zoff, d, m.tris)
+    assert raycast.ray_fans_vs_tris_flat.launches == n0 + 1
+    assert _eq(t, raycast._ray_fans_flat_plain(org, zoff, d, m.tris))
+    assert bool(torch.isfinite(t).float().mean() > 0.3)
+    if runs != "per_ray":
+        assert _eq(raycast.ray_fans_vs_tris_flat(org, zg, d, m.tris,
+                                                 zgroups=zgroups), t)
+
+
+@pytest.mark.parametrize("scene", ["simple_map", "town_map"])
+def test_sphere_cast_normal_kernel(gpu_map, town_map, scene):
+    """K8: t and the winner's contact normal over the whole soup, on the
+    L1 batch's casts (overlaps, face and edge hits, standing agents'
+    directionless casts) and random casts; a finite t_max; no normals."""
+    m = gpu_map if scene == "simple_map" else town_map
+    N = 512
+    x = _points(m, N, 43, (0, 2))
+    v = _dirs(N, 44, flat=True)
+    v[::8] = 0.0
+    o1, d1, _ = movement.l1_casts(x, v, torch.full((N,), 50.0, device="cuda"),
+                                  torch.full((N,), 30.0, device="cuda"))
+    o2 = _points(m, N * 7, 45, (15, 50)).reshape(N, 7, 3)
+    d2 = _dirs(N * 7, 46).reshape(N, 7, 3)
+    for o, d in ((o1, d1), (o2, d2)):
+        for t_max, with_normal in ((float("inf"), True), (20.0, True),
+                                   (float("inf"), False)):
+            n0 = raycast.sphere_cast_vs_tris.launches
+            tk, nk = raycast.sphere_cast_vs_tris(o, d, R, m.tris, t_max,
+                                                 with_normal)
+            assert raycast.sphere_cast_vs_tris.launches == n0 + 1
+            tp, np_ = raycast._sphere_cast_normal_plain(o, d, R, m.tris,
+                                                        t_max, with_normal)
+            assert _eq(tk, tp) and _eq(nk, np_)
+            assert bool(torch.isfinite(tk).float().mean() > 0.2)
+
+
+def test_fan_capsules_explicit_kernel(gpu_map):
+    """K3x: explicit origins around the agents, each ray skipping a
+    capsule of its own choosing (mostly its caster's); dead agents."""
+    W, A, F = 64, 6, 92
+    pos = (_points(gpu_map, W * A, 47, (0, 1)) * 0.05).reshape(W, A, 3)
+    g = torch.Generator(device="cuda").manual_seed(48)
+    alive = torch.rand((W, A), generator=g, device="cuda") > 0.2
+    o = (pos[:, :, None, :] + 30.0 * torch.randn(
+        (W, A, F, 3), generator=g, device="cuda")
+        + torch.tensor([0.0, 0.0, 40.0], device="cuda"))
+    d = _dirs(W * A * F, 49).reshape(W, A, F, 3)
+    own = torch.arange(A, device="cuda")[None, :, None].expand(W, A, F)
+    other = torch.randint(0, A, (W, A, F), generator=g, device="cuda")
+    self_idx = torch.where(torch.rand((W, A, F), generator=g, device="cuda")
+                           < 0.7, own, other).to(torch.int32)
+    n0 = raycast_cull.fan_capsules_explicit.launches
+    tk, ik = raycast_cull.fan_capsules_explicit(o, d, self_idx, pos, alive)
+    assert raycast_cull.fan_capsules_explicit.launches == n0 + 1
+    tp, ip = raycast_cull._fan_capsules_explicit_plain(o, d, self_idx, pos,
+                                                       alive)
+    assert _eq(tk, tp) and _eq(ik, ip)
+    assert bool((ik >= 0).float().mean() > 0.05)
+
+
 def test_fan_capsules_kernel(gpu_map):
     W, A, F = 64, 12, 104
     pos = (_points(gpu_map, W * A, 5, (0, 1)) * 0.05).reshape(W, A, 3)
@@ -212,7 +297,7 @@ def test_sphere_cast_kernels(gpu_map):
     assert _eq(tk, tp) and _eq(ik, ip)
 
 
-@pytest.mark.parametrize("team_size", [2, 6])
+@pytest.mark.parametrize("team_size", [2, 3, 6])
 def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
     """K5 against its plain version on the card: every output leaf
     bit-equal on states that rotate, contest, take and capture zones and
@@ -248,7 +333,7 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
         assert _eq(getattr(sk, k), v), k
 
 
-@pytest.mark.parametrize("team_size", [2, 6])
+@pytest.mark.parametrize("team_size", [2, 3, 6])
 def test_unfused_tail_equals_fused_plain_on_card(simple_map_dir, gpu_map,
                                                  team_size):
     """The reference's unfused system chain on the card equals the fused

@@ -38,16 +38,16 @@ REL = {"pos": 1e-4, "reward": 1e-4}
 OBS_REL = 1e-3
 
 
-def port_rollout(scene):
+def port_rollout(scene, team_size=fx.TEAM_SIZE):
     """The fixture's rollout through the port on the CPU, recorded with
     the fixture's own recorder."""
     cfg = mt.EnvConfig(
-        task=mt.Task.Zone, team_size=fx.TEAM_SIZE,
+        task=mt.Task.Zone, team_size=team_size,
         sim_flags=mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams,
     )
     env = mt.Env(cfg, scene, num_worlds=fx.NUM_WORLDS, seed=fx.SEED,
                  device="cpu")
-    acts = fx.draw_actions()
+    acts = fx.draw_actions(num_agents=2 * team_size)
     rec = {}
     state, obs = env.reset()
     fx.record(rec, state, obs)

@@ -15,9 +15,10 @@ package.
   same fans its hits and misses agree with JAX's full-soup sweep on at
   least 99.5% of the rays (the PVS is sampled: tests/test_town_map.py's
   bar).
-- The packed casts' plain version equals JAX's dense sphere cast within
-  1e-6 relative where the step reads it: down casts within t <= 64,
-  forward casts within t <= 20 (move_dist + buf).
+- The packed casts' plain version equals JAX's dense sphere cast (the
+  fixture's ``casts/*``) within 1e-6 relative where the step reads it:
+  down casts within t <= 64, forward casts within t <= 20 (move_dist +
+  buf).
 - The whole slice (Zone 2v2, 2 worlds, 16 steps) against the fixture:
   with the gates forced dense at the simple_map slice's tolerances
   (tests/test_torch_slice.py); with the default gates, hp, alive, team
@@ -245,31 +246,17 @@ def test_culled_fan_agrees_with_full_soup(town, fans):
 # the packed casts (K4''s plain version)
 # ---------------------------------------------------------------------------
 
-def test_packed_cast_plain_matches_jax(town):
+def test_packed_cast_plain_matches_jax(town, fixture_data):
     """L2/L3/fall-shaped casts from walkable points of town_map against
-    each agent's MOVE_MARGIN cell: ground checks from up to 2r off the
-    agent's column, and flat forward casts from up to 20 along."""
-    g = np.random.default_rng(3)
-    n = 128
-    v = town.nav_verts.numpy()
-    x = (v[g.integers(0, len(v), n)] + [0.0, 0.0, 1.0]).astype(np.float32)
-    ang = g.uniform(0, 2 * np.pi, n)
-    flat = np.stack([np.cos(ang), np.sin(ang), np.zeros(n)], -1)
-    down_o = x + flat * g.uniform(0, 30.0, (n, 1)) + [0.0, 0.0, 50.0]
-    fwd_o = x + flat * g.uniform(0, 20.0, (n, 1)) + [0.0, 0.0, 30.0]
-    turn = g.uniform(-1.5, 1.5, n) + ang
-    fwd_d = np.stack([np.cos(turn), np.sin(turn), np.zeros(n)], -1)
-    down_d = np.broadcast_to([0.0, 0.0, -1.0], (n, 3))
-    o = np.stack([down_o, fwd_o], 1).astype(np.float32)  # [n, 2, 3]
-    d = np.stack([down_d, fwd_d], 1).astype(np.float32)
-    xt = torch.as_tensor(x)
-    cells = culling.short_cell_index(town.short_mv, xt)
+    each agent's MOVE_MARGIN cell (make_town_fixture.packed_casts: ground
+    checks from up to 2r off the agent's column, and flat forward casts
+    from up to 20 along), held to the committed JAX dense casts."""
+    x, o, d, want = (fixture_data[f"casts/{k}"] for k in "xodt")
+    cells = culling.short_cell_index(town.short_mv, torch.as_tensor(x))
     got, _ = raycast.sphere_cast_packed(torch.as_tensor(o),
                                         torch.as_tensor(d), R, cells,
                                         town.short_mv, town.tris)
     got = got.numpy()
-    want, _ = jrc._sphere_cast_vs_tris_dense(o, d, R, _jsoup(town.tris))
-    want = np.asarray(want)
     for k, reach in ((0, 64.0), (1, 20.0)):
         near = want[:, k] <= reach
         assert near.mean() > 0.15, (k, near.mean())
