@@ -30,11 +30,24 @@ Phases, each of which fails the run loudly:
    size 3. The kernel bench's shapes (tools/kernel_bench.py make_inputs,
    1024 worlds, team sizes 6 and 3, each map): K7, K8 with and without
    normals and K3x, each bit-equal to its plain version, then the kernel
-   bench itself, whose launches those rows count;
+   bench itself, whose launches those rows count. The probes: P3, the
+   fused movement (csrc/move_fused.cu), on each map under both cast
+   routes on the state a step hands the movement pair (reset + 5 steps at
+   1024 worlds), bit-equal to its plain version and (culled) to the
+   step's own split pair on the kernels, with the split pair's time and
+   CUDA launches beside the fused launch's; P5 (K9 through cand_idx, on
+   tables gathered beforehand with and without the gather), P6 (K9's
+   candidates staged all at once or 8 at a time, the dense fan and the
+   v9 end-to-end path beside them) and P2 (K2's sweep with an exact
+   divide, an IEEE reciprocal, rcp.approx, the direction dots alone, the
+   epilogue alone and 8-row chunks; one torch.matmul of the direction
+   dots beside them) at 12,288 fans x 104 rays on simple_map, each
+   bit-equal to its plain version (rcp.approx: its error printed); then
+   each probe's main, whose launches those rows count;
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch, K4 dense, K6 and K9 must not; env-steps/s beside the card's
+   launch, K4 dense, K6, K9 and the fused movement P3 must not; env-steps/s beside the card's
    name and limit; then CUDA launches per step from torch.profiler, with
    the fused tail and, for comparison in the same process, with the
    unfused chain it replaced; then the same path with MPENV_FAN_V9=1,
@@ -997,16 +1010,244 @@ def bench_kernels(mt, scene, team_size, card):
     return ph.results
 
 
+P3_STEPS = 5  # the fused movement's state: Env.reset + 5 steps
+P3_SOURCE = "madrona_mp_env_tpu_torch/csrc/move_fused.cu"
+P3_TPU = "tools/probes/movement_fused_probe.py:54"
+FAN_PROBE_CHAIN = 50  # the TPU probe's scan length
+# f32 operations per (ray, row) pair of P2's part variants (as the kernel
+# writes them): the direction dots, two crosses' worth of products and
+# sums and two minima; the epilogue's divide, three scales, u + v, min
+OPS_FAN_DOTS = 26
+OPS_FAN_EPILOGUE = 6
+P2_TPU = {"exact": "madrona_mp_env_tpu/tools/fan_probe.py:129",
+          "rcp_ieee": "madrona_mp_env_tpu/tools/fan_probe.py:129",
+          "rcp_approx": "madrona_mp_env_tpu/tools/fan_probe.py:129",
+          "dots_only": "madrona_mp_env_tpu/tools/fan_probe.py:129",
+          "epilogue": "madrona_mp_env_tpu/tools/fan_probe.py:129",
+          "chunked": "madrona_mp_env_tpu/tools/fan_probe.py:183"}
+
+
+def p3_rows(cfg, scene):
+    """P3, the fused movement, under both routes on the state a step
+    hands the movement pair (Env.reset + P3_STEPS steps of bench.py's
+    actions at NUM_WORLDS worlds, then the movement and aim systems):
+    kernel against its plain version and, bit for bit, against the split
+    pair on the step's own kernels; the fused launch's time, the split
+    pair's and the plain version's; the CUDA launches of one split pair
+    and of one fused call (torch.profiler); the bound over the (cast,
+    valid triangle) pairs and normals the kernel took (its work
+    counter)."""
+    import torch
+    from madrona_mp_env_tpu_torch.tools.probes import (
+        movement_fused_probe as mf,
+    )
+
+    env, st = mf.bench_state(cfg, scene, NUM_WORLDS, P3_STEPS, "cuda")
+    m = env.map_data
+    ph = KernelPhase(m.tris, os.path.basename(scene))
+    N = st.pos.shape[0] * st.pos.shape[1]
+    for route in ("culled", "dense"):
+        rt = dict(culled="L1 short tables, L2/L3/fall MOVE_MARGIN tables",
+                  dense="every cast over the whole soup")[route]
+
+        def fused(route=route):
+            return mf.apply_velocity_fall_fused(cfg, m, st, route)
+
+        def split(route=route):
+            return mf.split_pair(cfg, m, st, route)
+
+        got = fused()
+        want, pms = timed_once(
+            lambda: mf._apply_velocity_fall_fused_plain(cfg, m, st, route))
+        name = f"P3 move_fused ({route})"
+        err = check_equal(name, (got.pos, want.pos), (got.vel, want.vel))
+        sp = split()
+        check_equal(f"{name} against the split pair", (got.pos, sp.pos),
+                    (got.vel, sp.vel))
+        moved = float((got.pos != st.pos).any(-1).float().mean())
+        work = torch.zeros(2, dtype=torch.int64, device="cuda")
+        mf.apply_velocity_fall_fused(cfg, m, st, route, work=work)
+        pairs, normals = (int(v) for v in work.tolist())
+        tables = (m.short.cand.numel() + m.short_mv.cand.numel()) * 4 \
+            if route == "culled" else 0
+        ph.record(
+            name, P3_SOURCE, P3_TPU, mf.apply_velocity_fall_fused, err,
+            cuda_time_ms(fused, 20), pms,
+            N * (32 + 24) + tables + ph.T_real * 52,
+            pairs * OPS_SPHERE_TRI + normals * (OPS_SPHERE_TRI
+                                                + OPS_SC_NORMAL),
+            [list(st.pos.shape[:2])], route_casts=rt,
+            split_ms=round(cuda_time_ms(split, 5), 4),
+            split_launches=mf.cuda_launches(split),
+            fused_launches=mf.cuda_launches(fused), pairs=pairs,
+            normals=normals, moved_share=round(moved, 4))
+    return ph.results
+
+
+def fan_probe_rows():
+    """P5, P6 and P2 at 12,288 fans x 104 rays on simple_map (the probes'
+    make_fans): each kernel against its plain version (bit-equal; P2's
+    rcp.approx: its largest error and share of rays beyond 1e-4 relative
+    against the exact plain version), its time, the plain version's and
+    the bound over the valid (ray, row) pairs."""
+    import torch
+    from madrona_mp_env_tpu_torch.ops import raycast
+    from madrona_mp_env_tpu_torch.tools import fan_probe as p2
+    from madrona_mp_env_tpu_torch.tools.probes import (
+        v9_kernel_probe as p5, v9_scan_timing as p6,
+    )
+    from madrona_mp_env_tpu_torch.ops.culling import ray_cell_index
+
+    m = p5.probe_map("cuda")
+    x = p5.make_fans(m, p5.FANS, 0, "cuda")
+    ph = KernelPhase(m.tris, "simple_map probes")
+    rt, soup = m.ray_cells, m.tris
+    N, F = x["zoff"].shape
+    G = len(x["zgroups"])
+    v9_args = (x["origins"], x["zoff"], x["dirs"], x["cells"])
+    want, pms = timed_once(lambda: p5.by_fans(
+        lambda f: raycast._ray_fans_v9_plain(
+            f["origins"], f["zoff"], f["dirs"], f["cells"], rt, soup), x))
+    n_valid = int((rt.cand_idx >= 0).sum(-1)[x["cells"].long()].sum())
+    v9_bytes = (N * 16 + 4 * N * F * 4 + rt.cand_idx.numel() * 4
+                + ph.T_real * 40 + N * F * 4)
+    v9_ops = n_valid * F * OPS_FAN_PAIR + n_valid * G * OPS_FAN_HOIST
+    table = p5.gather_tables(rt, soup)
+    dense_ms = cuda_time_ms(lambda: raycast.ray_fans_vs_tris(
+        x["origins"], x["zg"], x["dirs"], x["zgroups"], soup),
+        FAN_PROBE_CHAIN)
+    e2e_ms = cuda_time_ms(lambda: raycast.ray_fans_culled_v9(
+        x["origins"], x["zoff"], x["dirs"], ray_cell_index(rt, x["origins"]),
+        rt, soup), FAN_PROBE_CHAIN)
+    v9_rows = (
+        ("P5 fan_v9 indirect (as shipped)", "v9_kernel_probe.py:31",
+         raycast.ray_fans_culled_v9,
+         lambda: raycast.ray_fans_culled_v9(*v9_args, rt, soup), {}),
+        ("P5 fan_v9_gathered + gather", "v9_kernel_probe.py:31",
+         p5.ray_fans_v9_gathered,
+         lambda: p5.ray_fans_v9_gathered(*v9_args,
+                                         p5.gather_tables(rt, soup)), {}),
+        ("P5 fan_v9_gathered", "v9_kernel_probe.py:48",
+         p5.ray_fans_v9_gathered,
+         lambda: p5.ray_fans_v9_gathered(*v9_args, table), {}),
+        ("P6 fan_v9 full", "v9_scan_timing.py:38",
+         raycast.ray_fans_culled_v9,
+         lambda: raycast.ray_fans_culled_v9(*v9_args, rt, soup),
+         dict(dense_fan_ms=round(dense_ms, 4),
+              v9_end_to_end_ms=round(e2e_ms, 4))),
+        ("P6 fan_v9_chunked", "v9_scan_timing.py:38",
+         p6.ray_fans_v9_chunked,
+         lambda: p6.ray_fans_v9_chunked(*v9_args, rt, soup),
+         dict(dense_fan_ms=round(dense_ms, 4))),
+    )
+    for name, tpu, entry, fn, extra in v9_rows:
+        err = check_equal(name, (fn(), want))
+        ph.record(name, "madrona_mp_env_tpu_torch/csrc/fan_v9.cu",
+                  f"tools/probes/{tpu}", entry, err,
+                  cuda_time_ms(fn, FAN_PROBE_CHAIN), pms, v9_bytes, v9_ops,
+                  [[N, F, rt.K]], **extra)
+
+    aux = p2.make_aux(soup.num_tris, 0, "cuda")
+    args = (x["origins"], x["zg"], x["dirs"], x["zgroups"], soup)
+    k2_bytes = (N * (12 + 4 * G) + 3 * N * F * 4 + ph.T_real * 40
+                + N * F * 4)
+    pairs = N * F * ph.T_real
+    hoist = N * G * ph.T_real * OPS_FAN_HOIST
+    exact, exact_ms = timed_once(lambda: p5.by_fans(
+        lambda f: p2._fan_probe_plain("exact", f["origins"], f["zg"],
+                                      f["dirs"], f["zgroups"], soup), x))
+    for v in p2.VARIANTS:
+        fn = p2.ENTRIES[v]
+
+        def kernel(fn=fn):
+            return fn(*args, aux=aux)
+
+        extra, ops = {}, pairs * OPS_FAN_PAIR + hoist
+        if v in ("exact", "chunked", "rcp_approx"):
+            want, vms = exact, exact_ms
+        else:
+            want, vms = timed_once(lambda v=v: p5.by_fans(
+                lambda f: p2._fan_probe_plain(v, f["origins"], f["zg"],
+                                              f["dirs"], f["zgroups"], soup,
+                                              aux), x))
+        name = f"P2 fan_probe {v}"
+        got = kernel()
+        if v == "rcp_approx":
+            err, share = p2.approx_error(got, want)
+            extra["share_beyond_1e-4"] = share
+            log(f"[kernel] {name}: rcp.approx against the exact plain "
+                f"version: max abs err {err:.6g}, {share:.6g} of "
+                f"{got.numel()} rays beyond 1e-4 relative or with another "
+                "hit/miss")
+        else:
+            err = check_equal(name, (got, want))
+        if v == "dots_only":
+            ops = pairs * OPS_FAN_DOTS + hoist
+            extra["library_ms"] = cuda_time_ms(
+                lambda: p2.direction_matmul(x, soup), 10)
+        elif v == "epilogue":
+            ops = pairs * OPS_FAN_EPILOGUE + hoist
+        ph.record(name, "madrona_mp_env_tpu_torch/csrc/fan_probe.cu",
+                  P2_TPU[v], fn, err, cuda_time_ms(kernel, 20), vms,
+                  k2_bytes + (soup.num_tris * 16 if v == "epilogue" else 0),
+                  ops, [[N, F, soup.num_tris]], **extra)
+    del want, exact
+    torch.cuda.empty_cache()
+    return ph.results
+
+
+def probes_phase(cfg, card):
+    """The probes P3 (fused movement, each map), P5, P6 and P2: their rows
+    (p3_rows, fan_probe_rows), then each probe's main as the command line
+    runs it, with every launch counter zeroed just before and read just
+    after: its launches are these rows'."""
+    import torch
+    from madrona_mp_env_tpu_torch.tools import fan_probe as p2
+    from madrona_mp_env_tpu_torch.tools.probes import (
+        movement_fused_probe as mf, v9_kernel_probe as p5,
+        v9_scan_timing as p6,
+    )
+
+    rows = [r for scene in (SCENE, TOWN) for r in p3_rows(cfg, scene)]
+    rows += fan_probe_rows()
+    entries = all_entries()
+    for f in entries.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scene in (SCENE, TOWN):
+        res = mf.main(["--worlds", str(NUM_WORLDS), "--scene", scene,
+                       "--steps", str(P3_STEPS), "--iters", "5"])
+        bad = [k for k, v in res.items()
+               if any(v[f"vs_{w}_{q}"] for w in ("plain", "split")
+                      for q in ("pos", "vel"))]
+        if bad:
+            raise AssertionError(f"P3 main: fused differs under {bad}")
+    res = {"P5": p5.main([]),
+           "P6": p6.main(["--chain", str(FAN_PROBE_CHAIN)]),
+           "P2": p2.main([])}
+    torch.cuda.synchronize()
+    label = "probes"
+    for row in rows:
+        row["launches"] = row["entry"].launches
+        row["path"] = label
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    times = [v for r in res.values() for k, v in r.items()
+             if not k.startswith("rcp_approx_")]
+    if missing or not all(np.isfinite(v) and v > 0 for v in times):
+        raise AssertionError(f"{label}: kernels not launched {missing} or "
+                             f"a bad time {res}")
+    log(f"[{label}] {time.perf_counter() - t0:.1f} s on {card}; launches "
+        + ", ".join(f"{n}={f.launches}" for n, f in entries.items()))
+    return rows
+
+
 def bench_actions(W, A, steps, seed=0):
-    """bench.py's representative run-and-shoot mix, drawn with numpy."""
-    g = np.random.default_rng(seed)
-    shape = (steps, W, A)
-    return {
-        "move_amount": g.integers(0, 3, shape), "move_angle":
-        g.integers(0, 8, shape), "fire": g.integers(0, 2, shape),
-        "stand": np.zeros(shape, np.int64), "aim_yaw":
-        g.integers(0, 13, shape), "aim_pitch": g.integers(0, 7, shape),
-    }
+    """bench.py's representative run-and-shoot mix, drawn with numpy
+    ([steps, W, A] each; the fused-movement probe's own draw)."""
+    from madrona_mp_env_tpu_torch.tools.probes import movement_fused_probe
+
+    return movement_fused_probe.bench_actions(W, A, steps, seed)
 
 
 def actions_at(env, acts, s):
@@ -1125,8 +1366,10 @@ def eval_phase(mt, kernels, card):
             if not bool(torch.isfinite(outs[k]).all()):
                 raise AssertionError(f"eval: non-finite {k}")
 
+    fused = all_entries()["apply_velocity_fall_fused"]
     for k in kernels:
         k["entry"].launches = 0
+    fused.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     elo = mgr.run(policies, norm, elo, iter_cb=on_chunk, verbose=False)
@@ -1136,6 +1379,8 @@ def eval_phase(mt, kernels, card):
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the eval: {missing}")
+    if fused.launches:
+        raise AssertionError("the eval launched the fused movement (P3)")
     if len(stamps) != EVAL_STEPS // chunk or elo.shape != (EVAL_POLICIES,) \
             or not bool(torch.isfinite(elo).all()):
         raise AssertionError("eval: wrong chunk count or ELO")
@@ -1234,6 +1479,10 @@ def eval_parity(mt, W, S, margin=1e-4, rel=1e-4):
 def all_entries():
     """Every kernel entry of the port, by name; each counts its launches."""
     from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull, tail_fused
+    from madrona_mp_env_tpu_torch.tools import fan_probe
+    from madrona_mp_env_tpu_torch.tools.probes import (
+        movement_fused_probe, v9_kernel_probe, v9_scan_timing,
+    )
 
     return {f.__name__: f for f in (
         raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
@@ -1241,7 +1490,11 @@ def all_entries():
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
         raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
         raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
-        raycast.sphere_cast_packed, tail_fused.tail_fused)}
+        raycast.sphere_cast_packed, tail_fused.tail_fused,
+        movement_fused_probe.apply_velocity_fall_fused,
+        v9_kernel_probe.ray_fans_v9_gathered,
+        v9_scan_timing.ray_fans_v9_chunked,
+        *fan_probe.ENTRIES.values())}
 
 
 def drive_path(label, env, acts, steps, rows, not_launched, card):
@@ -1496,6 +1749,10 @@ def main() -> int:
     cuda_build.build_all()
     log(f"[build] {len(cuda_build.KERNEL_SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.1f} s -> {cuda_build.BUILD_DIR}")
+    # the fused movement's registers and spills (ptxas -v)
+    for line in cuda_build.BUILD_LOG.get("move_fused", "").splitlines():
+        if "registers" in line or "spill" in line or "properties" in line:
+            log(f"[build] move_fused: {line.strip()}")
 
     cfg = mt.EnvConfig(
         task=mt.Task.Zone, team_size=TEAM_SIZE,
@@ -1527,8 +1784,10 @@ def main() -> int:
     # K7, K8 and K3x at the kernel bench's shapes, and the bench itself
     bench = [row for scene in (SCENE, TOWN) for ts in (TEAM_SIZE, 3)
              for row in bench_kernels(mt, scene, ts, card)]
+    # the probes P3 (each map), P5, P6 and P2, each through its main
+    probes = probes_phase(cfg, card)
     kernels = (simple + town + [r for _, rs in team3.values() for r in rs]
-               + bench)
+               + bench + probes)
 
     def rows(scene, *names):
         return [k for k in kernels if k["scene"] == scene
@@ -1541,7 +1800,7 @@ def main() -> int:
     state, out, _ = drive_path(
         "slice simple_map", env, acts, NUM_STEPS, main_simple,
         ("sphere_cast", "ray_fans_culled", "ray_fans_culled_v9",
-         "ray_fans_vs_tris_flat"), card)
+         "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -1585,7 +1844,7 @@ def main() -> int:
                     "K4 sphere_cast_culled", "K4' sphere_cast_packed",
                     "K5 tail_fused", "K6 ray_fans_culled"),
                ("ray_fans_vs_tris", "ray_fans_culled_v9", "sphere_cast",
-                "ray_fans_vs_tris_flat"), card)
+                "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
                    rows("town_map", "K2 ray_fans_vs_tris"),
@@ -1618,7 +1877,7 @@ def main() -> int:
         {k2: k[k2] for k2 in ("name", "route", "source", "replaces",
                               "launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "path")}
-        | {"library_ms": None}
+        | {"library_ms": k.get("library_ms")}
         for k in kernels
     ]}
     print(json.dumps(line), flush=True)

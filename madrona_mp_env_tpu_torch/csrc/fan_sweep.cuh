@@ -18,6 +18,16 @@
 // nearest t is a minimum, which depends on neither the order nor the
 // tiling, so the result stays bit-equal to the plain version's amin over
 // the same rows.
+//
+// The probes P2 and P6 (csrc/fan_probe.cu, csrc/fan_v9.cu) take the same
+// sweep with a pair policy and a staging tile other than the default:
+// FanExact (1 / det by IEEE division, the shipped kernels' arithmetic),
+// FanRcpIeee (the correctly rounded reciprocal instruction: the same
+// value), FanRcpApprox (rcp.approx), FanDotsOnly (the direction dots and
+// a minimum, no epilogue) and FanEpilogueOnly (the epilogue on dots read
+// per row from a [T, 4] buffer), and tiles of kTile rows (8: the
+// candidates chunked eight at a time). K2, K6, K7 and K9 take the
+// defaults.
 #pragma once
 
 #include "tri_math.cuh"
@@ -36,6 +46,82 @@ __host__ __device__ inline size_t fan_sweep_smem(int G) {
   return (size_t)kFanTile * (7 + 7 * hoisted_groups(G)) * sizeof(float) +
          (size_t)kFanTile * sizeof(int);
 }
+
+// A pair policy's pair(d, e1, e2, h, valid, aux, row): the value whose
+// minimum the sweep keeps for one (ray, row) pair; d the ray's direction,
+// e1 e2 the row's edges, h its hoisted origin terms (tvec, qvec, e2 .
+// qvec) for the ray's group, aux the probe buffer (FanEpilogueOnly), row
+// the soup row. fan_pair_t: K2's Moller-Trumbore epilogue with 1 / det
+// taken by Inv.
+template <class Inv>
+__device__ __forceinline__ float fan_pair_t(V3 d, V3 e1, V3 e2, const float* h, bool valid) {
+  V3 pvec = cross(d, e2);
+  float det = dot(e1, pvec);
+  bool det_ok = fabsf(det) > 1e-12f;
+  float inv_det = det_ok ? Inv::inv(det) : 0.0f;
+  float u = dot(load3(h), pvec) * inv_det;
+  float v = dot(d, load3(h + 3)) * inv_det;
+  float t = h[6] * inv_det;
+  bool hit = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && valid;
+  return sel_inf(hit, t);
+}
+
+struct FanExact {
+  static __device__ __forceinline__ float inv(float det) { return 1.0f / det; }
+  static __device__ __forceinline__ float pair(V3 d, V3 e1, V3 e2, const float* h, bool valid,
+                                               const float*, int) {
+    return fan_pair_t<FanExact>(d, e1, e2, h, valid);
+  }
+};
+
+struct FanRcpIeee {
+  static __device__ __forceinline__ float inv(float det) { return __frcp_rn(det); }
+  static __device__ __forceinline__ float pair(V3 d, V3 e1, V3 e2, const float* h, bool valid,
+                                               const float*, int) {
+    return fan_pair_t<FanRcpIeee>(d, e1, e2, h, valid);
+  }
+};
+
+struct FanRcpApprox {
+  static __device__ __forceinline__ float inv(float det) {
+    float y;
+    asm("rcp.approx.f32 %0, %1;" : "=f"(y) : "f"(det));
+    return y;
+  }
+  static __device__ __forceinline__ float pair(V3 d, V3 e1, V3 e2, const float* h, bool valid,
+                                               const float*, int) {
+    return fan_pair_t<FanRcpApprox>(d, e1, e2, h, valid);
+  }
+};
+
+// the three direction dots of the pair (det, tvec . pvec, d . qvec), their
+// minimum: no divide, no hit test
+struct FanDotsOnly {
+  static __device__ __forceinline__ float pair(V3 d, V3 e1, V3 e2, const float* h, bool,
+                                               const float*, int) {
+    V3 pvec = cross(d, e2);
+    float det = dot(e1, pvec);
+    float a = dot(load3(h), pvec);
+    float b = dot(d, load3(h + 3));
+    return min2(det, min2(a, b));
+  }
+};
+
+// the epilogue of FanExact with (det, u numerator, v numerator) read from
+// aux[4 row .. 4 row + 3) in place of the dots; t from the hoisted term
+struct FanEpilogueOnly {
+  static __device__ __forceinline__ float pair(V3, V3, V3, const float* h, bool valid,
+                                               const float* aux, int row) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(aux) + row);
+    bool det_ok = fabsf(q.x) > 1e-12f;
+    float inv_det = det_ok ? 1.0f / q.x : 0.0f;
+    float u = q.y * inv_det;
+    float v = q.z * inv_det;
+    float t = h[6] * inv_det;
+    bool hit = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && valid;
+    return sel_inf(hit, t);
+  }
+};
 
 // The runs of bitwise-equal z offsets among one fan's F rays (zoff: the
 // fan's per-ray offsets), found with a warp-ballot prefix count: each
@@ -73,26 +159,29 @@ __device__ inline int find_runs(const float* __restrict__ zoff, int F, int* grou
 // (dx, dy, dz)[DS * f] (pointers already at the fan's first ray; DS = 1
 // for direction planes, 3 for stacked [F, 3] directions), G groups; row
 // k of the sweep is cand[k] (cand == nullptr: row k itself), k < count.
-// Writes the nearest t (inf on a miss) to out[0 .. F). zg and
-// group_of_ray may point into shared memory beyond fan_sweep_smem(G).
-template <int DS = 1>
+// Writes the nearest t (inf on a miss; Pair's minimum) to out[0 .. F).
+// zg and group_of_ray may point into shared memory beyond
+// fan_sweep_smem(G). Rows are staged kTile <= kFanTile at a time.
+template <int DS = 1, class Pair = FanExact, int kTile = kFanTile>
 __device__ inline void fan_sweep(float ox, float oy, float oz, const float* zg,
                                  const int* group_of_ray, int G, const float* __restrict__ dx,
                                  const float* __restrict__ dy, const float* __restrict__ dz,
                                  const float* __restrict__ rows, const int* __restrict__ cand,
-                                 int count, int F, float* __restrict__ out) {
+                                 int count, int F, float* __restrict__ out,
+                                 const float* __restrict__ aux = nullptr) {
+  static_assert(kTile <= kFanTile, "the shared memory holds kFanTile rows");
   extern __shared__ float s[];
   const int GH = hoisted_groups(G);
-  float* e1s = s;                           // [kFanTile][3]
-  float* e2s = e1s + 3 * kFanTile;          // [kFanTile][3]
-  float* valid = e2s + 3 * kFanTile;        // [kFanTile]
-  float* hoist = valid + kFanTile;          // [GH][kFanTile][7]: tvec qvec e2.qvec
-  int* row_of = (int*)(hoist + 7 * GH * kFanTile);  // [kFanTile]
+  float* e1s = s;                           // [kTile][3]
+  float* e2s = e1s + 3 * kTile;             // [kTile][3]
+  float* valid = e2s + 3 * kTile;           // [kTile]
+  float* hoist = valid + kTile;             // [GH][kTile][7]: tvec qvec e2.qvec
+  int* row_of = (int*)(hoist + 7 * GH * kTile);  // [kTile]
   __shared__ int n_staged;
 
   for (int f = threadIdx.x; f < F; f += blockDim.x) out[f] = CUDART_INF_F;
-  for (int base = 0; base < count; base += kFanTile) {
-    const int span = min(kFanTile, count - base);
+  for (int base = 0; base < count; base += kTile) {
+    const int span = min(kTile, count - base);
     __syncthreads();  // the previous tile's sweep is done with shared memory
     if (threadIdx.x == 0) n_staged = 0;
     __syncthreads();
@@ -119,7 +208,7 @@ __device__ inline void fan_sweep(float ox, float oy, float oz, const float* zg,
         V3 o = v3(ox + 0.0f, oy + 0.0f, oz + zg[g0 + g]);
         V3 tvec = o - load3(rows + (size_t)row_of[i] * kRowCols + kRowV0);
         V3 qvec = cross(tvec, load3(e1s + 3 * i));
-        float* h = hoist + ((size_t)g * kFanTile + i) * 7;
+        float* h = hoist + ((size_t)g * kTile + i) * 7;
         h[0] = tvec.x; h[1] = tvec.y; h[2] = tvec.z;
         h[3] = qvec.x; h[4] = qvec.y; h[5] = qvec.z;
         h[6] = dot(load3(e2s + 3 * i), qvec);
@@ -129,21 +218,11 @@ __device__ inline void fan_sweep(float ox, float oy, float oz, const float* zg,
         const int g = group_of_ray[f] - g0;
         if (g < 0 || g >= gn) continue;
         V3 d = v3(dx[DS * f], dy[DS * f], dz[DS * f]);
-        const float* hg = hoist + (size_t)g * kFanTile * 7;
+        const float* hg = hoist + (size_t)g * kTile * 7;
         float best = out[f];
-        for (int i = 0; i < nt; ++i) {
-          const float* h = hg + i * 7;
-          V3 pvec = cross(d, load3(e2s + 3 * i));
-          float det = dot(load3(e1s + 3 * i), pvec);
-          bool det_ok = fabsf(det) > 1e-12f;
-          float inv_det = det_ok ? 1.0f / det : 0.0f;
-          float u = dot(load3(h), pvec) * inv_det;
-          float v = dot(d, load3(h + 3)) * inv_det;
-          float t = h[6] * inv_det;
-          bool hit = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-                     valid[i] > 0.0f;
-          best = min2(best, sel_inf(hit, t));
-        }
+        for (int i = 0; i < nt; ++i)
+          best = min2(best, Pair::pair(d, load3(e1s + 3 * i), load3(e2s + 3 * i), hg + i * 7,
+                                       valid[i] > 0.0f, aux, row_of[i]));
         out[f] = best;
       }
     }

@@ -34,10 +34,24 @@
 // at K = 80 the whole cell is one tile, ~13 KB of hoisted terms. Any z
 // offsets work: a fan with more than kHoistGroups runs is swept in
 // several hoisting passes.
+//
+// The probes P5 and P6 (the JAX package's tools/probes/v9_kernel_probe.py
+// call / call_nogather and v9_scan_timing.py make_variant; Python:
+// madrona_mp_env_tpu_torch/tools/probes/v9_kernel_probe.py and
+// v9_scan_timing.py) take two more entries of the same kernel:
+// fan_v9_gathered reads each cell's candidate rows from a table gathered
+// beforehand ([C, K, 16]: the soup's row of each candidate, all-zero and
+// invalid for -1 padding, which is swept as a miss), in place of the
+// indirection through cand; fan_v9_chunked stages the candidates 8 at a
+// time (the TPU probe's "chunked" order) where fan_v9 stages all K = 80
+// at once ("full"). The nearest t does not depend on either, so both are
+// bit-equal to fan_v9 and its plain version.
 #include "fan_sweep.cuh"
 
 using namespace mpenv;
 
+// kGathered: rows = the cells' gathered [C, K, 16] table, cand unused
+template <int kTile, bool kGathered>
 __global__ void __launch_bounds__(kFanThreads)
     fan_v9_kernel(const float* __restrict__ org, const float* __restrict__ zoff,
                   const float* __restrict__ dx, const float* __restrict__ dy,
@@ -51,19 +65,47 @@ __global__ void __launch_bounds__(kFanThreads)
 
   const size_t n = blockIdx.x, ray0 = n * F;
   const int runs = find_runs(zoff + ray0, F, group_of_ray, zg);
-  fan_sweep(org[3 * n], org[3 * n + 1], org[3 * n + 2], zg, group_of_ray, runs, dx + ray0,
-            dy + ray0, dz + ray0, rows, cand + (size_t)cells[n] * K, K, F, out + ray0);
+  const size_t cell = (size_t)cells[n] * K;
+  fan_sweep<1, FanExact, kTile>(org[3 * n], org[3 * n + 1], org[3 * n + 2], zg, group_of_ray,
+                                runs, dx + ray0, dy + ray0, dz + ray0,
+                                kGathered ? rows + cell * kRowCols : rows,
+                                kGathered ? nullptr : cand + cell, K, F, out + ray0);
+}
+
+template <int kTile, bool kGathered>
+static int fan_v9_run(const float* org, const float* zoff, const float* dx, const float* dy,
+                      const float* dz, const float* rows, const int* cells, const int* cand,
+                      int N, int F, int K, float* out, void* stream) {
+  if (N <= 0) return 0;
+  size_t smem = fan_sweep_smem(kHoistGroups) + (size_t)F * (sizeof(int) + sizeof(float));
+  cudaError_t e = allow_smem(fan_v9_kernel<kTile, kGathered>, smem);
+  if (e != cudaSuccess) return (int)e;
+  fan_v9_kernel<kTile, kGathered><<<N, kFanThreads, smem, (cudaStream_t)stream>>>(
+      org, zoff, dx, dy, dz, rows, cells, cand, F, K, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fan_v9_launch(const float* org, const float* zoff, const float* dx,
                              const float* dy, const float* dz, const float* rows,
                              const int* cells, const int* cand, int N, int F, int K, float* out,
                              void* stream) {
-  if (N <= 0) return 0;
-  size_t smem = fan_sweep_smem(kHoistGroups) + (size_t)F * (sizeof(int) + sizeof(float));
-  cudaError_t e = allow_smem(fan_v9_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  fan_v9_kernel<<<N, kFanThreads, smem, (cudaStream_t)stream>>>(org, zoff, dx, dy, dz, rows,
-                                                                cells, cand, F, K, out);
-  return (int)cudaGetLastError();
+  return fan_v9_run<kFanTile, false>(org, zoff, dx, dy, dz, rows, cells, cand, N, F, K, out,
+                                     stream);
+}
+
+// P6: the candidates staged 8 at a time
+extern "C" int fan_v9_chunked_launch(const float* org, const float* zoff, const float* dx,
+                                     const float* dy, const float* dz, const float* rows,
+                                     const int* cells, const int* cand, int N, int F, int K,
+                                     float* out, void* stream) {
+  return fan_v9_run<8, false>(org, zoff, dx, dy, dz, rows, cells, cand, N, F, K, out, stream);
+}
+
+// P5: table = [C, K, 16] rows gathered per cell beforehand
+extern "C" int fan_v9_gathered_launch(const float* org, const float* zoff, const float* dx,
+                                      const float* dy, const float* dz, const float* table,
+                                      const int* cells, int N, int F, int K, float* out,
+                                      void* stream) {
+  return fan_v9_run<kFanTile, true>(org, zoff, dx, dy, dz, table, cells, nullptr, N, F, K, out,
+                                    stream);
 }

@@ -49,6 +49,12 @@ LAUNCHES = {
                            + [_P] * 3),
     # a pointer to the argument struct (ops/tail_fused.py _TailArgs)
     "tail_fused": ("tail_fused", [_P, _P]),
+    # a pointer to the argument struct (tools/probes/movement_fused_probe.py
+    # _MoveArgs)
+    "move_fused": ("move_fused", [_P, _P]),
+    "fan_v9_chunked": ("fan_v9", [_P] * 8 + [_I] * 3 + [_P] * 2),
+    "fan_v9_gathered": ("fan_v9", [_P] * 7 + [_I] * 3 + [_P] * 2),
+    "fan_probe": ("fan_probe", [_I] + [_P] * 8 + [_I] * 4 + [_P] * 2),
 }
 KERNEL_SOURCES = tuple(dict.fromkeys(src for src, _ in LAUNCHES.values()))
 
@@ -56,9 +62,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and stack per kernel -> BUILD_LOG
 ]
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}
+# the compiler's output of each source built by this process
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -102,6 +111,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
     failed = []
     for name, lib, tmp, p in procs:
         out, _ = p.communicate()
+        BUILD_LOG[name] = out
         if p.returncode != 0:
             failed.append(f"--- {name} ---\n{out}")
         else:

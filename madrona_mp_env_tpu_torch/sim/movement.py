@@ -5,17 +5,20 @@ pvpMovementSystem (reference sim.cpp:2093-2199), pvpContinuousAimSystem
 applyVelocitySystem (sim.cpp:889-1028) and fallSystem (sim.cpp:1041-1095)
 over all worlds and agents at once ([W, A] leaves). The sphere casts are
 batched into four launches by data dependency: L1 = 7 casts per agent
-from the start position (slope, low, high, 4 unstick probes) against the
-agent's short-table cell (K4 culled), L2 = slide + unstick ground check,
-L3 = ground snap, and the fall cast. L2, L3 and fall go through the
-MOVE_MARGIN short tables (K4' packed) when ``use_sc_pack`` says so, which
-it does on every map the repo ships; else they sweep the whole soup (K4
-dense).
+from the start position (slope, low, high, 4 unstick probes), L2 = slide
++ unstick ground check, L3 = ground snap, and the fall cast. A
+``CastRoute`` says which sweep serves each batch: L1 against the agent's
+short-table cell (K4 culled) or the whole soup (K4 dense), and L2, L3
+and fall against the MOVE_MARGIN short tables (K4' packed) or the whole
+soup. ``cast_route`` reads the JAX package's switches: MPENV_SC_CULL
+("1" by default) and MPENV_SC_PACK (``use_sc_pack``), which put every
+batch on the short tables on every map the repo ships.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -24,6 +27,7 @@ from ..config import EnvConfig
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..ops.culling import short_cell_index
+from ..ops import raycast
 from ..ops.raycast import (sc_normals_from_idx, sphere_cast,
                            sphere_cast_culled, sphere_cast_packed)
 from .types import Actions, Pose, WorldState
@@ -195,31 +199,87 @@ def use_sc_pack(m: MapData) -> bool:
     return m.tris.num_tris >= 4 * m.short_mv.K
 
 
-def move_cells(m: MapData, pos: torch.Tensor):
+@dataclass(frozen=True)
+class CastRoute:
+    """Which sweep serves each batch of the movement pair's casts.
+
+    culled: the L1 batch against the agent's short-table cell (K4
+        culled), else over the whole soup (K4 dense);
+    packed: the L2, L3 and fall casts against the MOVE_MARGIN tables
+        (K4'), else over the whole soup (K4 dense);
+    plain: the plain PyTorch versions of those sweeps on any device (the
+        plain version of the fused movement kernel), else the entries,
+        which launch the kernels on the card.
+    """
+
+    culled: bool = True
+    packed: bool = True
+    plain: bool = False
+
+
+# the fused movement probe's two entries (tools/probes/
+# movement_fused_probe.py): the step's own route, and every cast over the
+# whole soup (MPENV_SC_CULL=0 MPENV_SC_PACK=0)
+ROUTES = {"culled": CastRoute(True, True), "dense": CastRoute(False, False)}
+
+
+def cast_route(m: MapData) -> CastRoute:
+    """The route the environment chooses: MPENV_SC_CULL "0" sends the L1
+    batch over the whole soup (default "1": the short tables, as the JAX
+    package's switch of that name), ``use_sc_pack`` the others."""
+    culled = (m.short is not None
+              and os.environ.get("MPENV_SC_CULL", "1") == "1")
+    return CastRoute(culled=culled, packed=use_sc_pack(m))
+
+
+def move_cells(m: MapData, pos: torch.Tensor, packed=None):
     """The MOVE_MARGIN short-table cell [W * A] of each agent for the L2,
-    L3 and fall casts, or None when they sweep the whole soup."""
-    if not use_sc_pack(m):
+    L3 and fall casts, or None when they sweep the whole soup (packed
+    False; None: as ``use_sc_pack`` says)."""
+    if not (use_sc_pack(m) if packed is None else packed):
         return None
     return short_cell_index(m.short_mv, pos).reshape(-1)
 
 
-def _late_casts(m: MapData, o, d, mv_cells):
+def _late_casts(m: MapData, o, d, mv_cells, plain=False):
     """The L2, L3 and fall casts o, d [W, A, CPA, 3] -> t [W, A, CPA]: the
     packed entry against each agent's MOVE_MARGIN cell, or the dense
-    sweep when ``mv_cells`` is None. Neither's winner row is read."""
+    sweep when ``mv_cells`` is None (their plain versions when ``plain``).
+    Neither's winner row is read."""
     r = consts.agent_radius
     if mv_cells is None:
-        return sphere_cast(o, d, r, m.tris)[0]
+        sweep = raycast._sphere_cast_dense if plain else sphere_cast
+        return sweep(o, d, r, m.tris)[0]
     W, A, CPA = o.shape[:3]
-    t, _ = sphere_cast_packed(o.reshape(W * A, CPA, 3),
-                              d.reshape(W * A, CPA, 3), r, mv_cells,
-                              m.short_mv, m.tris)
+    sweep = raycast._sphere_cast_culled_plain if plain else sphere_cast_packed
+    t, _ = sweep(o.reshape(W * A, CPA, 3), d.reshape(W * A, CPA, 3), r,
+                 mv_cells, m.short_mv, m.tris)
     return t.reshape(W, A, CPA)
 
 
-def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
+def _l1_sweep(m: MapData, o1, d1, x, route: CastRoute):
+    """The L1 batch o1, d1 [W, A, 7, 3] -> (t, winner row) [W, A, 7]:
+    against each agent's short-table cell of x, or over the whole soup."""
+    r = consts.agent_radius
+    if not route.culled:
+        sweep = raycast._sphere_cast_dense if route.plain else sphere_cast
+        return sweep(o1, d1, r, m.tris)
+    W, A = x.shape[0], x.shape[1]
+    cells = short_cell_index(m.short, x).reshape(W * A)
+    sweep = (raycast._sphere_cast_culled_plain if route.plain
+             else sphere_cast_culled)
+    t1, idx1 = sweep(o1.reshape(W * A, 7, 3), d1.reshape(W * A, 7, 3), r,
+                     cells, m.short, m.tris)
+    return t1.reshape(W, A, 7), idx1.reshape(W, A, 7)
+
+
+def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState,
+                          route: CastRoute = None):
     """Capsule collide-and-slide via sphere casts; the new position and
-    velocity are committed at once (updateMoveStateSystem)."""
+    velocity are committed at once (updateMoveStateSystem). ``route``
+    (default: ``cast_route(m)``) says which sweep serves each batch."""
+    if route is None:
+        route = cast_route(m)
     r = consts.agent_radius
     buf = 0.05 * r
     x = state.pos
@@ -239,12 +299,7 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
     # ---- L1: slope + two forward casts + 4 unstick probes (all from x) ----
     o1, d1, un_dirs = l1_casts(x, v_norm, top, low)
     W, A = x.shape[0], x.shape[1]
-    cells = short_cell_index(m.short, x).reshape(W * A)
-    t1, idx1 = sphere_cast_culled(o1.reshape(W * A, 7, 3),
-                                  d1.reshape(W * A, 7, 3), r, cells,
-                                  m.short, m.tris)
-    t1 = t1.reshape(W, A, 7)
-    idx1 = idx1.reshape(W, A, 7)
+    t1, idx1 = _l1_sweep(m, o1, d1, x, route)
     # contact normals only for the three casts that consume them
     n3 = sc_normals_from_idx(o1[..., :3, :], d1[..., :3, :], r,
                              idx1[..., :3], m.tris)
@@ -289,9 +344,10 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
         high_closer, top, low
     )[..., None]
     # the agent's cell of record is its start position x, as in JAX
-    mv_cells = move_cells(m, x)
+    mv_cells = move_cells(m, x, route.packed)
     t2 = _late_casts(m, torch.stack([o_slide, un_gc], dim=-2),
-                     torch.stack([slide_dir, down], dim=-2), mv_cells)
+                     torch.stack([slide_dir, down], dim=-2), mv_cells,
+                     route.plain)
     t_slide = t2[..., 0]
     t_ground_un = t2[..., 1]
 
@@ -308,7 +364,7 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
     # ---- L3: ground snap under the slid position ----
     gc_pos = hit_pos + up * top[..., None]
     t_ground = _late_casts(m, gc_pos[..., None, :], down[..., None, :],
-                           mv_cells)[..., 0]
+                           mv_cells, route.plain)[..., 0]
 
     need_unstick = (t_ground <= 0.0) | stuck
     un = need_unstick & any_dir
@@ -330,15 +386,21 @@ def apply_velocity_system(cfg: EnvConfig, m: MapData, state: WorldState):
     return state.replace(pos=out_pos, vel=out_vel)
 
 
-def fall_system(cfg: EnvConfig, m: MapData, state: WorldState):
-    """Gravity-limited ground snap."""
+def fall_system(cfg: EnvConfig, m: MapData, state: WorldState,
+                route: CastRoute = None):
+    """Gravity-limited ground snap; its cast reads the MOVE_MARGIN cell of
+    the (post-move) position, or sweeps the whole soup, as ``route``
+    (default: ``cast_route(m)``) says."""
+    if route is None:
+        route = cast_route(m)
     r = consts.agent_radius
     cast_offset = r
     up = _up(state.pos)
     o = state.pos + up * (r + cast_offset)
     t_ground = _late_casts(m, o[..., None, :],
                            torch.broadcast_to(-up, o.shape)[..., None, :],
-                           move_cells(m, state.pos))[..., 0]
+                           move_cells(m, state.pos, route.packed),
+                           route.plain)[..., 0]
 
     no_fall = torch.isinf(t_ground) | (t_ground < cast_offset)
     fall_dist = torch.clamp(t_ground - cast_offset,

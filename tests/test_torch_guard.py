@@ -43,6 +43,10 @@ def test_port_imports_no_jax():
     assert train == {f"train/{m}.py" for m in TRAIN_MODULES}
     assert os.path.join(PKG, "ops", "tail_fused.py") in files
     assert os.path.join(PKG, "ops", "culling.py") in files
+    for probe in ("movement_fused_probe", "v9_kernel_probe",
+                  "v9_scan_timing"):
+        assert os.path.join(PKG, "tools", "probes", f"{probe}.py") in files
+    assert os.path.join(PKG, "tools", "fan_probe.py") in files
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -95,3 +99,17 @@ def test_kernel_bench_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel_bench.main(["--worlds", "1"])
+
+
+@pytest.mark.parametrize("probe", ["tools.probes.movement_fused_probe",
+                                   "tools.probes.v9_kernel_probe",
+                                   "tools.probes.v9_scan_timing",
+                                   "tools.fan_probe"])
+def test_probes_default_to_cuda(monkeypatch, probe):
+    """Each probe runs on the card unless --device cpu."""
+    import importlib
+
+    mod = importlib.import_module(f"madrona_mp_env_tpu_torch.{probe}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])

@@ -395,3 +395,63 @@ def test_gpu_env_matches_cpu_env(simple_map_dir, gpu_map, scene):
         outs.append((state.pos.cpu(), state.hp.cpu()))
     assert torch.equal(outs[0][1], outs[1][1])
     assert torch.allclose(outs[0][0], outs[1][0], rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("route", ["culled", "dense"])
+@pytest.mark.parametrize("scene", ["simple_map", "town_map"])
+def test_move_fused_kernel(simple_map_dir, gpu_map, scene, route):
+    """P3: the fused movement against its plain version (the split pair
+    with the plain sweeps) and against the split pair on the kernels, on
+    the state a real step hands the movement pair (16 worlds after 3
+    steps of bench.py's actions)."""
+    import os
+
+    from madrona_mp_env_tpu_torch.tools.probes import movement_fused_probe as mf
+
+    cfg = mt.EnvConfig(
+        task=mt.Task.Zone, team_size=6,
+        sim_flags=mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams)
+    env, st = mf.bench_state(cfg, os.path.join(
+        os.path.dirname(simple_map_dir), scene), 16, 3, "cuda")
+    m = env.map_data
+    n0 = mf.apply_velocity_fall_fused.launches
+    got = mf.apply_velocity_fall_fused(cfg, m, st, route)
+    assert mf.apply_velocity_fall_fused.launches == n0 + 1
+    for want in (mf._apply_velocity_fall_fused_plain(cfg, m, st, route),
+                 mf.split_pair(cfg, m, st, route)):
+        assert _eq(got.pos, want.pos) and _eq(got.vel, want.vel)
+    assert bool((got.pos != st.pos).any())
+
+
+def test_fan_v9_probe_kernels(gpu_map):
+    """P5's pre-gathered entry and P6's chunked order: K9's plain t."""
+    from madrona_mp_env_tpu_torch.tools.probes import (
+        v9_kernel_probe, v9_scan_timing,
+    )
+
+    x = v9_kernel_probe.make_fans(gpu_map, 2048, 0, "cuda")
+    rt, soup = gpu_map.ray_cells, gpu_map.tris
+    args = (x["origins"], x["zoff"], x["dirs"], x["cells"])
+    want = raycast._ray_fans_v9_plain(*args, rt, soup)
+    table = v9_kernel_probe.gather_tables(rt, soup)
+    assert _eq(v9_kernel_probe.ray_fans_v9_gathered(*args, table), want)
+    assert _eq(v9_scan_timing.ray_fans_v9_chunked(*args, rt, soup), want)
+
+
+@pytest.mark.parametrize("variant", ["exact", "rcp_ieee", "rcp_approx",
+                                     "dots_only", "epilogue", "chunked"])
+def test_fan_probe_kernel(gpu_map, variant):
+    """P2's variants against their plain versions; rcp_approx within 1e-4
+    relative of the exact t on all but a few rays."""
+    from madrona_mp_env_tpu_torch.tools import fan_probe
+    from madrona_mp_env_tpu_torch.tools.probes import v9_kernel_probe
+
+    x = v9_kernel_probe.make_fans(gpu_map, 1024, 0, "cuda")
+    aux = fan_probe.make_aux(gpu_map.tris.num_tris, 0, "cuda")
+    args = (x["origins"], x["zg"], x["dirs"], x["zgroups"], gpu_map.tris)
+    got = fan_probe.ENTRIES[variant](*args, aux=aux)
+    want = fan_probe._fan_probe_plain(variant, *args, aux=aux)
+    if variant == "rcp_approx":
+        assert fan_probe.approx_error(got, want)[1] < 1e-3
+    else:
+        assert _eq(got, want)
