@@ -42,8 +42,16 @@ Phases, each of which fails the run loudly:
    divide, an IEEE reciprocal, rcp.approx, the direction dots alone, the
    epilogue alone and 8-row chunks; one torch.matmul of the direction
    dots beside them) at 12,288 fans x 104 rays on simple_map, each
-   bit-equal to its plain version (rcp.approx: its error printed); then
-   each probe's main, whose launches those rows count;
+   bit-equal to its plain version (rcp.approx: its error printed); P4
+   (the sphere cast with its dot products as 3xTF32 mma.sync, 24,576
+   casts on simple_map) within its bars of its plain version, with K4
+   dense's time and the TPU probe's parity against it, and the two
+   products as torch.matmul beside it; P1 (the issue-rate chains on a
+   256 x 256 tile, 2048 links deep: mul, divide and select bit-equal, the
+   fma and rcp.approx chains within their bars; the bf16 mma.sync chains,
+   64 links of 2048 x 8 / 128 x 768, with 64 torch.matmul calls beside
+   them); then each probe's main, whose launches those rows count (P1's
+   main prints each kernel's loop body from cuobjdump -sass);
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
@@ -105,6 +113,14 @@ TEAM_SIZE = 6
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# the data sheet's dense tensor-core rates (flops, a multiply-add is 2)
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
+# f32 instructions per second (an FMA is one): 67 TFLOP/s / 2, i.e. 132
+# SMs x 128 lanes x 1.98 GHz; special-function results (MUFU: rcp) at 16
+# per SM per clock (CUDA C++ Programming Guide, compute capability 9.0)
+PEAK_F32_INSNS = PEAK_F32 / 2
+PEAK_SFU = 132 * 16 * 1.98e9
 
 # f32 arithmetic operations (add, sub, mul, div, sqrt, min) per pair as the
 # kernels write them (csrc/tri_math.cuh); comparisons and selects not counted
@@ -188,9 +204,12 @@ def check_equal(name, *pairs):
     return err
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, peak=PEAK_F32, more=()):
+    """The least time for ``nbytes`` moved and ``nops`` operations at
+    ``peak`` per second, plus (ops, peak) pairs ``more`` on other units
+    (which may overlap it): (ms, what bounds it)."""
     b = nbytes / PEAK_BYTES
-    o = nops / PEAK_F32
+    o = max([nops / peak] + [n / p for n, p in more])
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
@@ -364,6 +383,22 @@ def sc_dense_plain(o, d, r, soup):
                    o.shape[0], max(64, 2 ** 19 // soup.num_tris))
 
 
+def kernel_row(scene, name, source, replaces, entry, err, ms, pms, nbytes,
+               nops, shapes, peak=PEAK_F32, more=(), **extra):
+    """One row of the kernels line, its bound from ``nbytes`` and ``nops``
+    (bound_ms), logged; ``scene`` tags it."""
+    bms, by = bound_ms(nbytes, nops, peak, more)
+    row = dict(name=f"{name} [{scene}]", route="cuda", source=source,
+               replaces=replaces, entry=entry, max_abs_err=err, ms=ms,
+               plain_ms=pms, bound_ms=bms, bound_by=by, shapes=shapes,
+               scene=scene, **extra)
+    log(f"[kernel] {row['name']} at {shapes}: max_abs_err {err:.3g} "
+        f"kernel {ms:.4f} ms/step plain {pms:.4f} ms/step bound "
+        f"{bms:.4f} ms ({by})"
+        + "".join(f" {k} {v}" for k, v in extra.items()))
+    return row
+
+
 class KernelPhase:
     """Each kernel against its plain version on the card, on the inputs of
     every launch one real step makes (captured from the main path at 1024
@@ -375,18 +410,9 @@ class KernelPhase:
         self.soup = soup
         self.T_real = int(self.soup.valid.sum())
 
-    def record(self, name, source, replaces, entry, err, ms, pms, nbytes,
-               nops, shapes, **extra):
-        bms, by = bound_ms(nbytes, nops)
-        row = dict(name=f"{name} [{self.scene}]", route="cuda",
-                   source=source, replaces=replaces, entry=entry,
-                   max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                   bound_by=by, shapes=shapes, scene=self.scene, **extra)
+    def record(self, *args, **kw):
+        row = kernel_row(self.scene, *args, **kw)
         self.results.append(row)
-        log(f"[kernel] {row['name']} at {shapes}: max_abs_err {err:.3g} "
-            f"kernel {ms:.4f} ms/step plain {pms:.4f} ms/step bound "
-            f"{bms:.4f} ms ({by})"
-            + "".join(f" {k} {v}" for k, v in extra.items()))
         return row
 
     def k1(self, calls):
@@ -1196,20 +1222,159 @@ def fan_probe_rows():
     return ph.results
 
 
+P4_SOURCE = "madrona_mp_env_tpu_torch/csrc/sc_mxu.cu"
+P4_TPU = "tools/probes/sc_mxu_probe.py:66"
+# P4 per (cast, row) pair: 18 groups x K 8 x 3 (3xTF32) tensor-core
+# multiply-adds; the epilogue's f32 operations (face 19, three edge
+# cylinders 23 each, three vertex spheres 10 each, the minimum)
+MACS_SC_MXU = 18 * 8 * 3
+OPS_SC_MXU = 19 + 3 * 23 + 3 * 10 + 1
+P1_SOURCE = "madrona_mp_env_tpu_torch/csrc/vpu_probe.cu"
+P1_TPU = "madrona_mp_env_tpu/tools/vpu_probe.py:35"
+P1_MM_TPU = "madrona_mp_env_tpu/tools/vpu_probe.py:101"
+# P1 per link, as the kernels' algebra needs them: (f32 instructions,
+# special-function results); the fan epilogue's reciprocal is one per
+# element (loop-invariant), counted apart
+P1_WORK = {"fma_full_tile": (1, 0), "mul_full_tile": (1, 0),
+           "fma_lane_bcast": (1, 0), "fma_sublane_bcast": (1, 0),
+           "recip_approx_add": (1, 1), "div_exact_add": (1, 1),
+           "cmp_sel_add": (3, 0), "fan_epilogue": (8, 0)}
+
+
+def sc_mxu_rows():
+    """P4 at the TPU probe's shape (24,576 casts x simple_map's 256 rows):
+    the kernel against its plain version within its bars (the largest
+    |t difference| where both hit, the share of casts whose hit or miss
+    differs), its time, the plain version's, K4 dense's on the same casts
+    and the share of casts at the TPU probe's parity bar against it; the
+    bound over the (cast, valid row) pairs; the library row: the two
+    products as torch.matmul (f32, TF32 off)."""
+    import torch
+    from madrona_mp_env_tpu_torch.ops import raycast
+    from madrona_mp_env_tpu_torch.tools.probes import sc_mxu_probe as p4
+
+    m = p4.probe_map("cuda")
+    o, d = p4.make_casts(p4.CASTS, 0, "cuda")
+    dirm, orgm, cons = p4.probe_tables(m, "cuda")
+    planes = p4.planes_of(o, d)
+    ph = KernelPhase(m.tris, "simple_map probes")
+
+    def kernel():
+        return p4.sphere_cast_mxu(planes, dirm, orgm, cons)
+
+    got = kernel()
+    want, pms = timed_once(lambda: p4._sc_mxu_plain(planes, dirm, orgm,
+                                                    cons))
+    torch.cuda.synchronize()
+    err, flips = p4.mxu_error(got, want)
+    if err > p4.MAX_DT or flips > p4.MAX_FLIP:
+        raise AssertionError(f"P4 sc_mxu: max |dt| {err} (bar {p4.MAX_DT}),"
+                             f" hit/miss differ on {flips} (bar "
+                             f"{p4.MAX_FLIP})")
+    frac, diff = p4.parity(got, raycast.sphere_cast(o, d, p4.R, m.tris)[0])
+    library = cuda_time_ms(
+        lambda: p4.library_products(planes, dirm, orgm), 10)
+    N, T = o.shape[0], m.tris.num_tris
+    pairs = N * ph.T_real
+    log(f"[kernel] P4 sc_mxu: max |dt| {err:.6g} where both hit, hit/miss "
+        f"differ on {flips:.6g} of {N} casts; against K4 dense "
+        f"{frac:.6g} within the TPU probe's bar, max diff {diff:.6g}")
+    ph.record(
+        "P4 sc_mxu (3xTF32 mma)", P4_SOURCE, P4_TPU, p4.sphere_cast_mxu,
+        err, cuda_time_ms(kernel, p4.NSCAN), pms,
+        # planes' 6 rows in, t out; dirm, orgm; cons
+        N * 28 + 2 * 8 * p4.G * T * 4 + T * 16 * 4,
+        pairs * OPS_SC_MXU, [[N, T]],
+        more=[(pairs * MACS_SC_MXU * 2, PEAK_TF32)], library_ms=library,
+        hit_miss_share=flips, parity_vs_k4=frac,
+        k4_dense_ms=round(cuda_time_ms(
+            lambda: raycast.sphere_cast(o, d, p4.R, m.tris), p4.NSCAN), 4))
+    del want
+    torch.cuda.empty_cache()
+    return ph.results
+
+
+def vpu_rows():
+    """P1 at the TPU probe's shapes: each chain on a 256 x 256 tile at its
+    depth (the same elements NaN, +inf or -inf) and at vpu_probe.SHORT
+    links (every element finite): the mul, divide and select chains
+    bit-equal to their plain versions, the others within their bars,
+    their error printed at both depths; and the two bf16 matmul
+    chains; the kernel's time, the plain version's; the bound over the
+    work the chain's algebra needs (f32 instructions at 33.5 T/s, the
+    reciprocal and divide chains at the special-function rate, the
+    matmuls at the bf16 tensor-core rate with MACs at K); the library row
+    for the matmuls: 64 torch.matmul calls in bf16 (none computes a
+    dependent elementwise chain in one call). Besides, each kernel's
+    device time by torch.profiler: the CUDA events around back-to-back
+    launches also count the host's gaps between these short launches."""
+    import torch
+    from madrona_mp_env_tpu_torch.tools import vpu_probe as vp
+
+    rs = np.random.RandomState(0)
+    rows, scene = [], "vpu probe"
+    n = vp.ROWS * vp.COLS
+    for name in vp.CHAINS:
+        a, b = vp.chain_inputs(rs, device="cuda")
+        loop = vp.chain_loop(name)
+        fn = vp.ENTRIES[name]
+        got = fn(a, b, loop)
+        want, pms = timed_once(lambda: vp._chain_plain(name, a, b, loop))
+        torch.cuda.synchronize()
+        err, rel = vp.check_chain(name, got, want, vp.BARS.get(name, 0.0))
+        short_err, short_rel = vp.check_short(name, a, b)
+        insns, sfu = P1_WORK[name]
+        sfu_ops = n * (1 if name == "fan_epilogue" else loop * sfu)
+        log(f"[kernel] P1 {name}: max abs err {err:.6g}, max rel err "
+            f"{rel:.6g} against its plain version (bar "
+            f"{vp.BARS.get(name, 0.0)}), {short_err:.6g} and {short_rel:.6g}"
+            f" at {vp.SHORT} links, every element finite; library: none "
+            f"(no PyTorch call runs a dependent chain)")
+        rows.append(kernel_row(
+            scene, f"P1 vpu_chain {name}", P1_SOURCE, P1_TPU, fn, err,
+            cuda_time_ms(lambda: fn(a, b, loop), 20), pms, 3 * n * 4,
+            n * loop * insns, [[vp.ROWS, vp.COLS, loop]],
+            peak=PEAK_F32_INSNS, more=[(sfu_ops, PEAK_SFU)], rel_err=rel,
+            short_max_abs_err=short_err, short_rel_err=short_rel,
+            device_ms=round(vp.device_ms(fn, a, b, loop), 5)))
+    for K, M, N in vp.MM_SHAPES:
+        a, b = vp.mm_inputs(rs, K, M, N, device="cuda")
+        fn = vp.MM_ENTRIES[K]
+        got = fn(a, b, vp.MM_DEPTH)
+        want, pms = timed_once(lambda: vp._mm_plain(a, b, vp.MM_DEPTH))
+        torch.cuda.synchronize()
+        err, rel = vp.check_chain(f"matmul K={K}", got, want, vp.MM_BAR,
+                                  finite=True)
+        library = cuda_time_ms(
+            lambda: [torch.matmul(a, b) for _ in range(vp.MM_DEPTH)], 5)
+        log(f"[kernel] P1 vpu_mma K={K}: max abs err {err:.6g}, max rel err "
+            f"{rel:.6g} against its plain version (bar {vp.MM_BAR})")
+        rows.append(kernel_row(
+            scene, f"P1 vpu_mma K={K}", P1_SOURCE, P1_MM_TPU, fn, err,
+            cuda_time_ms(lambda: fn(a, b, vp.MM_DEPTH), 20), pms,
+            M * K * 2 + K * N * 2 + M * N * 4, vp.MM_DEPTH * M * N * K * 2,
+            [[M, K, N, vp.MM_DEPTH]], peak=PEAK_BF16, library_ms=library,
+            rel_err=rel,
+            device_ms=round(vp.device_ms(fn, a, b, vp.MM_DEPTH), 5)))
+    return rows
+
+
 def probes_phase(cfg, card):
-    """The probes P3 (fused movement, each map), P5, P6 and P2: their rows
-    (p3_rows, fan_probe_rows), then each probe's main as the command line
-    runs it, with every launch counter zeroed just before and read just
-    after: its launches are these rows'."""
+    """The probes P3 (fused movement, each map), P5, P6, P2, P4 and P1:
+    their rows (p3_rows, fan_probe_rows, sc_mxu_rows, vpu_rows), then each
+    probe's main as the command line runs it, with every launch counter
+    zeroed just before and read just after: its launches are these
+    rows'."""
     import torch
     from madrona_mp_env_tpu_torch.tools import fan_probe as p2
+    from madrona_mp_env_tpu_torch.tools import vpu_probe as p1
     from madrona_mp_env_tpu_torch.tools.probes import (
-        movement_fused_probe as mf, v9_kernel_probe as p5,
-        v9_scan_timing as p6,
+        movement_fused_probe as mf, sc_mxu_probe as p4,
+        v9_kernel_probe as p5, v9_scan_timing as p6,
     )
 
     rows = [r for scene in (SCENE, TOWN) for r in p3_rows(cfg, scene)]
-    rows += fan_probe_rows()
+    rows += fan_probe_rows() + sc_mxu_rows() + vpu_rows()
     entries = all_entries()
     for f in entries.values():
         f.launches = 0
@@ -1226,6 +1391,7 @@ def probes_phase(cfg, card):
     res = {"P5": p5.main([]),
            "P6": p6.main(["--chain", str(FAN_PROBE_CHAIN)]),
            "P2": p2.main([])}
+    res_p4, res_p1 = p4.main([]), p1.main([])
     torch.cuda.synchronize()
     label = "probes"
     for row in rows:
@@ -1234,6 +1400,8 @@ def probes_phase(cfg, card):
     missing = [r["name"] for r in rows if r["launches"] == 0]
     times = [v for r in res.values() for k, v in r.items()
              if not k.startswith("rcp_approx_")]
+    times += [res_p4[k] for k in ("mxu_ms", "prod_ms")]
+    times += [r[k] for r in res_p1.values() for k in ("ms", "rate")]
     if missing or not all(np.isfinite(v) and v > 0 for v in times):
         raise AssertionError(f"{label}: kernels not launched {missing} or "
                              f"a bad time {res}")
@@ -1479,9 +1647,9 @@ def eval_parity(mt, W, S, margin=1e-4, rel=1e-4):
 def all_entries():
     """Every kernel entry of the port, by name; each counts its launches."""
     from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull, tail_fused
-    from madrona_mp_env_tpu_torch.tools import fan_probe
+    from madrona_mp_env_tpu_torch.tools import fan_probe, vpu_probe
     from madrona_mp_env_tpu_torch.tools.probes import (
-        movement_fused_probe, v9_kernel_probe, v9_scan_timing,
+        movement_fused_probe, sc_mxu_probe, v9_kernel_probe, v9_scan_timing,
     )
 
     return {f.__name__: f for f in (
@@ -1494,7 +1662,8 @@ def all_entries():
         movement_fused_probe.apply_velocity_fall_fused,
         v9_kernel_probe.ray_fans_v9_gathered,
         v9_scan_timing.ray_fans_v9_chunked,
-        *fan_probe.ENTRIES.values())}
+        *fan_probe.ENTRIES.values(), sc_mxu_probe.sphere_cast_mxu,
+        *vpu_probe.ENTRIES.values(), *vpu_probe.MM_ENTRIES.values())}
 
 
 def drive_path(label, env, acts, steps, rows, not_launched, card):
@@ -1784,7 +1953,7 @@ def main() -> int:
     # K7, K8 and K3x at the kernel bench's shapes, and the bench itself
     bench = [row for scene in (SCENE, TOWN) for ts in (TEAM_SIZE, 3)
              for row in bench_kernels(mt, scene, ts, card)]
-    # the probes P3 (each map), P5, P6 and P2, each through its main
+    # the probes P3 (each map), P5, P6, P2, P4 and P1, each through its main
     probes = probes_phase(cfg, card)
     kernels = (simple + town + [r for _, rs in team3.values() for r in rs]
                + bench + probes)

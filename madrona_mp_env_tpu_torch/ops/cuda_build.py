@@ -55,6 +55,9 @@ LAUNCHES = {
     "fan_v9_chunked": ("fan_v9", [_P] * 8 + [_I] * 3 + [_P] * 2),
     "fan_v9_gathered": ("fan_v9", [_P] * 7 + [_I] * 3 + [_P] * 2),
     "fan_probe": ("fan_probe", [_I] + [_P] * 8 + [_I] * 4 + [_P] * 2),
+    "sc_mxu": ("sc_mxu", [_P] * 4 + [_F, _I, _I] + [_P] * 2),
+    "vpu_chain": ("vpu_probe", [_I] + [_P] * 3 + [_I] * 3 + [_P]),
+    "vpu_mma": ("vpu_probe", [_P] * 3 + [_I] * 4 + [_P]),
 }
 KERNEL_SOURCES = tuple(dict.fromkeys(src for src, _ in LAUNCHES.values()))
 
@@ -81,6 +84,11 @@ def _paths(name: str):
     return os.path.join(CSRC, f"{name}.cu"), os.path.join(
         BUILD_DIR, f"lib{name}.so"
     )
+
+
+def lib_path(name: str) -> str:
+    """The shared library built from ``csrc/<name>.cu``."""
+    return _paths(name)[1]
 
 
 def _stale(name: str) -> bool:

@@ -44,9 +44,10 @@ def test_port_imports_no_jax():
     assert os.path.join(PKG, "ops", "tail_fused.py") in files
     assert os.path.join(PKG, "ops", "culling.py") in files
     for probe in ("movement_fused_probe", "v9_kernel_probe",
-                  "v9_scan_timing"):
+                  "v9_scan_timing", "sc_mxu_probe"):
         assert os.path.join(PKG, "tools", "probes", f"{probe}.py") in files
-    assert os.path.join(PKG, "tools", "fan_probe.py") in files
+    for tool in ("fan_probe", "vpu_probe"):
+        assert os.path.join(PKG, "tools", f"{tool}.py") in files
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -104,7 +105,9 @@ def test_kernel_bench_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize("probe", ["tools.probes.movement_fused_probe",
                                    "tools.probes.v9_kernel_probe",
                                    "tools.probes.v9_scan_timing",
-                                   "tools.fan_probe"])
+                                   "tools.fan_probe",
+                                   "tools.probes.sc_mxu_probe",
+                                   "tools.vpu_probe"])
 def test_probes_default_to_cuda(monkeypatch, probe):
     """Each probe runs on the card unless --device cpu."""
     import importlib

@@ -6,7 +6,11 @@ machine run them with
 
 Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
-capsule indices exact. The big-map kernels (K6, K4' packed, and K2 and K4
+capsule indices exact. The probes P4 (tensor-core products) and P1's fma,
+rcp.approx and mma chains compute otherwise than their plain versions by
+design and are held to the bars their modules state
+(tools/probes/sc_mxu_probe.py MAX_DT and MAX_FLIP, tools/vpu_probe.py BARS
+and MM_BAR). The big-map kernels (K6, K4' packed, and K2 and K4
 dense over town_map's 6,144-triangle soup) run on data/town_map; K9 on
 simple_map's sensor-ray tables; K7, K8 and K3x (the kernel bench's and
 Zone 3v3's) on both maps.
@@ -455,3 +459,59 @@ def test_fan_probe_kernel(gpu_map, variant):
         assert fan_probe.approx_error(got, want)[1] < 1e-3
     else:
         assert _eq(got, want)
+
+
+def test_sc_mxu_kernel(gpu_map):
+    """P4: the 3xTF32 tensor-core sphere cast against its plain version
+    within its bars (largest |t difference| where both hit, share of
+    casts whose hit or miss differs), on the TPU probe's first 4,096
+    casts."""
+    from madrona_mp_env_tpu_torch.tools.probes import sc_mxu_probe as p4
+
+    o, d = p4.make_casts(p4.CASTS, 0, "cuda")
+    planes = p4.planes_of(o[:4096], d[:4096])
+    tables = p4.probe_tables(gpu_map, "cuda")
+    n0 = p4.sphere_cast_mxu.launches
+    got = p4.sphere_cast_mxu(planes, *tables)
+    assert p4.sphere_cast_mxu.launches == n0 + 1
+    want = p4._sc_mxu_plain(planes, *tables)
+    torch.cuda.synchronize()
+    err, flips = p4.mxu_error(got, want)
+    assert err <= p4.MAX_DT and flips <= p4.MAX_FLIP
+    assert bool(torch.isfinite(got).any())
+
+
+@pytest.mark.parametrize("chain", ["fma_full_tile", "mul_full_tile",
+                                   "fma_lane_bcast", "fma_sublane_bcast",
+                                   "recip_approx_add", "div_exact_add",
+                                   "cmp_sel_add", "fan_epilogue"])
+def test_vpu_chain_kernel(gpu_map, chain):
+    """P1's chains against their plain versions on the TPU probe's 256 x
+    256 tile at full depth (the same non-finite elements) and at
+    vpu_probe.SHORT links (every element finite): mul, divide and select
+    bit-equal, the others within their bars."""
+    from madrona_mp_env_tpu_torch.tools import vpu_probe as vp
+
+    a, b = vp.chain_inputs(np.random.RandomState(1), device="cuda")
+    loop = vp.chain_loop(chain)
+    fn = vp.ENTRIES[chain]
+    n0 = fn.launches
+    got = fn(a, b, loop)
+    assert fn.launches == n0 + 1
+    vp.check_chain(chain, got, vp._chain_plain(chain, a, b, loop),
+                   vp.BARS.get(chain, 0.0))
+    vp.check_short(chain, a, b)
+
+
+@pytest.mark.parametrize("K", [8, 128])
+def test_vpu_mma_kernel(gpu_map, K):
+    """P1's bf16 mma.sync chain against its plain version (f32 products of
+    the bf16 values) within its bar, at the TPU probe's shapes."""
+    from madrona_mp_env_tpu_torch.tools import vpu_probe as vp
+
+    (_, M, N), = [s for s in vp.MM_SHAPES if s[0] == K]
+    a, b = vp.mm_inputs(np.random.RandomState(2), K, M, N, device="cuda")
+    got = vp.MM_ENTRIES[K](a, b, vp.MM_DEPTH)
+    want = vp._mm_plain(a, b, vp.MM_DEPTH)
+    vp.check_chain(f"matmul K={K}", got, want, vp.MM_BAR, finite=True)
+    assert torch.allclose(want, a.float() @ b.float(), rtol=1e-5)
