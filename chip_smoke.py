@@ -22,7 +22,13 @@ Phases, each of which fails the run loudly:
    inputs. On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
-   full width). Zone 3v3 (team size 3: a LOS run of 12 rays, not a
+   full width). K2 and K6 (the register-blocked sweep,
+   csrc/fan_sweep_rb.cuh) are held bit for bit against their plain
+   versions and their predecessors (P2's exact entry, fan_culled_v1),
+   timed beside them in turns (new, old, old, new), with their device
+   time (torch.profiler), ptxas' registers and spills, the floor at one
+   f32 instruction per operation, and K6's helper launches (the cell
+   order) and its time in fan order. Zone 3v3 (team size 3: a LOS run of 12 rays, not a
    multiple of 8) on each map: K7, the stacked-direction fan over the
    whole soup, and K5 on one real step's launches; K8 on that step's L1
    casts over the whole soup and K3x on its sensor rays with explicit
@@ -55,7 +61,8 @@ Phases, each of which fails the run loudly:
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch, K4 dense, K6, K9 and the fused movement P3 must not; env-steps/s beside the card's
+   launch (K2 101 times), K4 dense, K6, K9 and the fused movement P3
+   must not; env-steps/s beside the card's
    name and limit; then CUDA launches per step from torch.profiler, with
    the fused tail and, for comparison in the same process, with the
    unfused chain it replaced; then the same path with MPENV_FAN_V9=1,
@@ -67,9 +74,10 @@ Phases, each of which fails the run loudly:
    forward's ms per step;
 6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
-   culled, K4', K5 and K6 must launch, K2 and K4 dense must not; then 10
-   steps of the forced-dense fan route (MPENV_FAN_CULL=0), where K2 runs
-   over the 6,144-triangle soup; then Zone 3v3 on each map, reset + 50
+   culled, K4', K5 and K6 must launch (K6 101 times), K2 and K4 dense
+   must not; then 10 steps of the forced-dense fan route
+   (MPENV_FAN_CULL=0), where K2 runs 11 times over the 6,144-triangle
+   soup; then Zone 3v3 on each map, reset + 50
    steps at 1024 worlds: K7 and K5 must launch, K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
    40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
@@ -82,8 +90,9 @@ Phases, each of which fails the run loudly:
    16-step eval rollout, and the trainer's 4-world, 8-step rollout and
    one PPO update, on "cuda" and on "cpu" from one seed;
 10. a line of kernel results (JSON, one row per kernel and map, each with
-   the path whose launches it counts), then the card line, then the last
-   line {"ok": true, "device": {...}}.
+   the path whose launches it counts; K2's and K6's rows with the keys of
+   REDESIGN_KEYS), then the card line, then the last line {"ok": true,
+   "device": {...}}.
 
 Exits non-zero with no result line when there is no CUDA device or when
 the port's package is not beside this script.
@@ -137,6 +146,13 @@ OPS_SC_NORMAL = 95
 # membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
 # 5 per teammate pair
 OPS_TAIL_AGENT = 41
+# the redesigned kernels' rows (K2, K6) also carry: their predecessor's
+# time in the same call, their device time (torch.profiler), the floor at
+# one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
+# registers and spill bytes, and the launches of any helper per call
+REDESIGN_KEYS = ("before_ms", "device_ms", "fmad_floor_ms", "registers",
+                 "spill_bytes", "helper_launches", "helper_device_ms",
+                 "fan_order_ms")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -280,6 +296,66 @@ def best_two_gap(t_pairs):
 
     two = torch.topk(t_pairs, 2, dim=-1, largest=False).values
     return two[..., 1] - two[..., 0]
+
+
+def turns_ms(new, old, reps):
+    """(new ms, old ms): CUDA-event means of two functions timed in turns
+    (new, old, old, new), each turn ``reps`` calls after a warm-up."""
+    t = [cuda_time_ms(f, reps) for f in (new, old, old, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def profiled(fn, reps, kernel, tries=3):
+    """torch.profiler's CUDA events over ``reps`` calls of ``fn`` after one
+    outside the window. A window that holds no event of the kernel whose
+    name holds ``kernel`` (the profiler has come back without a short
+    kernel's events) is profiled again, up to ``tries`` times."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(kernel in e.name for e in events):
+            return events
+    raise AssertionError(f"the profiler saw no {kernel} in {tries} windows")
+
+
+def device_ms(fn, kernel, reps=10):
+    """Device ms per call of the CUDA kernels of ``fn`` whose name holds
+    ``kernel`` (torch.profiler), without the host's gaps between calls."""
+    return sum(e.device_time_total for e in profiled(fn, reps, kernel)
+               if kernel in e.name) / 1e3 / reps
+
+
+def ptxas_usage(source, kernel):
+    """(registers, spill store bytes + spill load bytes) of the kernel whose
+    mangled name holds ``kernel``, from ptxas -v's output for ``source``
+    (cuda_build.BUILD_LOG)."""
+    import re
+
+    from madrona_mp_env_tpu_torch.ops import cuda_build
+
+    regs = spill = None
+    mine = False
+    for line in cuda_build.BUILD_LOG.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            mine = kernel in line
+        elif mine and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spill = int(st) + int(ld)
+        elif mine and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+    if regs is None or spill is None:
+        raise AssertionError(f"no ptxas -v lines for {kernel} in {source}")
+    return regs, spill
 
 
 # where the step calls each kernel's entry: (sim module, name)
@@ -434,8 +510,11 @@ class KernelPhase:
             [list(o1.shape[:-1])])
 
     def k2(self, org, zgf, dirf, zgroups):
-        """K2 over the whole soup; returns its t for the PVS comparison."""
+        """K2 over the whole soup, bit-equal to its plain version and to its
+        earlier kernel (P2's exact entry), the two timed in turns; returns
+        its t for the PVS comparison."""
         from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.tools import fan_probe
 
         soup = self.soup
         N, G = zgf.shape
@@ -449,24 +528,38 @@ class KernelPhase:
                 org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, soup), N,
                 max(16, 2 ** 18 // soup.num_tris))
 
+        def fan_before():
+            return fan_probe.ENTRIES["exact"](org, zgf, dirf, zgroups, soup)
+
         t = fan_kernel()
-        err = check_t("K2 ray_fans_vs_tris", t, fan_plain())
+        err = check_equal("K2 ray_fans_vs_tris", (t, fan_plain()))
+        check_equal("K2 against its predecessor", (t, fan_before()))
+        reps = 10 if soup.num_tris <= 1024 else 3
+        ms, before = turns_ms(fan_kernel, fan_before, reps)
+        regs, spill = ptxas_usage("fan_tris", "fan_tris_rb_kernel")
+        nops = (N * F * self.T_real * OPS_FAN_PAIR
+                + N * G * self.T_real * OPS_FAN_HOIST)
         self.record(
             "K2 ray_fans_vs_tris", "madrona_mp_env_tpu_torch/csrc/fan_tris.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:383",
-            raycast.ray_fans_vs_tris, err, cuda_time_ms(fan_kernel, 10),
-            cuda_time_ms(fan_plain, 1),
+            raycast.ray_fans_vs_tris, err, ms, cuda_time_ms(fan_plain, 1),
             N * (12 + 4 * G) + 3 * N * F * 4 + self.T_real * 40 + N * F * 4,
-            N * F * self.T_real * OPS_FAN_PAIR
-            + N * G * self.T_real * OPS_FAN_HOIST,
-            [[N, F, soup.num_tris]])
+            nops, [[N, F, soup.num_tris]], before_ms=round(before, 4),
+            device_ms=round(device_ms(fan_kernel, "fan_tris_rb_kernel",
+                                      reps), 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill,
+            helper_launches=0)
         return t
 
     def k6(self, calls):
-        """K6 over each fan's PVS cell; then K2 on the same fans (the soup
-        of a big map), and how often the two agree."""
+        """K6 over each fan's PVS cell, bit-equal to its plain version, to
+        its earlier kernel (fan_culled_v1, timed with it in turns) and to
+        its sweep in fan order; its helper, the cell order; then K2 on the
+        same fans (the soup of a big map), and how often the two agree."""
         import torch
-        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
+        from madrona_mp_env_tpu_torch.tools import fan_rb_probe
 
         soup = self.soup
         (org, zgf, dirf, zgroups, cells, tables, _), = calls[
@@ -483,21 +576,82 @@ class KernelPhase:
                 org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, cells[s],
                 tables, soup), N, 256)
 
+        def before():
+            return raycast.ray_fans_culled_v1(org, zgf, dirf, zgroups, cells,
+                                              tables, soup)
+
+        def fan_order():
+            return fan_rb_probe.k6_launch(
+                cuda_build.launcher("fan_culled"), org, zgf, dirf, zgroups,
+                cells, tables, soup, grouped=False)
+
+        cl, C = cells.to(torch.int32), tables.cand_idx.shape[0]
+        rank = tables.heavy_rank
+
+        def order_kernel():
+            return raycast.fan_cell_order(cl, C, rank)
+
+        def order_plain():
+            return raycast._fan_cell_order_plain(cl, rank)
+
+        def order_library():
+            return torch.sort(rank[cl.long()], stable=True)
+
         t6 = kernel()
-        err = check_t("K6 ray_fans_culled", t6, plain())
+        err = check_equal("K6 ray_fans_culled", (t6, plain()))
+        check_equal("K6 against its predecessor and in fan order",
+                    (t6, before()), (t6, fan_order()))
+        ms, before_ms = turns_ms(kernel, before, 10)
+        unsorted_ms, _ = turns_ms(fan_order, kernel, 10)
+        regs, spill = ptxas_usage("fan_culled", "fan_culled_rb_kernel")
+        reps = 10
+        events = profiled(kernel, reps, "fan_culled_rb_kernel")
+        launches, dev_us = {}, {}
+        for e in events:
+            launches[e.name] = launches.get(e.name, 0) + 1 / reps
+            dev_us[e.name] = dev_us.get(e.name, 0.0) + e.device_time_total
+        mine = [k for k in launches if "fan_culled_rb_kernel" in k]
+        if len(mine) != 1 or round(launches[mine[0]]) != 1:
+            raise AssertionError(f"K6: launches per call {launches}")
+        helpers = {k: v for k, v in launches.items() if k not in mine}
+        helper_us = sum(v for k, v in dev_us.items() if k not in mine)
+        log(f"[kernel] K6 ray_fans_culled [{self.scene}]: CUDA launches per "
+            f"call {launches}; the helpers' device time "
+            f"{helper_us / 1e3 / reps:.4f} ms")
         n_valid = (tables.cand_idx >= 0).sum(-1)[cells.long()]  # [N]
         pairs = int(n_valid.sum()) * F
+        nops = pairs * OPS_FAN_PAIR + int(n_valid.sum()) * G * OPS_FAN_HOIST
         row = self.record(
             "K6 ray_fans_culled",
             "madrona_mp_env_tpu_torch/csrc/fan_culled.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:465",
-            raycast.ray_fans_culled, err, cuda_time_ms(kernel, 10),
-            cuda_time_ms(plain, 1),
+            raycast.ray_fans_culled, err, ms, cuda_time_ms(plain, 1),
             N * (16 + 4 * G) + 3 * N * F * 4 + tables.cand_idx.numel() * 4
             + self.T_real * 40 + N * F * 4,
-            pairs * OPS_FAN_PAIR + int(n_valid.sum()) * G * OPS_FAN_HOIST,
-            [[N, F, tables.K]],
-            mean_valid_candidates=round(float(n_valid.float().mean()), 1))
+            nops, [[N, F, tables.K]],
+            mean_valid_candidates=round(float(n_valid.float().mean()), 1),
+            before_ms=round(before_ms, 4),
+            device_ms=round(dev_us[mine[0]] / 1e3 / reps, 4),
+            helper_device_ms=round(helper_us / 1e3 / reps, 4),
+            fan_order_ms=round(unsorted_ms, 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill,
+            helper_launches=round(sum(helpers.values())),
+            helpers=sorted(helpers))
+        # its helper: the fans grouped by cell, heaviest cell first, in an
+        # order free within a cell (a permutation with the stable sort's
+        # cells); the library call sorts the gathered keys
+        got, want = order_kernel(), order_plain()
+        check_equal("K6 cell order", (torch.sort(got).values,
+                                      torch.sort(want).values),
+                    (cl[got.long()], cl[want.long()]))
+        self.record(
+            "K6 cell order", "madrona_mp_env_tpu_torch/csrc/fan_culled.cu",
+            "madrona_mp_env_tpu/ops/culling.py:1214",
+            raycast.fan_cell_order, 0.0, cuda_time_ms(order_kernel, 50),
+            cuda_time_ms(order_plain, 50), 2 * N * 4 + C * 4, 2 * N,
+            [[N, C]], library_ms=cuda_time_ms(order_library, 50),
+            device_ms=round(device_ms(order_kernel, "fan_cell_order"), 4))
         t2 = self.k2(org, zgf, dirf, zgroups)
         torch.cuda.synchronize()
         same = float(((t6 == t2) | (torch.isinf(t6) & torch.isinf(t2)))
@@ -1654,7 +1808,8 @@ def all_entries():
 
     return {f.__name__: f for f in (
         raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
-        raycast.ray_fans_culled, raycast.ray_fans_culled_v9,
+        raycast.ray_fans_culled, raycast.fan_cell_order,
+        raycast.ray_fans_culled_v1, raycast.ray_fans_culled_v9,
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
         raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
         raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
@@ -1664,6 +1819,16 @@ def all_entries():
         v9_scan_timing.ray_fans_v9_chunked,
         *fan_probe.ENTRIES.values(), sc_mxu_probe.sphere_cast_mxu,
         *vpu_probe.ENTRIES.values(), *vpu_probe.MM_ENTRIES.values())}
+
+
+def expect_launches(rows, name, n):
+    """The path's launches of the kernel row ``name`` (drive_path) are n:
+    one per Env.reset and Env.step."""
+    (row,) = [r for r in rows if r["name"].startswith(name + " [")]
+    if row["launches"] != n:
+        raise AssertionError(f"{row['name']}: {row['launches']} launches on "
+                             f"{row['path']}, expected {n}")
+    log(f"[launches] {row['name']}: {n} on {row['path']}")
 
 
 def drive_path(label, env, acts, steps, rows, not_launched, card):
@@ -1922,6 +2087,11 @@ def main() -> int:
     for line in cuda_build.BUILD_LOG.get("move_fused", "").splitlines():
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
+    # the register-blocked fans K2 and K6 (csrc/fan_sweep_rb.cuh)
+    for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
+                      ("fan_culled", "fan_culled_rb_kernel")):
+        regs, spill = ptxas_usage(src, kern)
+        log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
 
     cfg = mt.EnvConfig(
         task=mt.Task.Zone, team_size=TEAM_SIZE,
@@ -1968,8 +2138,10 @@ def main() -> int:
                        "K4' sphere_cast_packed", "K5 tail_fused")
     state, out, _ = drive_path(
         "slice simple_map", env, acts, NUM_STEPS, main_simple,
-        ("sphere_cast", "ray_fans_culled", "ray_fans_culled_v9",
+        ("sphere_cast", "ray_fans_culled", "fan_cell_order",
+         "ray_fans_culled_v1", "ray_fans_culled_v9",
          "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
+    expect_launches(main_simple, "K2 ray_fans_vs_tris", NUM_STEPS + 1)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -1994,7 +2166,8 @@ def main() -> int:
     with mock.patch.dict(os.environ, MPENV_FAN_V9="1"):
         drive_path("sensor-ray tables simple_map", env, acts, NUM_STEPS,
                    rows("simple_map", "K9 ray_fans_culled_v9"),
-                   ("ray_fans_vs_tris", "ray_fans_culled", "sphere_cast",
+                   ("ray_fans_vs_tris", "ray_fans_culled", "fan_cell_order",
+                    "sphere_cast",
                     "ray_fans_vs_tris_flat"), card)
 
     # 5. the crossplay eval on the card (simple_map's kernels)
@@ -2008,22 +2181,26 @@ def main() -> int:
     del env
 
     # 7. the town_map path on the card, then its forced-dense fan route
-    drive_path("slice town_map", town_env, acts, NUM_STEPS,
-               rows("town_map", "K1 ray_vs_tris", "K3 fan_capsules",
-                    "K4 sphere_cast_culled", "K4' sphere_cast_packed",
-                    "K5 tail_fused", "K6 ray_fans_culled"),
-               ("ray_fans_vs_tris", "ray_fans_culled_v9", "sphere_cast",
-                "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
+    town_rows = rows("town_map", "K1 ray_vs_tris", "K3 fan_capsules",
+                     "K4 sphere_cast_culled", "K4' sphere_cast_packed",
+                     "K5 tail_fused", "K6 ray_fans_culled", "K6 cell order")
+    drive_path("slice town_map", town_env, acts, NUM_STEPS, town_rows,
+               ("ray_fans_vs_tris", "ray_fans_culled_v1", "ray_fans_culled_v9",
+                "sphere_cast", "ray_fans_vs_tris_flat",
+                "apply_velocity_fall_fused"), card)
+    expect_launches(town_rows, "K6 ray_fans_culled", NUM_STEPS + 1)
+    expect_launches(town_rows, "K6 cell order", NUM_STEPS + 1)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
+        dense_rows = rows("town_map", "K2 ray_fans_vs_tris")
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
-                   rows("town_map", "K2 ray_fans_vs_tris"),
-                   ("ray_fans_culled",), card)
+                   dense_rows, ("ray_fans_culled", "fan_cell_order"), card)
+        expect_launches(dense_rows, "K2 ray_fans_vs_tris", FORCED_STEPS + 1)
     del town_env
 
     # 7b. Zone 3v3 on each map: the world fan is K7 alone, on town_map too
     for name, (env3, rows3) in team3.items():
         drive_path(f"Zone 3v3 {name}", env3, acts3, TEAM3_STEPS, rows3,
-                   ("ray_fans_vs_tris", "ray_fans_culled",
+                   ("ray_fans_vs_tris", "ray_fans_culled", "fan_cell_order",
                     "ray_fans_culled_v9", "sphere_cast"), card)
     del team3, env3
 
@@ -2047,6 +2224,7 @@ def main() -> int:
                               "launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "path")}
         | {"library_ms": k.get("library_ms")}
+        | {k2: k[k2] for k2 in REDESIGN_KEYS if k2 in k}
         for k in kernels
     ]}
     print(json.dumps(line), flush=True)

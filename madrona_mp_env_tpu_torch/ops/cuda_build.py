@@ -36,7 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHES = {
     "ray_tris": ("ray_tris", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "fan_tris": ("fan_tris", [_P] * 7 + [_I] * 4 + [_P] * 2),
-    "fan_culled": ("fan_culled", [_P] * 9 + [_I] * 4 + [_P] * 2),
+    "fan_culled": ("fan_culled", [_P] * 11 + [_I] * 4 + [_P] * 2),
+    "fan_culled_v1": ("fan_culled", [_P] * 9 + [_I] * 4 + [_P] * 2),
+    "fan_cell_order": ("fan_culled", [_P, _P, _I, _I, _P, _P]),
     "fan_v9": ("fan_v9", [_P] * 8 + [_I] * 3 + [_P] * 2),
     "fan_flat": ("fan_flat", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "fan_capsules": ("fan_capsules",

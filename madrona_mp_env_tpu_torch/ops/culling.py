@@ -39,6 +39,7 @@ the CPU.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from dataclasses import dataclass
@@ -75,6 +76,27 @@ class CellTables:
     @property
     def dead_cell(self) -> int:
         return self.nx * self.ny
+
+    @functools.cached_property
+    def heavy_rank(self) -> torch.Tensor:
+        """[C] i32: each cell's place when the cells go by decreasing
+        count of valid candidates (ties by cell index), made once per
+        table. K6 takes its fans in this order, so that its longest blocks
+        start first (ops/raycast.py fan_cell_order)."""
+        count = (self.cand_idx >= 0).sum(-1)
+        order = torch.sort(-count, stable=True).indices
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(order.numel(), device=order.device)
+        return rank.to(torch.int32)
+
+    @functools.cached_property
+    def valid_span(self) -> torch.Tensor:
+        """[C] i32: 1 + the last slot of each cell that holds a candidate
+        (0 for a cell of none), made once per table: K6 walks a cell's
+        slots up to it, past which there is only -1 padding."""
+        slot = torch.arange(1, self.K + 1, device=self.cand_idx.device)
+        return torch.where(self.cand_idx >= 0, slot, 0).amax(-1).to(
+            torch.int32)
 
 
 class RayTables(CellTables):

@@ -295,19 +295,43 @@ def _fan_args(origins, zg, dirs, zgroups):
             _f32(origins), _f32(zg), *(_f32(c) for c in dirs))
 
 
+# rays per thread of K2's and K6's register-blocked sweep
+# (csrc/fan_sweep_rb.cuh kRbRays)
+RB_RAYS = 8
+
+
+def _rows16(soup: TriSoup) -> torch.Tensor:
+    """The soup's [T, 16] rows, which K2 and K6 read as 16-byte vectors."""
+    rows = soup.tri_rows
+    if rows.data_ptr() % 16 or not rows.is_contiguous():
+        raise ValueError("tri_rows must be contiguous and 16-byte aligned")
+    return rows
+
+
+def fan_rb_check(zgroups) -> None:
+    """Raise ValueError unless every z-group run is a multiple of RB_RAYS,
+    as K2's and K6's kernels need (fan_route sends other runs to K7)."""
+    if any(int(g) % RB_RAYS for g in zgroups):
+        raise ValueError(f"z-group runs {tuple(zgroups)} are not multiples "
+                         f"of {RB_RAYS}: K2 and K6 take whole octets")
+
+
 def ray_fans_vs_tris(origins, zg, dirs, zgroups, soup: TriSoup):
-    """Nearest hit of every sensor ray of N fans over the whole soup. Rays
-    within a z-group run share their origin, so the kernel hoists the
-    origin terms per (fan, group, triangle) (csrc/fan_tris.cu). Any run
-    lengths and any soup size work."""
+    """Nearest hit of every sensor ray of N fans over the whole soup.
+    CUDA: csrc/fan_tris.cu, one thread per 8 rays of one z-group, the
+    soup staged in tiles, the origin terms per (octet, triangle) in
+    registers; every run must be a multiple of 8 (ValueError otherwise:
+    fan_route sends such runs to K7). Any soup size works."""
     if not _route(origins):
         return _ray_fans_dense(origins, zg, dirs, zgroups, soup)
+    fan_rb_check(zgroups)
     N, F, G, group_of_ray, org, zgc, dx, dy, dz = _fan_args(
         origins, zg, dirs, zgroups)
+    rows = _rows16(soup)
     out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("fan_tris")(
         _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
-        _ptr(group_of_ray), _ptr(soup.tri_rows), N, F, G, soup.num_tris,
+        _ptr(group_of_ray), _ptr(rows), N, F, G, soup.num_tris,
         _ptr(out), _stream(origins),
     ), "fan_tris")
     ray_fans_vs_tris.launches += 1
@@ -412,31 +436,98 @@ def _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells, tables,
     return _culled_rays_plain(o, d, cells, tables.cand_idx, soup, t_max)
 
 
+def _fan_cell_order_plain(cells, rank):
+    return torch.sort(rank[cells.long()], stable=True).indices.to(
+        torch.int32)
+
+
+def fan_cell_order(cells, num_cells: int, rank) -> torch.Tensor:
+    """[N] i32 fan indices grouped by their cell (cells [N] in [0,
+    num_cells)), the cells in increasing rank[cell] (rank [num_cells], a
+    permutation): the order in which K6's kernel takes the fans. The
+    results are written to each fan's own row, so no inverse is applied.
+    CPU: a stable sort. CUDA: csrc/fan_culled.cu fan_cell_order, a
+    counting sort in one launch of one block, whose order within a cell is
+    the order its atomics land in (the results do not depend on it)."""
+    if not _route(cells):
+        return _fan_cell_order_plain(cells, rank)
+    cl = cells.to(torch.int32).contiguous()
+    rk = rank.to(torch.int32).contiguous()
+    order = torch.empty_like(cl)
+    cuda_build.check(cuda_build.launcher("fan_cell_order")(
+        _ptr(cl), _ptr(rk), cl.numel(), int(num_cells), _ptr(order),
+        _stream(cl),
+    ), "fan_cell_order")
+    fan_cell_order.launches += 1
+    return order
+
+
+fan_cell_order.launches = 0
+
+
+def _fan_culled_args(origins, zg, dirs, zgroups, cells, tables, soup):
+    args = _fan_args(origins, zg, dirs, zgroups)
+    N = args[0]
+    if cells.shape != (N,):
+        raise ValueError("one cell per fan expected")
+    return (*args, _rows16(soup), cells.to(torch.int32).contiguous(),
+            tables.cand_idx.to(torch.int32).contiguous())
+
+
 def ray_fans_culled(origins, zg, dirs, zgroups, cells, tables,
                     soup: TriSoup, t_max=INF):
     """Nearest hit of every sensor ray of N fans among its fan's PVS cell
     candidates (cells [N], ops/culling.py CellTables): the big-map fan.
-    CUDA: csrc/fan_culled.cu, K2's hoisted sweep over the cell's rows."""
+    CUDA: csrc/fan_culled.cu, one thread per 8 rays of one z-group, each
+    walking its cell's slots up to the last candidate (tables.valid_span),
+    the fans grouped by cell, the cells of most candidates first
+    (fan_cell_order, tables.heavy_rank: one more launch); every run must
+    be a multiple of 8 (ValueError otherwise)."""
     if not _route(origins):
         return _ray_fans_culled_plain(origins, zg, dirs, zgroups, cells,
                                       tables, soup, t_max)
-    N, F, G, group_of_ray, org, zgc, dx, dy, dz = _fan_args(
-        origins, zg, dirs, zgroups)
-    if cells.shape != (N,):
-        raise ValueError("one cell per fan expected")
-    cl = cells.to(torch.int32).contiguous()
-    cand = tables.cand_idx.to(torch.int32).contiguous()
+    fan_rb_check(zgroups)
+    (N, F, G, group_of_ray, org, zgc, dx, dy, dz, rows, cl,
+     cand) = _fan_culled_args(origins, zg, dirs, zgroups, cells, tables,
+                              soup)
+    order = fan_cell_order(cl, cand.shape[0], tables.heavy_rank)
     out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("fan_culled")(
         _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
-        _ptr(group_of_ray), _ptr(soup.tri_rows), _ptr(cl), _ptr(cand), N, F,
-        G, tables.K, _ptr(out), _stream(origins),
+        _ptr(group_of_ray), _ptr(rows), _ptr(cl), _ptr(cand),
+        _ptr(tables.valid_span), _ptr(order), N, F, G, tables.K, _ptr(out),
+        _stream(origins),
     ), "fan_culled")
     ray_fans_culled.launches += 1
     return out if t_max == INF else _where_inf(out <= t_max, out)
 
 
 ray_fans_culled.launches = 0
+
+
+def ray_fans_culled_v1(origins, zg, dirs, zgroups, cells, tables,
+                       soup: TriSoup):
+    """K6's earlier kernel (csrc/fan_culled.cu fan_culled_v1: one block
+    per fan, the cell's rows staged in tiles, the origin terms hoisted in
+    shared memory), on CUDA tensors only: the predecessor that
+    chip_smoke.py times beside ray_fans_culled. Same function, any run
+    lengths."""
+    if not _route(origins):
+        raise ValueError("ray_fans_culled_v1 takes CUDA tensors")
+    (N, F, G, group_of_ray, org, zgc, dx, dy, dz, rows, cl,
+     cand) = _fan_culled_args(origins, zg, dirs, zgroups, cells, tables,
+                              soup)
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_culled_v1")(
+        _ptr(org), _ptr(zgc), _ptr(dx), _ptr(dy), _ptr(dz),
+        _ptr(group_of_ray), _ptr(rows), _ptr(cl), _ptr(cand), N, F, G,
+        tables.K, _ptr(out), _stream(origins),
+    ), "fan_culled_v1")
+    ray_fans_culled_v1.launches += 1
+    return out
+
+
+ray_fans_culled_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------

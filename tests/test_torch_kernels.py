@@ -81,42 +81,133 @@ def test_ray_vs_tris_kernel(gpu_map):
     assert _eq(t, raycast._ray_vs_tris_dense(o, d, gpu_map.tris))
 
 
-@pytest.mark.parametrize("zgroups", [(24, 32, 32, 8, 8), (5, 13, 3, 83)])
-def test_fan_kernel(gpu_map, zgroups):
-    N, G, F = 256, len(zgroups), sum(zgroups)
-    org = _points(gpu_map, N, 2, (0, 5))
-    g = torch.Generator(device="cuda").manual_seed(3)
-    zg = 10.0 + 50.0 * torch.rand((N, G), generator=g, device="cuda")
-    d = _dirs(N * F, 4).reshape(N, F, 3)
-    dirs = tuple(d[..., k].contiguous() for k in range(3))
+FAN_RUNS = [(24, 32, 32, 8, 8), (8,) * 13, (104,)]
+
+
+def _fans(m, N, zgroups, seed, dead=False):
+    """N sensor fans of runs ``zgroups`` on map m (every 16th dead when
+    ``dead``: the PVS's dead cell)."""
+    org = _points(m, N, seed, (0, 5))
+    if dead:
+        org[::16, 2] = 10000.0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    zg = 10.0 + 50.0 * torch.rand((N, len(zgroups)), generator=g,
+                                  device="cuda")
+    d = _dirs(N * sum(zgroups), seed + 2).reshape(N, -1, 3)
+    return org, zg, tuple(d[..., k].contiguous() for k in range(3)), zgroups
+
+
+@pytest.mark.parametrize("N", [1, 13, 385])
+@pytest.mark.parametrize("zgroups", FAN_RUNS, ids=["sensor", "eights", "one"])
+def test_fan_kernel(gpu_map, zgroups, N):
+    """K2 over simple_map's soup at N not a multiple of the fans a block
+    holds, for the sensor runs, runs of 8 and one run of 104."""
+    org, zg, dirs, zgroups = _fans(gpu_map, N, zgroups, 2)
+    n0 = raycast.ray_fans_vs_tris.launches
     t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, gpu_map.tris)
+    assert raycast.ray_fans_vs_tris.launches == n0 + 1
     assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups,
                                           gpu_map.tris))
 
 
-def _town_fans(m, N, seed):
-    zgroups = (24, 32, 32, 8, 8)
-    org = _points(m, N, seed, (0, 5))
-    org[::16, 2] = 10000.0  # dead agents: the PVS's dead cell
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    zg = 10.0 + 50.0 * torch.rand((N, len(zgroups)), generator=g,
-                                  device="cuda")
-    d = _dirs(N * sum(zgroups), seed + 1).reshape(N, -1, 3)
-    return org, zg, tuple(d[..., k].contiguous() for k in range(3)), zgroups
-
-
-def test_fan_culled_kernel(town_map):
-    """K6 over each fan's PVS cell on town_map."""
-    org, zg, dirs, zgroups = _town_fans(town_map, 384, 20)
+def test_fan_runs_not_octets_raise(gpu_map, town_map):
+    """A run of 12 (Zone 3v3's LOS run) on CUDA tensors: K2 and K6 raise
+    (fan_route sends such runs to K7), and launch nothing."""
+    org, zg, dirs, zgroups = _fans(gpu_map, 8, (12, 32, 32, 8, 8), 3)
+    n2, n6 = raycast.ray_fans_vs_tris.launches, raycast.ray_fans_culled.launches
+    with pytest.raises(ValueError):
+        raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, gpu_map.tris)
     cells = cell_index(town_map.cells, org)
-    assert bool((cells == town_map.cells.dead_cell).any())
+    with pytest.raises(ValueError):
+        raycast.ray_fans_culled(org, zg, dirs, zgroups, cells, town_map.cells,
+                                town_map.tris)
+    assert raycast.ray_fans_vs_tris.launches == n2
+    assert raycast.ray_fans_culled.launches == n6
+
+
+def _town_fans(m, N, seed):
+    return _fans(m, N, (24, 32, 32, 8, 8), seed, dead=True)
+
+
+def _k6_cells(town_map, org):
+    """The fans' cells, with fan 0 in the cell of most candidates, fan 1
+    in a cell emptied of every candidate and fan 2 in the dead cell; the
+    tables with that cell emptied."""
+    import dataclasses
+
+    tables = town_map.cells
+    cells = cell_index(tables, org)
+    counts = (tables.cand_idx >= 0).sum(-1)
+    empty = int(counts[:-1].argmin())
+    cand = tables.cand_idx.clone()
+    cand[empty] = -1
+    special = [int(counts.argmax()), empty, tables.dead_cell]
+    n = min(len(special), cells.shape[0])
+    cells[:n] = torch.tensor(special[:n], device=cells.device,
+                             dtype=cells.dtype)
+    return cells, dataclasses.replace(tables, cand_idx=cand)
+
+
+@pytest.mark.parametrize("N", [1, 13, 385])
+@pytest.mark.parametrize("zgroups", FAN_RUNS, ids=["sensor", "eights", "one"])
+def test_fan_culled_kernel(town_map, zgroups, N):
+    """K6 over each fan's PVS cell on town_map, with the fans in cell
+    order (the step's) and in their own order (the probe's launch): the
+    cell of most candidates, a cell with none (inf), the dead cell."""
+    from madrona_mp_env_tpu_torch.ops import cuda_build
+    from madrona_mp_env_tpu_torch.tools import fan_rb_probe
+
+    org, zg, dirs, zgroups = _fans(town_map, N, zgroups, 20, dead=True)
+    cells, tables = _k6_cells(town_map, org)
+    want = raycast._ray_fans_culled_plain(org, zg, dirs, zgroups, cells,
+                                          tables, town_map.tris)
     n0 = raycast.ray_fans_culled.launches
-    t = raycast.ray_fans_culled(org, zg, dirs, zgroups, cells,
-                                town_map.cells, town_map.tris)
+    t = raycast.ray_fans_culled(org, zg, dirs, zgroups, cells, tables,
+                                town_map.tris)
     assert raycast.ray_fans_culled.launches == n0 + 1
+    assert _eq(t, want)
+    assert _eq(fan_rb_probe.k6_launch(
+        cuda_build.launcher("fan_culled"), org, zg, dirs, zgroups, cells,
+        tables, town_map.tris, grouped=False), want)
+    if N > 1:
+        assert bool(torch.isinf(t[1]).all())
+    if N > 13:
+        assert bool(torch.isfinite(t).float().mean() > 0.3)
+
+
+@pytest.mark.parametrize("N", [1, 13, 12288])
+def test_fan_cell_order_kernel(town_map, N):
+    """K6's cell order (one block's counting sort) groups the fans by cell
+    in increasing rank: a permutation whose cells follow the stable
+    sort's; by town's heavy_rank, and over 5,000 cells (more than its
+    1,024 threads) by a random rank."""
+    g = np.random.default_rng(N)
+    perm = torch.as_tensor(g.permutation(5000).astype(np.int32),
+                           device="cuda")
+    for C, rank in ((town_map.cells.num_cells, town_map.cells.heavy_rank),
+                    (5000, perm)):
+        cells = torch.as_tensor(g.integers(0, C, N).astype(np.int32),
+                                device="cuda")
+        cells[: N // 3] = C - 1  # a crowded cell
+        n0 = raycast.fan_cell_order.launches
+        order = raycast.fan_cell_order(cells, C, rank)
+        assert raycast.fan_cell_order.launches == n0 + 1
+        want = raycast._fan_cell_order_plain(cells, rank)
+        assert order.dtype == torch.int32
+        assert _eq(torch.sort(order).values, torch.sort(want).values)
+        assert _eq(cells[order.long()], cells[want.long()])
+
+
+def test_fan_culled_v1_kernel(town_map):
+    """K6's predecessor entry (fan_culled_v1) against the plain version."""
+    org, zg, dirs, zgroups = _town_fans(town_map, 384, 21)
+    cells, tables = _k6_cells(town_map, org)
+    n0 = raycast.ray_fans_culled_v1.launches
+    t = raycast.ray_fans_culled_v1(org, zg, dirs, zgroups, cells, tables,
+                                   town_map.tris)
+    assert raycast.ray_fans_culled_v1.launches == n0 + 1
     assert _eq(t, raycast._ray_fans_culled_plain(
-        org, zg, dirs, zgroups, cells, town_map.cells, town_map.tris))
-    assert bool(torch.isfinite(t).float().mean() > 0.3)
+        org, zg, dirs, zgroups, cells, tables, town_map.tris))
 
 
 @pytest.mark.parametrize("runs", ["sensor", "every_ray", "long_fan"])
@@ -153,8 +244,9 @@ def test_fan_v9_kernel(gpu_map, runs):
 
 
 def test_fan_kernel_big_soup(town_map):
-    """K2 over the 6,144-triangle soup (tiled shared memory)."""
-    org, zg, dirs, zgroups = _town_fans(town_map, 128, 22)
+    """K2 over the 6,144-triangle soup (24 tiles of the cp.async double
+    buffer)."""
+    org, zg, dirs, zgroups = _town_fans(town_map, 385, 22)
     t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, town_map.tris)
     assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups,
                                           town_map.tris))
