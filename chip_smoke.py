@@ -28,7 +28,7 @@ Phases, each of which fails the run loudly:
    timed beside them in turns (new, old, old, new), with their device
    time (torch.profiler), ptxas' registers and spills, the floor at one
    f32 instruction per operation, and K6's helper launches (the cell
-   order) and its time in fan order. Zone 3v3 (team size 3: a LOS run of 12 rays, not a
+   order). Zone 3v3 (team size 3: a LOS run of 12 rays, not a
    multiple of 8) on each map: K7, the stacked-direction fan over the
    whole soup, and K5 on one real step's launches; K8 on that step's L1
    casts over the whole soup and K3x on its sensor rays with explicit
@@ -151,8 +151,7 @@ OPS_TAIL_AGENT = 41
 # one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
 # registers and spill bytes, and the launches of any helper per call
 REDESIGN_KEYS = ("before_ms", "device_ms", "fmad_floor_ms", "registers",
-                 "spill_bytes", "helper_launches", "helper_device_ms",
-                 "fan_order_ms")
+                 "spill_bytes", "helper_launches", "helper_device_ms")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -305,57 +304,18 @@ def turns_ms(new, old, reps):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
-def profiled(fn, reps, kernel, tries=3):
-    """torch.profiler's CUDA events over ``reps`` calls of ``fn`` after one
-    outside the window. A window that holds no event of the kernel whose
-    name holds ``kernel`` (the profiler has come back without a short
-    kernel's events) is profiled again, up to ``tries`` times."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(kernel in e.name for e in events):
-            return events
-    raise AssertionError(f"the profiler saw no {kernel} in {tries} windows")
-
-
 def device_ms(fn, kernel, reps=10):
     """Device ms per call of the CUDA kernels of ``fn`` whose name holds
-    ``kernel`` (torch.profiler), without the host's gaps between calls."""
-    return sum(e.device_time_total for e in profiled(fn, reps, kernel)
-               if kernel in e.name) / 1e3 / reps
+    ``kernel`` (kernel_bench.device_ms: torch.profiler, else CUDA events
+    around single calls, logged), without the host's gaps between
+    calls."""
+    from madrona_mp_env_tpu_torch.tools import kernel_bench
 
-
-def ptxas_usage(source, kernel):
-    """(registers, spill store bytes + spill load bytes) of the kernel whose
-    mangled name holds ``kernel``, from ptxas -v's output for ``source``
-    (cuda_build.BUILD_LOG)."""
-    import re
-
-    from madrona_mp_env_tpu_torch.ops import cuda_build
-
-    regs = spill = None
-    mine = False
-    for line in cuda_build.BUILD_LOG.get(source, "").splitlines():
-        if "Compiling entry function" in line:
-            mine = kernel in line
-        elif mine and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            spill = int(st) + int(ld)
-        elif mine and "registers" in line:
-            regs = int(re.search(r"Used (\d+) registers", line).group(1))
-    if regs is None or spill is None:
-        raise AssertionError(f"no ptxas -v lines for {kernel} in {source}")
-    return regs, spill
+    ms, how = kernel_bench.device_ms(fn, kernel, reps)
+    if how != "profiler":
+        log(f"[profiler] no {kernel} event in 3 windows: its device time "
+            f"by CUDA events around single calls ({ms:.4f} ms)")
+    return ms
 
 
 # where the step calls each kernel's entry: (sim module, name)
@@ -513,7 +473,7 @@ class KernelPhase:
         """K2 over the whole soup, bit-equal to its plain version and to its
         earlier kernel (P2's exact entry), the two timed in turns; returns
         its t for the PVS comparison."""
-        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
         from madrona_mp_env_tpu_torch.tools import fan_probe
 
         soup = self.soup
@@ -536,7 +496,8 @@ class KernelPhase:
         check_equal("K2 against its predecessor", (t, fan_before()))
         reps = 10 if soup.num_tris <= 1024 else 3
         ms, before = turns_ms(fan_kernel, fan_before, reps)
-        regs, spill = ptxas_usage("fan_tris", "fan_tris_rb_kernel")
+        regs, spill = cuda_build.ptxas_usage("fan_tris",
+                                             "fan_tris_rb_kernel")
         nops = (N * F * self.T_real * OPS_FAN_PAIR
                 + N * G * self.T_real * OPS_FAN_HOIST)
         self.record(
@@ -553,13 +514,13 @@ class KernelPhase:
         return t
 
     def k6(self, calls):
-        """K6 over each fan's PVS cell, bit-equal to its plain version, to
-        its earlier kernel (fan_culled_v1, timed with it in turns) and to
-        its sweep in fan order; its helper, the cell order; then K2 on the
-        same fans (the soup of a big map), and how often the two agree."""
+        """K6 over each fan's PVS cell, bit-equal to its plain version and
+        to its earlier kernel (fan_culled_v1, timed with it in turns); its
+        helper, the cell order; then K2 on the same fans (the soup of a
+        big map), and how often the two agree."""
         import torch
         from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
-        from madrona_mp_env_tpu_torch.tools import fan_rb_probe
+        from madrona_mp_env_tpu_torch.tools import kernel_bench
 
         soup = self.soup
         (org, zgf, dirf, zgroups, cells, tables, _), = calls[
@@ -580,11 +541,6 @@ class KernelPhase:
             return raycast.ray_fans_culled_v1(org, zgf, dirf, zgroups, cells,
                                               tables, soup)
 
-        def fan_order():
-            return fan_rb_probe.k6_launch(
-                cuda_build.launcher("fan_culled"), org, zgf, dirf, zgroups,
-                cells, tables, soup, grouped=False)
-
         cl, C = cells.to(torch.int32), tables.cand_idx.shape[0]
         rank = tables.heavy_rank
 
@@ -599,13 +555,15 @@ class KernelPhase:
 
         t6 = kernel()
         err = check_equal("K6 ray_fans_culled", (t6, plain()))
-        check_equal("K6 against its predecessor and in fan order",
-                    (t6, before()), (t6, fan_order()))
+        check_equal("K6 against its predecessor", (t6, before()))
         ms, before_ms = turns_ms(kernel, before, 10)
-        unsorted_ms, _ = turns_ms(fan_order, kernel, 10)
-        regs, spill = ptxas_usage("fan_culled", "fan_culled_rb_kernel")
+        regs, spill = cuda_build.ptxas_usage("fan_culled",
+                                             "fan_culled_rb_kernel")
         reps = 10
-        events = profiled(kernel, reps, "fan_culled_rb_kernel")
+        events = kernel_bench.profiled(kernel, reps, "fan_culled_rb_kernel")
+        if events is None:
+            raise AssertionError("K6: the profiler saw no "
+                                 "fan_culled_rb_kernel in 3 windows")
         launches, dev_us = {}, {}
         for e in events:
             launches[e.name] = launches.get(e.name, 0) + 1 / reps
@@ -633,7 +591,6 @@ class KernelPhase:
             before_ms=round(before_ms, 4),
             device_ms=round(dev_us[mine[0]] / 1e3 / reps, 4),
             helper_device_ms=round(helper_us / 1e3 / reps, 4),
-            fan_order_ms=round(unsorted_ms, 4),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill,
             helper_launches=round(sum(helpers.values())),
@@ -1490,7 +1447,8 @@ def vpu_rows():
             n * loop * insns, [[vp.ROWS, vp.COLS, loop]],
             peak=PEAK_F32_INSNS, more=[(sfu_ops, PEAK_SFU)], rel_err=rel,
             short_max_abs_err=short_err, short_rel_err=short_rel,
-            device_ms=round(vp.device_ms(fn, a, b, loop), 5)))
+            device_ms=round(device_ms(lambda: fn(a, b, loop), "vpu_", 20),
+                            5)))
     for K, M, N in vp.MM_SHAPES:
         a, b = vp.mm_inputs(rs, K, M, N, device="cuda")
         fn = vp.MM_ENTRIES[K]
@@ -1509,7 +1467,8 @@ def vpu_rows():
             M * K * 2 + K * N * 2 + M * N * 4, vp.MM_DEPTH * M * N * K * 2,
             [[M, K, N, vp.MM_DEPTH]], peak=PEAK_BF16, library_ms=library,
             rel_err=rel,
-            device_ms=round(vp.device_ms(fn, a, b, vp.MM_DEPTH), 5)))
+            device_ms=round(device_ms(lambda: fn(a, b, vp.MM_DEPTH), "vpu_",
+                                      20), 5)))
     return rows
 
 
@@ -2084,13 +2043,13 @@ def main() -> int:
     log(f"[build] {len(cuda_build.KERNEL_SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.1f} s -> {cuda_build.BUILD_DIR}")
     # the fused movement's registers and spills (ptxas -v)
-    for line in cuda_build.BUILD_LOG.get("move_fused", "").splitlines():
+    for line in cuda_build.build_log("move_fused").splitlines():
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
     # the register-blocked fans K2 and K6 (csrc/fan_sweep_rb.cuh)
     for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
                       ("fan_culled", "fan_culled_rb_kernel")):
-        regs, spill = ptxas_usage(src, kern)
+        regs, spill = cuda_build.ptxas_usage(src, kern)
         log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
 
     cfg = mt.EnvConfig(

@@ -25,9 +25,9 @@
 // that holds a candidate, CellTables.valid_span); a -1 slot is skipped, a
 // valid row is read as three 16-byte vectors through __ldg, one slot
 // ahead of its sweep. Thread i takes octet i % (F / 8) of fan
-// order[i / (F / 8)] (order == nullptr: fan i / (F / 8)): with fans
-// grouped by cell, a warp's lanes mostly walk one cell, load one row at a
-// time and run the same count of slots, and with the cells of most
+// order[i / (F / 8)] (order [N], a permutation of the fans): with fans
+// grouped by cell, a warp's lanes mostly walk one cell, load one row at
+// a time and run the same count of slots, and with the cells of most
 // candidates first (fan_cell_order below) the longest blocks start
 // first. At most 85 registers: a 64-register cap spills the prefetched
 // row. The interface is generic (cells [N], cand [C, K], span [C], the
@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(kCullThreads, 6)
   const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= (long long)N * opf) return;
   const int rank = (int)(item / opf), oct = (int)(item % opf);
-  const int n = order ? order[rank] : rank;
+  const int n = order[rank];
   const int c = cells[n];
   RbOctet r = rb_load(org, zg, dx, dy, dz, group_of_ray, n, oct, F, G);
   rb_sweep_list(r, rows, cand + (size_t)c * K, span[c]);
@@ -72,7 +72,7 @@ extern "C" int fan_culled_launch(const float* org, const float* zg, const float*
                                  const int* span, const int* order, int N, int F, int G, int K,
                                  float* out, void* stream) {
   if (N <= 0) return 0;
-  if (F <= 0 || F % kRbRays != 0 || K < 0) return (int)cudaErrorInvalidValue;
+  if (F <= 0 || F % kRbRays != 0 || K < 0 || order == nullptr) return (int)cudaErrorInvalidValue;
   const long long items = (long long)N * (F / kRbRays);
   const unsigned blocks = (unsigned)((items + kCullThreads - 1) / kCullThreads);
   fan_culled_rb_kernel<<<blocks, kCullThreads, 0, (cudaStream_t)stream>>>(

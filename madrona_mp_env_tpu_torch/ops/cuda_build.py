@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (``build/torch_kernels/lib<name>.so`` under the
-checkout), one ``<entry>_launch`` function per kernel entry, and loaded
-with ``ctypes``. Nothing is built when a module is
+checkout, the compiler's output beside it in ``lib<name>.log``), one
+``<entry>_launch`` function per kernel entry, and loaded with
+``ctypes``. Nothing is built when a module is
 imported: ``launcher`` builds on first use, and ``build_all`` starts one
 ``nvcc`` per source at once so that a first run pays for the slowest file
 only.
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from typing import Callable, Dict, Iterable
@@ -67,11 +69,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # registers, spills and stack per kernel -> BUILD_LOG
+    "-Xptxas", "-v",  # registers, spills and stack per kernel -> build_log
 ]
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}
-# the compiler's output of each source built by this process
+# the compiler's output of each source built or read by this process
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -88,6 +90,10 @@ def _paths(name: str):
     )
 
 
+def _log_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.log")
+
+
 def lib_path(name: str) -> str:
     """The shared library built from ``csrc/<name>.cu``."""
     return _paths(name)[1]
@@ -95,7 +101,7 @@ def lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    if not os.path.exists(lib):
+    if not (os.path.exists(lib) and os.path.exists(_log_path(name))):
         return True
     deps = [src] + [
         os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")
@@ -106,12 +112,13 @@ def _stale(name: str) -> bool:
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
     """Compile every stale source, one nvcc process per source, all started
     together. Raises with the compiler's output if any build fails."""
+    stale = [name for name in names if _stale(name)]
+    if not stale:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name in names:
-        if not _stale(name):
-            continue
+    for name in stale:
         src, lib = _paths(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
@@ -125,9 +132,43 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
         if p.returncode != 0:
             failed.append(f"--- {name} ---\n{out}")
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", _log_path(name))
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``csrc/<name>.cu``: this process's build,
+    else the log saved beside the library ("" if neither exists)."""
+    if name not in BUILD_LOG:
+        try:
+            with open(_log_path(name)) as f:
+                BUILD_LOG[name] = f.read()
+        except FileNotFoundError:
+            return ""
+    return BUILD_LOG[name]
+
+
+def ptxas_usage(name: str, kernel: str):
+    """(registers, spill store + spill load bytes) of the kernel whose
+    mangled name holds ``kernel``, from ptxas -v's output for
+    ``csrc/<name>.cu`` (build_log)."""
+    regs = spill = None
+    mine = False
+    for line in build_log(name).splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = kernel in line
+        elif mine and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spill = int(st) + int(ld)
+        elif mine and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+    if regs is None or spill is None:
+        raise ValueError(f"no ptxas -v lines for {kernel} in {name}")
+    return regs, spill
 
 
 def launcher(entry: str):

@@ -1,26 +1,16 @@
 """K2 and K6, the register-blocked sensor fans (csrc/fan_sweep_rb.cuh),
-against variants of their design, on the fans of real steps.
+against their predecessors and against K6 launched with one of its
+arguments undone, on the fans of real steps.
 
     python -m madrona_mp_env_tpu_torch.tools.fan_rb_probe \
         [--worlds 1024] [--steps 0,40] [--iters 10]
 
-Each variant undoes one decision of the shipped kernels, either in the
-source (VARIANTS: text replacements in csrc/, built with cuda_build's
-flags into build/torch_kernels/fan_rb_variants/) or in an argument of the
-launch (k6_launch):
-
-  exact_rcp      every reciprocal through __frcp_rn (its range check and
-                 slow-path branch per pair), not the fast path that the
-                 row's bound on |det| allows
-  k2_threads128, k2_threads64
-                 K2 in blocks of 4 or 2 warps (shipped: 8)
-  k6_threads256, k6_threads64
-                 K6 in blocks of 8 or 2 warps (shipped: 4)
   full_span      K6 walks every cell's K slots, not up to its last
                  candidate (CellTables.valid_span)
   index_order    K6's cells in index order, not by decreasing candidate
                  count (CellTables.heavy_rank)
-  fan_order      K6's fans in their own order, not grouped by cell
+  fan_order      K6's fans in their own order (an identity order), not
+                 grouped by cell
   predecessor    the earlier kernel: P2's exact entry for K2
                  (csrc/fan_probe.cu), fan_culled_v1 for K6
 
@@ -30,18 +20,16 @@ run-and-shoot actions): K2 on simple_map, K2 over town_map's soup
 (MPENV_FAN_CULL=0, the first step only), K6 on town_map. Every variant's
 output equals the shipped kernel's bit for bit. Times are CUDA events
 (kernel_bench.time_ms), in turns: each variant once, then again in the
-reverse order, the two averaged. Prints one JSON object; needs a CUDA
-device.
+reverse order, the two averaged. Also prints the shipped kernels'
+registers and spill bytes (ptxas -v). Prints one JSON object; needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import shutil
-import subprocess
 from unittest import mock
 
 import torch
@@ -59,130 +47,24 @@ from madrona_mp_env_tpu_torch.tools.probes.movement_fused_probe import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-VARIANT_DIR = os.path.join(cuda_build.BUILD_DIR, "fan_rb_variants")
-
-# variant: (kernels it applies to, {source: [(old, new), ...]})
-_FAST_ROW = ("if (max_abs3(e1) * max_abs3(e2) * r.dmax < 0x1p126f)",
-             "if (false)")
 
 
-def _threads(src, const, n, old_bounds, new_bounds):
-    return {src: [(f"constexpr int {const} = ", f"constexpr int {const} = "
-                   f"{n}; //"),
-                  (f"__launch_bounds__({const}, {old_bounds})",
-                   f"__launch_bounds__({const}, {new_bounds})")]}
-
-
-VARIANTS = {
-    "exact_rcp": (("k2", "k6"), {"fan_sweep_rb.cuh": [_FAST_ROW]}),
-    "k2_threads128": (("k2",), _threads("fan_tris.cu", "kTrisThreads", 128,
-                                        4, 8)),
-    "k2_threads64": (("k2",), _threads("fan_tris.cu", "kTrisThreads", 64,
-                                       4, 16)),
-    "k6_threads256": (("k6",), _threads("fan_culled.cu", "kCullThreads",
-                                        256, 6, 3)),
-    "k6_threads64": (("k6",), _threads("fan_culled.cu", "kCullThreads", 64,
-                                       6, 12)),
-}
-
-
-def variant_sources(name: str) -> dict:
-    """{file name: text} of csrc/ with variant ``name``'s replacements
-    applied; each must match exactly once."""
-    out = {}
-    for f in os.listdir(cuda_build.CSRC):
-        with open(os.path.join(cuda_build.CSRC, f)) as fh:
-            out[f] = fh.read()
-    for f, reps in VARIANTS[name][1].items():
-        for old, new in reps:
-            if out[f].count(old) != 1:
-                raise ValueError(f"variant {name}: {old!r} matches "
-                                 f"{out[f].count(old)} times in {f}")
-            out[f] = out[f].replace(old, new)
-    return out
-
-
-# the source of each kernel's entry
-_SOURCE = {"k2": "fan_tris", "k6": "fan_culled"}
-
-
-def build_variants() -> dict:
-    """Build each variant's libraries (fan_tris for K2, fan_culled for K6),
-    one nvcc per (variant, source), all started together. ->
-    {(variant, source): (CDLL, ptxas -v output)}."""
-    shutil.rmtree(VARIANT_DIR, ignore_errors=True)
-    nvcc = cuda_build._nvcc()
-    procs = []
-    for name in VARIANTS:
-        d = os.path.join(VARIANT_DIR, name)
-        os.makedirs(d)
-        for f, text in variant_sources(name).items():
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(text)
-        for src in (_SOURCE[k] for k in VARIANTS[name][0]):
-            lib = os.path.join(d, f"lib{src}.so")
-            procs.append(((name, src), lib, subprocess.Popen(
-                [nvcc, *cuda_build.NVCC_FLAGS, "-I", d, "-o", lib,
-                 os.path.join(d, f"{src}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for key, lib, p in procs:
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        libs[key] = (ctypes.CDLL(lib), log)
-    return libs
-
-
-def registers(log: str, kernel: str) -> int:
-    """The registers ptxas -v reports for the kernel whose mangled name
-    holds ``kernel``."""
-    mine = False
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            mine = kernel in line
-        elif mine and "Used" in line and "registers" in line:
-            return int(line.split("Used")[1].split("registers")[0])
-    raise ValueError(f"no ptxas line for {kernel}")
-
-
-def _entry(lib, name):
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = cuda_build.LAUNCHES[name][1]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def k2_launch(fn, org, zg, dirs, zgroups, soup):
-    """ray_fans_vs_tris's CUDA launch through ``fn`` (a fan_tris_launch)."""
-    N, F, G, gor, o, z, dx, dy, dz = raycast._fan_args(org, zg, dirs,
-                                                       zgroups)
-    out = torch.empty((N, F), device=org.device)
-    cuda_build.check(fn(
-        _ptr(o), _ptr(z), _ptr(dx), _ptr(dy), _ptr(dz), _ptr(gor),
-        _ptr(raycast._rows16(soup)), N, F, G, soup.num_tris, _ptr(out),
-        _stream(o)), "fan_tris variant")
-    return out
-
-
-def k6_launch(fn, org, zg, dirs, zgroups, cells, tables, soup, span=None,
+def k6_launch(org, zg, dirs, zgroups, cells, tables, soup, span=None,
               rank=None, grouped=True):
-    """ray_fans_culled's CUDA launch through ``fn`` (a fan_culled_launch),
-    with the table's span and rank unless given, the fans in their own
-    order unless ``grouped``."""
+    """ray_fans_culled's CUDA launch with the table's span and rank unless
+    given, the fans in an identity order unless ``grouped``."""
     (N, F, G, gor, o, z, dx, dy, dz, rows, cl,
      cand) = raycast._fan_culled_args(org, zg, dirs, zgroups, cells, tables,
                                       soup)
     span = tables.valid_span if span is None else span
     rank = tables.heavy_rank if rank is None else rank
-    order = raycast.fan_cell_order(cl, cand.shape[0], rank) if grouped \
-        else None
+    order = (raycast.fan_cell_order(cl, cand.shape[0], rank) if grouped
+             else torch.arange(N, dtype=torch.int32, device=o.device))
     out = torch.empty((N, F), device=org.device)
-    cuda_build.check(fn(
+    cuda_build.check(cuda_build.launcher("fan_culled")(
         _ptr(o), _ptr(z), _ptr(dx), _ptr(dy), _ptr(dz), _ptr(gor),
-        _ptr(rows), _ptr(cl), _ptr(cand), _ptr(span),
-        None if order is None else _ptr(order), N, F, G, tables.K,
-        _ptr(out), _stream(o)), "fan_culled variant")
+        _ptr(rows), _ptr(cl), _ptr(cand), _ptr(span), _ptr(order), N, F, G,
+        tables.K, _ptr(out), _stream(o)), "fan_culled variant")
     return out
 
 
@@ -222,42 +104,35 @@ def _check_equal(label, outs):
                              "kernel")
 
 
-def k2_variants(libs, args, iters, device):
+def k2_variants(args, iters, device):
     org, zg, dirs, zgroups, soup = args[:5]
-    fns = {"shipped": lambda: raycast.ray_fans_vs_tris(org, zg, dirs,
-                                                       zgroups, soup)}
-    for name, (kernels, _) in VARIANTS.items():
-        if "k2" in kernels:
-            fn = _entry(libs[(name, "fan_tris")][0], "fan_tris")
-            fns[name] = (lambda fn=fn: k2_launch(fn, org, zg, dirs, zgroups,
-                                                 soup))
-    fns["predecessor"] = lambda: fan_probe.ENTRIES["exact"](
-        org, zg, dirs, zgroups, soup)
+    fns = {
+        "shipped": lambda: raycast.ray_fans_vs_tris(org, zg, dirs, zgroups,
+                                                    soup),
+        "predecessor": lambda: fan_probe.ENTRIES["exact"](org, zg, dirs,
+                                                          zgroups, soup),
+    }
     _check_equal("K2", {n: f() for n, f in fns.items()})
     return in_turns(fns, iters, device)
 
 
-def k6_variants(libs, args, iters, device):
+def k6_variants(args, iters, device):
     org, zg, dirs, zgroups, cells, tables, soup = args[:7]
-    shipped = cuda_build.launcher("fan_culled")
     C = tables.cand_idx.shape[0]
-    fns = {"shipped": lambda: raycast.ray_fans_culled(
-        org, zg, dirs, zgroups, cells, tables, soup)}
-    for name, (kernels, _) in VARIANTS.items():
-        if "k6" in kernels:
-            fn = _entry(libs[(name, "fan_culled")][0], "fan_culled")
-            fns[name] = (lambda fn=fn: k6_launch(
-                fn, org, zg, dirs, zgroups, cells, tables, soup))
     full = torch.full_like(tables.valid_span, tables.K)
     index = torch.arange(C, dtype=torch.int32, device=device)
-    fns["full_span"] = lambda: k6_launch(shipped, org, zg, dirs, zgroups,
-                                         cells, tables, soup, span=full)
-    fns["index_order"] = lambda: k6_launch(shipped, org, zg, dirs, zgroups,
-                                           cells, tables, soup, rank=index)
-    fns["fan_order"] = lambda: k6_launch(shipped, org, zg, dirs, zgroups,
-                                         cells, tables, soup, grouped=False)
-    fns["predecessor"] = lambda: raycast.ray_fans_culled_v1(
-        org, zg, dirs, zgroups, cells, tables, soup)
+    fns = {
+        "shipped": lambda: raycast.ray_fans_culled(
+            org, zg, dirs, zgroups, cells, tables, soup),
+        "full_span": lambda: k6_launch(org, zg, dirs, zgroups, cells,
+                                       tables, soup, span=full),
+        "index_order": lambda: k6_launch(org, zg, dirs, zgroups, cells,
+                                         tables, soup, rank=index),
+        "fan_order": lambda: k6_launch(org, zg, dirs, zgroups, cells,
+                                       tables, soup, grouped=False),
+        "predecessor": lambda: raycast.ray_fans_culled_v1(
+            org, zg, dirs, zgroups, cells, tables, soup),
+    }
     _check_equal("K6", {n: f() for n, f in fns.items()})
     res = in_turns(fns, iters, device)
     count = (tables.cand_idx >= 0).sum(-1)
@@ -277,12 +152,11 @@ def main(argv=None) -> dict:
     device = resolve_device(None)
     steps = sorted(int(s) for s in args.steps.split(","))
     cuda_build.build_all(["fan_tris", "fan_culled", "fan_probe"])
-    libs = build_variants()
     res = {"device": device_line(device), "worlds": args.worlds,
-           "registers": {f"{name} {src}": registers(
-               log, "fan_tris_rb_kernel" if src == "fan_tris"
-               else "fan_culled_rb_kernel")
-               for (name, src), (_, log) in libs.items()}}
+           "registers, spill bytes": {
+               kern: cuda_build.ptxas_usage(src, kern) for src, kern in (
+                   ("fan_tris", "fan_tris_rb_kernel"),
+                   ("fan_culled", "fan_culled_rb_kernel"))}}
     cfg = mt.EnvConfig(
         task=mt.Task.Zone, team_size=6,
         sim_flags=mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams)
@@ -301,7 +175,7 @@ def main(argv=None) -> dict:
             if s in steps:
                 row = res.setdefault(f"step {s}", {})
                 if scene == "simple_map":
-                    row["k2 simple_map"] = k2_variants(libs, capture_fans(
+                    row["k2 simple_map"] = k2_variants(capture_fans(
                         env, state, at(s), "ray_fans_vs_tris"), args.iters,
                         device)
                 else:
@@ -310,8 +184,8 @@ def main(argv=None) -> dict:
                             fans = capture_fans(env, state, at(s),
                                                 "ray_fans_vs_tris")
                         row["k2 town_map"] = k2_variants(
-                            libs, fans, max(1, args.iters // 3), device)
-                    row["k6 town_map"] = k6_variants(libs, capture_fans(
+                            fans, max(1, args.iters // 3), device)
+                    row["k6 town_map"] = k6_variants(capture_fans(
                         env, state, at(s), "ray_fans_culled"), args.iters,
                         device)
             state, _ = env.step(state, at(s))

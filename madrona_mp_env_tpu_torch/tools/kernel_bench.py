@@ -131,6 +131,53 @@ def time_ms(fn, iters: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def profiled(fn, reps: int, kernel: str, tries: int = 3):
+    """torch.profiler's CUDA events over ``reps`` calls of ``fn`` after one
+    outside the window, or None. A window that holds no event of the
+    kernel whose name holds ``kernel`` (the profiler has come back
+    without a short kernel's events) is profiled again, up to ``tries``
+    times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(kernel in e.name and e.device_time_total > 0
+               for e in events):
+            return events
+    return None
+
+
+def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3):
+    """(ms per call, how): the device time of the CUDA kernels of ``fn``
+    whose name holds ``kernel``, without the host's gaps between
+    back-to-back launches. how = "profiler": torch.profiler's kernel
+    times (``profiled``); "events", when no window held the kernel's
+    events: CUDA events around each call alone, one call in flight at a
+    time (the whole call, its launch latency included)."""
+    events = profiled(fn, reps, kernel, tries)
+    if events is not None:
+        return sum(e.device_time_total for e in events
+                   if kernel in e.name) / 1e3 / reps, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, "events"
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--worlds", type=int, default=1024)

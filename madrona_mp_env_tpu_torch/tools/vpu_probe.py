@@ -37,8 +37,11 @@ element is finite and those chains are still off their fixed point
 order; that probe draws them unseeded. Times are CUDA events around
 ``--iters`` back-to-back launches after 3 warm-up launches (``_timeit``),
 so a chain of a few microseconds also shows the gap between launches;
-``loop_sass`` prints each kernel's loop body from the built library
-(``cuobjdump -sass``), per link, beside its rate. ``--device cpu`` runs
+each kernel's device time comes from ``kernel_bench.device_ms``
+(torch.profiler, or CUDA events around single calls when the profiler
+returns no event of the kernel: ``device_ms_by``); ``loop_sass``
+prints each kernel's loop body from the built library (``cuobjdump
+-sass``), per link, beside its rate. ``--device cpu`` runs
 the plain versions (reduce ``--loop`` and ``--mm-depth`` there).
 """
 
@@ -57,7 +60,8 @@ import torch
 from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 from madrona_mp_env_tpu_torch.ops.raycast import _f32, _ptr, _stream
 from madrona_mp_env_tpu_torch.sim.env import resolve_device
-from madrona_mp_env_tpu_torch.tools.kernel_bench import device_line, time_ms
+from madrona_mp_env_tpu_torch.tools.kernel_bench import (
+    device_line, device_ms, time_ms)
 
 LOOP = 2048  # the chains' depth
 ROWS, COLS = 256, 256  # working tile (f32)
@@ -216,30 +220,6 @@ def _timeit(fn, *args, iters=20):
     return time_ms(call, iters, args[0].device) / 1e3, last[0]
 
 
-def device_ms(fn, *args, reps=20, tries=3):
-    """Device ms per call of ``fn`` by torch.profiler's kernel times, over
-    ``reps`` calls after one outside the window: the kernel alone,
-    without the gaps between launches that CUDA events around
-    back-to-back calls also count. A window in which the profiler saw no
-    vpu kernel (it has come back without the events of these
-    microsecond kernels) is profiled again, up to ``tries`` times."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        fn(*args)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn(*args)
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "vpu_" in e.name)
-        if us > 0.0:
-            return us / 1e3 / reps
-    raise RuntimeError(f"the profiler saw no vpu kernel in {tries} windows")
-
-
 def chain_inputs(rs, n_in=2, rows=ROWS, cols=COLS, device="cpu"):
     """The TPU probe's chain inputs: ``np.random.rand(rows, cols) + 0.5``
     in f32, drawn from ``rs`` (a np.random.RandomState)."""
@@ -310,7 +290,8 @@ def _run(chain, ops_per_iter, n_in=2, rows=ROWS, cols=COLS, loop=LOOP, *,
             chain, out, _chain_plain(chain, a, b, loop),
             BARS.get(chain, 0.0))
         res["short_err"], res["short_rel_err"] = check_short(chain, a, b)
-        res["device_ms"] = device_ms(fn, a, b, loop)
+        res["device_ms"], res["device_ms_by"] = device_ms(
+            lambda: fn(a, b, loop), "vpu_", reps=20)
         res["device_rate"] = res["rate"] * res["ms"] / res["device_ms"]
     return res
 
@@ -325,7 +306,8 @@ def _run_mm(K, M, N, depth, *, rs, device, iters=20):
         res["err"], res["rel_err"] = check_chain(
             f"matmul K={K}", out, _mm_plain(a, b, depth), MM_BAR,
             finite=True)
-        res["device_ms"] = device_ms(MM_ENTRIES[K], a, b, depth)
+        res["device_ms"], res["device_ms_by"] = device_ms(
+            lambda: MM_ENTRIES[K](a, b, depth), "vpu_", reps=20)
         res["device_tmac_s"] = res["tmac_s"] * res["ms"] / res["device_ms"]
     return res
 
@@ -435,14 +417,16 @@ def main(argv=None) -> dict:
         print(f"{label:34s} {r['rate']:8.1f} {unit}  {r['ms']:.4f} ms",
               flush=True)
         if "err" in r:
-            print(f"{'':34s} device {r['device_ms']:.4f} ms: "
+            print(f"{'':34s} device {r['device_ms']:.4f} ms "
+                  f"({r['device_ms_by']}): "
                   f"{r['device_rate']:8.1f} {unit}; max err {r['err']:.6g}"
                   f" (rel {r['rel_err']:.3g}; at {SHORT} links "
                   f"{r['short_err']:.6g}, rel {r['short_rel_err']:.3g})\n"
                   f"{'':34s} SASS per link: {sass[name]}", flush=True)
         res[name] = {k: r[k] for k in ("rate", "ms", "err", "rel_err",
                                        "short_err", "short_rel_err",
-                                       "device_ms", "device_rate")
+                                       "device_ms", "device_ms_by",
+                                       "device_rate")
                      if k in r}
     for K, M, N in MM_SHAPES:
         r = _run_mm(K, M, N, args.mm_depth, rs=rs, device=device,
@@ -452,13 +436,15 @@ def main(argv=None) -> dict:
               + f" {r['rate']:8.1f} Gout/s  {r['tmac_s']:6.2f} TMAC/s "
               f"(K = {K} MACs)  {r['ms']:.4f} ms", flush=True)
         if "err" in r:
-            print(f"{'':34s} device {r['device_ms']:.4f} ms: "
+            print(f"{'':34s} device {r['device_ms']:.4f} ms "
+                  f"({r['device_ms_by']}): "
                   f"{r['device_tmac_s']:6.2f} TMAC/s; max err {r['err']:.6g}"
                   f" (rel {r['rel_err']:.3g})\n{'':34s} SASS per link: "
                   f"{sass[name]}", flush=True)
         res[name] = {k: r[k] for k in ("rate", "tmac_s", "ms", "err",
                                        "rel_err", "device_ms",
-                                       "device_tmac_s") if k in r}
+                                       "device_ms_by", "device_tmac_s")
+                     if k in r}
     print(json.dumps(res), flush=True)
     return res
 

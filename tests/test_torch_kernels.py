@@ -110,6 +110,24 @@ def test_fan_kernel(gpu_map, zgroups, N):
                                           gpu_map.tris))
 
 
+def test_device_ms_profiler_and_events(gpu_map):
+    """kernel_bench.device_ms times K2 by torch.profiler, and by CUDA
+    events around single calls when no profiler event names the
+    kernel."""
+    from madrona_mp_env_tpu_torch.tools import kernel_bench
+
+    org, zg, dirs, zgroups = _fans(gpu_map, 385, FAN_RUNS[0], 4)
+
+    def call():
+        return raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, gpu_map.tris)
+
+    ms, how = kernel_bench.device_ms(call, "fan_tris_rb_kernel", reps=3)
+    assert how == "profiler" and ms > 0.0
+    ms, how = kernel_bench.device_ms(call, "no_such_kernel", reps=3,
+                                     tries=1)
+    assert how == "events" and ms > 0.0
+
+
 def test_fan_runs_not_octets_raise(gpu_map, town_map):
     """A run of 12 (Zone 3v3's LOS run) on CUDA tensors: K2 and K6 raise
     (fan_route sends such runs to K7), and launch nothing."""
@@ -152,9 +170,9 @@ def _k6_cells(town_map, org):
 @pytest.mark.parametrize("zgroups", FAN_RUNS, ids=["sensor", "eights", "one"])
 def test_fan_culled_kernel(town_map, zgroups, N):
     """K6 over each fan's PVS cell on town_map, with the fans in cell
-    order (the step's) and in their own order (the probe's launch): the
-    cell of most candidates, a cell with none (inf), the dead cell."""
-    from madrona_mp_env_tpu_torch.ops import cuda_build
+    order (the step's) and in their own order (the probe's launch with an
+    identity order): the cell of most candidates, a cell with none (inf),
+    the dead cell."""
     from madrona_mp_env_tpu_torch.tools import fan_rb_probe
 
     org, zg, dirs, zgroups = _fans(town_map, N, zgroups, 20, dead=True)
@@ -166,9 +184,8 @@ def test_fan_culled_kernel(town_map, zgroups, N):
                                 town_map.tris)
     assert raycast.ray_fans_culled.launches == n0 + 1
     assert _eq(t, want)
-    assert _eq(fan_rb_probe.k6_launch(
-        cuda_build.launcher("fan_culled"), org, zg, dirs, zgroups, cells,
-        tables, town_map.tris, grouped=False), want)
+    assert _eq(fan_rb_probe.k6_launch(org, zg, dirs, zgroups, cells, tables,
+                                      town_map.tris, grouped=False), want)
     if N > 1:
         assert bool(torch.isinf(t[1]).all())
     if N > 13:
@@ -250,6 +267,64 @@ def test_fan_kernel_big_soup(town_map):
     t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, town_map.tris)
     assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups,
                                           town_map.tris))
+
+
+# the largest |component| a row's edges are scaled to: 1e18 keeps every
+# det of the row under the sweep's bound for the fast reciprocal (8
+# max|e1| max|e2| max|d| < 2^126), the others fail it and take __frcp_rn;
+# inf makes one component of e1 infinite
+HUGE_EDGES = (1e18, 5e18, 1e20, 1e38, float("inf"))
+
+
+def _huge_edge_soup(soup, every):
+    """The soup with every ``every``-th valid row's edges scaled to the
+    magnitudes of HUGE_EDGES in turn (v0 and the plane kept), in its
+    per-field tensors and its [T, 16] rows; and how many rows fail the
+    fast reciprocal's bound whatever the directions (unit: 8 max|d| >=
+    8 / sqrt 3)."""
+    import dataclasses
+
+    rows = torch.nonzero(soup.valid).squeeze(-1)[::every].tolist()
+    e1, e2 = soup.e1.clone(), soup.e2.clone()
+    for k, i in enumerate(rows):
+        target = HUGE_EDGES[k % len(HUGE_EDGES)]
+        if target == float("inf"):
+            e1[i, 0] = target
+            continue
+        for e in (e1, e2):
+            m = e[i].abs().max().double()
+            e[i] = (e[i].double() * (target / m)).float()
+    tri_rows = soup.tri_rows.clone()
+    tri_rows[:, raycast.ROW_E1:raycast.ROW_E1 + 3] = e1
+    tri_rows[:, raycast.ROW_E2:raycast.ROW_E2 + 3] = e2
+    bound = (e1.abs().amax(-1).double() * e2.abs().amax(-1).double()
+             * 8 / 3 ** 0.5)
+    n_exact = int((bound >= 2.0 ** 126).sum())
+    assert n_exact >= 4 * len(rows) // len(HUGE_EDGES)
+    return dataclasses.replace(soup, e1=e1, e2=e2, tri_rows=tri_rows)
+
+
+def test_fan_kernels_huge_edges(gpu_map, town_map):
+    """K2 and K6 with rows whose edges reach 1e18-1e38 or infinity: each
+    row that fails the bound on its dets takes the exact reciprocal, and
+    the result stays bit-equal to the plain version's (and differs from
+    the unscaled soup's: the scaled rows are swept)."""
+    org, zg, dirs, zgroups = _fans(gpu_map, 385, FAN_RUNS[0], 23)
+    soup = _huge_edge_soup(gpu_map.tris, 7)
+    t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, soup)
+    assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups, soup))
+    assert not _eq(t, raycast.ray_fans_vs_tris(org, zg, dirs, zgroups,
+                                               gpu_map.tris))
+
+    org, zg, dirs, zgroups = _town_fans(town_map, 385, 24)
+    soup = _huge_edge_soup(town_map.tris, 29)
+    cells = cell_index(town_map.cells, org)
+    t = raycast.ray_fans_culled(org, zg, dirs, zgroups, cells,
+                                town_map.cells, soup)
+    assert _eq(t, raycast._ray_fans_culled_plain(
+        org, zg, dirs, zgroups, cells, town_map.cells, soup))
+    assert not _eq(t, raycast.ray_fans_culled(
+        org, zg, dirs, zgroups, cells, town_map.cells, town_map.tris))
 
 
 @pytest.mark.parametrize("scene", ["simple_map", "town_map"])
