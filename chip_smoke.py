@@ -22,20 +22,22 @@ Phases, each of which fails the run loudly:
    inputs. On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
-   full width). K2 and K6 (the register-blocked sweep,
+   full width). K1, K2, K6 and K7 (the register-blocked sweep,
    csrc/fan_sweep_rb.cuh) are held bit for bit against their plain
-   versions and their predecessors (P2's exact entry, fan_culled_v1),
-   timed beside them in turns (new, old, old, new), with their device
-   time (torch.profiler), ptxas' registers and spills, the floor at one
-   f32 instruction per operation, and K6's helper launches (the cell
-   order). Zone 3v3 (team size 3: a LOS run of 12 rays, not a
-   multiple of 8) on each map: K7, the stacked-direction fan over the
-   whole soup, and K5 on one real step's launches; K8 on that step's L1
+   versions and their predecessors (ray_tris_v1, P2's exact entry,
+   fan_culled_v1, fan_flat_v1), timed beside them in turns (new, old,
+   old, new), with their device time (torch.profiler), ptxas' registers
+   and spills, the floor at one f32 instruction per operation, K1's and
+   K7's row split and K6's helper launches (the cell order). Zone 3v3
+   (team size 3: a LOS run of 12 rays, not a multiple of 8) on each map:
+   K1, K7, the stacked-direction fan over the whole soup, and K5 on one
+   real step's launches; K8 on that step's L1
    casts over the whole soup and K3x on its sensor rays with explicit
    origins (equal to K3's hits too), and the unfused tail chain at team
    size 3. The kernel bench's shapes (tools/kernel_bench.py make_inputs,
-   1024 worlds, team sizes 6 and 3, each map): K7, K8 with and without
-   normals and K3x, each bit-equal to its plain version, then the kernel
+   1024 worlds, team sizes 6 and 3, each map): K7 (at team size 3 also
+   with a z offset per ray), K8 with and without normals and K3x, each
+   bit-equal to its plain version, then the kernel
    bench itself, whose launches those rows count. The probes: P3, the
    fused movement (csrc/move_fused.cu), on each map under both cast
    routes on the state a step hands the movement pair (reset + 5 steps at
@@ -61,12 +63,12 @@ Phases, each of which fails the run loudly:
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch (K2 101 times), K4 dense, K6, K9 and the fused movement P3
-   must not; env-steps/s beside the card's
-   name and limit; then CUDA launches per step from torch.profiler, with
-   the fused tail and, for comparison in the same process, with the
-   unfused chain it replaced; then the same path with MPENV_FAN_V9=1,
-   where K9 must launch and K2 must not;
+   launch (K2 101 times, K1 100), K4 dense, K6, K9, the fused movement
+   P3 and the predecessors (on every path) must not; env-steps/s beside
+   the card's name and limit; then CUDA launches per step from
+   torch.profiler, with the fused tail and, for comparison in the same
+   process, with the unfused chain it replaced; then the same path with
+   MPENV_FAN_V9=1, where K9 must launch and K2 must not;
 5. the crossplay eval: EvalManager on the card at 1024 worlds with P = 2
    policies at full width (weights made from seeds: the trained
    checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
@@ -74,11 +76,12 @@ Phases, each of which fails the run loudly:
    forward's ms per step;
 6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
-   culled, K4', K5 and K6 must launch (K6 101 times), K2 and K4 dense
-   must not; then 10 steps of the forced-dense fan route
+   culled, K4', K5 and K6 must launch (K6 101 times, K1 100), K2 and K4
+   dense must not; then 10 steps of the forced-dense fan route
    (MPENV_FAN_CULL=0), where K2 runs 11 times over the 6,144-triangle
    soup; then Zone 3v3 on each map, reset + 50
-   steps at 1024 worlds: K7 and K5 must launch, K2, K6 and K9 must not;
+   steps at 1024 worlds: K1, K7 and K5 must launch (K7 51 times, K1
+   50), K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
    40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
    on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), then 1 of
@@ -146,12 +149,20 @@ OPS_SC_NORMAL = 95
 # membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
 # 5 per teammate pair
 OPS_TAIL_AGENT = 41
-# the redesigned kernels' rows (K2, K6) also carry: their predecessor's
-# time in the same call, their device time (torch.profiler), the floor at
-# one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
-# registers and spill bytes, and the launches of any helper per call
-REDESIGN_KEYS = ("before_ms", "device_ms", "fmad_floor_ms", "registers",
-                 "spill_bytes", "helper_launches", "helper_device_ms")
+# the redesigned kernels' rows (K1, K2, K6, K7) also carry: their
+# predecessor's time in the same call, their device time (torch.profiler;
+# K1's and K7's predecessors' too), the floor at one f32 instruction per
+# operation (--fmad=false: 33.5 T/s), ptxas -v's registers and spill
+# bytes, the launches of any helper per call, the blocks of a cluster that
+# split the rows (K1, K7) and, on the bench's Zone 3v3 rows, K7 and its
+# predecessor with a z offset per ray
+REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
+                 "fmad_floor_ms", "registers", "spill_bytes",
+                 "helper_launches", "helper_device_ms", "split",
+                 "per_ray_ms", "per_ray_before_ms")
+# the predecessors, which no path may launch
+PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
+                "ray_fans_culled_v1")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -452,22 +463,42 @@ class KernelPhase:
         return row
 
     def k1(self, calls):
-        from madrona_mp_env_tpu_torch.ops import raycast
+        """K1 over the whole soup, bit-equal to its plain version and to
+        its earlier kernel (ray_tris_v1, timed with it in turns)."""
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 
         soup = self.soup
         (o1, d1, _), = calls["ray_vs_tris"]
         R1 = o1[..., 0].numel()
-        err = check_t("K1 ray_vs_tris", raycast.ray_vs_tris(o1, d1, soup),
-                      raycast._ray_vs_tris_dense(o1, d1, soup))
+
+        def kernel():
+            return raycast.ray_vs_tris(o1, d1, soup)
+
+        def plain():
+            return raycast._ray_vs_tris_dense(o1, d1, soup)
+
+        def before():
+            return raycast.ray_vs_tris_v1(o1, d1, soup)
+
+        t = kernel()
+        err = check_equal("K1 ray_vs_tris", (t, plain()))
+        check_equal("K1 against its predecessor", (t, before()))
+        ms, before_ms = turns_ms(kernel, before, 200)
+        regs, spill = cuda_build.ptxas_usage(
+            "ray_tris", f"ray_tris_rb_kernelILi{raycast.RAY_RAYS}E")
+        nops = R1 * self.T_real * OPS_RAY_TRI
         self.record(
             "K1 ray_vs_tris", "madrona_mp_env_tpu_torch/csrc/ray_tris.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:111",
-            raycast.ray_vs_tris, err,
-            cuda_time_ms(lambda: raycast.ray_vs_tris(o1, d1, soup), 200),
-            cuda_time_ms(lambda: raycast._ray_vs_tris_dense(o1, d1, soup),
-                         20),
-            R1 * 28 + self.T_real * 40, R1 * self.T_real * OPS_RAY_TRI,
-            [list(o1.shape[:-1])])
+            raycast.ray_vs_tris, err, ms, cuda_time_ms(plain, 20),
+            R1 * 28 + self.T_real * 40, nops, [list(o1.shape[:-1])],
+            before_ms=round(before_ms, 4),
+            device_ms=round(device_ms(kernel, "ray_tris_rb_kernel"), 4),
+            before_device_ms=round(device_ms(before, "ray_tris_v1_kernel"), 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill, helper_launches=0,
+            split=raycast.ray_split(soup.num_tris, R1,
+                                    raycast._sm_count(o1.device)))
 
     def k2(self, org, zgf, dirf, zgroups):
         """K2 over the whole soup, bit-equal to its plain version and to its
@@ -673,38 +704,68 @@ class KernelPhase:
         if hitmiss < 0.995:
             raise AssertionError(f"K9 hit/miss agreement {hitmiss} < 0.995")
 
-    def k7(self, org, zoff, dirs, reps=10):
-        """K7 over the whole soup: stacked directions, per-ray z offsets
-        (each fan's runs found by the kernel). Bit-equal to its plain
-        version; returns its t."""
+    def k7(self, org, zoff, dirs, per_ray=False):
+        """K7 over the whole soup: stacked directions, per-ray z offsets.
+        Bit-equal to its plain version and to its earlier kernel
+        (fan_flat_v1, timed with it in turns); returns the row. With
+        ``per_ray``, the same fans with a z offset of its own for every
+        ray (the per-ray origin fallback) too, into the row's per_ray_*
+        keys."""
         import torch
-        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 
         soup = self.soup
         N, F = zoff.shape
+        reps = 10 if soup.num_tris <= 1024 else 3
 
-        def kernel():
-            return raycast.ray_fans_vs_tris_flat(org, zoff, dirs, soup)
+        def kernel(z=zoff):
+            return raycast.ray_fans_vs_tris_flat(org, z, dirs, soup)
 
-        def plain():
+        def plain(z=zoff):
             return chunked(lambda s: raycast._ray_fans_flat_plain(
-                org[s], zoff[s], dirs[s], soup), N,
+                org[s], z[s], dirs[s], soup), N,
                 max(16, 2 ** 18 // soup.num_tris))
+
+        def before(z=zoff):
+            return raycast.ray_fans_vs_tris_flat_v1(org, z, dirs, soup)
 
         t, (tp, pms) = kernel(), timed_once(plain)
         err = check_equal("K7 ray_fans_vs_tris_flat", (t, tp))
+        check_equal("K7 against its predecessor", (t, before()))
+        ms, before_ms = turns_ms(kernel, before, reps)
+        regs, spill = cuda_build.ptxas_usage(
+            "fan_flat", f"fan_flat_rb_kernelILi{raycast.FLAT_RAYS}E")
         runs = int((zoff[:, 1:] != zoff[:, :-1]).sum()) + N
-        self.record(
+        nops = (N * F * self.T_real * OPS_FAN_PAIR
+                + runs * self.T_real * OPS_FAN_HOIST)
+        extra = {}
+        if per_ray:
+            g = torch.Generator(device=zoff.device).manual_seed(7)
+            zr = 20.0 + 40.0 * torch.rand(zoff.shape, generator=g,
+                                          device=zoff.device)
+            tr = kernel(zr)
+            extra["per_ray_max_abs_err"] = check_equal(
+                "K7 with per-ray z offsets", (tr, plain(zr)))
+            check_equal("K7 with per-ray z offsets against its predecessor",
+                        (tr, before(zr)))
+            new, old = turns_ms(lambda: kernel(zr), lambda: before(zr), reps)
+            extra.update(per_ray_ms=round(new, 4),
+                         per_ray_before_ms=round(old, 4))
+        return self.record(
             "K7 ray_fans_vs_tris_flat",
             "madrona_mp_env_tpu_torch/csrc/fan_flat.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:265",
-            raycast.ray_fans_vs_tris_flat, err, cuda_time_ms(kernel, reps),
-            pms, N * 12 + N * F * 16 + self.T_real * 40 + N * F * 4,
-            N * F * self.T_real * OPS_FAN_PAIR
-            + runs * self.T_real * OPS_FAN_HOIST,
+            raycast.ray_fans_vs_tris_flat, err, ms, pms,
+            N * 12 + N * F * 16 + self.T_real * 40 + N * F * 4, nops,
             [[N, F, soup.num_tris]], runs_per_fan=round(runs / N, 3),
-            hit_share=round(float(torch.isfinite(t).float().mean()), 4))
-        return t
+            hit_share=round(float(torch.isfinite(t).float().mean()), 4),
+            before_ms=round(before_ms, 4),
+            device_ms=round(device_ms(kernel, "fan_flat_rb_kernel", reps), 4),
+            before_device_ms=round(
+                device_ms(before, "fan_flat_v1_kernel", reps), 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill, helper_launches=0,
+            split=raycast.flat_split(soup.num_tris), **extra)
 
     def k8(self, o, d, r, reps=10):
         """K8 over the whole soup with the winner's contact normal: t and
@@ -1051,16 +1112,17 @@ TEAM3_ENTRIES = ("ray_vs_tris", "ray_fans_vs_tris_flat", "fan_capsules",
 
 
 def team3_kernels(env, state, actions, scene):
-    """Zone 3v3 (a LOS run of 12 rays, not a multiple of 8): K7 and K5 on
-    one step's launches; K8 on the step's L1 casts over the whole soup and
-    K3x on its sensor rays with the origins made explicit (K3x's t and hit
-    indices must equal K3's on the same rays); the unfused tail chain at
-    team size 3."""
+    """Zone 3v3 (a LOS run of 12 rays, not a multiple of 8): K1, K7 and K5
+    on one step's launches; K8 on the step's L1 casts over the whole soup
+    and K3x on its sensor rays with the origins made explicit (K3x's t and
+    hit indices must equal K3's on the same rays); the unfused tail chain
+    at team size 3."""
     import torch
     from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
 
     ph = KernelPhase(env.map_data.tris, f"{scene} Zone 3v3")
     calls = capture_step_calls(env, state, actions, TEAM3_ENTRIES)
+    ph.k1(calls)
     (org, zoff, dirs, _), = calls["ray_fans_vs_tris_flat"]
     ph.k7(org, zoff, dirs)
     ph.k5(calls)
@@ -1107,7 +1169,8 @@ BENCH_ITERS = 5
 def bench_kernels(mt, scene, team_size, card):
     """K7, K8 and K3x at the kernel bench's own shapes and inputs
     (tools/kernel_bench.py make_inputs) at NUM_WORLDS worlds, each
-    bit-equal to its plain version and timed; then the kernel bench
+    bit-equal to its plain version and timed (K7 also with a z offset per
+    ray at team size 3); then the kernel bench
     itself (its main, as the command line runs it) with every launch
     counter zeroed just before and read just after: its launches are
     these rows'."""
@@ -1120,7 +1183,7 @@ def bench_kernels(mt, scene, team_size, card):
     m = load_map(scene, mt.EnvConfig(team_size=team_size), device="cuda")
     x = kernel_bench.make_inputs(NUM_WORLDS, team_size, "cuda")
     ph = KernelPhase(m.tris, f"{name} bench ts{team_size}")
-    ph.k7(x["origins"], x["zoff"], x["dirs"])
+    ph.k7(x["origins"], x["zoff"], x["dirs"], per_ray=team_size == 3)
     ph.k8(x["o_sc"], x["d_sc"], consts.agent_radius)
     ph.k3x(x["o_caps"], x["d_caps"], x["self_idx"], x["cap_pos"],
            x["alive"])
@@ -1766,7 +1829,8 @@ def all_entries():
     )
 
     return {f.__name__: f for f in (
-        raycast.ray_vs_tris, raycast.ray_fans_vs_tris,
+        raycast.ray_vs_tris, raycast.ray_vs_tris_v1,
+        raycast.ray_fans_vs_tris, raycast.ray_fans_vs_tris_flat_v1,
         raycast.ray_fans_culled, raycast.fan_cell_order,
         raycast.ray_fans_culled_v1, raycast.ray_fans_culled_v9,
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
@@ -1795,7 +1859,8 @@ def drive_path(label, env, acts, steps, rows, not_launched, card):
     just before and read just after. Each row of ``rows`` (this path's
     kernels) gets its entry's count as ``launches`` and must be > 0; the
     entries named in ``not_launched`` must stay at 0 (a gate that fell
-    back fails the run). Returns (state, out, env-steps/s)."""
+    back fails the run), and so must the predecessors (PREDECESSORS).
+    Returns (state, out, env-steps/s)."""
     import torch
 
     entries = all_entries()
@@ -1819,7 +1884,7 @@ def drive_path(label, env, acts, steps, rows, not_launched, card):
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
-    wrong = [n for n in not_launched if counts[n]]
+    wrong = [n for n in tuple(not_launched) + PREDECESSORS if counts[n]]
     if wrong:
         raise AssertionError(f"{label}: launched {wrong}, which this path "
                              f"must not: {counts}")
@@ -2046,9 +2111,11 @@ def main() -> int:
     for line in cuda_build.build_log("move_fused").splitlines():
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
-    # the register-blocked fans K2 and K6 (csrc/fan_sweep_rb.cuh)
+    # the register-blocked kernels K2, K6, K7 and K1 (csrc/fan_sweep_rb.cuh)
     for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
-                      ("fan_culled", "fan_culled_rb_kernel")):
+                      ("fan_culled", "fan_culled_rb_kernel"),
+                      ("fan_flat", "fan_flat_rb_kernelILi4E"),
+                      ("ray_tris", "ray_tris_rb_kernelILi2E")):
         regs, spill = cuda_build.ptxas_usage(src, kern)
         log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
 
@@ -2098,9 +2165,10 @@ def main() -> int:
     state, out, _ = drive_path(
         "slice simple_map", env, acts, NUM_STEPS, main_simple,
         ("sphere_cast", "ray_fans_culled", "fan_cell_order",
-         "ray_fans_culled_v1", "ray_fans_culled_v9",
+         "ray_fans_culled_v9",
          "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
     expect_launches(main_simple, "K2 ray_fans_vs_tris", NUM_STEPS + 1)
+    expect_launches(main_simple, "K1 ray_vs_tris", NUM_STEPS)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -2144,10 +2212,11 @@ def main() -> int:
                      "K4 sphere_cast_culled", "K4' sphere_cast_packed",
                      "K5 tail_fused", "K6 ray_fans_culled", "K6 cell order")
     drive_path("slice town_map", town_env, acts, NUM_STEPS, town_rows,
-               ("ray_fans_vs_tris", "ray_fans_culled_v1", "ray_fans_culled_v9",
+               ("ray_fans_vs_tris", "ray_fans_culled_v9",
                 "sphere_cast", "ray_fans_vs_tris_flat",
                 "apply_velocity_fall_fused"), card)
     expect_launches(town_rows, "K6 ray_fans_culled", NUM_STEPS + 1)
+    expect_launches(town_rows, "K1 ray_vs_tris", NUM_STEPS)
     expect_launches(town_rows, "K6 cell order", NUM_STEPS + 1)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         dense_rows = rows("town_map", "K2 ray_fans_vs_tris")
@@ -2161,6 +2230,8 @@ def main() -> int:
         drive_path(f"Zone 3v3 {name}", env3, acts3, TEAM3_STEPS, rows3,
                    ("ray_fans_vs_tris", "ray_fans_culled", "fan_cell_order",
                     "ray_fans_culled_v9", "sphere_cast"), card)
+        expect_launches(rows3, "K7 ray_fans_vs_tris_flat", TEAM3_STEPS + 1)
+        expect_launches(rows3, "K1 ray_vs_tris", TEAM3_STEPS)
     del team3, env3
 
     # 8. the training path: full width on the card, then against the CPU

@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kTrisThreads, 4)
   const long long mine = live ? item : items - 1;
   const int n = (int)(mine / opf), oct = (int)(mine % opf);
   RbOctet r = rb_load(org, zg, dx, dy, dz, group_of_ray, n, oct, F, G);
-  rb_sweep_tiles(r, rows, T);
+  rb_sweep_tiles(rows, T, RbRowFn<kRbRays>{r});
   if (live) rb_store(r, out, n, oct, F);
 }
 

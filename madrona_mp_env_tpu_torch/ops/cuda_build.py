@@ -36,13 +36,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # its argument types (pointers and the stream as c_void_p); every launch
 # function returns a cudaError_t
 LAUNCHES = {
-    "ray_tris": ("ray_tris", [_P] * 3 + [_I] * 2 + [_P] * 2),
+    "ray_tris": ("ray_tris", [_P] * 3 + [_I] * 4 + [_P] * 2),
+    "ray_tris_v1": ("ray_tris", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "fan_tris": ("fan_tris", [_P] * 7 + [_I] * 4 + [_P] * 2),
     "fan_culled": ("fan_culled", [_P] * 11 + [_I] * 4 + [_P] * 2),
     "fan_culled_v1": ("fan_culled", [_P] * 9 + [_I] * 4 + [_P] * 2),
     "fan_cell_order": ("fan_culled", [_P, _P, _I, _I, _P, _P]),
     "fan_v9": ("fan_v9", [_P] * 8 + [_I] * 3 + [_P] * 2),
-    "fan_flat": ("fan_flat", [_P] * 4 + [_I] * 3 + [_P] * 2),
+    "fan_flat": ("fan_flat", [_P] * 4 + [_I] * 6 + [_P] * 2),
+    "fan_flat_v1": ("fan_flat", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "fan_capsules": ("fan_capsules",
                      [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3),
     "fan_capsules_explicit": ("fan_capsules",

@@ -176,6 +176,15 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
+def _rows16(soup: TriSoup) -> torch.Tensor:
+    """The soup's [T, 16] rows, which K1, K2, K6 and K7 read as 16-byte
+    vectors."""
+    rows = soup.tri_rows
+    if rows.data_ptr() % 16 or not rows.is_contiguous():
+        raise ValueError("tri_rows must be contiguous and 16-byte aligned")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # K1: nearest-hit rays (hitscan)
 # ---------------------------------------------------------------------------
@@ -236,25 +245,86 @@ def _ray_vs_tris_dense(o, d, soup: TriSoup):
         soup.valid).amin(dim=-1), o, d, soup.num_tris)
 
 
-def ray_vs_tris(o, d, soup: TriSoup):
-    """Nearest-hit ray vs the soup (MeshBVH::traceRay semantics). o, d
-    [..., 3] -> t [...]. CUDA: one thread per ray (csrc/ray_tris.cu)."""
-    if not _route(o):
-        return _ray_vs_tris_dense(o, d, soup)
+# K1's launch (csrc/ray_tris.cu): rays per thread, threads per block
+# (kRayThreads), the most blocks of a cluster (kRayMaxSplit); the split
+# aims at RAY_FILL_BLOCKS blocks per SM over the card and gives each
+# block at least RAY_MIN_ROWS rows
+RAY_RAYS = 2
+RAY_THREADS = 128
+RAY_MAX_SPLIT = 8
+RAY_FILL_BLOCKS = 3
+RAY_MIN_ROWS = 64
+
+
+def ray_split(T: int, R: int, sms: int, rays: int = RAY_RAYS) -> int:
+    """The blocks of a cluster over which K1 splits T rows for R rays on
+    a card of ``sms`` SMs: enough clusters' blocks for RAY_FILL_BLOCKS per
+    SM, at most RAY_MAX_SPLIT, at least RAY_MIN_ROWS rows each (1 for a
+    soup under that)."""
+    tiles = -(-R // (rays * RAY_THREADS))
+    want = -(-RAY_FILL_BLOCKS * sms // tiles)
+    return max(1, min(RAY_MAX_SPLIT, want, T // RAY_MIN_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rays_flat(o, d):
     shape = o.shape[:-1]
     R = int(np.prod(shape)) if shape else 1
-    o2 = _f32(o.reshape(R, 3))
-    d2 = _f32(d.reshape(R, 3))
+    return shape, R, _f32(o.reshape(R, 3)), _f32(d.reshape(R, 3))
+
+
+def _ray_tris_launch(o, d, soup: TriSoup, split=None, rays=RAY_RAYS):
+    """K1's CUDA launch: ``split`` blocks per cluster (ray_split unless
+    given), ``rays`` rays per thread. -> t [...]"""
+    shape, R, o2, d2 = _rays_flat(o, d)
+    T = soup.num_tris
+    if split is None:
+        split = ray_split(T, R, _sm_count(o.device), rays)
+    rows = _rows16(soup)
     out = torch.empty(R, device=o.device, dtype=torch.float32)
     cuda_build.check(cuda_build.launcher("ray_tris")(
-        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), soup.num_tris, R,
-        _ptr(out), _stream(o),
+        _ptr(o2), _ptr(d2), _ptr(rows), T, R, split, rays, _ptr(out),
+        _stream(o),
     ), "ray_tris")
-    ray_vs_tris.launches += 1
     return out.reshape(shape)
 
 
+def ray_vs_tris(o, d, soup: TriSoup):
+    """Nearest-hit ray vs the soup (MeshBVH::traceRay semantics). o, d
+    [..., 3] -> t [...]. CUDA: csrc/ray_tris.cu, the rows split over the
+    blocks of a cluster (ray_split), RAY_RAYS rays per thread, the
+    partial minima combined in the cluster: one launch."""
+    if not _route(o):
+        return _ray_vs_tris_dense(o, d, soup)
+    out = _ray_tris_launch(o, d, soup)
+    ray_vs_tris.launches += 1
+    return out
+
+
 ray_vs_tris.launches = 0
+
+
+def ray_vs_tris_v1(o, d, soup: TriSoup):
+    """K1's earlier kernel (csrc/ray_tris.cu ray_tris_v1: one thread per
+    ray, every block over every row), on CUDA tensors only: the
+    predecessor that chip_smoke.py times beside ray_vs_tris."""
+    if not _route(o):
+        raise ValueError("ray_vs_tris_v1 takes CUDA tensors")
+    shape, R, o2, d2 = _rays_flat(o, d)
+    out = torch.empty(R, device=o.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("ray_tris_v1")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), soup.num_tris, R,
+        _ptr(out), _stream(o),
+    ), "ray_tris_v1")
+    ray_vs_tris_v1.launches += 1
+    return out.reshape(shape)
+
+
+ray_vs_tris_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -298,14 +368,6 @@ def _fan_args(origins, zg, dirs, zgroups):
 # rays per thread of K2's and K6's register-blocked sweep
 # (csrc/fan_sweep_rb.cuh kRbRays)
 RB_RAYS = 8
-
-
-def _rows16(soup: TriSoup) -> torch.Tensor:
-    """The soup's [T, 16] rows, which K2 and K6 read as 16-byte vectors."""
-    rows = soup.tri_rows
-    if rows.data_ptr() % 16 or not rows.is_contiguous():
-        raise ValueError("tri_rows must be contiguous and 16-byte aligned")
-    return rows
 
 
 def fan_rb_check(zgroups) -> None:
@@ -365,6 +427,48 @@ def _ray_fans_flat_plain(origins, zoffs, dirs, soup: TriSoup, t_max=INF,
     return t if t_max == INF else _where_inf(t <= t_max, t)
 
 
+# K7's launch (csrc/fan_flat.cu): rays per thread (4, a quad; 8 an
+# octet), threads per block, and the rows split over the blocks of a
+# cluster: at most FLAT_MAX_SPLIT blocks of at least FLAT_MIN_ROWS rows
+FLAT_RAYS = 4
+FLAT_THREADS = 128
+FLAT_MAX_SPLIT = 2
+FLAT_MIN_ROWS = 128
+
+
+def flat_split(T: int) -> int:
+    """The blocks of a cluster over which K7 splits T rows."""
+    return max(1, min(FLAT_MAX_SPLIT, T // FLAT_MIN_ROWS))
+
+
+def _flat_args(origins, zoffs, dirs, zgroups):
+    N, F = dirs.shape[:2]
+    org, zoff, dr = _f32(origins), _f32(_ray_zoffs(zoffs, zgroups)), _f32(
+        dirs)
+    if org.shape != (N, 3) or zoff.shape != (N, F) or dr.shape != (N, F, 3):
+        raise ValueError("fan shapes disagree")
+    return N, F, org, zoff, dr
+
+
+def _fan_flat_launch(origins, zoffs, dirs, soup: TriSoup, zgroups=None,
+                     rays=FLAT_RAYS, threads=FLAT_THREADS, split=None):
+    """K7's CUDA launch with ``rays`` rays per thread, ``threads`` per
+    block and ``split`` blocks per cluster (flat_split unless given). ->
+    t [N, F]"""
+    # held in locals until the launch: a freed temporary's memory could
+    # be handed to the next argument's copy
+    N, F, org, zoff, dr = _flat_args(origins, zoffs, dirs, zgroups)
+    rows = _rows16(soup)
+    T = soup.num_tris
+    split = flat_split(T) if split is None else split
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_flat")(
+        _ptr(org), _ptr(zoff), _ptr(dr), _ptr(rows), N, F, T, rays, threads,
+        split, _ptr(out), _stream(origins),
+    ), "fan_flat")
+    return out
+
+
 def ray_fans_vs_tris_flat(origins, zoffs, dirs, soup: TriSoup, t_max=INF,
                           zgroups=None):
     """Nearest hit of every ray of N fans over the whole soup, in the JAX
@@ -372,28 +476,39 @@ def ray_fans_vs_tris_flat(origins, zoffs, dirs, soup: TriSoup, t_max=INF,
     3]; zoffs [N, F] per ray, or [N, G] per group when zgroups (run
     lengths summing to F) is given; dirs [N, F, 3] of any scale (t is in
     units of |d|). -> t [N, F], inf on a miss or beyond t_max. CUDA:
-    csrc/fan_flat.cu, which finds each fan's runs of equal offsets and
-    sweeps them with K2's hoisted sweep, so runs of any length work."""
+    csrc/fan_flat.cu, K2's register-blocked sweep on quads of rays (a
+    quad whose origins differ in z takes its origin terms per ray), so
+    runs of any length work."""
     if not _route(origins):
         return _ray_fans_flat_plain(origins, zoffs, dirs, soup, t_max,
                                     zgroups)
-    N, F = dirs.shape[:2]
-    # held in locals until the launch: a freed temporary's memory could
-    # be handed to the next argument's copy
-    org, zoff, dr = _f32(origins), _f32(_ray_zoffs(zoffs, zgroups)), _f32(
-        dirs)
-    if org.shape != (N, 3) or zoff.shape != (N, F) or dr.shape != (N, F, 3):
-        raise ValueError("fan shapes disagree")
-    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
-    cuda_build.check(cuda_build.launcher("fan_flat")(
-        _ptr(org), _ptr(zoff), _ptr(dr), _ptr(soup.tri_rows), N, F,
-        soup.num_tris, _ptr(out), _stream(origins),
-    ), "fan_flat")
+    out = _fan_flat_launch(origins, zoffs, dirs, soup, zgroups)
     ray_fans_vs_tris_flat.launches += 1
     return out if t_max == INF else _where_inf(out <= t_max, out)
 
 
 ray_fans_vs_tris_flat.launches = 0
+
+
+def ray_fans_vs_tris_flat_v1(origins, zoffs, dirs, soup: TriSoup,
+                             zgroups=None):
+    """K7's earlier kernel (csrc/fan_flat.cu fan_flat_v1: one block per
+    fan, its runs of equal offsets found and their origin terms hoisted in
+    shared memory), on CUDA tensors only: the predecessor that
+    chip_smoke.py times beside ray_fans_vs_tris_flat."""
+    if not _route(origins):
+        raise ValueError("ray_fans_vs_tris_flat_v1 takes CUDA tensors")
+    N, F, org, zoff, dr = _flat_args(origins, zoffs, dirs, zgroups)
+    out = torch.empty((N, F), device=origins.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("fan_flat_v1")(
+        _ptr(org), _ptr(zoff), _ptr(dr), _ptr(soup.tri_rows), N, F,
+        soup.num_tris, _ptr(out), _stream(origins),
+    ), "fan_flat_v1")
+    ray_fans_vs_tris_flat_v1.launches += 1
+    return out
+
+
+ray_fans_vs_tris_flat_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -136,7 +136,9 @@ def profiled(fn, reps: int, kernel: str, tries: int = 3):
     outside the window, or None. A window that holds no event of the
     kernel whose name holds ``kernel`` (the profiler has come back
     without a short kernel's events) is profiled again, up to ``tries``
-    times."""
+    times. A window may also hold fewer or more of its events than
+    launches (a long cluster kernel's dropped, the warm-up call's kept):
+    callers average over the events they find."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
@@ -155,16 +157,17 @@ def profiled(fn, reps: int, kernel: str, tries: int = 3):
 
 
 def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3):
-    """(ms per call, how): the device time of the CUDA kernels of ``fn``
-    whose name holds ``kernel``, without the host's gaps between
-    back-to-back launches. how = "profiler": torch.profiler's kernel
-    times (``profiled``); "events", when no window held the kernel's
-    events: CUDA events around each call alone, one call in flight at a
-    time (the whole call, its launch latency included)."""
+    """(ms per call, how): the device time of the CUDA kernel of ``fn``
+    whose name holds ``kernel`` (``fn`` launches it once per call),
+    without the host's gaps between back-to-back launches. how =
+    "profiler": the mean of torch.profiler's times of its launches
+    (``profiled``); "events", when no window held its events: CUDA events
+    around each call alone, one call in flight at a time (the whole call,
+    its launch latency included)."""
     events = profiled(fn, reps, kernel, tries)
     if events is not None:
-        return sum(e.device_time_total for e in events
-                   if kernel in e.name) / 1e3 / reps, "profiler"
+        mine = [e.device_time_total for e in events if kernel in e.name]
+        return sum(mine) / 1e3 / len(mine), "profiler"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     total = 0.0

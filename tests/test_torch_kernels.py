@@ -386,6 +386,83 @@ def test_flat_fan_kernel(gpu_map, town_map, scene, runs):
                                                  zgroups=zgroups), t)
 
 
+def _flat_fans(m, N, zgroups, seed):
+    """N fans of runs ``zgroups`` in the stacked layout (fans 15, 31, ...
+    dead),
+    directions of scale 0.5-1.5: origins, per-group and per-ray z
+    offsets, directions [N, F, 3]."""
+    org = _points(m, N, seed, (0, 5))
+    org[15::16, 2] = 10000.0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    zg = 10.0 + 50.0 * torch.rand((N, len(zgroups)), generator=g,
+                                  device="cuda")
+    zoff = torch.repeat_interleave(
+        zg, torch.tensor(zgroups, device="cuda"), dim=-1)
+    F = sum(zgroups)
+    d = _dirs(N * F, seed + 2).reshape(N, F, 3) * (
+        0.5 + torch.rand((N, F, 1), generator=g, device="cuda"))
+    return org, zg, zoff, d
+
+
+@pytest.mark.parametrize("N, zgroups", [
+    (385, (1, 3, 5, 12)), (385, (7,)), (385, (10, 32, 32, 8, 8)),
+    (1, (12, 32, 32, 8, 8))], ids=["straddle", "F7", "F90", "one_fan"])
+def test_flat_fan_quads(gpu_map, town_map, N, zgroups):
+    """K7's quads where they straddle runs (1, 3, 5, 12: origin terms per
+    ray), where F is not a multiple of 4 (F = 7, 21, 90: a masked last
+    quad) and at N = 1, on both maps: bit-equal to the plain version, to
+    the predecessor (fan_flat_v1) and to the octet launch, one launch
+    counted."""
+    for m in (gpu_map, town_map):
+        org, zg, zoff, d = _flat_fans(m, N, zgroups, 60)
+        n0 = raycast.ray_fans_vs_tris_flat.launches
+        t = raycast.ray_fans_vs_tris_flat(org, zoff, d, m.tris)
+        assert raycast.ray_fans_vs_tris_flat.launches == n0 + 1
+        assert _eq(t, raycast._ray_fans_flat_plain(org, zoff, d, m.tris))
+        assert _eq(t, raycast.ray_fans_vs_tris_flat_v1(org, zoff, d, m.tris))
+        assert _eq(t, raycast._fan_flat_launch(org, zoff, d, m.tris, rays=8))
+        assert _eq(t, raycast.ray_fans_vs_tris_flat(org, zg, d, m.tris,
+                                                    zgroups=zgroups))
+    assert bool(torch.isfinite(t).any())
+
+
+@pytest.mark.parametrize("R", [1, 13, 12289])
+def test_ray_vs_tris_split_kernel(town_map, R):
+    """K1 over town_map's 6,144 triangles at a partial ray tile (1, 13)
+    and a partial cluster tile (12,289 = 48 tiles of 256 rays + 1):
+    bit-equal to the plain version and to the predecessor (ray_tris_v1),
+    at every split and ray count a launch may take, one launch
+    counted."""
+    o, d = _points(town_map, R, 50, (10, 60)), _dirs(R, 51)
+    n0 = raycast.ray_vs_tris.launches
+    t = raycast.ray_vs_tris(o, d, town_map.tris)
+    assert raycast.ray_vs_tris.launches == n0 + 1
+    assert _eq(t, raycast._ray_vs_tris_dense(o, d, town_map.tris))
+    assert _eq(t, raycast.ray_vs_tris_v1(o, d, town_map.tris))
+    for split in (1, 3, 8):
+        for rays in (1, 2, 4):
+            assert _eq(t, raycast._ray_tris_launch(o, d, town_map.tris,
+                                                   split, rays))
+    if R > 1000:
+        assert bool(torch.isfinite(t).float().mean() > 0.2)
+
+
+def test_ray_vs_tris_huge_edges(gpu_map, town_map):
+    """K1 with rows whose edges reach 1e18-1e38 or infinity, and rays of
+    huge directions: the rows and rays past the fast reciprocal's bound
+    take the exact one, bit-equal to the plain version and the
+    predecessor (and apart from the unscaled soup's result)."""
+    for m, every in ((gpu_map, 7), (town_map, 29)):
+        R = 4096
+        o, d = _points(m, R, 52, (10, 60)), _dirs(R, 53)
+        d[::5] *= 1e30
+        soup = _huge_edge_soup(m.tris, every)
+        t = raycast.ray_vs_tris(o, d, soup)
+        assert _eq(t, raycast._ray_vs_tris_dense(o, d, soup))
+        assert _eq(t, raycast.ray_vs_tris_v1(o, d, soup))
+        assert not _eq(t, raycast.ray_vs_tris(o, d, m.tris))
+
+
 @pytest.mark.parametrize("scene", ["simple_map", "town_map"])
 def test_sphere_cast_normal_kernel(gpu_map, town_map, scene):
     """K8: t and the winner's contact normal over the whole soup, on the
