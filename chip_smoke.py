@@ -23,12 +23,15 @@ Phases, each of which fails the run loudly:
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
    full width). K1, K2, K6 and K7 (the register-blocked sweep,
-   csrc/fan_sweep_rb.cuh) are held bit for bit against their plain
-   versions and their predecessors (ray_tris_v1, P2's exact entry,
-   fan_culled_v1, fan_flat_v1), timed beside them in turns (new, old,
-   old, new), with their device time (torch.profiler), ptxas' registers
-   and spills, the floor at one f32 instruction per operation, K1's and
-   K7's row split and K6's helper launches (the cell order). Zone 3v3
+   csrc/fan_sweep_rb.cuh) and K4 culled and K4' (lanes per group of
+   casts, csrc/sc_sweep.cuh) are held bit for bit (K4: t and winner row)
+   against their plain versions and their predecessors (ray_tris_v1,
+   P2's exact entry, fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1),
+   timed beside them in turns (new, old, old, new), with their device
+   time (torch.profiler), ptxas' registers and spills, the floor at one
+   f32 instruction per operation, K1's and K7's row split, K4's lanes
+   and K6's helper launches (the cell order); K4 dense, K8 and P3, which
+   share K4's pair arithmetic, with their registers and spills. Zone 3v3
    (team size 3: a LOS run of 12 rays, not a multiple of 8) on each map:
    K1, K7, the stacked-direction fan over the whole soup, and K5 on one
    real step's launches; K8 on that step's L1
@@ -63,9 +66,10 @@ Phases, each of which fails the run loudly:
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch (K2 101 times, K1 100), K4 dense, K6, K9, the fused movement
-   P3 and the predecessors (on every path) must not; env-steps/s beside
-   the card's name and limit; then CUDA launches per step from
+   launch (K2 101 times, K1 and K4 culled 100, K4' 300), K4 dense, K6,
+   K9, the fused movement P3 and the predecessors (on every path) must
+   not; env-steps/s beside the card's name and limit; then CUDA
+   launches per step from
    torch.profiler, with the fused tail and, for comparison in the same
    process, with the unfused chain it replaced; then the same path with
    MPENV_FAN_V9=1, where K9 must launch and K2 must not;
@@ -76,7 +80,8 @@ Phases, each of which fails the run loudly:
    forward's ms per step;
 6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
-   culled, K4', K5 and K6 must launch (K6 101 times, K1 100), K2 and K4
+   culled, K4', K5 and K6 must launch (K6 101 times, K1 and K4 culled
+   100, K4' 300), K2 and K4
    dense must not; then 10 steps of the forced-dense fan route
    (MPENV_FAN_CULL=0), where K2 runs 11 times over the 6,144-triangle
    soup; then Zone 3v3 on each map, reset + 50
@@ -149,20 +154,23 @@ OPS_SC_NORMAL = 95
 # membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
 # 5 per teammate pair
 OPS_TAIL_AGENT = 41
-# the redesigned kernels' rows (K1, K2, K6, K7) also carry: their
-# predecessor's time in the same call, their device time (torch.profiler;
-# K1's and K7's predecessors' too), the floor at one f32 instruction per
-# operation (--fmad=false: 33.5 T/s), ptxas -v's registers and spill
-# bytes, the launches of any helper per call, the blocks of a cluster that
-# split the rows (K1, K7) and, on the bench's Zone 3v3 rows, K7 and its
-# predecessor with a z offset per ray
+# the redesigned kernels' rows (K1, K2, K6, K7, K4 culled, K4') also
+# carry: their predecessor's time in the same call, their device time
+# (torch.profiler; K1's, K7's and K4's predecessors' too), the floor at
+# one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
+# registers and spill bytes, the launches of any helper per call, the
+# blocks of a cluster that split the rows (K1, K7), the lanes of a group
+# of casts (K4 culled, K4', each launch) and, on the bench's Zone 3v3
+# rows, K7 and its predecessor with a z offset per ray; the rows of K4
+# dense, K8 and P3, which share K4's pair arithmetic, carry ptxas -v's
+# registers and spill bytes
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "fmad_floor_ms", "registers", "spill_bytes",
-                 "helper_launches", "helper_device_ms", "split",
+                 "helper_launches", "helper_device_ms", "split", "lanes",
                  "per_ray_ms", "per_ray_before_ms")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
-                "ray_fans_culled_v1")
+                "ray_fans_culled_v1", "sphere_cast_culled_v1")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -772,7 +780,7 @@ class KernelPhase:
         normal bit-equal to the plain version; without normals, the same
         t and zero normals."""
         import torch
-        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 
         soup = self.soup
         R = o[..., 0].numel()
@@ -789,6 +797,8 @@ class KernelPhase:
         if not torch.equal(t0, tk) or bool(n0.any()):
             raise AssertionError("K8 without normals: t differs or a "
                                  "normal is not 0")
+        regs, spill = cuda_build.ptxas_usage("sphere_cast",
+                                             "sphere_cast_dense_kernelILb1E")
         self.record(
             "K8 sphere_cast_vs_tris",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
@@ -797,6 +807,7 @@ class KernelPhase:
             pms, R * 24 + R * 16 + self.T_real * 52,
             R * self.T_real * OPS_SPHERE_TRI
             + R * (OPS_SPHERE_TRI + OPS_SC_NORMAL), [list(o.shape[:-1])],
+            registers=regs, spill_bytes=spill,
             no_normal_ms=round(cuda_time_ms(lambda: kernel(False), reps), 4),
             hit_share=round(float(torch.isfinite(tk).float().mean()), 4))
 
@@ -873,7 +884,7 @@ class KernelPhase:
     def k4_dense(self, calls):
         """The L2 pair, the L3 snap and the fall cast over the whole soup
         (a step with MPENV_SC_PACK=0)."""
-        from madrona_mp_env_tpu_torch.ops import raycast
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 
         soup = self.soup
         sc_calls = calls["sphere_cast"]
@@ -895,13 +906,75 @@ class KernelPhase:
             pms += cuda_time_ms(sc_plain, 2)
             R4 += o4[..., 0].numel()
             shapes.append(list(o4.shape[:-1]))
+        regs, spill = cuda_build.ptxas_usage("sphere_cast",
+                                             "sphere_cast_dense_kernelILb0E")
         self.record(
             "K4 sphere_cast (dense)",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:1384",
             raycast.sphere_cast, err, ms, pms,
             R4 * 32 + 3 * self.T_real * 52,
-            R4 * self.T_real * OPS_SPHERE_TRI, shapes)
+            R4 * self.T_real * OPS_SPHERE_TRI, shapes, registers=regs,
+            spill_bytes=spill)
+
+    def k4_launches(self, label, entry, calls):
+        """K4 culled or K4' on each of the step's launches of ``entry``: t
+        and winner row bit-equal to the plain version and to the
+        predecessor (sphere_cast_culled_v1), the two timed in turns, their
+        device times; -> (the row's arguments summed over the launches,
+        the plain (t, row) of each launch)."""
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
+
+        soup = self.soup
+        err = ms = before_ms = pms = dev = dev_before = 0.0
+        nbytes = pairs = spill = regs = 0
+        shapes, lanes, plains = [], [], []
+        for i, (o, d, r, cells, short, _) in enumerate(calls):
+            N, CPA = o.shape[:2]
+
+            def kernel(o=o, d=d, r=r, cells=cells, short=short):
+                return entry(o, d, r, cells, short, soup)
+
+            def plain(o=o, d=d, r=r, cells=cells, short=short, N=N):
+                return chunked(lambda s: raycast._sphere_cast_culled_plain(
+                    o[s], d[s], r, cells[s], short, soup), N,
+                    max(256, 2 ** 14 // CPA))
+
+            def before(o=o, d=d, r=r, cells=cells, short=short):
+                return raycast.sphere_cast_culled_v1(o, d, r, cells, short,
+                                                     soup)
+
+            (tk, ik), ((tp, ip), p_ms) = kernel(), timed_once(plain)
+            name = f"{label} launch {i} {[N, CPA]}"
+            err = max(err, check_equal(name, (tk, tp), (ik, ip)))
+            tb, ib = before()
+            check_equal(f"{name} against its predecessor", (tk, tb), (ik, ib))
+            new, old = turns_ms(kernel, before, 50)
+            ms, before_ms, pms = ms + new, before_ms + old, pms + p_ms
+            dev += device_ms(kernel, "sc_culled_kernel", 20)
+            dev_before += device_ms(before, "sphere_cast_culled_v1_kernel",
+                                    20)
+            L = raycast.sc_lanes(CPA, short)
+            r_, s_ = cuda_build.ptxas_usage("sphere_cast",
+                                            raycast.sc_kernel_name(L))
+            regs, spill = max(regs, r_), spill + s_
+            lanes.append(L)
+            # casts in (24 B) and out (8 B), cells, the table and its
+            # span, the rows
+            nbytes += (N * CPA * 32 + N * 4 + short.cand.numel() * 4
+                       + short.valid_span.numel() * 4 + self.T_real * 52)
+            cand = short.cand.reshape(-1, short.K)[cells.long()]
+            pairs += int((cand >= 0).sum()) * CPA
+            shapes.append([N, CPA])
+            plains.append((tp, ip))
+        nops = pairs * OPS_SPHERE_TRI
+        return dict(err=err, ms=ms, pms=pms, nbytes=nbytes, nops=nops,
+                    shapes=shapes, before_ms=round(before_ms, 4),
+                    device_ms=round(dev, 4),
+                    before_device_ms=round(dev_before, 4),
+                    fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+                    registers=regs, spill_bytes=spill, helper_launches=0,
+                    lanes=lanes), plains
 
     def k4_culled(self, calls):
         """The L1 batch of 7 casts per agent against the short tables."""
@@ -910,18 +983,10 @@ class KernelPhase:
         from madrona_mp_env_tpu_torch.sim import movement
 
         soup = self.soup
-        (o7, d7, r, cells, short, _), = calls["sphere_cast_culled"]
-        N7, CPA = o7.shape[:2]
-
-        def culled_kernel():
-            return raycast.sphere_cast_culled(o7, d7, r, cells, short, soup)
-
-        def culled_plain():
-            return chunked(lambda s: raycast._sphere_cast_culled_plain(
-                o7[s], d7[s], r, cells[s], short, soup), N7, 2048)
-
-        (tk, ik), (tp, ip) = culled_kernel(), culled_plain()
-        err = check_t("K4 sphere_cast_culled", tk, tp)
+        (o7, d7, r, *_), = calls["sphere_cast_culled"]
+        a, ((tp, ip),) = self.k4_launches(
+            "K4 sphere_cast_culled", raycast.sphere_cast_culled,
+            calls["sphere_cast_culled"])
         # the short tables are exact for the range the step consumes
         # (movement.UNSTICK_RANGE): equal t and row there, beyond it both
         # far. A standing agent's casts have no direction: they touch every
@@ -935,18 +1000,13 @@ class KernelPhase:
                 and torch.equal(idd[near], ip[near])
                 and bool((tp[far] > movement.UNSTICK_RANGE).all())):
             raise AssertionError("culled plain cast differs from the dense")
-        check_idx("K4 sphere_cast_culled", ik, ip, sc_gap(o7, d7, r, soup),
-                  tp)
-        cand = short.cand.reshape(-1, short.K)[cells.long()]
         self.record(
             "K4 sphere_cast_culled",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:1549",
-            raycast.sphere_cast_culled, err, cuda_time_ms(culled_kernel, 50),
-            cuda_time_ms(culled_plain, 2),
-            N7 * CPA * 32 + N7 * 4 + short.cand.numel() * 4
-            + self.T_real * 52,
-            int((cand >= 0).sum()) * CPA * OPS_SPHERE_TRI, [[N7, CPA]])
+            raycast.sphere_cast_culled, a.pop("err"), a.pop("ms"),
+            a.pop("pms"), a.pop("nbytes"), a.pop("nops"), a.pop("shapes"),
+            **a)
 
     def k4_packed(self, calls):
         """K4': the L2 pair, the L3 snap and the fall cast against the
@@ -960,41 +1020,22 @@ class KernelPhase:
         pk_calls = calls["sphere_cast_packed"]
         if len(pk_calls) != 3:
             raise AssertionError(f"step made {len(pk_calls)} packed casts")
-        err, ms, pms, nbytes, pairs, shapes = 0.0, 0.0, 0.0, 0, 0, []
-        for i, (o, d, r, cells, short, _) in enumerate(pk_calls):
-            N, CPA = o.shape[:2]
-
-            def kernel(o=o, d=d, r=r, cells=cells, short=short):
-                return raycast.sphere_cast_packed(o, d, r, cells, short, soup)
-
-            def plain(o=o, d=d, r=r, cells=cells, short=short, N=N):
-                return chunked(lambda s: raycast._sphere_cast_culled_plain(
-                    o[s], d[s], r, cells[s], short, soup), N, 4096)
-
-            (tk, ik), (tp, ip) = kernel(), plain()
-            name = f"K4' sphere_cast_packed launch {i} {[N, CPA]}"
-            err = max(err, check_t(name, tk, tp))
-            check_idx(name, ik, ip, sc_gap(o, d, r, soup), tp)
+        a, plains = self.k4_launches("K4' sphere_cast_packed",
+                                     raycast.sphere_cast_packed, pk_calls)
+        for i, ((o, d, r, *_), (tp, _)) in enumerate(zip(pk_calls, plains)):
             td, _ = sc_dense_plain(o, d, r, soup)
             down = (d[..., 0] == 0.0) & (d[..., 1] == 0.0) & (d[..., 2] < 0.0)
             if not (torch.equal(td[down], tp[down])
                     and bool((td <= tp).all())):
-                raise AssertionError(f"{name}: packed cast differs from the "
-                                     "dense cast")
-            ms += cuda_time_ms(kernel, 50)
-            pms += cuda_time_ms(plain, 2)
-            # casts in (24 B) and out (8 B), cells, the table, the rows
-            nbytes += (N * CPA * 32 + N * 4 + short.cand.numel() * 4
-                       + self.T_real * 52)
-            cand = short.cand.reshape(-1, short.K)[cells.long()]
-            pairs += int((cand >= 0).sum()) * CPA
-            shapes.append([N, CPA])
+                raise AssertionError(f"K4' launch {i}: packed cast differs "
+                                     "from the dense cast")
         self.record(
             "K4' sphere_cast_packed",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:2028",
-            raycast.sphere_cast_packed, err, ms, pms, nbytes,
-            pairs * OPS_SPHERE_TRI, shapes)
+            raycast.sphere_cast_packed, a.pop("err"), a.pop("ms"),
+            a.pop("pms"), a.pop("nbytes"), a.pop("nops"), a.pop("shapes"),
+            **a)
 
     def k5(self, calls):
         from madrona_mp_env_tpu_torch.ops import tail_fused
@@ -1242,6 +1283,9 @@ def p3_rows(cfg, scene):
         movement_fused_probe as mf,
     )
 
+    from madrona_mp_env_tpu_torch.ops import cuda_build
+
+    regs, spill = cuda_build.ptxas_usage("move_fused", "move_fused_kernel")
     env, st = mf.bench_state(cfg, scene, NUM_WORLDS, P3_STEPS, "cuda")
     m = env.map_data
     ph = KernelPhase(m.tris, os.path.basename(scene))
@@ -1280,7 +1324,8 @@ def p3_rows(cfg, scene):
             split_ms=round(cuda_time_ms(split, 5), 4),
             split_launches=mf.cuda_launches(split),
             fused_launches=mf.cuda_launches(fused), pairs=pairs,
-            normals=normals, moved_share=round(moved, 4))
+            normals=normals, moved_share=round(moved, 4),
+            registers=regs, spill_bytes=spill)
     return ph.results
 
 
@@ -1836,7 +1881,8 @@ def all_entries():
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
         raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
         raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
-        raycast.sphere_cast_packed, tail_fused.tail_fused,
+        raycast.sphere_cast_packed, raycast.sphere_cast_culled_v1,
+        tail_fused.tail_fused,
         movement_fused_probe.apply_velocity_fall_fused,
         v9_kernel_probe.ray_fans_v9_gathered,
         v9_scan_timing.ray_fans_v9_chunked,
@@ -2111,11 +2157,14 @@ def main() -> int:
     for line in cuda_build.build_log("move_fused").splitlines():
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
-    # the register-blocked kernels K2, K6, K7 and K1 (csrc/fan_sweep_rb.cuh)
+    # the register-blocked kernels K2, K6, K7 and K1 (csrc/fan_sweep_rb.cuh),
+    # and K4 dense and K8 (the K4 culled and K4' rows carry their own)
     for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
                       ("fan_culled", "fan_culled_rb_kernel"),
                       ("fan_flat", "fan_flat_rb_kernelILi4E"),
-                      ("ray_tris", "ray_tris_rb_kernelILi2E")):
+                      ("ray_tris", "ray_tris_rb_kernelILi2E"),
+                      ("sphere_cast", "sphere_cast_dense_kernelILb0E"),
+                      ("sphere_cast", "sphere_cast_dense_kernelILb1E")):
         regs, spill = cuda_build.ptxas_usage(src, kern)
         log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
 
@@ -2169,6 +2218,8 @@ def main() -> int:
          "ray_fans_vs_tris_flat", "apply_velocity_fall_fused"), card)
     expect_launches(main_simple, "K2 ray_fans_vs_tris", NUM_STEPS + 1)
     expect_launches(main_simple, "K1 ray_vs_tris", NUM_STEPS)
+    expect_launches(main_simple, "K4 sphere_cast_culled", NUM_STEPS)
+    expect_launches(main_simple, "K4' sphere_cast_packed", 3 * NUM_STEPS)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -2218,6 +2269,8 @@ def main() -> int:
     expect_launches(town_rows, "K6 ray_fans_culled", NUM_STEPS + 1)
     expect_launches(town_rows, "K1 ray_vs_tris", NUM_STEPS)
     expect_launches(town_rows, "K6 cell order", NUM_STEPS + 1)
+    expect_launches(town_rows, "K4 sphere_cast_culled", NUM_STEPS)
+    expect_launches(town_rows, "K4' sphere_cast_packed", 3 * NUM_STEPS)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         dense_rows = rows("town_map", "K2 ray_fans_vs_tris")
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,

@@ -35,7 +35,8 @@
 // Design: one warp per agent. The 32 lanes split the cast's candidate rows
 // (rows read from the soup's [T, 16] table through the read-only cache:
 // 16 KB on simple_map, 393 KB on town_map, both L2-resident), and the
-// nearest hit is a warp reduction of (t, row) taken lexicographically.
+// nearest hit is a warp reduction of (t, row) taken lexicographically
+// (csrc/sc_sweep.cuh warp_cast, whose reduction K4 culled and K4' share).
 // Every per-agent branch is warp-uniform, so the phases whose results the
 // chain would discard are skipped: a still agent or a slope-blocked one
 // goes straight to the fall cast, the slide cast runs only where the
@@ -46,8 +47,7 @@
 // sweeps (culled simple_map: 7 x 56 + 4 x 48 = 584 pairs; dense: 11 x
 // 256) of ~330 f32 operations (tri_math.cuh sc_pair), from 36 bytes in
 // and 24 out per agent: bound by operations.
-#include <climits>
-
+#include "sc_sweep.cuh"
 #include "tri_math.cuh"
 
 using namespace mpenv;
@@ -87,7 +87,6 @@ struct MoveArgs {
 };
 
 constexpr int kMoveWarps = 4;  // agents per block
-constexpr unsigned kFull = 0xffffffffu;
 
 // torch.clamp(v, min=lo) / torch.clamp(v, max=hi) / torch.minimum on the
 // card: the NaN passes, else fmaxf / fminf
@@ -121,48 +120,6 @@ __device__ __forceinline__ int short_cell(V3 p, float x0, float y0, float cs, in
   ix = min(max(ix, 0), nx - 1);
   iy = min(max(iy, 0), ny - 1);
   return iy * nx + ix;
-}
-
-struct Hit {
-  float t;
-  int row;
-  int n;  // the valid rows this lane swept
-};
-
-// The nearest hit of one sphere cast over the rows cand[0 .. count) (cand
-// == nullptr: rows 0 .. count), every lane of the warp a stride-32 share;
-// each lane returns the warp's (t, row): the lowest row among equal t,
-// row 0 on a miss. -1 candidates are padding.
-__device__ __noinline__ Hit warp_cast(V3 o, V3 d, float r, const float* __restrict__ rows,
-                                      const int* __restrict__ cand, int count) {
-  const int lane = threadIdx.x & 31;
-  const float rr = r * r;
-  float best = CUDART_INF_F;
-  int best_row = INT_MAX, n = 0;
-  for (int k = lane; k < count; k += 32) {
-    const int row = cand ? __ldg(cand + k) : k;
-    if (row < 0) continue;
-    const float* w = rows + (size_t)row * kRowCols;
-    n += __ldg(w + kRowValid) > 0.0f;
-    const float t = sphere_tri(o, d, r, rr, v3(__ldg(w), __ldg(w + 1), __ldg(w + 2)),
-                               v3(__ldg(w + 3), __ldg(w + 4), __ldg(w + 5)),
-                               v3(__ldg(w + 6), __ldg(w + 7), __ldg(w + 8)),
-                               v3(__ldg(w + 9), __ldg(w + 10), __ldg(w + 11)),
-                               __ldg(w + kRowValid) > 0.0f);
-    if (t < best || (t == best && row < best_row)) {
-      best = t;
-      best_row = row;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float t2 = __shfl_xor_sync(kFull, best, off);
-    const int r2 = __shfl_xor_sync(kFull, best_row, off);
-    if (t2 < best || (t2 == best && r2 < best_row)) {
-      best = t2;
-      best_row = r2;
-    }
-  }
-  return {best, isinf(best) ? 0 : best_row, n};
 }
 
 // sc_normals_from_idx of the winner row (any row: a miss reads row 0)

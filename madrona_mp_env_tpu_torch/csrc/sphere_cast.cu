@@ -6,8 +6,8 @@
 // and _make_sc_kernel_planar(culled=True) (via _get_sc_culled /
 // sphere_cast_agent_culled: the short-table L1 batch; via _get_sc_packed /
 // sphere_cast_packed, K4', the MOVE_MARGIN-table L2, L3 and fall casts:
-// its 8-lane same-cell packing is TPU lane economics with no counterpart
-// at one thread per cast, so the culled entry serves it as it is), and
+// its 8-lane same-cell packing and pre-gathered per-block tables are TPU
+// lane economics; the culled entry serves it as it serves L1), and
 // K8, the row-major _make_sc_kernel + _sc_sweep_lanes (via _get_sc_flat /
 // sphere_cast_vs_tris_pallas, which rebuilds the winner's contact normal
 // outside its kernel with a one-hot matrix product). Plain versions:
@@ -23,17 +23,36 @@
 // 12288 x K_mv = 48 = 2.4e6 (the dense entry, now off the default path,
 // 1.3e7). K8 at the kernel bench's 86,016 casts: 2.2e7 pairs on
 // simple_map, 5.3e8 on town_map.
-// Design: one thread per cast. Dense entries (cells == nullptr, and K8):
-// the block stages the triangle rows (v0 e1 e2 n valid) in shared memory
-// kScTile at a time, in order, and every thread sweeps each tile. Culled
-// entry: cast c of group c / cpa sweeps only the K candidate rows of its
-// group's cell (cand[cell * K + k], -1 padding), reading the triangle
-// rows straight from the table (L1-cached). All keep the nearest t and
-// the lowest global row among equal t (the dense sweep's argmin); a miss
-// reports row 0, as that argmin does. K8's thread, once it holds its
-// winner row, recomputes that row's terms and writes the contact normal
-// (csrc/tri_math.cuh sc_normal, the plain sc_normals_from_idx), 0 for a
-// miss or a hit beyond t_max, whose t it reports as inf.
+//
+// Design of the dense entries (K4 dense, K8): one thread per cast; the
+// block stages the triangle rows (v0 e1 e2 n valid) in shared memory
+// kScTile at a time, in order, and every thread sweeps each tile. They
+// keep the nearest t and the lowest global row among equal t (the dense
+// sweep's argmin); a miss reports row 0, as that argmin does. K8's
+// thread, once it holds its winner row, recomputes that row's terms and
+// writes the contact normal (csrc/tri_math.cuh sc_normal, the plain
+// sc_normals_from_idx), 0 for a miss or a hit beyond t_max, whose t it
+// reports as inf.
+//
+// Design of the culled entry (K4 culled and K4', sc_culled_kernel): a
+// group is one agent's cpa casts, which share a cell (cells[n]); L lanes
+// (8, 16 or 32, ops/raycast.py sc_lanes) take a group and split its
+// (slot, cast) pairs with stride L, up to the cell's last candidate
+// (ShortTables.valid_span; a -1 inside is skipped), so that a lane's
+// share is even to one pair test whatever the cell's count. A pair reads
+// its row as 16-byte vectors; the group's casts and each lane's (t, row)
+// of each cast sit in shared memory; the lanes then combine (t, row)
+// lexicographically by __shfl_xor_sync (csrc/sc_sweep.cuh, the
+// exactness argument there). 128 threads a block, 128 / L groups: K4' at
+// 12,288 casts launches 393,216 threads at L = 32, not 12,288. Launch
+// variants, timed by tools/fan_rb_probe.py: the lanes split the slots and
+// sweep each row against all the group's casts in a loop, its terms
+// computed once (sc_row; rows_outer), or the casts one at a time
+// (casts_outer). A cpa above kScMaxCasts, an L or a variant the kernel
+// does not take, or no span, returns cudaErrorInvalidValue. The predecessor (sphere_cast_culled_v1_kernel:
+// one thread per cast, every one of the cell's K slots) stays, with its
+// own launch, to be timed beside it.
+#include "sc_sweep.cuh"
 #include "tri_math.cuh"
 
 using namespace mpenv;
@@ -94,11 +113,15 @@ __global__ void sphere_cast_dense_kernel(const float* __restrict__ o, const floa
   n_out[3 * (size_t)c + 2] = nrm.z;
 }
 
-__global__ void sphere_cast_culled_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                                          const float* __restrict__ rows, float r, int R,
-                                          const int* __restrict__ cells,
-                                          const int* __restrict__ cand, int K, int cpa,
-                                          float* __restrict__ t_out, int* __restrict__ idx_out) {
+// the predecessor of sc_culled_kernel: one thread per cast over its
+// cell's K slots
+__global__ void sphere_cast_culled_v1_kernel(const float* __restrict__ o,
+                                             const float* __restrict__ d,
+                                             const float* __restrict__ rows, float r, int R,
+                                             const int* __restrict__ cells,
+                                             const int* __restrict__ cand, int K, int cpa,
+                                             float* __restrict__ t_out,
+                                             int* __restrict__ idx_out) {
   int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= R) return;
   V3 org = load3(o + 3 * (size_t)c);
@@ -120,23 +143,158 @@ __global__ void sphere_cast_culled_kernel(const float* __restrict__ o, const flo
   idx_out[c] = best_row;
 }
 
+constexpr int kScThreads = 128;   // culled entry: threads per block
+constexpr int kScMaxCasts = 8;    // culled entry: casts per group
+// culled entry launch variants (ops/raycast.py SC_MODES): the lanes split
+// the cell's slots, each row swept against the group's casts in a loop
+// (rows outer); the casts swept one at a time (casts outer); the lanes
+// split the group's (slot, cast) pairs (shipped)
+enum ScMode { kScRowsOuter = 0, kScCastsOuter = 1, kScPairs = 2 };
+
+// K4 culled / K4': N groups of cpa casts (o, d [N * cpa, 3]), group n
+// against the slots [0, span[cells[n]]) of its cell's row of cand [cells,
+// K]; the group's casts and each lane's (t, row) of each cast in shared
+// memory (kScCastsOuter: the one cast's in registers)
+template <int L, int kMode>
+__global__ void __launch_bounds__(kScThreads)
+    sc_culled_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ rows, float r, int N, int cpa,
+                     const int* __restrict__ cells, const int* __restrict__ cand,
+                     const int* __restrict__ span, int K, float* __restrict__ t_out,
+                     int* __restrict__ idx_out) {
+  constexpr int kGroups = kScThreads / L;
+  const int lane = threadIdx.x % L;
+  const int gb = threadIdx.x / L;
+  const int g = blockIdx.x * kGroups + gb;
+  const bool live = g < N;  // every lane goes on: the lanes combine by shuffles
+  const int cell = live ? __ldg(cells + g) : 0;
+  const int n = live ? __ldg(span + cell) : 0;
+  const int* cc = cand + (size_t)cell * K;
+  const size_t c0 = (size_t)g * cpa;  // the group's first cast
+  auto put = [&](int j, float t, int row) {
+    t_out[c0 + j] = t;
+    idx_out[c0 + j] = isinf(t) ? 0 : row;
+  };
+  if constexpr (kMode == kScCastsOuter) {
+    for (int j = 0; j < cpa; ++j) {
+      const V3 oj = live ? load3(o + 3 * (c0 + j)) : v3(0.0f, 0.0f, 0.0f);
+      const V3 dj = live ? load3(d + 3 * (c0 + j)) : v3(0.0f, 0.0f, 0.0f);
+      float t;
+      int row;
+      sc_rows_one<L>(oj, dj, r, rows, cc, n, lane, t, row);
+      if (live && lane == 0) put(j, t, row);
+    }
+  } else {
+    // the block's casts lie together: its groups' casts, cpa each
+    constexpr int C = kScMaxCasts;
+    __shared__ float s_o[kGroups * C * 3], s_d[kGroups * C * 3];
+    __shared__ float s_t[C * kScThreads];
+    __shared__ int s_row[C * kScThreads];
+    const size_t b0 = (size_t)blockIdx.x * kGroups * cpa;
+    const int nb = min(kGroups, N - (int)blockIdx.x * kGroups) * cpa * 3;
+    for (int i = threadIdx.x; i < nb; i += kScThreads) {
+      s_o[i] = o[3 * b0 + i];
+      s_d[i] = d[3 * b0 + i];
+    }
+    for (int j = 0; j < cpa; ++j) {
+      s_t[j * kScThreads + threadIdx.x] = CUDART_INF_F;
+      s_row[j * kScThreads + threadIdx.x] = INT_MAX;
+    }
+    __syncthreads();
+    const float* so = s_o + 3 * gb * cpa;
+    const float* sd = s_d + 3 * gb * cpa;
+    auto cast = [&](int j, V3& oc, V3& dc) {
+      oc = load3(so + 3 * j);
+      dc = load3(sd + 3 * j);
+    };
+    auto at = [&](int j, float*& t, int*& row) {
+      t = s_t + j * kScThreads + threadIdx.x;
+      row = s_row + j * kScThreads + threadIdx.x;
+    };
+    if constexpr (kMode == kScPairs)
+      sc_pairs_split<L>(cast, at, cpa, r, rows, cc, n, lane);
+    else
+      sc_rows_outer<L>(cast, at, cpa, r, rows, cc, n, lane);
+    for (int j = 0; j < cpa; ++j) {
+      float t = s_t[j * kScThreads + threadIdx.x];
+      int row = s_row[j * kScThreads + threadIdx.x];
+      sc_combine<L>(t, row);
+      if (live && lane == j) put(j, t, row);  // L >= kScMaxCasts >= cpa
+    }
+  }
+}
+
+template <int L>
+static cudaError_t sc_culled_lanes(int mode, const float* o, const float* d, const float* rows,
+                                   float r, int N, int cpa, const int* cells, const int* cand,
+                                   const int* span, int K, float* t_out, int* idx_out,
+                                   cudaStream_t st) {
+  constexpr int kGroups = kScThreads / L;
+  const unsigned blocks = (unsigned)((N + kGroups - 1) / kGroups);
+  switch (mode) {
+    case kScRowsOuter:
+      sc_culled_kernel<L, kScRowsOuter><<<blocks, kScThreads, 0, st>>>(
+          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
+      break;
+    case kScCastsOuter:
+      sc_culled_kernel<L, kScCastsOuter><<<blocks, kScThreads, 0, st>>>(
+          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
+      break;
+    case kScPairs:
+      sc_culled_kernel<L, kScPairs><<<blocks, kScThreads, 0, st>>>(
+          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// K4 dense: (t, winner row) of R casts over the whole soup
 extern "C" int sphere_cast_launch(const float* o, const float* d, const float* rows, float r,
-                                  int T, int R, const int* cells, const int* cand, int K, int cpa,
-                                  float* t_out, int* idx_out, void* stream) {
+                                  int T, int R, float* t_out, int* idx_out, void* stream) {
   if (R <= 0) return 0;
   const int threads = 128;
   unsigned blocks = (unsigned)((R + threads - 1) / threads);
+  size_t smem = (size_t)min(T, kScTile) * kStage * sizeof(float);
+  cudaError_t e = allow_smem(sphere_cast_dense_kernel<false>, smem);
+  if (e != cudaSuccess) return (int)e;
+  sphere_cast_dense_kernel<false><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      o, d, rows, r, T, R, INFINITY, 0, t_out, idx_out, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K4 culled / K4': N groups of cpa casts, lanes L per group, a variant
+// (ScMode)
+extern "C" int sphere_cast_culled_launch(const float* o, const float* d, const float* rows,
+                                         float r, int N, int cpa, const int* cells,
+                                         const int* cand, const int* span, int K, int lanes,
+                                         int mode, float* t_out, int* idx_out, void* stream) {
+  if (cpa < 1 || cpa > kScMaxCasts || span == nullptr || K < 0 || N < 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cells == nullptr) {
-    size_t smem = (size_t)min(T, kScTile) * kStage * sizeof(float);
-    cudaError_t e = allow_smem(sphere_cast_dense_kernel<false>, smem);
-    if (e != cudaSuccess) return (int)e;
-    sphere_cast_dense_kernel<false><<<blocks, threads, smem, st>>>(
-        o, d, rows, r, T, R, INFINITY, 0, t_out, idx_out, nullptr);
-  } else {
-    sphere_cast_culled_kernel<<<blocks, threads, 0, st>>>(o, d, rows, r, R, cells, cand, K, cpa,
-                                                          t_out, idx_out);
+  switch (lanes) {
+    case 8: return (int)sc_culled_lanes<8>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
+                                           t_out, idx_out, st);
+    case 16: return (int)sc_culled_lanes<16>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
+                                             t_out, idx_out, st);
+    case 32: return (int)sc_culled_lanes<32>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
+                                             t_out, idx_out, st);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// the predecessor: R casts, cast c of group c / cpa
+extern "C" int sphere_cast_culled_v1_launch(const float* o, const float* d, const float* rows,
+                                            float r, int R, const int* cells, const int* cand,
+                                            int K, int cpa, float* t_out, int* idx_out,
+                                            void* stream) {
+  if (R <= 0) return 0;
+  const int threads = 128;
+  unsigned blocks = (unsigned)((R + threads - 1) / threads);
+  sphere_cast_culled_v1_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      o, d, rows, r, R, cells, cand, K, cpa, t_out, idx_out);
   return (int)cudaGetLastError();
 }
 

@@ -806,11 +806,13 @@ def sphere_cast(o, d, r: float, soup: TriSoup):
     (csrc/sphere_cast.cu, dense entry)."""
     if not _route(o):
         return _sphere_cast_dense(o, d, r, soup)
-    shape = o.shape[:-1]
-    R = int(np.prod(shape)) if shape else 1
-    t, idx = _sc_launch(
-        _f32(o.reshape(R, 3)), _f32(d.reshape(R, 3)), r, soup, None, None, 1
-    )
+    shape, R, o2, d2 = _rays_flat(o, d)
+    t = torch.empty(R, device=o.device, dtype=torch.float32)
+    idx = torch.empty(R, device=o.device, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("sphere_cast")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris, R,
+        _ptr(t), _ptr(idx), _stream(o),
+    ), "sphere_cast")
     sphere_cast.launches += 1
     return t.reshape(shape), idx.reshape(shape)
 
@@ -840,20 +842,73 @@ def _sphere_cast_culled_plain(o, d, r, cells, short, soup: TriSoup):
     return t, idx.to(torch.int32)
 
 
+# K4 culled / K4' (csrc/sphere_cast.cu sc_culled_kernel): threads per
+# block (kScThreads), the most casts of one group (kScMaxCasts), the lanes
+# a group may take, and the launch variants (ScMode): the lanes split the
+# cell's slots and sweep each row against the group's casts in a loop
+# (rows_outer), or the casts one at a time (casts_outer); the lanes split
+# the group's (slot, cast) pairs (pairs, the shipped one)
+SC_THREADS = 128
+SC_MAX_CASTS = 8
+SC_LANES = (8, 16, 32)
+SC_MODES = {"rows_outer": 0, "casts_outer": 1, "pairs": 2}
+SC_MODE = "pairs"  # the shipped variant
+
+
+def sc_lanes(cpa: int, short) -> int:
+    """The lanes of one group of ``cpa`` casts against ``short``'s cells:
+    32 where the group holds 24 (slot, cast) pairs or more on the table's
+    mean count, 16 from 12, else 8 (the fastest on the card at the step's
+    shapes, tools/fan_rb_probe.py --kernels k4,k4p)."""
+    pairs = cpa * short.mean_count
+    return 32 if pairs >= 24 else 16 if pairs >= 12 else 8
+
+
+def sc_kernel_name(lanes: int, mode: str = SC_MODE) -> str:
+    """The part of sc_culled_kernel's mangled name that names the instance
+    of ``lanes`` and ``mode`` (for cuda_build.ptxas_usage)."""
+    return f"sc_culled_kernelILi{lanes}ELi{SC_MODES[mode]}E"
+
+
+def _sc_culled_args(o, d, cells):
+    N, CPA = o.shape[0], o.shape[1]
+    if o.shape != (N, CPA, 3) or d.shape != o.shape or cells.shape != (N,):
+        raise ValueError("casts [N, CPA, 3] and one cell per group expected")
+    return (N, CPA, _f32(o.reshape(N * CPA, 3)), _f32(d.reshape(N * CPA, 3)),
+            cells.to(torch.int32).contiguous())
+
+
+def _sc_culled_launch(o, d, r, cells, short, soup: TriSoup, lanes=None,
+                      mode=SC_MODE, span=None):
+    """The culled entry's CUDA launch: ``lanes`` per group (sc_lanes
+    unless given), a variant of SC_MODES, each cell's slots up to
+    ``span`` (short.valid_span unless given). A shape or variant the
+    kernel does not take (CPA above SC_MAX_CASTS, lanes not in SC_LANES)
+    raises through cuda_build.check. -> (t, row) [N, CPA]"""
+    N, CPA, o2, d2, cl = _sc_culled_args(o, d, cells)
+    lanes = sc_lanes(CPA, short) if lanes is None else lanes
+    span = short.valid_span if span is None else span
+    t = torch.empty(N * CPA, device=o.device, dtype=torch.float32)
+    idx = torch.empty(N * CPA, device=o.device, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_culled")(
+        _ptr(o2), _ptr(d2), _ptr(_rows16(soup)), float(r), N, CPA, _ptr(cl),
+        _ptr(short.cand), _ptr(span), short.K, int(lanes),
+        SC_MODES.get(mode, -1), _ptr(t), _ptr(idx), _stream(o),
+    ), "sphere_cast_culled")
+    return t.reshape(N, CPA), idx.reshape(N, CPA)
+
+
 def sphere_cast_culled(o, d, r: float, cells, short, soup: TriSoup):
     """Grouped sphere casts o, d [N, CPA, 3], one short-table cell per group
     (cells [N]). Exact against ``sphere_cast`` for the xy-bounded movement
     casts (ops/culling.py notes); same winner rule, global rows. CUDA:
-    the culled entry of csrc/sphere_cast.cu."""
+    the culled entry of csrc/sphere_cast.cu, sc_lanes lanes per group
+    splitting its (candidate, cast) pairs; CPA at most SC_MAX_CASTS."""
     if not _route(o):
         return _sphere_cast_culled_plain(o, d, r, cells, short, soup)
-    N, CPA = o.shape[0], o.shape[1]
-    t, idx = _sc_launch(
-        _f32(o.reshape(N * CPA, 3)), _f32(d.reshape(N * CPA, 3)), r, soup,
-        cells.to(torch.int32).contiguous(), short, CPA,
-    )
+    out = _sc_culled_launch(o, d, r, cells, short, soup)
     sphere_cast_culled.launches += 1
-    return t.reshape(N, CPA), idx.reshape(N, CPA)
+    return out
 
 
 sphere_cast_culled.launches = 0
@@ -864,38 +919,39 @@ def sphere_cast_packed(o, d, r: float, cells, short, soup: TriSoup):
     CPA in {1, 2, 4}) against the MOVE_MARGIN short tables, one cell per
     group (cells [N]). The same culled sweep as ``sphere_cast_culled``
     (same plain version, same kernel entry), counted apart: the JAX
-    package's sphere_cast_packed is a kernel of its own whose 8-lane
-    same-cell packing has no counterpart at one thread per cast. Exact
-    where the step reads it: down casts at any depth, forward casts within
-    move_dist + buf (ops/culling.py notes)."""
+    package's sphere_cast_packed is a kernel of its own, whose 8-lane
+    same-cell packing the culled entry's lanes per group take the place
+    of. Exact where the step reads it: down casts at any depth, forward
+    casts within move_dist + buf (ops/culling.py notes)."""
     if not _route(o):
         return _sphere_cast_culled_plain(o, d, r, cells, short, soup)
-    N, CPA = o.shape[0], o.shape[1]
-    t, idx = _sc_launch(
-        _f32(o.reshape(N * CPA, 3)), _f32(d.reshape(N * CPA, 3)), r, soup,
-        cells.to(torch.int32).contiguous(), short, CPA,
-    )
+    out = _sc_culled_launch(o, d, r, cells, short, soup)
     sphere_cast_packed.launches += 1
-    return t.reshape(N, CPA), idx.reshape(N, CPA)
+    return out
 
 
 sphere_cast_packed.launches = 0
 
 
-def _sc_launch(o, d, r, soup, cells, short, cpa):
-    R = o.shape[0]
-    dev = o.device
-    t = torch.empty(R, device=dev, dtype=torch.float32)
-    idx = torch.empty(R, device=dev, dtype=torch.int32)
-    if cells is None:
-        cells_p, cand_p, K = ctypes.c_void_p(0), ctypes.c_void_p(0), 0
-    else:
-        cells_p, cand_p, K = _ptr(cells), _ptr(short.cand), short.K
-    cuda_build.check(cuda_build.launcher("sphere_cast")(
-        _ptr(o), _ptr(d), _ptr(soup.tri_rows), float(r), soup.num_tris, R,
-        cells_p, cand_p, K, cpa, _ptr(t), _ptr(idx), _stream(o),
-    ), "sphere_cast")
-    return t, idx
+def sphere_cast_culled_v1(o, d, r: float, cells, short, soup: TriSoup):
+    """The culled entry's earlier kernel (csrc/sphere_cast.cu
+    sphere_cast_culled_v1: one thread per cast over every one of its
+    cell's K slots), on CUDA tensors only: the predecessor that
+    chip_smoke.py times beside sphere_cast_culled and sphere_cast_packed."""
+    if not _route(o):
+        raise ValueError("sphere_cast_culled_v1 takes CUDA tensors")
+    N, CPA, o2, d2, cl = _sc_culled_args(o, d, cells)
+    t = torch.empty(N * CPA, device=o.device, dtype=torch.float32)
+    idx = torch.empty(N * CPA, device=o.device, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_culled_v1")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), N * CPA, _ptr(cl),
+        _ptr(short.cand), short.K, CPA, _ptr(t), _ptr(idx), _stream(o),
+    ), "sphere_cast_culled_v1")
+    sphere_cast_culled_v1.launches += 1
+    return t.reshape(N, CPA), idx.reshape(N, CPA)
+
+
+sphere_cast_culled_v1.launches = 0
 
 
 def sc_normals_from_idx(o, d, r: float, idx, soup: TriSoup):

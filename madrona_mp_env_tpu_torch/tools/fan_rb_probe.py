@@ -1,10 +1,11 @@
-"""The register-blocked kernels (csrc/fan_sweep_rb.cuh: the sensor fans
-K2, K6 and K7, the hitscan K1) against their predecessors and against
-launches with one of their arguments changed, on the arguments of real
-steps.
+"""The redesigned kernels (csrc/fan_sweep_rb.cuh: the sensor fans K2, K6
+and K7, the hitscan K1; csrc/sc_sweep.cuh: the culled sphere casts K4
+culled and K4') against their predecessors and against launches with one
+of their arguments changed, on the arguments of real steps.
 
     python -m madrona_mp_env_tpu_torch.tools.fan_rb_probe \
-        [--worlds 1024] [--steps 0,40] [--iters 10] [--kernels k2,k6,k7,k1]
+        [--worlds 1024] [--steps 0,40] [--iters 10] \
+        [--kernels k2,k6,k7,k1,k4,k4p] [--sass-ref DIR]
 
   full_span      K6 walks every cell's K slots, not up to its last
                  candidate (CellTables.valid_span)
@@ -18,25 +19,43 @@ steps.
                  (raycast.flat_split's or ray_split's choice is shipped)
   octet          K7 with 8 rays per thread, not a quad (FLAT_RAYS)
   rays k         K1 with k rays per thread, at the shipped split
+  lanes L        K4 culled's or K4''s groups of L lanes (raycast.sc_lanes'
+                 choice is shipped), the shipped variant (raycast.SC_MODE)
+  rows_outer, casts_outer, pairs
+                 K4 culled / K4' (2 casts a group or more) in each launch
+                 variant of raycast.SC_MODES but the shipped one: the
+                 lanes split the cell's slots, each row swept against all
+                 the group's casts (rows_outer), or the casts swept one at
+                 a time (casts_outer); the lanes split the group's (slot,
+                 cast) pairs (pairs)
+  full_k         K4 culled / K4' walking every cell's K slots, not up to
+                 its last candidate (ShortTables.valid_span)
   predecessor    the earlier kernel: P2's exact entry for K2
                  (csrc/fan_probe.cu), fan_culled_v1 for K6, fan_flat_v1
-                 for K7, ray_tris_v1 for K1
+                 for K7, ray_tris_v1 for K1, sphere_cast_culled_v1 for K4
+                 culled and K4'
 
 The arguments are those the step hands each entry at each step of
 --steps (Env.reset at --worlds worlds, then bench.py's run-and-shoot
 actions): on Zone 6v6, K2 on simple_map, K2 over town_map's soup
 (MPENV_FAN_CULL=0, the first step only), K6 on town_map and K1 on each
-map; on Zone 3v3, K7 and K1 on each map. Every variant's output equals
-the shipped kernel's bit for bit. Times are CUDA events
+map, K4 culled (the L1 batch, 7 casts a group) and K4' (the L2 pair,
+the L3 snap, the fall cast: one row per launch) on each map; on Zone
+3v3, K7 and K1 on each map. Every variant's output equals the shipped
+kernel's bit for bit (t and winner row for K4). Times are CUDA events
 (kernel_bench.time_ms), in turns: each variant once, then again in the
-reverse order, the two averaged. Also prints the shipped kernels'
-registers and spill bytes (ptxas -v). Prints one JSON object; needs a
-CUDA device.
+reverse order, the two averaged (K4: also each variant's device time,
+torch.profiler). Also prints the shipped kernels'
+registers and spill bytes (ptxas -v), and with --sass-ref, a build
+directory of another checkout, whether the kernels K4 dense, K8, P3
+(and its warp_cast) and K3 compile to the same SASS there and here.
+Prints one JSON object; needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import os
 from unittest import mock
@@ -46,9 +65,10 @@ import torch
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
 from madrona_mp_env_tpu_torch.ops.raycast import _ptr, _stream
-from madrona_mp_env_tpu_torch.sim import combat, observations
+from madrona_mp_env_tpu_torch.sim import combat, movement, observations
 from madrona_mp_env_tpu_torch.sim.env import resolve_device
 from madrona_mp_env_tpu_torch.tools import fan_probe
+from madrona_mp_env_tpu_torch.tools import kernel_bench
 from madrona_mp_env_tpu_torch.tools.kernel_bench import device_line, time_ms
 from madrona_mp_env_tpu_torch.tools.probes.movement_fused_probe import (
     bench_actions,
@@ -77,10 +97,10 @@ def k6_launch(org, zg, dirs, zgroups, cells, tables, soup, span=None,
     return out
 
 
-def capture_fans(env, state, actions, entry, module=observations):
-    """The arguments the step hands ``entry`` (a kernel entry of ``module``:
-    a sensor-fan entry of sim/observations.py unless given), tensors
-    cloned."""
+def capture_calls(env, state, actions, entry, module=observations):
+    """The arguments of every call the step makes to ``entry`` (a kernel
+    entry of ``module``: a sensor-fan entry of sim/observations.py unless
+    given), in order, tensors cloned."""
     seen = []
     fn = getattr(module, entry)
 
@@ -91,7 +111,12 @@ def capture_fans(env, state, actions, entry, module=observations):
 
     with mock.patch.object(module, entry, rec):
         env.step(state, actions)
-    (args,) = seen
+    return seen
+
+
+def capture_fans(env, state, actions, entry, module=observations):
+    """The arguments of the step's one call to ``entry``."""
+    (args,) = capture_calls(env, state, actions, entry, module)
     return args
 
 
@@ -206,6 +231,75 @@ def k1_variants(args, iters, device):
     return res
 
 
+def k4_variants(args, iters, device):
+    """K4 culled or one launch of K4' (args: o, d, r, cells, short, soup):
+    CUDA-event times in turns, then each variant's device time."""
+    o, d, r, cells, short, soup = args[:6]
+    cpa = o.shape[1]
+    shipped = raycast.sc_lanes(cpa, short)
+    full = torch.full_like(short.valid_span, short.K)
+
+    def launch(**kw):
+        return lambda: raycast._sc_culled_launch(o, d, r, cells, short, soup,
+                                                 **kw)
+
+    fns = {"shipped": launch()}
+    for lanes in raycast.SC_LANES:
+        if lanes != shipped:
+            fns[f"lanes {lanes}"] = launch(lanes=lanes)
+    if cpa > 1:
+        for mode in raycast.SC_MODES:
+            if mode != raycast.SC_MODE:
+                fns[mode] = launch(mode=mode)
+    fns["full_k"] = launch(span=full)
+    fns["predecessor"] = lambda: raycast.sphere_cast_culled_v1(
+        o, d, r, cells, short, soup)
+    outs = {n: f() for n, f in fns.items()}
+    _check_equal(f"K4 [{o.shape[0]}, {cpa}] t", {n: t for n, (t, _) in
+                                                 outs.items()})
+    _check_equal(f"K4 [{o.shape[0]}, {cpa}] row", {n: i for n, (_, i) in
+                                                   outs.items()})
+    res = in_turns(fns, iters, device)
+    for n, f in fns.items():
+        kern = ("sphere_cast_culled_v1_kernel" if n == "predecessor"
+                else "sc_culled_kernel")
+        res[f"{n} dev"] = round(kernel_bench.device_ms(f, kern, iters)[0], 4)
+    count = (short.cand.reshape(-1, short.K) >= 0).sum(-1)
+    res["shipped launch"] = (f"{raycast.SC_MODE}, {shipped} lanes, "
+                             f"[{o.shape[0]}, {cpa}]")
+    res["mean_valid_candidates"] = round(
+        float(count[cells.long()].float().mean()), 1)
+    return res
+
+
+# the kernels whose SASS the redesign of the culled entry must leave as it
+# was (--sass-ref): (source, part of the mangled name)
+SASS_SAME = (("sphere_cast", "sphere_cast_dense_kernelILb0E"),
+             ("sphere_cast", "sphere_cast_dense_kernelILb1E"),
+             ("move_fused", "move_fused_kernel"),
+             ("move_fused", "warp_cast"),
+             ("fan_capsules", "fan_capsules"))
+
+
+def sass_against(ref_dir):
+    """{kernel: whether its SASS in ``ref_dir``'s library equals this
+    build's}, over SASS_SAME."""
+    out = {}
+    for src, part in SASS_SAME:
+        mine = cuda_build.sass(cuda_build.lib_path(src))
+        ref = cuda_build.sass(os.path.join(ref_dir, f"lib{src}.so"))
+        for name in sorted(n for n in mine if part in n):
+            there = ref.get(name, [])
+            if there == mine[name]:
+                out[name] = f"same ({len(mine[name])} instructions)"
+                continue
+            diff = list(difflib.unified_diff(there, mine[name], lineterm="",
+                                             n=1))
+            out[name] = [f"differs ({len(there)} there, {len(mine[name])} "
+                         f"here)"] + diff[:80]
+    return out
+
+
 def sweep_step(row, env, state, actions, scene, ts, first, kernels, iters,
                device):
     """This step's variants of each kernel in ``kernels`` that a Zone
@@ -221,6 +315,14 @@ def sweep_step(row, env, state, actions, scene, ts, first, kernels, iters,
                 max(1, iters // 3) if scene == "town_map" else iters,
                 device)
         return
+    if "k4" in kernels:
+        (args,) = capture_calls(env, state, actions, "sphere_cast_culled",
+                                movement)
+        row[f"k4 {tag}"] = k4_variants(args, iters, device)
+    if "k4p" in kernels:
+        for i, args in enumerate(capture_calls(
+                env, state, actions, "sphere_cast_packed", movement)):
+            row[f"k4p {tag} launch {i}"] = k4_variants(args, iters, device)
     if scene == "simple_map":
         if "k2" in kernels:
             row["k2 simple_map"] = k2_variants(capture_fans(
@@ -241,14 +343,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", default="0,40",
                     help="steps after Env.reset whose fans are swept")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--kernels", default="k2,k6,k7,k1",
+    ap.add_argument("--kernels", default="k2,k6,k7,k1,k4,k4p",
                     help="which kernels' variants to run")
+    ap.add_argument("--sass-ref", default=None,
+                    help="a build directory (lib<name>.so) to compare the "
+                         "SASS of SASS_SAME's kernels with")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     steps = sorted(int(s) for s in args.steps.split(","))
     kernels = set(args.kernels.split(","))
     cuda_build.build_all(["fan_tris", "fan_culled", "fan_probe", "fan_flat",
-                          "ray_tris"])
+                          "ray_tris", "sphere_cast", "move_fused",
+                          "fan_capsules"])
     res = {"device": device_line(device), "worlds": args.worlds,
            "registers, spill bytes": {
                kern: cuda_build.ptxas_usage(src, kern) for src, kern in (
@@ -259,11 +365,21 @@ def main(argv=None) -> dict:
                    ("ray_tris", "ray_tris_rb_kernelILi1E"),
                    ("ray_tris", "ray_tris_rb_kernelILi2E"),
                    ("ray_tris", "ray_tris_rb_kernelILi4E"))}}
+    usage = res["registers, spill bytes"]
+    for lanes in raycast.SC_LANES:
+        for mode in raycast.SC_MODES:
+            kern = raycast.sc_kernel_name(lanes, mode)
+            usage[kern] = cuda_build.ptxas_usage("sphere_cast", kern)
+    for kern in ("sphere_cast_culled_v1_kernel", "move_fused_kernel"):
+        src = "move_fused" if kern.startswith("move") else "sphere_cast"
+        usage[kern] = cuda_build.ptxas_usage(src, kern)
+    if args.sass_ref:
+        res["sass against " + args.sass_ref] = sass_against(args.sass_ref)
     flags = mt.SimFlags.StaggerStarts | mt.SimFlags.RandomFlipTeams
     for scene in ("simple_map", "town_map"):
         for ts in (6, 3):
             if not kernels & ({"k7", "k1"} if ts == 3 else
-                              {"k2", "k6", "k1"}):
+                              {"k2", "k6", "k1", "k4", "k4p"}):
                 continue
             cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=ts,
                                sim_flags=flags)

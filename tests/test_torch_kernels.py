@@ -22,7 +22,8 @@ import torch
 
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
-from madrona_mp_env_tpu_torch.ops.culling import (cell_index, ray_cell_index,
+from madrona_mp_env_tpu_torch.ops.culling import (ShortTables, cell_index,
+                                                   ray_cell_index,
                                                    short_cell_index)
 from madrona_mp_env_tpu_torch.sim import movement
 
@@ -543,6 +544,120 @@ def test_sphere_cast_kernels(gpu_map):
     tp, ip = raycast._sphere_cast_culled_plain(o1, d1, R, cells,
                                                gpu_map.short, gpu_map.tris)
     assert _eq(tk, tp) and _eq(ik, ip)
+
+
+# the step's culled batches (cpa casts a group, the table): the L1 batch,
+# the L2 pair and the L3 snap / fall cast, and 4 casts a group
+SC_BATCHES = {"l1": (7, "short"), "pair": (2, "short_mv"),
+              "snap": (1, "short_mv"), "four": (4, "short")}
+
+
+def _sc_batch(m, N, cpa, seed):
+    """N groups of cpa casts around the map: the L1 batch's casts (cpa 7,
+    every 8th agent standing: directionless casts; every 9th 5000 above
+    the map, whose forward casts miss), else casts from random points
+    along random directions (every 7th group directionless, every 9th
+    cast upward from 5000 above the map: all miss)."""
+    x = _points(m, N, seed, (0, 2))
+    if cpa == 7:
+        x[::9, 2] += 5000.0
+        v = _dirs(N, seed + 1, flat=True)
+        v[::8] = 0.0
+        o, d, _ = movement.l1_casts(x, v, torch.full((N,), 50.0,
+                                                     device="cuda"),
+                                    torch.full((N,), 30.0, device="cuda"))
+        return x, o, d
+    o = x[:, None, :] + 20.0 * torch.as_tensor(np.random.default_rng(
+        seed + 2).normal(size=(N, cpa, 3)).astype(np.float32), device="cuda")
+    d = _dirs(N * cpa, seed + 3).reshape(N, cpa, 3)
+    d[::7] = 0.0
+    o[::9, :, 2] += 5000.0
+    d[::9] = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    return x, o, d
+
+
+@pytest.mark.parametrize("batch", list(SC_BATCHES))
+@pytest.mark.parametrize("scene", ["simple_map", "town_map"])
+def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
+    """K4 culled / K4' at N = 1021 groups (not a multiple of any groups
+    per block): t and winner row bit-equal to the plain version and to
+    the predecessor (sphere_cast_culled_v1), at every lane count and
+    launch variant and with every cell walked to K, and on a table with a
+    -1 between its candidates and an empty cell; one launch counted per
+    entry."""
+    m = gpu_map if scene == "simple_map" else town_map
+    cpa, table = SC_BATCHES[batch]
+    short = getattr(m, table)
+    N = 1021
+    x, o, d = _sc_batch(m, N, cpa, 60 + cpa)
+    cells = short_cell_index(short, x)
+    entry = (raycast.sphere_cast_culled if table == "short"
+             else raycast.sphere_cast_packed)
+    n0 = entry.launches
+    tk, ik = entry(o, d, R, cells, short, m.tris)
+    assert entry.launches == n0 + 1
+    tp, ip = raycast._sphere_cast_culled_plain(o, d, R, cells, short, m.tris)
+    assert _eq(tk, tp) and _eq(ik, ip)
+    tb, ib = raycast.sphere_cast_culled_v1(o, d, R, cells, short, m.tris)
+    assert _eq(tk, tb) and _eq(ik, ib)
+    full = torch.full_like(short.valid_span, short.K)
+    for lanes in raycast.SC_LANES:
+        for mode in raycast.SC_MODES:
+            t, i = raycast._sc_culled_launch(o, d, R, cells, short, m.tris,
+                                             lanes=lanes, mode=mode)
+            assert _eq(t, tk) and _eq(i, ik), (lanes, mode)
+        t, i = raycast._sc_culled_launch(o, d, R, cells, short, m.tris,
+                                         lanes=lanes, span=full)
+        assert _eq(t, tk) and _eq(i, ik), (lanes, "full span")
+    hit = torch.isfinite(tk)
+    assert bool(hit.float().mean() > 0.2) and bool((~hit).any())
+    assert bool((ik[~hit] == 0).all())
+    # a table that is not compacted: a -1 after every candidate, cell 0
+    # emptied
+    gappy = short.cand.reshape(-1, short.K).repeat_interleave(2, dim=1)
+    gappy[:, 1::2] = -1
+    gappy[0] = -1
+    gappy = ShortTables(cand=gappy.reshape(-1).contiguous(),
+                        grid_min=short.grid_min, cell_size=short.cell_size,
+                        nx=short.nx, ny=short.ny, K=2 * short.K)
+    tg, ig = entry(o, d, R, cells, gappy, m.tris)
+    tp, ip = raycast._sphere_cast_culled_plain(o, d, R, cells, gappy, m.tris)
+    assert _eq(tg, tp) and _eq(ig, ip)
+
+
+def test_sphere_cast_culled_shapes_it_cannot_take(gpu_map):
+    """More casts a group than SC_MAX_CASTS, lanes outside SC_LANES or an
+    unknown variant raise through cuda_build.check; nothing falls back."""
+    short = gpu_map.short
+    N = 64
+    x = _points(gpu_map, N, 70, (0, 2))
+    cells = short_cell_index(short, x)
+    d9 = _dirs(N * 9, 71).reshape(N, 9, 3)
+    o9 = x[:, None, :].expand(N, 9, 3).contiguous()
+    with pytest.raises(RuntimeError):
+        raycast.sphere_cast_culled(o9, d9, R, cells, short, gpu_map.tris)
+    o, d = o9[:, :2], d9[:, :2]
+    for kw in ({"lanes": 12}, {"lanes": 4}, {"mode": "unknown"}):
+        with pytest.raises(RuntimeError):
+            raycast._sc_culled_launch(o, d, R, cells, short, gpu_map.tris,
+                                      **kw)
+    with pytest.raises(ValueError):
+        raycast.sphere_cast_culled(o, d, R, cells[:-1], short, gpu_map.tris)
+
+
+def test_sphere_cast_culled_registers(gpu_map):
+    """The shipped variant of sc_culled_kernel at every lane count sc_lanes
+    may take, and the predecessor, compile without spills (ptxas -v,
+    saved beside the library)."""
+    from madrona_mp_env_tpu_torch.ops import cuda_build
+
+    cuda_build.launcher("sphere_cast_culled")  # built on first use
+    for lanes in raycast.SC_LANES:
+        kern = raycast.sc_kernel_name(lanes)
+        regs, spill = cuda_build.ptxas_usage("sphere_cast", kern)
+        assert spill == 0 and 0 < regs <= 255, kern
+    assert cuda_build.ptxas_usage("sphere_cast",
+                                  "sphere_cast_culled_v1_kernel")[1] == 0
 
 
 @pytest.mark.parametrize("team_size", [2, 3, 6])
