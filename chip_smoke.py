@@ -23,14 +23,14 @@ Phases, each of which fails the run loudly:
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
    full width). K1, K2, K6 and K7 (the register-blocked sweep,
-   csrc/fan_sweep_rb.cuh) and K4 culled and K4' (lanes per group of
+   csrc/fan_sweep_rb.cuh) and K4 culled and K4' (a warp per group of
    casts, csrc/sc_sweep.cuh) are held bit for bit (K4: t and winner row)
    against their plain versions and their predecessors (ray_tris_v1,
    P2's exact entry, fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1),
    timed beside them in turns (new, old, old, new), with their device
    time (torch.profiler), ptxas' registers and spills, the floor at one
-   f32 instruction per operation, K1's and K7's row split, K4's lanes
-   and K6's helper launches (the cell order); K4 dense, K8 and P3, which
+   f32 instruction per operation, K1's and K7's row split and K6's
+   helper launches (the cell order); K4 dense, K8 and P3, which
    share K4's pair arithmetic, with their registers and spills. Zone 3v3
    (team size 3: a LOS run of 12 rays, not a multiple of 8) on each map:
    K1, K7, the stacked-direction fan over the whole soup, and K5 on one
@@ -159,14 +159,13 @@ OPS_TAIL_AGENT = 41
 # (torch.profiler; K1's, K7's and K4's predecessors' too), the floor at
 # one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
 # registers and spill bytes, the launches of any helper per call, the
-# blocks of a cluster that split the rows (K1, K7), the lanes of a group
-# of casts (K4 culled, K4', each launch) and, on the bench's Zone 3v3
-# rows, K7 and its predecessor with a z offset per ray; the rows of K4
-# dense, K8 and P3, which share K4's pair arithmetic, carry ptxas -v's
-# registers and spill bytes
+# blocks of a cluster that split the rows (K1, K7) and, on the bench's
+# Zone 3v3 rows, K7 and its predecessor with a z offset per ray; the rows
+# of K4 dense, K8 and P3, which share K4's pair arithmetic, carry ptxas
+# -v's registers and spill bytes
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "fmad_floor_ms", "registers", "spill_bytes",
-                 "helper_launches", "helper_device_ms", "split", "lanes",
+                 "helper_launches", "helper_device_ms", "split",
                  "per_ray_ms", "per_ray_before_ms")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
@@ -927,8 +926,10 @@ class KernelPhase:
 
         soup = self.soup
         err = ms = before_ms = pms = dev = dev_before = 0.0
-        nbytes = pairs = spill = regs = 0
-        shapes, lanes, plains = [], [], []
+        nbytes = pairs = 0
+        regs, spill = cuda_build.ptxas_usage("sphere_cast",
+                                             "sc_culled_kernel")
+        shapes, plains = [], []
         for i, (o, d, r, cells, short, _) in enumerate(calls):
             N, CPA = o.shape[:2]
 
@@ -954,11 +955,6 @@ class KernelPhase:
             dev += device_ms(kernel, "sc_culled_kernel", 20)
             dev_before += device_ms(before, "sphere_cast_culled_v1_kernel",
                                     20)
-            L = raycast.sc_lanes(CPA, short)
-            r_, s_ = cuda_build.ptxas_usage("sphere_cast",
-                                            raycast.sc_kernel_name(L))
-            regs, spill = max(regs, r_), spill + s_
-            lanes.append(L)
             # casts in (24 B) and out (8 B), cells, the table and its
             # span, the rows
             nbytes += (N * CPA * 32 + N * 4 + short.cand.numel() * 4
@@ -973,8 +969,8 @@ class KernelPhase:
                     device_ms=round(dev, 4),
                     before_device_ms=round(dev_before, 4),
                     fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
-                    registers=regs, spill_bytes=spill, helper_launches=0,
-                    lanes=lanes), plains
+                    registers=regs, spill_bytes=spill,
+                    helper_launches=0), plains
 
     def k4_culled(self, calls):
         """The L1 batch of 7 casts per agent against the short tables."""

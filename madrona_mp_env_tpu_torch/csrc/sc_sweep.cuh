@@ -1,23 +1,20 @@
-// The culled sphere-cast sweeps: a group of lanes splits one cell's
-// candidate rows and takes the nearest hit of each cast by a lexicographic
+// The culled sphere-cast sweeps: the lanes of a warp split one cell's
+// candidate rows and take the nearest hit of each cast by a lexicographic
 // minimum of (t, row).
 //
-// Two callers: K4 culled / K4' (csrc/sphere_cast.cu sc_culled_kernel: L
-// lanes per group of one agent's casts, sc_pairs_split and, as launch
-// variants, sc_rows_outer and sc_rows_one) and the fused movement probe
-// P3 (csrc/move_fused.cu: a warp per cast, warp_cast).
+// Two callers: K4 culled / K4' (csrc/sphere_cast.cu sc_culled_kernel: a
+// warp per group of one agent's casts, sc_pairs_split) and the fused
+// movement probe P3 (csrc/move_fused.cu: a warp per cast, warp_cast).
 //
-// Exactness: every (cast, row) pair is csrc/tri_math.cuh's sc_pair_of,
-// on the row's terms computed once (ScRow, sc_row, sc_cast) or where
-// they are used (ScTri: sc_pair, P3): the same operations on the same
-// operands. A lane
-// keeps the lexicographic minimum of (t, row) over the rows it swept, t
-// < best || (t == best && row < best_row); lanes combine by
-// __shfl_xor_sync under the same rule. t is never NaN (every term of
+// Exactness: every (cast, row) pair is csrc/tri_math.cuh's sphere_tri
+// (sc_pair's t_tri), the same operations on the same operands whatever
+// the caller. A lane keeps the lexicographic minimum of (t, row) over the
+// rows it swept, t < best || (t == best && row < best_row); lanes combine
+// by __shfl_xor_sync under the same rule. t is never NaN (every term of
 // sc_pair is guarded to inf), so the minimum ignores the order in which
-// the rows are swept and how they are split over lanes: the result is
-// the plain version's (nearest t, lowest global row among equal t), and
-// a miss (t = inf) reports row 0.
+// the rows are swept and how they are split over lanes: the result is the
+// plain version's (nearest t, lowest global row among equal t), and a
+// miss (t = inf) reports row 0.
 #pragma once
 
 #include <climits>
@@ -37,12 +34,9 @@ __device__ __forceinline__ void sc_take(float t, int row, float& best, int& best
   }
 }
 
-// the lexicographic minimum over each aligned group of L lanes, every lane
-// of the warp taking part; every lane of a group ends with the group's
-// minimum
-template <int L>
+// the lexicographic minimum over the warp; every lane ends with it
 __device__ __forceinline__ void sc_combine(float& best, int& best_row) {
-  for (int off = L / 2; off > 0; off >>= 1) {
+  for (int off = 16; off > 0; off >>= 1) {
     const float t2 = __shfl_xor_sync(kFullMask, best, off);
     const int r2 = __shfl_xor_sync(kFullMask, best_row, off);
     sc_take(t2, r2, best, best_row);
@@ -77,91 +71,44 @@ __device__ __noinline__ Hit warp_cast(V3 o, V3 d, float r, const float* __restri
                                __ldg(w + kRowValid) > 0.0f);
     sc_take(t, row, best, best_row);
   }
-  sc_combine<32>(best, best_row);
+  sc_combine(best, best_row);
   return {best, isinf(best) ? 0 : best_row, n};
 }
 
-// one row of the soup's [T, 16] table, read as three 16-byte vectors
-// ((v0, e1.x), (e1.y, e1.z, e2.x, e2.y), (e2.z, n)) and its valid flag
-// (float 12), and its cast-independent terms
-__device__ __forceinline__ ScRow sc_fetch(const float* __restrict__ rows, int row) {
+// K4 culled / K4': one cast o, d against one row of the soup's [T, 16]
+// table, read as three 16-byte vectors ((v0, e1.x), (e1.y, e1.z, e2.x,
+// e2.y), (e2.z, n)) and its valid flag (float 12)
+__device__ __forceinline__ float sc_row_tri(V3 o, V3 d, float r, float rr,
+                                            const float* __restrict__ rows, int row) {
   const float* p = rows + (size_t)row * kRowCols;
   const float4* q = reinterpret_cast<const float4*>(p);
   const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
-  return sc_row(v3(a.x, a.y, a.z), v3(a.w, b.x, b.y), v3(b.z, b.w, c.x), v3(c.y, c.z, c.w),
-                __ldg(p + kRowValid) > 0.0f);
+  return sphere_tri(o, d, r, rr, v3(a.x, a.y, a.z), v3(a.w, b.x, b.y), v3(b.z, b.w, c.x),
+                    v3(c.y, c.z, c.w), __ldg(p + kRowValid) > 0.0f);
 }
 
-// K4 culled / K4': the group's lanes (lane in [0, L)) sweep the candidate
-// slots lane, lane + L, ... < span of one cell (cand: the cell's K slots,
-// -1 padding) against the group's nc casts, each row read and its terms
-// computed once for all of them (rows in the outer loop). The casts are
-// cast(j, o, d); the lane's (t, row) of cast j is at(j, t, row), a pair of
-// pointers into shared memory, so that the cast loop stays a loop whose
-// body is one pair test (on the H100 the L1 batch ran 1.4-1.9x slower
-// with its 7 casts unrolled and the minima in registers: PERF.md).
-template <int L, typename Cast, typename At>
-__device__ __forceinline__ void sc_rows_outer(Cast cast, At at, int nc, float r,
-                                              const float* __restrict__ rows,
-                                              const int* __restrict__ cand, int span, int lane) {
-  const float rr = r * r;
-  for (int k = lane; k < span; k += L) {
-    const int row = __ldg(cand + k);
-    if (row < 0) continue;
-    const ScRow w = sc_fetch(rows, row);
-#pragma unroll 1
-    for (int j = 0; j < nc; ++j) {
-      V3 o, d;
-      cast(j, o, d);
-      float* t;
-      int* best_row;
-      at(j, t, best_row);
-      sc_take(sc_cast(o, d, r, rr, w).t_tri, row, *t, *best_row);
-    }
-  }
-}
-
-// The same sweep with the group's (slot, cast) pairs split over the
-// lanes: the lane takes the pairs p = lane, lane + L, ... < span * nc,
-// slot p / nc against cast p % nc, so that the lanes' shares differ by
-// one pair test at most whatever the cell's count; each pair reads its
-// row and computes the row's terms itself.
-template <int L, typename Cast, typename At>
-__device__ __forceinline__ void sc_pairs_split(Cast cast, At at, int nc, float r,
+// K4 culled / K4': the warp's lanes take the group's (slot, cast) pairs p
+// = lane, lane + 32, ... < span * nc, slot p / nc of one cell (cand: the
+// cell's K slots, -1 padding) against cast p % nc, so that the lanes'
+// shares differ by one pair test at most whatever the cell's count. The
+// casts are o[3 j .. 3 j + 3), d[...]; the lane's (t, row) of cast j is at
+// t[j * stride], best_row[j * stride]: shared memory, so that the cast
+// loop stays one pair test a pass (on the H100 the L1 batch ran 1.4-1.9x
+// slower with its 7 casts unrolled and the minima in registers: PERF.md).
+__device__ __forceinline__ void sc_pairs_split(const float* o, const float* d, float* t,
+                                               int* best_row, int stride, int nc, float r,
                                                const float* __restrict__ rows,
                                                const int* __restrict__ cand, int span, int lane) {
   const float rr = r * r;
   const int np = span * nc;
-  for (int p = lane; p < np; p += L) {
+  for (int p = lane; p < np; p += 32) {
     const int k = p / nc;
     const int j = p - k * nc;
     const int row = __ldg(cand + k);
     if (row < 0) continue;
-    V3 o, d;
-    cast(j, o, d);
-    float* t;
-    int* best_row;
-    at(j, t, best_row);
-    sc_take(sc_cast(o, d, r, rr, sc_fetch(rows, row)).t_tri, row, *t, *best_row);
+    sc_take(sc_row_tri(load3(o + 3 * j), load3(d + 3 * j), r, rr, rows, row), row,
+            t[j * stride], best_row[j * stride]);
   }
-}
-
-// One cast o, d against the same slots, the lane's (t, row) in registers
-// (the casts in the outer loop, the caller's); returns the group's (t,
-// row), in every lane of the group; every lane of the warp must call it.
-template <int L>
-__device__ __forceinline__ void sc_rows_one(V3 o, V3 d, float r, const float* __restrict__ rows,
-                                            const int* __restrict__ cand, int span, int lane,
-                                            float& best, int& best_row) {
-  const float rr = r * r;
-  best = CUDART_INF_F;
-  best_row = INT_MAX;
-  for (int k = lane; k < span; k += L) {
-    const int row = __ldg(cand + k);
-    if (row < 0) continue;
-    sc_take(sc_cast(o, d, r, rr, sc_fetch(rows, row)).t_tri, row, best, best_row);
-  }
-  sc_combine<L>(best, best_row);
 }
 
 }  // namespace mpenv

@@ -35,21 +35,19 @@
 // reports as inf.
 //
 // Design of the culled entry (K4 culled and K4', sc_culled_kernel): a
-// group is one agent's cpa casts, which share a cell (cells[n]); L lanes
-// (8, 16 or 32, ops/raycast.py sc_lanes) take a group and split its
-// (slot, cast) pairs with stride L, up to the cell's last candidate
+// group is one agent's cpa casts, which share a cell (cells[n]); a warp
+// takes a group and its 32 lanes split the group's (slot, cast) pairs
+// with stride 32, up to the cell's last candidate
 // (ShortTables.valid_span; a -1 inside is skipped), so that a lane's
 // share is even to one pair test whatever the cell's count. A pair reads
 // its row as 16-byte vectors; the group's casts and each lane's (t, row)
 // of each cast sit in shared memory; the lanes then combine (t, row)
-// lexicographically by __shfl_xor_sync (csrc/sc_sweep.cuh, the
-// exactness argument there). 128 threads a block, 128 / L groups: K4' at
-// 12,288 casts launches 393,216 threads at L = 32, not 12,288. Launch
-// variants, timed by tools/fan_rb_probe.py: the lanes split the slots and
-// sweep each row against all the group's casts in a loop, its terms
-// computed once (sc_row; rows_outer), or the casts one at a time
-// (casts_outer). A cpa above kScMaxCasts, an L or a variant the kernel
-// does not take, or no span, returns cudaErrorInvalidValue. The predecessor (sphere_cast_culled_v1_kernel:
+// lexicographically by __shfl_xor_sync (csrc/sc_sweep.cuh, the exactness
+// argument there). 128 threads a block, 4 groups: K4' at 12,288 casts
+// launches 393,216 threads, not 12,288. 32 lanes a group were the fastest
+// of 8, 16 and 32 on town_map's launches and on simple_map's from step 40
+// on (PERF.md). A cpa above kScMaxCasts, or no span, returns
+// cudaErrorInvalidValue. The predecessor (sphere_cast_culled_v1_kernel:
 // one thread per cast, every one of the cell's K slots) stays, with its
 // own launch, to be timed beside it.
 #include "sc_sweep.cuh"
@@ -143,111 +141,54 @@ __global__ void sphere_cast_culled_v1_kernel(const float* __restrict__ o,
   idx_out[c] = best_row;
 }
 
-constexpr int kScThreads = 128;   // culled entry: threads per block
-constexpr int kScMaxCasts = 8;    // culled entry: casts per group
-// culled entry launch variants (ops/raycast.py SC_MODES): the lanes split
-// the cell's slots, each row swept against the group's casts in a loop
-// (rows outer); the casts swept one at a time (casts outer); the lanes
-// split the group's (slot, cast) pairs (shipped)
-enum ScMode { kScRowsOuter = 0, kScCastsOuter = 1, kScPairs = 2 };
+constexpr int kScThreads = 128;  // culled entry: threads per block
+constexpr int kScGroups = kScThreads / 32;  // culled entry: groups (warps) per block
+constexpr int kScMaxCasts = 8;  // culled entry: casts per group
 
 // K4 culled / K4': N groups of cpa casts (o, d [N * cpa, 3]), group n
 // against the slots [0, span[cells[n]]) of its cell's row of cand [cells,
 // K]; the group's casts and each lane's (t, row) of each cast in shared
-// memory (kScCastsOuter: the one cast's in registers)
-template <int L, int kMode>
+// memory
 __global__ void __launch_bounds__(kScThreads)
     sc_culled_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ rows, float r, int N, int cpa,
                      const int* __restrict__ cells, const int* __restrict__ cand,
                      const int* __restrict__ span, int K, float* __restrict__ t_out,
                      int* __restrict__ idx_out) {
-  constexpr int kGroups = kScThreads / L;
-  const int lane = threadIdx.x % L;
-  const int gb = threadIdx.x / L;
-  const int g = blockIdx.x * kGroups + gb;
+  const int lane = threadIdx.x & 31;
+  const int gb = threadIdx.x / 32;
+  const int g = blockIdx.x * kScGroups + gb;
   const bool live = g < N;  // every lane goes on: the lanes combine by shuffles
   const int cell = live ? __ldg(cells + g) : 0;
   const int n = live ? __ldg(span + cell) : 0;
-  const int* cc = cand + (size_t)cell * K;
+  // the block's casts lie together: its groups' casts, cpa each
+  constexpr int C = kScMaxCasts;
+  __shared__ float s_o[kScGroups * C * 3], s_d[kScGroups * C * 3];
+  __shared__ float s_t[C * kScThreads];
+  __shared__ int s_row[C * kScThreads];
+  const size_t b0 = (size_t)blockIdx.x * kScGroups * cpa;
+  const int nb = min(kScGroups, N - (int)blockIdx.x * kScGroups) * cpa * 3;
+  for (int i = threadIdx.x; i < nb; i += kScThreads) {
+    s_o[i] = o[3 * b0 + i];
+    s_d[i] = d[3 * b0 + i];
+  }
+  for (int j = 0; j < cpa; ++j) {
+    s_t[j * kScThreads + threadIdx.x] = CUDART_INF_F;
+    s_row[j * kScThreads + threadIdx.x] = INT_MAX;
+  }
+  __syncthreads();
+  sc_pairs_split(s_o + 3 * gb * cpa, s_d + 3 * gb * cpa, s_t + threadIdx.x, s_row + threadIdx.x,
+                 kScThreads, cpa, r, rows, cand + (size_t)cell * K, n, lane);
   const size_t c0 = (size_t)g * cpa;  // the group's first cast
-  auto put = [&](int j, float t, int row) {
-    t_out[c0 + j] = t;
-    idx_out[c0 + j] = isinf(t) ? 0 : row;
-  };
-  if constexpr (kMode == kScCastsOuter) {
-    for (int j = 0; j < cpa; ++j) {
-      const V3 oj = live ? load3(o + 3 * (c0 + j)) : v3(0.0f, 0.0f, 0.0f);
-      const V3 dj = live ? load3(d + 3 * (c0 + j)) : v3(0.0f, 0.0f, 0.0f);
-      float t;
-      int row;
-      sc_rows_one<L>(oj, dj, r, rows, cc, n, lane, t, row);
-      if (live && lane == 0) put(j, t, row);
-    }
-  } else {
-    // the block's casts lie together: its groups' casts, cpa each
-    constexpr int C = kScMaxCasts;
-    __shared__ float s_o[kGroups * C * 3], s_d[kGroups * C * 3];
-    __shared__ float s_t[C * kScThreads];
-    __shared__ int s_row[C * kScThreads];
-    const size_t b0 = (size_t)blockIdx.x * kGroups * cpa;
-    const int nb = min(kGroups, N - (int)blockIdx.x * kGroups) * cpa * 3;
-    for (int i = threadIdx.x; i < nb; i += kScThreads) {
-      s_o[i] = o[3 * b0 + i];
-      s_d[i] = d[3 * b0 + i];
-    }
-    for (int j = 0; j < cpa; ++j) {
-      s_t[j * kScThreads + threadIdx.x] = CUDART_INF_F;
-      s_row[j * kScThreads + threadIdx.x] = INT_MAX;
-    }
-    __syncthreads();
-    const float* so = s_o + 3 * gb * cpa;
-    const float* sd = s_d + 3 * gb * cpa;
-    auto cast = [&](int j, V3& oc, V3& dc) {
-      oc = load3(so + 3 * j);
-      dc = load3(sd + 3 * j);
-    };
-    auto at = [&](int j, float*& t, int*& row) {
-      t = s_t + j * kScThreads + threadIdx.x;
-      row = s_row + j * kScThreads + threadIdx.x;
-    };
-    if constexpr (kMode == kScPairs)
-      sc_pairs_split<L>(cast, at, cpa, r, rows, cc, n, lane);
-    else
-      sc_rows_outer<L>(cast, at, cpa, r, rows, cc, n, lane);
-    for (int j = 0; j < cpa; ++j) {
-      float t = s_t[j * kScThreads + threadIdx.x];
-      int row = s_row[j * kScThreads + threadIdx.x];
-      sc_combine<L>(t, row);
-      if (live && lane == j) put(j, t, row);  // L >= kScMaxCasts >= cpa
+  for (int j = 0; j < cpa; ++j) {
+    float t = s_t[j * kScThreads + threadIdx.x];
+    int row = s_row[j * kScThreads + threadIdx.x];
+    sc_combine(t, row);
+    if (live && lane == j) {  // 32 lanes >= kScMaxCasts >= cpa
+      t_out[c0 + j] = t;
+      idx_out[c0 + j] = isinf(t) ? 0 : row;
     }
   }
-}
-
-template <int L>
-static cudaError_t sc_culled_lanes(int mode, const float* o, const float* d, const float* rows,
-                                   float r, int N, int cpa, const int* cells, const int* cand,
-                                   const int* span, int K, float* t_out, int* idx_out,
-                                   cudaStream_t st) {
-  constexpr int kGroups = kScThreads / L;
-  const unsigned blocks = (unsigned)((N + kGroups - 1) / kGroups);
-  switch (mode) {
-    case kScRowsOuter:
-      sc_culled_kernel<L, kScRowsOuter><<<blocks, kScThreads, 0, st>>>(
-          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
-      break;
-    case kScCastsOuter:
-      sc_culled_kernel<L, kScCastsOuter><<<blocks, kScThreads, 0, st>>>(
-          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
-      break;
-    case kScPairs:
-      sc_culled_kernel<L, kScPairs><<<blocks, kScThreads, 0, st>>>(
-          o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }
 
 // K4 dense: (t, winner row) of R casts over the whole soup
@@ -264,25 +205,18 @@ extern "C" int sphere_cast_launch(const float* o, const float* d, const float* r
   return (int)cudaGetLastError();
 }
 
-// K4 culled / K4': N groups of cpa casts, lanes L per group, a variant
-// (ScMode)
+// K4 culled / K4': N groups of cpa casts, a warp per group
 extern "C" int sphere_cast_culled_launch(const float* o, const float* d, const float* rows,
                                          float r, int N, int cpa, const int* cells,
-                                         const int* cand, const int* span, int K, int lanes,
-                                         int mode, float* t_out, int* idx_out, void* stream) {
+                                         const int* cand, const int* span, int K, float* t_out,
+                                         int* idx_out, void* stream) {
   if (cpa < 1 || cpa > kScMaxCasts || span == nullptr || K < 0 || N < 0)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (lanes) {
-    case 8: return (int)sc_culled_lanes<8>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
-                                           t_out, idx_out, st);
-    case 16: return (int)sc_culled_lanes<16>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
-                                             t_out, idx_out, st);
-    case 32: return (int)sc_culled_lanes<32>(mode, o, d, rows, r, N, cpa, cells, cand, span, K,
-                                             t_out, idx_out, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const unsigned blocks = (unsigned)((N + kScGroups - 1) / kScGroups);
+  sc_culled_kernel<<<blocks, kScThreads, 0, (cudaStream_t)stream>>>(
+      o, d, rows, r, N, cpa, cells, cand, span, K, t_out, idx_out);
+  return (int)cudaGetLastError();
 }
 
 // the predecessor: R casts, cast c of group c / cpa

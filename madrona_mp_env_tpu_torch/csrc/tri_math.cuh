@@ -109,29 +109,14 @@ __device__ __forceinline__ float ray_sphere(V3 o, V3 d, float dd, V3 center, flo
   return sel_inf(dsc >= 0.0f && t >= 0.0f, t);
 }
 
-// 1 / the clamped squared length of a capsule's segment, computed where a
-// capsule test needs it
-struct InvLen2 {
-  __device__ __forceinline__ float operator()(float seg_len2) const {
-    return 1.0f / fmaxf(seg_len2, 1e-20f);
-  }
-};
-// the same, taken from a row's precomputed terms (ScRow)
-struct InvLen2Of {
-  float v;
-  __device__ __forceinline__ float operator()(float) const { return v; }
-};
-
-template <typename Inv = InvLen2>
-__device__ __forceinline__ float ray_capsule(V3 o, V3 d, V3 p0, V3 seg, float seg_len2, float rr,
-                                             Inv inv = Inv()) {
+__device__ __forceinline__ float ray_capsule(V3 o, V3 d, V3 p0, V3 seg, float seg_len2, float rr) {
   V3 m = o - p0;
   float dd = dot(d, d);
   float md = dot(m, d);
   float ms = dot(m, seg);
   float ds = dot(d, seg);
   float mm = dot(m, m);
-  float inv_l2 = inv(seg_len2);
+  float inv_l2 = 1.0f / fmaxf(seg_len2, 1e-20f);
   float a = dd - ds * ds * inv_l2;
   float b = md - ms * ds * inv_l2;
   float c = mm - ms * ms * inv_l2 - rr;
@@ -156,79 +141,8 @@ struct ScPair {
   bool overlap;
 };
 
-// The terms of a pair's triangle that no cast changes (the face test's
-// d00 d01 d11 and 1 / denom, the third edge's start v1 and direction
-// e12, each edge's squared length and its InvLen2), for sc_pair_of.
-// ScTri computes each where the pair uses it (the dense sweeps, K8's
-// normal, P3); ScRow holds them, computed once by sc_row for all the
-// casts that sweep the row (csrc/sc_sweep.cuh). Both compute each term by
-// the same operations on the same operands, so a pair's bits do not
-// depend on which one it takes.
-struct ScTri {
-  __device__ __forceinline__ float d00(V3 e1, V3) const { return dot(e1, e1); }
-  __device__ __forceinline__ float d01(V3 e1, V3 e2) const { return dot(e1, e2); }
-  __device__ __forceinline__ float d11(V3, V3 e2) const { return dot(e2, e2); }
-  __device__ __forceinline__ float inv_denom(float d00, float d01, float d11) const {
-    float denom = d00 * d11 - d01 * d01;
-    return fabsf(denom) > 1e-20f ? 1.0f / denom : 0.0f;
-  }
-  __device__ __forceinline__ V3 v1(V3 v0, V3 e1) const { return v0 + e1; }
-  __device__ __forceinline__ V3 e12(V3 e1, V3 e2) const { return e2 - e1; }
-  __device__ __forceinline__ float len2(V3 e) const { return dot(e, e); }
-  __device__ __forceinline__ float len2_e1(V3 e1) const { return dot(e1, e1); }
-  __device__ __forceinline__ float len2_e2(V3 e2) const { return dot(e2, e2); }
-  __device__ __forceinline__ InvLen2 inv_e1() const { return {}; }
-  __device__ __forceinline__ InvLen2 inv_e2() const { return {}; }
-  __device__ __forceinline__ InvLen2 inv_e12() const { return {}; }
-};
-
-struct ScRow {
-  V3 v0, e1, e2, n;
-  bool valid;
-  float d00_, d01_, d11_, inv_denom_;
-  V3 v1_, e12_;
-  float l2_e12_;                  // dot(e12, e12); those of e1, e2 are d00, d11
-  float inv_e1_, inv_e2_, inv_e12_;
-  __device__ __forceinline__ float d00(V3, V3) const { return d00_; }
-  __device__ __forceinline__ float d01(V3, V3) const { return d01_; }
-  __device__ __forceinline__ float d11(V3, V3) const { return d11_; }
-  __device__ __forceinline__ float inv_denom(float, float, float) const { return inv_denom_; }
-  __device__ __forceinline__ V3 v1(V3, V3) const { return v1_; }
-  __device__ __forceinline__ V3 e12(V3, V3) const { return e12_; }
-  __device__ __forceinline__ float len2(V3) const { return l2_e12_; }
-  __device__ __forceinline__ float len2_e1(V3) const { return d00_; }
-  __device__ __forceinline__ float len2_e2(V3) const { return d11_; }
-  __device__ __forceinline__ InvLen2Of inv_e1() const { return {inv_e1_}; }
-  __device__ __forceinline__ InvLen2Of inv_e2() const { return {inv_e2_}; }
-  __device__ __forceinline__ InvLen2Of inv_e12() const { return {inv_e12_}; }
-};
-
-__device__ __forceinline__ ScRow sc_row(V3 v0, V3 e1, V3 e2, V3 n, bool valid) {
-  const ScTri t;
-  ScRow w;
-  w.v0 = v0;
-  w.e1 = e1;
-  w.e2 = e2;
-  w.n = n;
-  w.valid = valid;
-  w.d00_ = t.d00(e1, e2);
-  w.d01_ = t.d01(e1, e2);
-  w.d11_ = t.d11(e1, e2);
-  w.inv_denom_ = t.inv_denom(w.d00_, w.d01_, w.d11_);
-  w.v1_ = t.v1(v0, e1);
-  w.e12_ = t.e12(e1, e2);
-  w.l2_e12_ = t.len2(w.e12_);
-  w.inv_e1_ = InvLen2()(w.d00_);
-  w.inv_e2_ = InvLen2()(w.d11_);
-  w.inv_e12_ = InvLen2()(w.l2_e12_);
-  return w;
-}
-
-// _sc_pairs for one cast and one triangle, its row terms from w (ScTri
-// or ScRow)
-template <typename Terms>
-__device__ __forceinline__ ScPair sc_pair_of(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
-                                             V3 n, bool valid, const Terms& w) {
+__device__ __forceinline__ ScPair sc_pair(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
+                                          V3 n, bool valid) {
   ScPair p;
   V3 closest = closest_point_on_tri(o, v0, e1, e2);
   p.to_center = o - closest;
@@ -243,36 +157,27 @@ __device__ __forceinline__ ScPair sc_pair_of(V3 o, V3 d, float r, float rr, V3 v
   float t_face = (sign * r - h) / (nd_ok ? ndotd : 1.0f);
   V3 contact = (o + t_face * d) - (sign * r) * n;
   V3 cp = contact - v0;
-  float d00 = w.d00(e1, e2);
-  float d01 = w.d01(e1, e2);
-  float d11 = w.d11(e1, e2);
+  float d00 = dot(e1, e1);
+  float d01 = dot(e1, e2);
+  float d11 = dot(e2, e2);
   float d20 = dot(cp, e1);
   float d21 = dot(cp, e2);
-  float inv_denom = w.inv_denom(d00, d01, d11);
+  float denom = d00 * d11 - d01 * d01;
+  float inv_denom = fabsf(denom) > 1e-20f ? 1.0f / denom : 0.0f;
   float bv = (d11 * d20 - d01 * d21) * inv_denom;
   float bw = (d00 * d21 - d01 * d20) * inv_denom;
   bool face_ok = nd_ok && t_face >= 0.0f && bv >= 0.0f && bw >= 0.0f && bv + bw <= 1.0f && valid;
   p.t_face = sel_inf(face_ok, t_face);
 
-  V3 v1 = w.v1(v0, e1);
-  float t_e0 = ray_capsule(o, d, v0, e1, w.len2_e1(e1), rr, w.inv_e1());
-  float t_e1 = ray_capsule(o, d, v0, e2, w.len2_e2(e2), rr, w.inv_e2());
-  V3 e12 = w.e12(e1, e2);
-  float t_e2 = ray_capsule(o, d, v1, e12, w.len2(e12), rr, w.inv_e12());
+  V3 v1 = v0 + e1;
+  float t_e0 = ray_capsule(o, d, v0, e1, dot(e1, e1), rr);
+  float t_e1 = ray_capsule(o, d, v0, e2, dot(e2, e2), rr);
+  V3 e12 = e2 - e1;
+  float t_e2 = ray_capsule(o, d, v1, e12, dot(e12, e12), rr);
   p.t_edge = sel_inf(valid, min2(t_e0, min2(t_e1, t_e2)));
   p.t_sweep = min2(p.t_face, p.t_edge);
   p.t_tri = p.overlap ? 0.0f : p.t_sweep;
   return p;
-}
-
-__device__ __forceinline__ ScPair sc_pair(V3 o, V3 d, float r, float rr, V3 v0, V3 e1, V3 e2,
-                                          V3 n, bool valid) {
-  return sc_pair_of(o, d, r, rr, v0, e1, e2, n, valid, ScTri());
-}
-
-// sc_pair_of on a row's precomputed terms
-__device__ __forceinline__ ScPair sc_cast(V3 o, V3 d, float r, float rr, const ScRow& w) {
-  return sc_pair_of(o, d, r, rr, w.v0, w.e1, w.e2, w.n, w.valid, w);
 }
 
 // _sc_pairs -> t_tri

@@ -51,7 +51,7 @@ LAUNCHES = {
                               [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 3),
     "sphere_cast": ("sphere_cast", [_P] * 3 + [_F, _I, _I] + [_P] * 3),
     "sphere_cast_culled": ("sphere_cast", [_P] * 3 + [_F, _I, _I]
-                           + [_P] * 3 + [_I] * 3 + [_P] * 3),
+                           + [_P] * 3 + [_I] + [_P] * 3),
     "sphere_cast_culled_v1": ("sphere_cast", [_P] * 3 + [_F, _I] + [_P] * 2
                               + [_I] * 2 + [_P] * 3),
     "sphere_cast_normal": ("sphere_cast", [_P] * 3 + [_F, _I, _I, _F, _I]
@@ -174,27 +174,6 @@ def ptxas_usage(name: str, kernel: str):
     if regs is None or spill is None:
         raise ValueError(f"no ptxas -v lines for {kernel} in {name}")
     return regs, spill
-
-
-def sass(lib: str) -> Dict[str, list]:
-    """{mangled function name: its instructions} of ``cuobjdump -sass`` on
-    the shared library ``lib``, each instruction's text without its
-    address and encoding: two builds compile a function to the same SASS
-    when the lists are equal."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function\s*:\s*(\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
-        if m and name is not None:
-            funcs[name].append(m.group(1))
-    return funcs
 
 
 def launcher(entry: str):

@@ -128,13 +128,6 @@ class ShortTables:
         slot = torch.arange(1, self.K + 1, device=cand.device)
         return torch.where(cand >= 0, slot, 0).amax(-1).to(torch.int32)
 
-    @functools.cached_property
-    def mean_count(self) -> float:
-        """The mean count of candidates of a cell, read once per table (the
-        culled sphere casts size their groups of lanes by it,
-        ops/raycast.py sc_lanes)."""
-        return float((self.cand >= 0).sum()) / (self.cand.numel() // self.K)
-
 
 def _tri_hash(tri_verts: np.ndarray) -> str:
     return hashlib.sha256(

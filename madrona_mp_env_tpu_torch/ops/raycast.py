@@ -177,8 +177,8 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _rows16(soup: TriSoup) -> torch.Tensor:
-    """The soup's [T, 16] rows, which K1, K2, K6 and K7 read as 16-byte
-    vectors."""
+    """The soup's [T, 16] rows, which K1, K2, K4 culled, K4', K6 and K7
+    read as 16-byte vectors."""
     rows = soup.tri_rows
     if rows.data_ptr() % 16 or not rows.is_contiguous():
         raise ValueError("tri_rows must be contiguous and 16-byte aligned")
@@ -843,31 +843,11 @@ def _sphere_cast_culled_plain(o, d, r, cells, short, soup: TriSoup):
 
 
 # K4 culled / K4' (csrc/sphere_cast.cu sc_culled_kernel): threads per
-# block (kScThreads), the most casts of one group (kScMaxCasts), the lanes
-# a group may take, and the launch variants (ScMode): the lanes split the
-# cell's slots and sweep each row against the group's casts in a loop
-# (rows_outer), or the casts one at a time (casts_outer); the lanes split
-# the group's (slot, cast) pairs (pairs, the shipped one)
+# block (kScThreads), lanes per group (a warp), the most casts of one
+# group (kScMaxCasts)
 SC_THREADS = 128
+SC_LANES = 32
 SC_MAX_CASTS = 8
-SC_LANES = (8, 16, 32)
-SC_MODES = {"rows_outer": 0, "casts_outer": 1, "pairs": 2}
-SC_MODE = "pairs"  # the shipped variant
-
-
-def sc_lanes(cpa: int, short) -> int:
-    """The lanes of one group of ``cpa`` casts against ``short``'s cells:
-    32 where the group holds 24 (slot, cast) pairs or more on the table's
-    mean count, 16 from 12, else 8 (the fastest on the card at the step's
-    shapes, tools/fan_rb_probe.py --kernels k4,k4p)."""
-    pairs = cpa * short.mean_count
-    return 32 if pairs >= 24 else 16 if pairs >= 12 else 8
-
-
-def sc_kernel_name(lanes: int, mode: str = SC_MODE) -> str:
-    """The part of sc_culled_kernel's mangled name that names the instance
-    of ``lanes`` and ``mode`` (for cuda_build.ptxas_usage)."""
-    return f"sc_culled_kernelILi{lanes}ELi{SC_MODES[mode]}E"
 
 
 def _sc_culled_args(o, d, cells):
@@ -878,22 +858,19 @@ def _sc_culled_args(o, d, cells):
             cells.to(torch.int32).contiguous())
 
 
-def _sc_culled_launch(o, d, r, cells, short, soup: TriSoup, lanes=None,
-                      mode=SC_MODE, span=None):
-    """The culled entry's CUDA launch: ``lanes`` per group (sc_lanes
-    unless given), a variant of SC_MODES, each cell's slots up to
-    ``span`` (short.valid_span unless given). A shape or variant the
-    kernel does not take (CPA above SC_MAX_CASTS, lanes not in SC_LANES)
-    raises through cuda_build.check. -> (t, row) [N, CPA]"""
+def _sc_culled_launch(o, d, r, cells, short, soup: TriSoup, span=None):
+    """The culled entry's CUDA launch, each cell's slots up to ``span``
+    (short.valid_span unless given). A shape the kernel does not take (CPA
+    above SC_MAX_CASTS) raises through cuda_build.check. -> (t, row) [N,
+    CPA]"""
     N, CPA, o2, d2, cl = _sc_culled_args(o, d, cells)
-    lanes = sc_lanes(CPA, short) if lanes is None else lanes
     span = short.valid_span if span is None else span
     t = torch.empty(N * CPA, device=o.device, dtype=torch.float32)
     idx = torch.empty(N * CPA, device=o.device, dtype=torch.int32)
     cuda_build.check(cuda_build.launcher("sphere_cast_culled")(
         _ptr(o2), _ptr(d2), _ptr(_rows16(soup)), float(r), N, CPA, _ptr(cl),
-        _ptr(short.cand), _ptr(span), short.K, int(lanes),
-        SC_MODES.get(mode, -1), _ptr(t), _ptr(idx), _stream(o),
+        _ptr(short.cand), _ptr(span), short.K, _ptr(t), _ptr(idx),
+        _stream(o),
     ), "sphere_cast_culled")
     return t.reshape(N, CPA), idx.reshape(N, CPA)
 
@@ -902,8 +879,8 @@ def sphere_cast_culled(o, d, r: float, cells, short, soup: TriSoup):
     """Grouped sphere casts o, d [N, CPA, 3], one short-table cell per group
     (cells [N]). Exact against ``sphere_cast`` for the xy-bounded movement
     casts (ops/culling.py notes); same winner rule, global rows. CUDA:
-    the culled entry of csrc/sphere_cast.cu, sc_lanes lanes per group
-    splitting its (candidate, cast) pairs; CPA at most SC_MAX_CASTS."""
+    the culled entry of csrc/sphere_cast.cu, a warp per group splitting
+    its (candidate, cast) pairs; CPA at most SC_MAX_CASTS."""
     if not _route(o):
         return _sphere_cast_culled_plain(o, d, r, cells, short, soup)
     out = _sc_culled_launch(o, d, r, cells, short, soup)

@@ -19,15 +19,6 @@ of their arguments changed, on the arguments of real steps.
                  (raycast.flat_split's or ray_split's choice is shipped)
   octet          K7 with 8 rays per thread, not a quad (FLAT_RAYS)
   rays k         K1 with k rays per thread, at the shipped split
-  lanes L        K4 culled's or K4''s groups of L lanes (raycast.sc_lanes'
-                 choice is shipped), the shipped variant (raycast.SC_MODE)
-  rows_outer, casts_outer, pairs
-                 K4 culled / K4' (2 casts a group or more) in each launch
-                 variant of raycast.SC_MODES but the shipped one: the
-                 lanes split the cell's slots, each row swept against all
-                 the group's casts (rows_outer), or the casts swept one at
-                 a time (casts_outer); the lanes split the group's (slot,
-                 cast) pairs (pairs)
   full_k         K4 culled / K4' walking every cell's K slots, not up to
                  its last candidate (ShortTables.valid_span)
   predecessor    the earlier kernel: P2's exact entry for K2
@@ -45,10 +36,10 @@ the L3 snap, the fall cast: one row per launch) on each map; on Zone
 kernel's bit for bit (t and winner row for K4). Times are CUDA events
 (kernel_bench.time_ms), in turns: each variant once, then again in the
 reverse order, the two averaged (K4: also each variant's device time,
-torch.profiler). Also prints the shipped kernels'
-registers and spill bytes (ptxas -v), and with --sass-ref, a build
-directory of another checkout, whether the kernels K4 dense, K8, P3
-(and its warp_cast) and K3 compile to the same SASS there and here.
+torch.profiler). Also prints the shipped kernels' registers and spill
+bytes (ptxas -v), and with --sass-ref, a build directory of another
+checkout, whether the kernels K4 dense, K8, P3 (and its warp_cast) and K3
+compile to the same SASS there and here (cuobjdump -sass).
 Prints one JSON object; needs a CUDA device.
 """
 
@@ -58,6 +49,9 @@ import argparse
 import difflib
 import json
 import os
+import re
+import shutil
+import subprocess
 from unittest import mock
 
 import torch
@@ -235,38 +229,26 @@ def k4_variants(args, iters, device):
     """K4 culled or one launch of K4' (args: o, d, r, cells, short, soup):
     CUDA-event times in turns, then each variant's device time."""
     o, d, r, cells, short, soup = args[:6]
-    cpa = o.shape[1]
-    shipped = raycast.sc_lanes(cpa, short)
     full = torch.full_like(short.valid_span, short.K)
-
-    def launch(**kw):
-        return lambda: raycast._sc_culled_launch(o, d, r, cells, short, soup,
-                                                 **kw)
-
-    fns = {"shipped": launch()}
-    for lanes in raycast.SC_LANES:
-        if lanes != shipped:
-            fns[f"lanes {lanes}"] = launch(lanes=lanes)
-    if cpa > 1:
-        for mode in raycast.SC_MODES:
-            if mode != raycast.SC_MODE:
-                fns[mode] = launch(mode=mode)
-    fns["full_k"] = launch(span=full)
-    fns["predecessor"] = lambda: raycast.sphere_cast_culled_v1(
-        o, d, r, cells, short, soup)
+    fns = {
+        "shipped": lambda: raycast.sphere_cast_culled(o, d, r, cells, short,
+                                                      soup),
+        "full_k": lambda: raycast._sc_culled_launch(o, d, r, cells, short,
+                                                    soup, span=full),
+        "predecessor": lambda: raycast.sphere_cast_culled_v1(
+            o, d, r, cells, short, soup),
+    }
     outs = {n: f() for n, f in fns.items()}
-    _check_equal(f"K4 [{o.shape[0]}, {cpa}] t", {n: t for n, (t, _) in
-                                                 outs.items()})
-    _check_equal(f"K4 [{o.shape[0]}, {cpa}] row", {n: i for n, (_, i) in
-                                                   outs.items()})
+    shape = f"[{o.shape[0]}, {o.shape[1]}]"
+    _check_equal(f"K4 {shape} t", {n: t for n, (t, _) in outs.items()})
+    _check_equal(f"K4 {shape} row", {n: i for n, (_, i) in outs.items()})
     res = in_turns(fns, iters, device)
     for n, f in fns.items():
         kern = ("sphere_cast_culled_v1_kernel" if n == "predecessor"
                 else "sc_culled_kernel")
         res[f"{n} dev"] = round(kernel_bench.device_ms(f, kern, iters)[0], 4)
     count = (short.cand.reshape(-1, short.K) >= 0).sum(-1)
-    res["shipped launch"] = (f"{raycast.SC_MODE}, {shipped} lanes, "
-                             f"[{o.shape[0]}, {cpa}]")
+    res["shipped launch"] = shape
     res["mean_valid_candidates"] = round(
         float(count[cells.long()].float().mean()), 1)
     return res
@@ -281,13 +263,34 @@ SASS_SAME = (("sphere_cast", "sphere_cast_dense_kernelILb0E"),
              ("fan_capsules", "fan_capsules"))
 
 
+def sass(lib: str) -> dict:
+    """{mangled function name: its instructions} of ``cuobjdump -sass`` on
+    the shared library ``lib``, each instruction's text without its
+    address and encoding: two builds compile a function to the same SASS
+    when the lists are equal."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append(m.group(1))
+    return funcs
+
+
 def sass_against(ref_dir):
     """{kernel: whether its SASS in ``ref_dir``'s library equals this
     build's}, over SASS_SAME."""
     out = {}
     for src, part in SASS_SAME:
-        mine = cuda_build.sass(cuda_build.lib_path(src))
-        ref = cuda_build.sass(os.path.join(ref_dir, f"lib{src}.so"))
+        mine = sass(cuda_build.lib_path(src))
+        ref = sass(os.path.join(ref_dir, f"lib{src}.so"))
         for name in sorted(n for n in mine if part in n):
             there = ref.get(name, [])
             if there == mine[name]:
@@ -366,11 +369,8 @@ def main(argv=None) -> dict:
                    ("ray_tris", "ray_tris_rb_kernelILi2E"),
                    ("ray_tris", "ray_tris_rb_kernelILi4E"))}}
     usage = res["registers, spill bytes"]
-    for lanes in raycast.SC_LANES:
-        for mode in raycast.SC_MODES:
-            kern = raycast.sc_kernel_name(lanes, mode)
-            usage[kern] = cuda_build.ptxas_usage("sphere_cast", kern)
-    for kern in ("sphere_cast_culled_v1_kernel", "move_fused_kernel"):
+    for kern in ("sc_culled_kernel", "sphere_cast_culled_v1_kernel",
+                 "move_fused_kernel"):
         src = "move_fused" if kern.startswith("move") else "sphere_cast"
         usage[kern] = cuda_build.ptxas_usage(src, kern)
     if args.sass_ref:

@@ -579,12 +579,11 @@ def _sc_batch(m, N, cpa, seed):
 @pytest.mark.parametrize("batch", list(SC_BATCHES))
 @pytest.mark.parametrize("scene", ["simple_map", "town_map"])
 def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
-    """K4 culled / K4' at N = 1021 groups (not a multiple of any groups
+    """K4 culled / K4' at N = 1021 groups (not a multiple of the 4 groups
     per block): t and winner row bit-equal to the plain version and to
-    the predecessor (sphere_cast_culled_v1), at every lane count and
-    launch variant and with every cell walked to K, and on a table with a
-    -1 between its candidates and an empty cell; one launch counted per
-    entry."""
+    the predecessor (sphere_cast_culled_v1), and with every cell walked to
+    K, and on a table with a -1 between its candidates and an empty cell;
+    one launch counted per entry."""
     m = gpu_map if scene == "simple_map" else town_map
     cpa, table = SC_BATCHES[batch]
     short = getattr(m, table)
@@ -601,14 +600,9 @@ def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
     tb, ib = raycast.sphere_cast_culled_v1(o, d, R, cells, short, m.tris)
     assert _eq(tk, tb) and _eq(ik, ib)
     full = torch.full_like(short.valid_span, short.K)
-    for lanes in raycast.SC_LANES:
-        for mode in raycast.SC_MODES:
-            t, i = raycast._sc_culled_launch(o, d, R, cells, short, m.tris,
-                                             lanes=lanes, mode=mode)
-            assert _eq(t, tk) and _eq(i, ik), (lanes, mode)
-        t, i = raycast._sc_culled_launch(o, d, R, cells, short, m.tris,
-                                         lanes=lanes, span=full)
-        assert _eq(t, tk) and _eq(i, ik), (lanes, "full span")
+    t, i = raycast._sc_culled_launch(o, d, R, cells, short, m.tris,
+                                     span=full)
+    assert _eq(t, tk) and _eq(i, ik)
     hit = torch.isfinite(tk)
     assert bool(hit.float().mean() > 0.2) and bool((~hit).any())
     assert bool((ik[~hit] == 0).all())
@@ -626,8 +620,8 @@ def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
 
 
 def test_sphere_cast_culled_shapes_it_cannot_take(gpu_map):
-    """More casts a group than SC_MAX_CASTS, lanes outside SC_LANES or an
-    unknown variant raise through cuda_build.check; nothing falls back."""
+    """More casts a group than SC_MAX_CASTS raise through
+    cuda_build.check; nothing falls back."""
     short = gpu_map.short
     N = 64
     x = _points(gpu_map, N, 70, (0, 2))
@@ -637,25 +631,18 @@ def test_sphere_cast_culled_shapes_it_cannot_take(gpu_map):
     with pytest.raises(RuntimeError):
         raycast.sphere_cast_culled(o9, d9, R, cells, short, gpu_map.tris)
     o, d = o9[:, :2], d9[:, :2]
-    for kw in ({"lanes": 12}, {"lanes": 4}, {"mode": "unknown"}):
-        with pytest.raises(RuntimeError):
-            raycast._sc_culled_launch(o, d, R, cells, short, gpu_map.tris,
-                                      **kw)
     with pytest.raises(ValueError):
         raycast.sphere_cast_culled(o, d, R, cells[:-1], short, gpu_map.tris)
 
 
 def test_sphere_cast_culled_registers(gpu_map):
-    """The shipped variant of sc_culled_kernel at every lane count sc_lanes
-    may take, and the predecessor, compile without spills (ptxas -v,
-    saved beside the library)."""
+    """sc_culled_kernel and the predecessor compile without spills (ptxas
+    -v, saved beside the library)."""
     from madrona_mp_env_tpu_torch.ops import cuda_build
 
     cuda_build.launcher("sphere_cast_culled")  # built on first use
-    for lanes in raycast.SC_LANES:
-        kern = raycast.sc_kernel_name(lanes)
-        regs, spill = cuda_build.ptxas_usage("sphere_cast", kern)
-        assert spill == 0 and 0 < regs <= 255, kern
+    regs, spill = cuda_build.ptxas_usage("sphere_cast", "sc_culled_kernel")
+    assert spill == 0 and 0 < regs <= 255
     assert cuda_build.ptxas_usage("sphere_cast",
                                   "sphere_cast_culled_v1_kernel")[1] == 0
 

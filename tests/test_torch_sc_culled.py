@@ -3,11 +3,10 @@ sc_culled_kernel on csrc/sc_sweep.cuh), on the CPU: what of it Python can
 reach.
 
 - The schedule (the kernel's thread -> group, lane -> pairs arithmetic,
-  written out in numpy, for the shipped split of the (slot, cast) pairs
-  and for the split of the slots): every (cast, candidate) pair swept
-  exactly once and every cast written once, for every lane count, 1, 2,
-  4 and 7 casts a group, group counts that are not multiples of the
-  groups per block, a cell with no candidate and a -1 inside a cell.
+  written out in numpy): every (cast, candidate) pair swept exactly once
+  and every cast written once, for every cast count a group may hold,
+  group counts that are not multiples of the groups per block, a cell
+  with no candidate and a -1 inside a cell.
 - The lanes' partial minima and the xor-shuffle combine, modelled in
   torch: equal bit for bit to ``_sphere_cast_culled_plain`` on the L1 and
   K4' casts of real CPU steps on both maps, with directionless casts
@@ -16,9 +15,9 @@ reach.
   compacted.
 - ``ShortTables.valid_span`` on the four shipped tables and on a table
   with gaps.
-- The row / cast split of the pair arithmetic (tri_math.cuh sc_row and
-  sc_cast, which sc_pair composes), emulated per f32 operation in numpy
-  with one row's terms shared by several casts: equal to ``_sc_pairs``'s
+- The pair arithmetic (tri_math.cuh sc_pair, which every pair of the
+  sweep runs on the row it reads), emulated per f32 operation in numpy
+  with a group's casts against the same rows: equal to ``_sc_pairs``'s
   t_tri bit for bit on random and adversarial pairs.
 """
 
@@ -29,7 +28,6 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch import consts
@@ -73,18 +71,15 @@ def _gappy(short: ShortTables, seed: int) -> ShortTables:
 # (a) the schedule
 # ---------------------------------------------------------------------------
 
-def _schedule(N, cpa, lanes, span, split):
+def _schedule(N, cpa, span):
     """sc_culled_kernel's thread arithmetic: ceil(N / (SC_THREADS / L))
-    blocks of SC_THREADS threads; thread t of block b is lane t % L of
-    group g = b (SC_THREADS / L) + t // L. split "pairs" (the shipped
-    variant): the lane takes the pairs p = lane, lane + L, ... < span[g]
-    cpa, slot p // cpa against cast p % cpa; "slots" (rows_outer;
-    casts_outer takes the same pairs one cast at a time): the
-    lane takes the slots lane, lane + L, ... < span[g], each against all
-    the group's casts. After the combine, lane j < cpa writes cast g cpa +
-    j. span [N]: the span of each group's cell. -> (swept (cast, slot)
-    pairs [P, 2] in each lane's order, written casts [W], idle threads)"""
-    threads = raycast.SC_THREADS
+    blocks of SC_THREADS threads, L = SC_LANES; thread t of block b is
+    lane t % L of group g = b (SC_THREADS / L) + t // L. The lane takes
+    the pairs p = lane, lane + L, ... < span[g] cpa, slot p // cpa against
+    cast p % cpa. After the combine, lane j < cpa writes cast g cpa + j.
+    span [N]: the span of each group's cell. -> (swept (cast, slot) pairs
+    [P, 2] in each lane's order, written casts [W], idle threads)"""
+    threads, lanes = raycast.SC_THREADS, raycast.SC_LANES
     per_block = threads // lanes
     blocks = -(-N // per_block)
     i = np.arange(blocks * threads)
@@ -93,29 +88,22 @@ def _schedule(N, cpa, lanes, span, split):
     lane = t % lanes
     live = g < N
     g, lane = g[live], lane[live]
-    per = cpa if split == "pairs" else 1  # items of a slot
-    items = span * per
+    items = span * cpa
     steps = -(-int(items.max(initial=0)) // lanes)
     p = lane[:, None] + lanes * np.arange(steps)[None, :]
     gp = np.broadcast_to(g[:, None], p.shape)
     ok = p < items[gp]
     gp, p = gp[ok], p[ok]
-    if split == "pairs":
-        casts, slots = gp * cpa + p % cpa, p // cpa
-    else:
-        casts = (gp[:, None] * cpa + np.arange(cpa)[None, :]).ravel()
-        slots = np.repeat(p, cpa)
     written = (g * cpa + lane)[lane < cpa]
-    return np.stack([casts, slots], -1), written, int((~live).sum())
+    return (np.stack([gp * cpa + p % cpa, p // cpa], -1), written,
+            int((~live).sum()))
 
 
-@pytest.mark.parametrize("split", ["pairs", "slots"])
-@pytest.mark.parametrize("N", [1, 13, 385])
-@pytest.mark.parametrize("cpa", [1, 2, 4, 7])
-@pytest.mark.parametrize("lanes", [8, 16, 32])
-def test_schedule_covers_every_pair_once(lanes, cpa, N, split):
-    assert lanes in raycast.SC_LANES and cpa <= raycast.SC_MAX_CASTS <= lanes
-    g = np.random.default_rng(100 * lanes + 10 * cpa + N)
+@pytest.mark.parametrize("N", [1, 3, 4, 5, 13, 385])
+@pytest.mark.parametrize("cpa", list(range(1, raycast.SC_MAX_CASTS + 1)))
+def test_schedule_covers_every_pair_once(cpa, N):
+    assert cpa <= raycast.SC_MAX_CASTS <= raycast.SC_LANES == 32
+    g = np.random.default_rng(10 * cpa + N)
     C, K = 9, 40
     cand = np.full((C, K), -1, np.int32)
     for c in range(1, C):  # cell 0 has no candidate
@@ -126,9 +114,9 @@ def test_schedule_covers_every_pair_once(lanes, cpa, N, split):
     cells = g.integers(0, C, N)
     cells[0] = 0
     span = table.valid_span.numpy()[cells]
-    pairs, written, idle = _schedule(N, cpa, lanes, span, split)
-    per_block = raycast.SC_THREADS // lanes
-    assert idle == (-N) % per_block * lanes < raycast.SC_THREADS
+    pairs, written, idle = _schedule(N, cpa, span)
+    per_block = raycast.SC_THREADS // raycast.SC_LANES
+    assert idle == (-N) % per_block * raycast.SC_LANES < raycast.SC_THREADS
     # every cast written once
     assert np.array_equal(np.sort(written), np.arange(N * cpa))
     # the swept pairs with a candidate: each (cast, valid slot) once
@@ -147,17 +135,16 @@ def test_schedule_covers_every_pair_once(lanes, cpa, N, split):
 # (b) the lanes' partial minima and the xor-shuffle combine
 # ---------------------------------------------------------------------------
 
-def _lanes_model(o, d, r, cells, short, soup, lanes, split):
-    """sc_culled_kernel per group, in torch: lane l of the group takes its
-    items l, l + L, ... in order (split "pairs": item p is slot p // CPA
-    against cast p % CPA, p < CPA valid_span; "slots": item k is slot k <
-    valid_span against every cast), keeping each cast's (t, row) by
+def _lanes_model(o, d, r, cells, short, soup):
+    """sc_culled_kernel per group, in torch: lane l of the group's L =
+    SC_LANES takes its pairs p = l, l + L, ... < CPA valid_span in order,
+    slot p // CPA against cast p % CPA, keeping each cast's (t, row) by
     sc_take (t < best, or t == best and row < best_row), from (inf,
     INT_MAX); then the lanes combine by xor partners L / 2, ..., 1 under
     the same rule, and a miss reports row 0. -> (t, row) [N, CPA], after
     checking that every lane ends with its group's result."""
     N, CPA = o.shape[:2]
-    K = short.K
+    K, lanes = short.K, raycast.SC_LANES
     cand = short.cand.reshape(-1, K)[cells.long()]  # [N, K]
     span = short.valid_span[cells.long()]
     rows = torch.where(cand >= 0, cand, 0).long()
@@ -168,20 +155,17 @@ def _lanes_model(o, d, r, cells, short, soup, lanes, split):
     best = torch.full((N, CPA, lanes), float("inf"))
     best_row = torch.full((N, CPA, lanes), INT_MAX, dtype=torch.int32)
     lane = torch.arange(lanes)
-    per = CPA if split == "pairs" else 1
-    for m in range(-(-K * per // lanes)):
+    for m in range(-(-K * CPA // lanes)):
         item = m * lanes + lane  # [L]
-        k = torch.clamp(item // per, max=K - 1)
-        js = [item % per] if split == "pairs" else [
-            torch.full_like(item, j) for j in range(CPA)]
-        for j in js:
-            t = t_k[:, j, k]  # [N, L]
-            row = cand[:, k]
-            ok = (row >= 0) & (item // per < span[:, None])
-            b, br = best[:, j, lane], best_row[:, j, lane]
-            ok &= (t < b) | ((t == b) & (row < br))
-            best[:, j, lane] = torch.where(ok, t, b)
-            best_row[:, j, lane] = torch.where(ok, row, br)
+        k = torch.clamp(item // CPA, max=K - 1)
+        j = item % CPA
+        t = t_k[:, j, k]  # [N, L]
+        row = cand[:, k]
+        ok = (row >= 0) & (item // CPA < span[:, None])
+        b, br = best[:, j, lane], best_row[:, j, lane]
+        ok &= (t < b) | ((t == b) & (row < br))
+        best[:, j, lane] = torch.where(ok, t, b)
+        best_row[:, j, lane] = torch.where(ok, row, br)
     off = lanes // 2
     while off:
         t2, r2 = best[..., lane ^ off], best_row[..., lane ^ off]
@@ -243,26 +227,26 @@ def _assert_same(got, want):
     assert torch.equal(t[nz].view(torch.int32), tp[nz].view(torch.int32))
 
 
-@pytest.mark.parametrize("split", ["pairs", "slots"])
-@pytest.mark.parametrize("lanes", [8, 16, 32])
-def test_lanes_model_matches_plain(step_casts, lanes, split):
+@pytest.mark.parametrize("gappy", [False, True])
+@pytest.mark.parametrize("batch", ["l1", "pair", "snap", "fall"])
+def test_lanes_model_matches_plain(step_casts, batch, gappy):
     m, batches = step_casts
     assert [b[0].shape[1] for b in batches] == [7, 2, 1, 1]
-    for o, d, r, cells, short, soup in batches:
-        o, d = _with_edge_groups(o, d)
-        for table in (short, _gappy(short, lanes)):
-            want = raycast._sphere_cast_culled_plain(o, d, r, cells, table,
-                                                     soup)
-            got = _lanes_model(o, d, r, cells, table, soup, lanes, split)
-            _assert_same(got, want)
-            t, row = got
-            # directionless: every candidate near 0, the lowest row wins;
-            # all miss: row 0
-            cand0 = table.cand.reshape(-1, table.K)[cells[0].long()]
-            assert bool((t[0] <= 0.0).all())
-            assert bool((row[0] == cand0[cand0 >= 0].min()).all())
-            assert bool(torch.isinf(t[1]).all() and (row[1] == 0).all())
-            assert bool(torch.isfinite(t).float().mean() > 0.3)
+    o, d, r, cells, short, soup = batches[
+        ["l1", "pair", "snap", "fall"].index(batch)]
+    o, d = _with_edge_groups(o, d)
+    table = _gappy(short, 7) if gappy else short
+    want = raycast._sphere_cast_culled_plain(o, d, r, cells, table, soup)
+    got = _lanes_model(o, d, r, cells, table, soup)
+    _assert_same(got, want)
+    t, row = got
+    # directionless: every candidate near 0, the lowest row wins; all
+    # miss: row 0
+    cand0 = table.cand.reshape(-1, table.K)[cells[0].long()]
+    assert bool((t[0] <= 0.0).all())
+    assert bool((row[0] == cand0[cand0 >= 0].min()).all())
+    assert bool(torch.isinf(t[1]).all() and (row[1] == 0).all())
+    assert bool(torch.isfinite(t).float().mean() > 0.3)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +278,7 @@ def test_valid_span_on_the_shipped_tables(scene):
 
 
 # ---------------------------------------------------------------------------
-# (d) the row / cast split of the pair arithmetic, per f32 operation
+# (d) the pair arithmetic, per f32 operation
 # ---------------------------------------------------------------------------
 
 f32 = np.float32
@@ -358,11 +342,12 @@ def _sphere(o, d, dd, center, rr):
     return _sel_inf((dsc >= 0) & (t >= 0), t)
 
 
-def _capsule_inv(o, d, p0, seg, seg_len2, inv_l2, rr):
-    """tri_math.cuh ray_capsule_inv: the segment's inv_len2 given."""
+def _capsule(o, d, p0, seg, seg_len2, rr):
+    """tri_math.cuh ray_capsule."""
     m = o - p0
     dd, md, ms, ds, mm = (_dot(d, d), _dot(m, d), _dot(m, seg), _dot(d, seg),
                           _dot(m, m))
+    inv_l2 = f32(1.0) / np.fmax(seg_len2, f32(1e-20))
     a = dd - ds * ds * inv_l2
     b = md - ms * ds * inv_l2
     c = mm - ms * ms * inv_l2 - rr
@@ -378,43 +363,33 @@ def _capsule_inv(o, d, p0, seg, seg_len2, inv_l2, rr):
                               _sphere(o, d, dd, p0 + seg, rr)))
 
 
-def _sc_row(v0, e1, e2, n, valid):
-    """tri_math.cuh sc_row: one row's cast-independent terms ([T] each)."""
-    w = dict(v0=v0, e1=e1, e2=e2, n=n, valid=valid)
-    w["d00"], w["d01"], w["d11"] = _dot(e1, e1), _dot(e1, e2), _dot(e2, e2)
-    denom = w["d00"] * w["d11"] - w["d01"] * w["d01"]
-    w["inv_denom"] = np.where(np.abs(denom) > f32(1e-20), f32(1.0) / denom,
-                              f32(0.0))
-    w["v1"], w["e12"] = v0 + e1, e2 - e1
-    w["l2_e12"] = _dot(w["e12"], w["e12"])
-    for key, l2 in (("inv_e1", w["d00"]), ("inv_e2", w["d11"]),
-                    ("inv_e12", w["l2_e12"])):
-        w[key] = f32(1.0) / np.fmax(l2, f32(1e-20))
-    return w
-
-
-def _sc_cast(o, d, r, rr, w):
-    """tri_math.cuh sc_cast: casts o, d [R, 1, 3] against the rows' terms
-    w ([T] each) -> t_tri [R, T]."""
-    to_center = o - _closest(o, w["v0"], w["e1"], w["e2"])
-    overlap = (_dot(to_center, to_center) <= rr) & w["valid"]
-    ndotd = _dot(w["n"], d)
-    h = _dot(o - w["v0"], w["n"])
+def _sc_pair(o, d, r, rr, v0, e1, e2, n, valid):
+    """tri_math.cuh sc_pair -> t_tri: casts o, d [R, 1, 3] against rows
+    v0 e1 e2 n [T, 3], valid [T] -> [R, T]."""
+    to_center = o - _closest(o, v0, e1, e2)
+    overlap = (_dot(to_center, to_center) <= rr) & valid
+    ndotd = _dot(n, d)
+    h = _dot(o - v0, n)
     sign = np.where(h > 0, f32(1.0), np.where(h < 0, f32(-1.0), f32(1.0)))
     nd_ok = np.abs(ndotd) > f32(1e-9)
     t_face = (sign * r - h) / np.where(nd_ok, ndotd, f32(1.0))
-    cp = ((o + t_face[..., None] * d) - (sign * r)[..., None] * w["n"]) - w["v0"]
-    d20, d21 = _dot(cp, w["e1"]), _dot(cp, w["e2"])
-    bv = (w["d11"] * d20 - w["d01"] * d21) * w["inv_denom"]
-    bw = (w["d00"] * d21 - w["d01"] * d20) * w["inv_denom"]
+    cp = ((o + t_face[..., None] * d) - (sign * r)[..., None] * n) - v0
+    d00, d01, d11 = _dot(e1, e1), _dot(e1, e2), _dot(e2, e2)
+    d20, d21 = _dot(cp, e1), _dot(cp, e2)
+    denom = d00 * d11 - d01 * d01
+    inv_denom = np.where(np.abs(denom) > f32(1e-20), f32(1.0) / denom,
+                         f32(0.0))
+    bv = (d11 * d20 - d01 * d21) * inv_denom
+    bw = (d00 * d21 - d01 * d20) * inv_denom
     face_ok = (nd_ok & (t_face >= 0) & (bv >= 0) & (bw >= 0)
-               & (bv + bw <= 1) & w["valid"])
+               & (bv + bw <= 1) & valid)
     t_face = _sel_inf(face_ok, t_face)
-    t_e0 = _capsule_inv(o, d, w["v0"], w["e1"], w["d00"], w["inv_e1"], rr)
-    t_e1 = _capsule_inv(o, d, w["v0"], w["e2"], w["d11"], w["inv_e2"], rr)
-    t_e2 = _capsule_inv(o, d, w["v1"], w["e12"], w["l2_e12"], w["inv_e12"],
-                        rr)
-    t_edge = _sel_inf(w["valid"], _min2(t_e0, _min2(t_e1, t_e2)))
+    v1 = v0 + e1
+    t_e0 = _capsule(o, d, v0, e1, _dot(e1, e1), rr)
+    t_e1 = _capsule(o, d, v0, e2, _dot(e2, e2), rr)
+    e12 = e2 - e1
+    t_e2 = _capsule(o, d, v1, e12, _dot(e12, e12), rr)
+    t_edge = _sel_inf(valid, _min2(t_e0, _min2(t_e1, t_e2)))
     return np.where(overlap, f32(0.0), _min2(t_face, t_edge))
 
 
@@ -445,15 +420,15 @@ def _adversarial(g, T, R):
     return o, d, v0, e1, e2, n, valid
 
 
-def test_row_cast_split_matches_plain_pair():
+def test_sc_pair_per_op_matches_plain_pair():
     g = np.random.default_rng(17)
     T, CASTS = 48, 7
     o, d, v0, e1, e2, n, valid = _adversarial(g, T, 64 * CASTS)
     r = f32(R)
     with np.errstate(all="ignore"):  # the guarded divides of the padding
-        w = _sc_row(v0, e1, e2, n, valid)  # the row terms once ...
-        got = np.concatenate([  # ... against every cast of a group
-            _sc_cast(o[j::CASTS, None], d[j::CASTS, None], r, r * r, w)
+        got = np.concatenate([  # a group's casts against the same rows
+            _sc_pair(o[j::CASTS, None], d[j::CASTS, None], r, r * r, v0, e1,
+                     e2, n, valid)
             for j in range(CASTS)])
     want = raycast._sc_pairs(
         *(torch.as_tensor(np.concatenate([x[j::CASTS] for j in range(
