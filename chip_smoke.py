@@ -19,18 +19,27 @@ Phases, each of which fails the run loudly:
    how often its t equals K2's on the same rays (hits and misses must
    agree on >= 99.5%); then the unfused system chain against the fused
    order through tail_fused_plain, bit for bit, on the step's tail
-   inputs. On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
+   inputs. Before each map's rows, build_sensor_rays on its default fan
+   route under torch.cuda.set_sync_debug_mode("warn"): each host sync it
+   makes is logged with its line (one from repeat_interleave fails).
+   On data/town_map (6,144 triangles, PVS tables): K1, K3, K4
    culled, K4', K5, K6 the cell-culled sensor fans, and K2 over the whole
    soup on K6's fans, with how often the two agree (the PVS's quality at
    full width). K1, K2, K6 and K7 (the register-blocked sweep,
-   csrc/fan_sweep_rb.cuh) and K4 culled and K4' (a warp per group of
-   casts, csrc/sc_sweep.cuh) are held bit for bit (K4: t and winner row)
-   against their plain versions and their predecessors (ray_tris_v1,
-   P2's exact entry, fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1),
-   timed beside them in turns (new, old, old, new), with their device
-   time (torch.profiler), ptxas' registers and spills, the floor at one
-   f32 instruction per operation, K1's and K7's row split and K6's
-   helper launches (the cell order); K4 dense, K8 and P3, which
+   csrc/fan_sweep_rb.cuh), K4 culled and K4' (a warp per group of
+   casts, csrc/sc_sweep.cuh), K3 (a block per fan, the (z-group,
+   capsule) terms hoisted) and K5 (a group of lanes per world) are held
+   bit for bit (K4: t and winner row; K3: t and capsule index; K5 every
+   output; K3 and K5 by int32 views, -0 against +0 too) against their
+   plain versions and their predecessors (ray_tris_v1, P2's exact entry,
+   fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1, fan_capsules_v1,
+   tail_fused_v1), timed beside them in turns (new, old, old, new), with
+   their device time (torch.profiler), ptxas' registers and spills, the
+   floor at one f32 instruction per operation, K1's and K7's row split,
+   K6's helper launches (the cell order), K3's share of pairs that reach
+   a square root and K5's host us per call; every other row counts its
+   float outputs equal as values but not as bits (logged); K4 dense,
+   K8 and P3, which
    share K4's pair arithmetic, with their registers and spills. Zone 3v3
    (team size 3: a LOS run of 12 rays, not a multiple of 8) on each map:
    K1, K7, the stacked-direction fan over the whole soup, and K5 on one
@@ -66,13 +75,15 @@ Phases, each of which fails the run loudly:
 4. the simple_map path: Env(device="cuda") at 1024 worlds, reset + 100
    steps of bench.py's run-and-shoot action mix, every launch counter
    zeroed before and read after: K1, K2, K3, K4 culled, K4' and K5 must
-   launch (K2 101 times, K1 and K4 culled 100, K4' 300), K4 dense, K6,
+   launch (K2 and K3 101 times, K1, K4 culled and K5 100, K4' 300), K4
+   dense, K6,
    K9, the fused movement P3 and the predecessors (on every path) must
    not; env-steps/s beside the card's name and limit; then CUDA
    launches per step from
    torch.profiler, with the fused tail and, for comparison in the same
    process, with the unfused chain it replaced; then the same path with
-   MPENV_FAN_V9=1, where K9 must launch and K2 must not;
+   MPENV_FAN_V9=1, where K9 must launch and K2 must not (K3 101, K5
+   100);
 5. the crossplay eval: EvalManager on the card at 1024 worlds with P = 2
    policies at full width (weights made from seeds: the trained
    checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
@@ -80,13 +91,13 @@ Phases, each of which fails the run loudly:
    forward's ms per step;
 6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
-   culled, K4', K5 and K6 must launch (K6 101 times, K1 and K4 culled
-   100, K4' 300), K2 and K4
+   culled, K4', K5 and K6 must launch (K6 and K3 101 times, K1, K4
+   culled and K5 100, K4' 300), K2 and K4
    dense must not; then 10 steps of the forced-dense fan route
    (MPENV_FAN_CULL=0), where K2 runs 11 times over the 6,144-triangle
    soup; then Zone 3v3 on each map, reset + 50
-   steps at 1024 worlds: K1, K7 and K5 must launch (K7 51 times, K1
-   50), K2, K6 and K9 must not;
+   steps at 1024 worlds: K1, K7 and K5 must launch (K7 and K3 51 times,
+   K1 and K5 50), K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
    40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
    on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), then 1 of
@@ -145,6 +156,17 @@ OPS_RAY_TRI = 47  # two crosses (18), four dots (20), divide, 3 scales, u+v, min
 OPS_FAN_PAIR = 32  # K2 after hoisting: cross, 2 dots, divide, 3 scales, u+v, min
 OPS_FAN_HOIST = 20  # per (fan, group, triangle): tvec, cross, dot
 OPS_CAPSULE = 75  # 5 dots, cylinder quadratic (~20), two cap spheres (~30)
+# K3 after hoisting (csrc/fan_capsules.cu): per (ray, live capsule) pair two
+# dots, three discriminants and two minima; a cylinder root (max, sqrt,
+# sub, divide, s_hit) and a cap-sphere root (max, sqrt, sub, divide) only
+# where the discriminant lets it hit; per (fan, z-group, capsule) the
+# origin and capsule terms (lift, m, ms, mm, c, cc0, m1, cc1); per ray dd,
+# ds, a and the sphere divisor
+OPS_CAP_PAIR = 24
+OPS_CAP_CYL = 6
+OPS_CAP_SPHERE = 4
+OPS_CAP_HOIST = 33
+OPS_CAP_RAY = 14
 OPS_SPHERE_TRI = 330  # closest point (~80), face test (~45), 3 capsules
 # K8's normal per cast, after recomputing the winner's pair terms: the
 # closest point at the hit (~80), the hit centre (6), a norm and three
@@ -154,22 +176,27 @@ OPS_SC_NORMAL = 95
 # membership frame 7, reward terms 19, blend 4, spread 2 per teammate and
 # 5 per teammate pair
 OPS_TAIL_AGENT = 41
-# the redesigned kernels' rows (K1, K2, K6, K7, K4 culled, K4') also
-# carry: their predecessor's time in the same call, their device time
-# (torch.profiler; K1's, K7's and K4's predecessors' too), the floor at
-# one f32 instruction per operation (--fmad=false: 33.5 T/s), ptxas -v's
-# registers and spill bytes, the launches of any helper per call, the
-# blocks of a cluster that split the rows (K1, K7) and, on the bench's
-# Zone 3v3 rows, K7 and its predecessor with a z offset per ray; the rows
-# of K4 dense, K8 and P3, which share K4's pair arithmetic, carry ptxas
-# -v's registers and spill bytes
+# the redesigned kernels' rows (K1, K2, K6, K7, K4 culled, K4', K3, K5)
+# also carry: their predecessor's time in the same call, their device time
+# (torch.profiler; K1's, K7's, K4's, K3's and K5's predecessors' too), the
+# floor at one f32 instruction per operation (--fmad=false: 33.5 T/s),
+# ptxas -v's registers and spill bytes, the launches of any helper per
+# call, the blocks of a cluster that split the rows (K1, K7), on the
+# bench's Zone 3v3 rows K7 and its predecessor with a z offset per ray,
+# K3's share of (ray, live capsule) pairs that reach a square root and
+# K5's host us per call (with its predecessor's, on the same host path);
+# the rows of K4 dense, K8 and P3, which share K4's pair arithmetic, carry
+# ptxas -v's registers and spill bytes
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "fmad_floor_ms", "registers", "spill_bytes",
                  "helper_launches", "helper_device_ms", "split",
-                 "per_ray_ms", "per_ray_before_ms")
+                 "per_ray_ms", "per_ray_before_ms", "per_ray_plain_ms",
+                 "per_ray_bound_ms", "root_share",
+                 "host_us", "before_host_us")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
-                "ray_fans_culled_v1", "sphere_cast_culled_v1")
+                "ray_fans_culled_v1", "sphere_cast_culled_v1",
+                "tail_fused_v1", "fan_capsules_v1")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -219,17 +246,37 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def check_equal(name, *pairs):
-    """(kernel, plain) output pairs bit-equal (the kernels repeat their
-    plain versions op for op, built with --fmad=false). Returns the max
-    abs error over the finite values of the first pair."""
+def max_abs_err(got, want):
+    """max |got - want| over the float values finite in both (0 if none,
+    or for integer and boolean outputs)."""
+    import torch
+
+    if not got.dtype.is_floating_point:
+        return 0.0
+    both = torch.isfinite(got) & torch.isfinite(want)
+    return float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+
+
+def check_equal(name, *pairs, bits=False):
+    """(kernel, plain) output pairs equal (the kernels repeat their plain
+    versions op for op, built with --fmad=false): as values (torch.equal,
+    so -0 equals +0), or with ``bits`` as int32 views of the float
+    outputs (-0 differs from +0). Float outputs equal as values but not
+    as bits are counted and logged. Returns the max abs error over the
+    finite values of the first pair."""
     import torch
 
     torch.cuda.synchronize()
-    got, want = pairs[0]
-    both = torch.isfinite(got) & torch.isfinite(want)
-    err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+    err = max_abs_err(*pairs[0])
     for i, (g, w) in enumerate(pairs):
+        if g.dtype == torch.float32 and w.dtype == torch.float32:
+            n_bits = int(((g == w) & (g.view(torch.int32)
+                                      != w.view(torch.int32))).sum())
+            if n_bits:
+                log(f"[bits] {name}: output {i} equal but bit-different at "
+                    f"{n_bits} of {w.numel()}")
+            if bits:
+                g, w = g.view(torch.int32), w.view(torch.int32)
         if not torch.equal(g, w):
             n = int((g != w).sum())
             raise AssertionError(f"{name}: output {i} differs from its "
@@ -279,32 +326,20 @@ def check_idx(name, i_k, i_p, gap, t_p):
         raise AssertionError(f"{name}: {wrong} winner indices differ")
 
 
-def check_tail(got, want, rel=1e-6):
-    """K5 against its plain version: integral and boolean leaves equal,
-    float leaves within rel * max(1, |x|) (0 expected: the kernel repeats
-    the plain version's operations). Returns the max abs float error."""
-    import torch
-
+def check_tail(name, got, want):
+    """K5's outputs (state, new_captured) against another run's: every
+    leaf of the same dtype and shape, bit-equal (int32 views of the float
+    leaves). Returns the max abs float error (0)."""
     (sk, ck), (sp, cp) = got, want
-    torch.cuda.synchronize()
-    if not torch.equal(ck, cp):
-        raise AssertionError("K5 new_captured differs")
-    max_err = 0.0
-    for name, w in sp.leaves().items():
-        g = getattr(sk, name)
+    pairs = []
+    for leaf, w in sp.leaves().items():
+        g = getattr(sk, leaf)
         if g.dtype != w.dtype or g.shape != w.shape:
-            raise AssertionError(f"K5 {name}: {g.dtype} {tuple(g.shape)} vs "
-                                 f"{w.dtype} {tuple(w.shape)}")
-        if not w.dtype.is_floating_point:
-            if not torch.equal(g, w):
-                raise AssertionError(f"K5 {name} differs")
-            continue
-        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
-        e = torch.where(same, 0.0, (g.double() - w.double()).abs())
-        if bool((e > rel * w.double().abs().clamp(min=1.0)).any()):
-            raise AssertionError(f"K5 {name}: max abs err {float(e.max())}")
-        max_err = max(max_err, float(e.max()))
-    return max_err
+            raise AssertionError(f"{name} {leaf}: {g.dtype} {tuple(g.shape)}"
+                                 f" vs {w.dtype} {tuple(w.shape)}")
+        pairs.append((g, w))
+    check_equal(name, *pairs, (ck, cp), bits=True)
+    return max(max_abs_err(g, w) for g, w in pairs)
 
 
 def best_two_gap(t_pairs):
@@ -687,6 +722,8 @@ class KernelPhase:
         n_valid = (rt.cand_idx >= 0).sum(-1)[cells.long()]  # [N]
         # z-groups of each fan: runs of equal z offsets (the kernel's own)
         runs = int((zoff[:, 1:] != zoff[:, :-1]).sum()) + N
+        nops = (int(n_valid.sum()) * F * OPS_FAN_PAIR
+                + int((n_valid * runs / N).sum()) * OPS_FAN_HOIST)
         row = self.record(
             "K9 ray_fans_culled_v9",
             "madrona_mp_env_tpu_torch/csrc/fan_v9.cu",
@@ -694,11 +731,10 @@ class KernelPhase:
             raycast.ray_fans_culled_v9, err, cuda_time_ms(kernel, 50),
             cuda_time_ms(plain, 2),
             N * (12 + 4) + 4 * N * F * 4 + rt.cand_idx.numel() * 4
-            + self.T_real * 40 + N * F * 4,
-            int(n_valid.sum()) * F * OPS_FAN_PAIR
-            + int((n_valid * runs / N).sum()) * OPS_FAN_HOIST,
+            + self.T_real * 40 + N * F * 4, nops,
             [[N, F, rt.K]],
-            mean_valid_candidates=round(float(n_valid.float().mean()), 1))
+            mean_valid_candidates=round(float(n_valid.float().mean()), 1),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4))
         same = float(((t9 == t2) | (torch.isinf(t9) & torch.isinf(t2)))
                      .float().mean())
         hitmiss = float((torch.isfinite(t9) == torch.isfinite(t2))
@@ -750,14 +786,20 @@ class KernelPhase:
             g = torch.Generator(device=zoff.device).manual_seed(7)
             zr = 20.0 + 40.0 * torch.rand(zoff.shape, generator=g,
                                           device=zoff.device)
-            tr = kernel(zr)
+            tr, (tpr, pms_r) = kernel(zr), timed_once(lambda: plain(zr))
             extra["per_ray_max_abs_err"] = check_equal(
-                "K7 with per-ray z offsets", (tr, plain(zr)))
+                "K7 with per-ray z offsets", (tr, tpr))
             check_equal("K7 with per-ray z offsets against its predecessor",
                         (tr, before(zr)))
             new, old = turns_ms(lambda: kernel(zr), lambda: before(zr), reps)
+            # every ray its own origin: the origin terms per (ray, row)
             extra.update(per_ray_ms=round(new, 4),
-                         per_ray_before_ms=round(old, 4))
+                         per_ray_before_ms=round(old, 4),
+                         per_ray_plain_ms=round(pms_r, 4),
+                         per_ray_bound_ms=round(bound_ms(
+                             N * 12 + N * F * 16 + self.T_real * 40
+                             + N * F * 4, N * F * self.T_real
+                             * (OPS_FAN_PAIR + OPS_FAN_HOIST))[0], 4))
         return self.record(
             "K7 ray_fans_vs_tris_flat",
             "madrona_mp_env_tpu_torch/csrc/fan_flat.cu",
@@ -843,42 +885,64 @@ class KernelPhase:
         return tk, ik
 
     def k3(self, calls):
+        """K3 on the step's sensor fans: t and capsule index bit-equal
+        (int32 views) to the plain version and to its predecessor
+        (fan_capsules_v1, on per-ray offsets and boolean alive made
+        beforehand), the two timed in turns with their device times; the
+        share of (ray, live capsule) pairs that reach a square root, which
+        the bound counts."""
         import torch
-        from madrona_mp_env_tpu_torch.ops import raycast_cull
+        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast_cull
 
-        (pos, zoff, dirs, alive), = calls["fan_capsules"]
-        W, A, F = zoff.shape
+        (pos, zg, dirs, zgroups, alive), = calls["fan_capsules"]
+        W, A, G = zg.shape
+        F = dirs[0].shape[-1]
+        zoff = torch.repeat_interleave(
+            zg, torch.tensor(zgroups, device=zg.device), dim=-1)
+        alive_b = alive > 0.0
 
-        def cap_kernel():
-            return raycast_cull.fan_capsules(pos, zoff, dirs, alive)
+        def kernel():
+            return raycast_cull.fan_capsules(pos, zg, dirs, zgroups, alive)
 
-        def cap_plain():
+        def plain():
             return chunked(lambda s: raycast_cull._fan_capsules_plain(
-                pos[s], zoff[s], tuple(c[s] for c in dirs), alive[s]), W, 128)
+                pos[s], zg[s], tuple(c[s] for c in dirs), zgroups, alive[s]),
+                W, 128)
 
-        (tk, ik), (tp, ip) = cap_kernel(), cap_plain()
-        err = check_t("K3 fan_capsules", tk, tp)
-        me = torch.arange(A, device=pos.device)
-        self_mask = (me[:, None] == me[None, :])[None, :, None, :]
+        def before():
+            return raycast_cull.fan_capsules_v1(pos, zoff, dirs, alive_b)
 
-        def cap_gap(s):
-            zero = torch.zeros_like(zoff[s])
-            o = pos[s][:, :, None, :] + torch.stack([zero, zero, zoff[s]],
-                                                    dim=-1)
-            tc = raycast_cull.ray_vs_capsules(
-                o, torch.stack([c[s] for c in dirs], dim=-1),
-                pos[s][:, None, None], alive[s][:, None, None])
-            return best_two_gap(torch.where(self_mask, float("inf"), tc))
-
-        check_idx("K3 fan_capsules", ik, ip, chunked(cap_gap, W, 128), tp)
-        live = alive.sum(-1, keepdim=True) - alive.to(torch.int64)  # [W, A]
+        (tk, ik), ((tp, ip), pms) = kernel(), timed_once(plain)
+        err = check_equal("K3 fan_capsules", (tk, tp), (ik, ip), bits=True)
+        tb, ib = before()
+        check_equal("K3 against its predecessor", (tk, tb), (ik, ib),
+                    bits=True)
+        ms, before_ms = turns_ms(kernel, before, 50)
+        regs, spill = cuda_build.ptxas_usage("fan_capsules",
+                                             "fan_capsules_kernel")
+        pairs, cyl, sph = (sum(x) for x in zip(*(
+            cap_roots(pos[s], zg[s], tuple(c[s] for c in dirs), zgroups,
+                      alive[s]) for s in chunks(W, 64))))
+        nops = (pairs * OPS_CAP_PAIR + cyl * OPS_CAP_CYL
+                + sph * OPS_CAP_SPHERE + W * A * G * A * OPS_CAP_HOIST
+                + W * A * F * OPS_CAP_RAY)
+        log(f"[kernel] K3 fan_capsules [{self.scene}]: {pairs} (ray, live "
+            f"capsule) pairs, {cyl} cylinder and {sph} cap-sphere roots "
+            f"({(cyl + sph) / (3 * pairs):.4f} of the predecessor's 3 a "
+            f"pair)")
         self.record(
             "K3 fan_capsules", "madrona_mp_env_tpu_torch/csrc/fan_capsules.cu",
             "madrona_mp_env_tpu/ops/raycast_cull.py:120",
-            raycast_cull.fan_capsules, err, cuda_time_ms(cap_kernel, 50),
-            cuda_time_ms(cap_plain, 2),
-            W * A * 13 + W * A * F * 16 + W * A * F * 8,
-            int((live * F).sum()) * OPS_CAPSULE, [[W, A, F]])
+            raycast_cull.fan_capsules, err, ms, pms,
+            W * A * 16 + W * A * G * 4 + W * A * F * 12 + F * 4
+            + W * A * F * 8, nops, [[W, A, F, G]],
+            before_ms=round(before_ms, 4),
+            device_ms=round(device_ms(kernel, "fan_capsules_kernel", 20), 4),
+            before_device_ms=round(
+                device_ms(before, "fan_capsules_v1_kernel", 20), 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill, helper_launches=0,
+            root_share=round((cyl + sph) / (3 * pairs), 4))
 
     def k4_dense(self, calls):
         """The L2 pair, the L3 snap and the fall cast over the whole soup
@@ -1034,27 +1098,89 @@ class KernelPhase:
             **a)
 
     def k5(self, calls):
-        from madrona_mp_env_tpu_torch.ops import tail_fused
+        """K5 on the step's tail: every output bit-equal (int32 views) to
+        the plain version and to its predecessor (tail_fused_v1, on the
+        same host path), the two timed in turns with their device times
+        and host us per call."""
+        from madrona_mp_env_tpu_torch.ops import cuda_build, tail_fused
+        from madrona_mp_env_tpu_torch.tools.tail_host_time import host_us
 
         (cfg5, m5, st5, fr5), = calls["tail_fused"]
 
-        def tail_kernel():
+        def kernel():
             return tail_fused.tail_fused(cfg5, m5, st5, fr5)
 
-        def tail_plain():
+        def plain():
             return tail_fused.tail_fused_plain(cfg5, m5, st5, fr5)
 
-        err = check_tail(tail_kernel(), tail_plain())
+        def before():
+            return tail_fused.tail_fused_v1(cfg5, m5, st5, fr5)
+
+        out, (want, pms) = kernel(), timed_once(plain)
+        err = check_tail("K5 tail_fused", out, want)
+        check_tail("K5 against its predecessor", out, before())
+        ms, before_ms = turns_ms(kernel, before, 200)
         ins, outs = tail_fused.kernel_operands(cfg5, m5, st5, fr5)
         W5, A5 = st5.hp.shape
         ts5 = cfg5.team_size
+        lanes = 16 if A5 <= 16 else 32
+        regs, spill = cuda_build.ptxas_usage(
+            "tail_fused", f"tail_fused_kernelILi{lanes}E")
+        host, before_host = (host_us(f, 200) for f in (kernel, before))
+        log(f"[kernel] K5 tail_fused [{self.scene}]: host {host:.1f} us "
+            f"per call (predecessor on the same host path "
+            f"{before_host:.1f}), device idle before each call")
+        nops = W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2))
         self.record(
             "K5 tail_fused", "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
             "madrona_mp_env_tpu/ops/tail_pallas.py:143", tail_fused.tail_fused,
-            err, cuda_time_ms(tail_kernel, 200), cuda_time_ms(tail_plain, 20),
-            sum(x.nbytes for x in (*ins.values(), *outs.values())),
-            W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2)),
-            [[W5, A5]])
+            err, ms, pms,
+            sum(x.nbytes for x in (*ins.values(), *outs.values())), nops,
+            [[W5, A5]], before_ms=round(before_ms, 4),
+            device_ms=round(device_ms(kernel, "tail_fused_kernel", 20), 4),
+            before_device_ms=round(
+                device_ms(before, "tail_fused_v1_kernel", 20), 4),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            registers=regs, spill_bytes=spill, helper_launches=0,
+            host_us=round(host, 1), before_host_us=round(before_host, 1))
+
+
+def cap_roots(pos, zg, dirs, zgroups, alive):
+    """(pairs, cylinder roots, cap-sphere roots) of K3's sweep: the (ray,
+    capsule) pairs of each ray with its world's live capsules but its
+    caster's, and how many of their cylinders (a != 0, disc >= 0) and cap
+    spheres (dsc >= 0) reach a square root, in the plain version's
+    arithmetic."""
+    import torch
+    from madrona_mp_env_tpu_torch import consts
+    from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
+    from madrona_mp_env_tpu_torch.ops.geom import dot
+
+    W, A, _ = zg.shape
+    r, sh = consts.agent_radius, raycast_cull.CAPSULE_SEG_H
+    dev = zg.device
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    zoff = zg[..., raycast._group_of_ray(tuple(zgroups), dev).long()]
+    o = (pos[:, :, None, :] + zoff[..., None] * up)[:, :, :, None, :]
+    d = torch.stack(dirs, -1)[:, :, :, None, :]
+    m = o - (pos + up * r)[:, None, None]  # [W, A, F, A, 3]
+    seg = up * sh
+    inv_l2 = 1.0 / torch.tensor(sh * sh, device=dev)
+    dd, ds, md, ms, mm = (dot(d, d), dot(d, seg), dot(m, d), dot(m, seg),
+                          dot(m, m))
+    a = dd - ds * ds * inv_l2
+    b = md - ms * ds * inv_l2
+    c = mm - ms * ms * inv_l2 - r * r
+    cyl = (torch.abs(a) > 1e-12) & (b * b - a * c >= 0.0)
+    s0 = md * md - dd * (mm - r * r) >= 0.0
+    m1 = m - seg
+    b1 = dot(m1, d)
+    s1 = b1 * b1 - dd * (dot(m1, m1) - r * r) >= 0.0
+    me = torch.arange(A, device=dev)
+    live = ((alive > 0.0)[:, None, :] & (me[:, None] != me[None, :])
+            )[:, :, None, :].expand(cyl.shape)
+    return (int(live.sum()), int((cyl & live).sum()),
+            int((s0 & live).sum() + (s1 & live).sum()))
 
 
 SIMPLE_ENTRIES = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
@@ -1101,6 +1227,37 @@ def tail_chain_check(env, state, actions):
     log(f"[tail chain] {st.hp.shape[0]} worlds: the unfused chain equals "
         f"tail_fused_plain bit for bit on the card "
         f"({len(su.leaves())} leaves)")
+
+
+def sensor_syncs(env, state, label):
+    """observations.build_sensor_rays on ``env``'s default fan route, once
+    to warm up and once under torch.cuda.set_sync_debug_mode("warn"):
+    every host sync it makes, logged with the line that made it. A sync
+    from repeat_interleave (the per-ray z offsets the default routes no
+    longer build) fails the run."""
+    import linecache
+    import warnings
+
+    import torch
+    from madrona_mp_env_tpu_torch.sim import observations
+
+    cfg, m = env.cfg, env.map_data
+    observations.build_sensor_rays(cfg, m, state)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            observations.build_sensor_rays(cfg, m, state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}",
+              linecache.getline(w.filename, w.lineno).strip())
+             for w in seen if "synchroniz" in str(w.message)]
+    log(f"[syncs] build_sensor_rays on {label}: {len(syncs)} host syncs"
+        + "".join(f"; {where} `{line}`" for where, line in syncs))
+    if any("repeat_interleave" in line for _, line in syncs):
+        raise AssertionError(f"{label}: repeat_interleave syncs the host")
 
 
 def simple_kernels(env, state, actions):
@@ -1175,7 +1332,10 @@ def team3_kernels(env, state, actions, scene):
     log(f"[kernel] K8 sphere_cast_vs_tris [{ph.scene}] on the step's L1 "
         f"casts {list(o7.shape[:-1])}: bit-equal, kernel "
         f"{cuda_time_ms(k8, 20):.4f} ms plain {pms:.4f} ms")
-    (pos, zf, df, alive), = calls["fan_capsules"]
+    (pos, zg, df, zgroups, alive_f), = calls["fan_capsules"]
+    zf = torch.repeat_interleave(
+        zg, torch.tensor(zgroups, device=zg.device), dim=-1)
+    alive = alive_f > 0.0
     W, A, F = zf.shape
     zero = torch.zeros_like(zf)
     o = pos[:, :, None, :] + torch.stack([zero, zero, zf], dim=-1)
@@ -1190,9 +1350,9 @@ def team3_kernels(env, state, actions, scene):
         lambda: raycast_cull._fan_capsules_explicit_plain(o, d, self_idx,
                                                           pos, alive))
     check_equal("K3x on the step's sensor rays", (tx, tp), (ix, ip))
-    t3, i3 = raycast_cull.fan_capsules(pos, zf, df, alive)
+    t3, i3 = raycast_cull.fan_capsules(pos, zg, df, zgroups, alive_f)
     check_equal("K3x against K3 on the step's sensor rays", (tx, t3),
-                (ix, i3))
+                (ix, i3), bits=True)
     log(f"[kernel] K3x fan_capsules_explicit [{ph.scene}] on the step's "
         f"sensor rays {[W, A, F]}: bit-equal to its plain version and to "
         f"K3, kernel {cuda_time_ms(k3x, 50):.4f} ms plain {pms:.4f} ms")
@@ -1875,10 +2035,11 @@ def all_entries():
         raycast.ray_fans_culled, raycast.fan_cell_order,
         raycast.ray_fans_culled_v1, raycast.ray_fans_culled_v9,
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
+        raycast_cull.fan_capsules_v1,
         raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
         raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
         raycast.sphere_cast_packed, raycast.sphere_cast_culled_v1,
-        tail_fused.tail_fused,
+        tail_fused.tail_fused, tail_fused.tail_fused_v1,
         movement_fused_probe.apply_velocity_fall_fused,
         v9_kernel_probe.ray_fans_v9_gathered,
         v9_scan_timing.ray_fans_v9_chunked,
@@ -1896,13 +2057,15 @@ def expect_launches(rows, name, n):
     log(f"[launches] {row['name']}: {n} on {row['path']}")
 
 
-def drive_path(label, env, acts, steps, rows, not_launched, card):
+def drive_path(label, env, acts, steps, rows, not_launched, card,
+               expect=None):
     """Reset + ``steps`` steps of ``env`` with every launch counter zeroed
     just before and read just after. Each row of ``rows`` (this path's
     kernels) gets its entry's count as ``launches`` and must be > 0; the
     entries named in ``not_launched`` must stay at 0 (a gate that fell
-    back fails the run), and so must the predecessors (PREDECESSORS).
-    Returns (state, out, env-steps/s)."""
+    back fails the run), and so must the predecessors (PREDECESSORS);
+    each entry of ``expect`` ({name: count}) must launch exactly that
+    often. Returns (state, out, env-steps/s)."""
     import torch
 
     entries = all_entries()
@@ -1930,6 +2093,11 @@ def drive_path(label, env, acts, steps, rows, not_launched, card):
     if wrong:
         raise AssertionError(f"{label}: launched {wrong}, which this path "
                              f"must not: {counts}")
+    for name, n in (expect or {}).items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times, expected {n}")
+        log(f"[launches] {name}: {n} on {label}")
     sps = env.num_worlds * steps / (t1 - t_reset)
     log(f"[{label}] {env.num_worlds} worlds x {steps} steps: reset "
         f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
@@ -2154,13 +2322,20 @@ def main() -> int:
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
     # the register-blocked kernels K2, K6, K7 and K1 (csrc/fan_sweep_rb.cuh),
-    # and K4 dense and K8 (the K4 culled and K4' rows carry their own)
+    # K4 dense and K8 (the K4 culled and K4' rows carry their own), K3, K3x
+    # and K5 with their predecessors
     for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
                       ("fan_culled", "fan_culled_rb_kernel"),
                       ("fan_flat", "fan_flat_rb_kernelILi4E"),
                       ("ray_tris", "ray_tris_rb_kernelILi2E"),
                       ("sphere_cast", "sphere_cast_dense_kernelILb0E"),
-                      ("sphere_cast", "sphere_cast_dense_kernelILb1E")):
+                      ("sphere_cast", "sphere_cast_dense_kernelILb1E"),
+                      ("fan_capsules", "fan_capsules_kernel"),
+                      ("fan_capsules", "fan_capsules_v1_kernel"),
+                      ("fan_capsules", "fan_capsules_explicit_kernel"),
+                      ("tail_fused", "tail_fused_kernelILi16E"),
+                      ("tail_fused", "tail_fused_kernelILi32E"),
+                      ("tail_fused", "tail_fused_v1_kernel")):
         regs, spill = cuda_build.ptxas_usage(src, kern)
         log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
 
@@ -2173,10 +2348,12 @@ def main() -> int:
     # 3. kernels vs plain versions on one real step's launches, each map
     env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5, device="cuda")
     state, _ = env.reset()
+    sensor_syncs(env, state, "simple_map")
     simple = simple_kernels(env, state, actions_at(env, acts, 0))
     town_env = mt.Env(cfg, TOWN, num_worlds=NUM_WORLDS, seed=5,
                       device="cuda")
     state, _ = town_env.reset()
+    sensor_syncs(town_env, state, "town_map")
     town = town_kernels(town_env, state, actions_at(town_env, acts, 0))
     del state
     # Zone 3v3 on each map: K7 (and K5 at team size 3) on a real step
@@ -2216,6 +2393,8 @@ def main() -> int:
     expect_launches(main_simple, "K1 ray_vs_tris", NUM_STEPS)
     expect_launches(main_simple, "K4 sphere_cast_culled", NUM_STEPS)
     expect_launches(main_simple, "K4' sphere_cast_packed", 3 * NUM_STEPS)
+    expect_launches(main_simple, "K3 fan_capsules", NUM_STEPS + 1)
+    expect_launches(main_simple, "K5 tail_fused", NUM_STEPS)
     # the same steps with the fused tail and with the unfused chain, in
     # turns (fused, unfused, unfused, fused) from one state
     a0 = actions_at(env, acts, 0)
@@ -2242,7 +2421,9 @@ def main() -> int:
                    rows("simple_map", "K9 ray_fans_culled_v9"),
                    ("ray_fans_vs_tris", "ray_fans_culled", "fan_cell_order",
                     "sphere_cast",
-                    "ray_fans_vs_tris_flat"), card)
+                    "ray_fans_vs_tris_flat"), card,
+                   expect={"fan_capsules": NUM_STEPS + 1,
+                           "tail_fused": NUM_STEPS})
 
     # 5. the crossplay eval on the card (simple_map's kernels)
     eval_phase(mt, main_simple, card)
@@ -2267,6 +2448,8 @@ def main() -> int:
     expect_launches(town_rows, "K6 cell order", NUM_STEPS + 1)
     expect_launches(town_rows, "K4 sphere_cast_culled", NUM_STEPS)
     expect_launches(town_rows, "K4' sphere_cast_packed", 3 * NUM_STEPS)
+    expect_launches(town_rows, "K3 fan_capsules", NUM_STEPS + 1)
+    expect_launches(town_rows, "K5 tail_fused", NUM_STEPS)
     with mock.patch.dict(os.environ, MPENV_FAN_CULL="0"):
         dense_rows = rows("town_map", "K2 ray_fans_vs_tris")
         drive_path("dense fans town_map", town_env, acts, FORCED_STEPS,
@@ -2278,7 +2461,9 @@ def main() -> int:
     for name, (env3, rows3) in team3.items():
         drive_path(f"Zone 3v3 {name}", env3, acts3, TEAM3_STEPS, rows3,
                    ("ray_fans_vs_tris", "ray_fans_culled", "fan_cell_order",
-                    "ray_fans_culled_v9", "sphere_cast"), card)
+                    "ray_fans_culled_v9", "sphere_cast"), card,
+                   expect={"fan_capsules": TEAM3_STEPS + 1,
+                           "tail_fused": TEAM3_STEPS})
         expect_launches(rows3, "K7 ray_fans_vs_tris_flat", TEAM3_STEPS + 1)
         expect_launches(rows3, "K1 ray_vs_tris", TEAM3_STEPS)
     del team3, env3

@@ -46,7 +46,9 @@ LAUNCHES = {
     "fan_flat": ("fan_flat", [_P] * 4 + [_I] * 6 + [_P] * 2),
     "fan_flat_v1": ("fan_flat", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "fan_capsules": ("fan_capsules",
-                     [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3),
+                     [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P] * 3),
+    "fan_capsules_v1": ("fan_capsules",
+                        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3),
     "fan_capsules_explicit": ("fan_capsules",
                               [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 3),
     "sphere_cast": ("sphere_cast", [_P] * 3 + [_F, _I, _I] + [_P] * 3),
@@ -58,6 +60,7 @@ LAUNCHES = {
                            + [_P] * 3),
     # a pointer to the argument struct (ops/tail_fused.py _TailArgs)
     "tail_fused": ("tail_fused", [_P, _P]),
+    "tail_fused_v1": ("tail_fused", [_P, _P]),
     # a pointer to the argument struct (tools/probes/movement_fused_probe.py
     # _MoveArgs)
     "move_fused": ("move_fused", [_P, _P]),

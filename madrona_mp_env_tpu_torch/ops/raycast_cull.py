@@ -4,8 +4,9 @@
     z-aligned agent capsules (checkCapsuleEntity, reference
     src/utils.cpp:34-54). ``fan_capsules`` is the sensor sweep: every
     sensor ray of every agent against its world's capsules, caster
-    excluded; ``fan_capsules_explicit`` takes each ray's origin and the
-    capsule it excludes; CUDA kernel csrc/fan_capsules.cu (two entries).
+    excluded, from per-group z offsets; ``fan_capsules_explicit`` takes
+    each ray's origin and the capsule it excludes; CUDA kernels
+    csrc/fan_capsules.cu (and ``fan_capsules_v1``, K3's predecessor).
   * pack_sc2_consts — the [40, T] per-triangle table of the JAX package's
     sphere-cast kernels (the JAX short tables carry it per candidate). The
     port's kernels read the soup's [T, 16] ``tri_rows`` instead; the table
@@ -19,7 +20,8 @@ import torch
 
 from .. import consts
 from . import cuda_build
-from .raycast import INF, _f32, _ptr, _route, _stream, _where_inf
+from .raycast import (INF, _f32, _group_of_ray, _ptr, _ray_zoffs, _route,
+                      _stream, _where_inf)
 from .raycast import _ray_vs_segment_capsule
 
 SC2_ROWS = 40
@@ -97,7 +99,7 @@ def ray_vs_capsules(o, d, base_pos, mask):
     return _where_inf(mask, t)
 
 
-def _fan_capsules_plain(pos, zoff, dirs, alive):
+def _fan_capsules_ray_plain(pos, zoff, dirs, alive):
     """pos [W, A, 3]; zoff, dx, dy, dz [W, A, F]; alive [W, A] bool ->
     (t [W, A, F], capsule index [W, A, F] i32, -1 on miss): the explicit
     sweep from pos + (0, 0, zoff), each ray skipping its caster."""
@@ -109,14 +111,58 @@ def _fan_capsules_plain(pos, zoff, dirs, alive):
                                         pos, alive)
 
 
-def fan_capsules(pos, zoff, dirs, alive):
+def _fan_capsules_plain(pos, zg, dirs, zgroups, alive):
+    """fan_capsules' plain version: each ray's z offset taken from its
+    group's (zg [W, A, G] over the runs ``zgroups``), the live agents those
+    with alive [W, A] > 0, then _fan_capsules_ray_plain."""
+    W, A, G = zg.shape
+    zoff = _ray_zoffs(zg.reshape(W * A, G), zgroups).reshape(W, A, -1)
+    return _fan_capsules_ray_plain(pos, zoff, dirs, alive > 0.0)
+
+
+def fan_capsules(pos, zg, dirs, zgroups, alive):
     """Every sensor ray vs its world's agent capsules, caster excluded.
-    pos [W, A, 3]; zoff [W, A, F] per-ray origin z above pos; dirs =
-    (dx, dy, dz) each [W, A, F]; alive [W, A] bool. Returns (t, idx) with
-    idx the lowest capsule index among equal t, -1 on a miss. CUDA: one
-    thread per ray (csrc/fan_capsules.cu)."""
+    pos [W, A, 3]; zg [W, A, G] the origin's z offset above pos of each
+    z-group, whose run lengths are ``zgroups`` (F = sum(zgroups) rays a
+    fan); dirs = (dx, dy, dz) each [W, A, F]; alive [W, A] float, > 0 for
+    a live agent. Returns (t, idx) [W, A, F] with idx the lowest capsule
+    index among equal t, -1 on a miss. CUDA: csrc/fan_capsules.cu
+    fan_capsules_kernel, a block per fan with the (z-group, capsule)
+    terms in shared memory; A <= 32."""
     if not _route(pos):
-        return _fan_capsules_plain(pos, zoff, dirs, alive)
+        return _fan_capsules_plain(pos, zg, dirs, zgroups, alive)
+    W, A, G = zg.shape
+    F = int(sum(zgroups))
+    if len(zgroups) != G or dirs[0].shape != (W, A, F) or A > 32 or \
+            pos.shape != (W, A, 3) or alive.shape != (W, A):
+        raise ValueError("capsule fan shapes disagree (or A > 32)")
+    dev = pos.device
+    # held in locals until the launch (see ops/raycast.py)
+    p, z, al = _f32(pos), _f32(zg), _f32(alive)
+    dx, dy, dz = (_f32(c) for c in dirs)
+    group_of_ray = _group_of_ray(tuple(zgroups), dev)
+    t = torch.empty((W, A, F), device=dev, dtype=torch.float32)
+    idx = torch.empty((W, A, F), device=dev, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("fan_capsules")(
+        _ptr(p), _ptr(z), _ptr(dx), _ptr(dy), _ptr(dz), _ptr(group_of_ray),
+        _ptr(al), W, A, F, G, float(consts.agent_radius),
+        float(CAPSULE_SEG_H), _ptr(t), _ptr(idx), _stream(pos),
+    ), "fan_capsules")
+    fan_capsules.launches += 1
+    return t, idx
+
+
+fan_capsules.launches = 0
+
+
+def fan_capsules_v1(pos, zoff, dirs, alive):
+    """K3's earlier kernel (csrc/fan_capsules.cu fan_capsules_v1_kernel:
+    a thread per ray, the whole ray_capsule per capsule) on CUDA tensors
+    only, with its own arguments: zoff [W, A, F] per ray, alive [W, A]
+    bool. The predecessor that chip_smoke.py times beside fan_capsules;
+    plain version _fan_capsules_ray_plain."""
+    if not _route(pos):
+        raise ValueError("fan_capsules_v1 takes CUDA tensors")
     W, A, F = zoff.shape
     dev = pos.device
     p = _f32(pos)
@@ -125,16 +171,16 @@ def fan_capsules(pos, zoff, dirs, alive):
     al = alive.to(torch.uint8).contiguous()
     t = torch.empty((W, A, F), device=dev, dtype=torch.float32)
     idx = torch.empty((W, A, F), device=dev, dtype=torch.int32)
-    cuda_build.check(cuda_build.launcher("fan_capsules")(
+    cuda_build.check(cuda_build.launcher("fan_capsules_v1")(
         _ptr(p), _ptr(z), _ptr(dx), _ptr(dy), _ptr(dz), _ptr(al), W, A, F,
         float(consts.agent_radius), float(CAPSULE_SEG_H), _ptr(t), _ptr(idx),
         _stream(pos),
-    ), "fan_capsules")
-    fan_capsules.launches += 1
+    ), "fan_capsules_v1")
+    fan_capsules_v1.launches += 1
     return t, idx
 
 
-fan_capsules.launches = 0
+fan_capsules_v1.launches = 0
 
 
 def _fan_capsules_explicit_plain(o, dirs, self_idx, cap_pos, alive):

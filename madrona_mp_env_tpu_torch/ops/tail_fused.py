@@ -15,14 +15,20 @@ Two implementations side by side, as for the ray kernels:
     unfused systems (combat.autoheal_system, zones.zone_system,
     zones.zone_match_info_system, rewards.reward_system) bit for bit on
     the CPU (tests/test_torch_tail.py).
-  * ``csrc/tail_fused.cu``: one thread per world reading the WorldState
-    tensors where they lie (a struct of device pointers) and writing fresh
-    output tensors, the same operations in the same order, built with
-    --fmad=false, so kernel and plain version agree bit for bit.
+  * ``csrc/tail_fused.cu``: a group of lanes per world, one lane per
+    agent, reading the WorldState tensors where they lie (a struct of
+    device pointers) and writing fresh output tensors, the same operations
+    in the same order, built with --fmad=false, so kernel and plain
+    version agree bit for bit. Its predecessor (one thread per world)
+    stays as ``tail_fused_v1``, launched by no path.
 
 ``tail_fused`` dispatches on the device of the state: CPU tensors take the
 plain version, CUDA tensors the kernel (a failed build or launch raises).
-It counts its kernel launches in ``tail_fused.launches``.
+It counts its kernel launches in ``tail_fused.launches``. The host side
+checks the inputs' dtypes and shapes once per (cfg, map, dtypes, shapes)
+(``_Plan``), allocates the 27 outputs in 8 tensors, reads
+``force_reset`` in its own dtype and fills the argument struct's pointers
+in one slice assignment.
 
 Replaces the TPU kernel madrona_mp_env_tpu/ops/tail_pallas.py
 (``_make_kernel``, called through ``_get_tail_call`` / ``tail_fused_system``).
@@ -32,7 +38,9 @@ curriculum override (SimFlags.EnableCurriculum) is not ported and raises.
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import operator
 from typing import Dict, Tuple
 
 import torch
@@ -254,7 +262,7 @@ _OUTPUTS = (
 # scalar fields after the pointers: ints, then floats
 _INT_FIELDS = ("W", "A", "team_size", "num_zones", "max_zones",
                "episode_len", "steps_per_zone", "point_interval",
-               "win_points")
+               "win_points", "force_reset_bytes")
 _FLOAT_FIELDS = ("autoheal_amount", "lift")
 
 
@@ -270,79 +278,164 @@ class _TailArgs(ctypes.Structure):
     )
 
 
+_IN_NAMES = tuple(n for n, *_ in _INPUTS)
+_OUT_NAMES = tuple(n for n, *_ in _OUTPUTS) + ("new_captured",)
+_OUT_SPECS = _OUTPUTS + (("new_captured", _B, "world", ()),)
+_state_inputs = operator.attrgetter(*_IN_NAMES)
+_dtype, _shape = operator.attrgetter("dtype"), operator.attrgetter("shape")
+# force_reset's dtypes and their element sizes (TailArgs.force_reset_bytes)
+_FORCE_RESET_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1,
+                      torch.int16: 2, torch.int32: 4, torch.int64: 8}
+
+
+class _Plan:
+    """What the kernel needs of one (cfg, map, input dtypes and shapes),
+    checked once: the argument struct with its scalar fields set and a view
+    of its pointer fields, and the outputs grouped by shape and dtype. Raises ValueError on a dtype or
+    shape the kernel does not take."""
+
+    def __init__(self, cfg: EnvConfig, m: MapData, xs, fr: torch.Tensor):
+        _check_scope(cfg)
+        W, A = xs[_IN_NAMES.index("hp")].shape
+        if A != cfg.num_agents or A > MAX_AGENTS:
+            raise ValueError(f"{A} agents per world: the kernel takes "
+                             f"cfg.num_agents <= {MAX_AGENTS}")
+
+        def lead(kind):
+            return (W, A) if kind == "agent" else (W,)
+
+        for (name, dtype, kind, tail), x in zip(_INPUTS, xs):
+            if x.dtype != dtype or tuple(x.shape) != lead(kind) + tail:
+                raise ValueError(f"tail input {name}: {x.dtype} "
+                                 f"{tuple(x.shape)}, want {dtype} "
+                                 f"{lead(kind) + tail}")
+        if fr.dtype not in _FORCE_RESET_BYTES or tuple(fr.shape) != (W,):
+            raise ValueError(f"force_reset {fr.dtype} {tuple(fr.shape)}: "
+                             f"want ({W},) bool or integer")
+        if tuple(m.zone_frames.shape) != (consts.max_zones, ZONE_FRAME_COLS):
+            raise ValueError("zone_frames has the wrong shape")
+        for name in ("zone_frames", "world_min", "world_max"):
+            x = getattr(m, name)
+            if x.dtype != _F or not x.is_contiguous():
+                raise ValueError(f"map {name} must be contiguous float32")
+        self.cfg, self.m, self.device = cfg, m, xs[0].device
+        # outputs of one shape and dtype share one allocation, [n, *shape],
+        # unbound into n views: 8 allocations for the 27 outputs
+        groups: Dict[tuple, list] = {}
+        for slot, (_, dtype, kind, tail) in enumerate(_OUT_SPECS):
+            groups.setdefault((lead(kind) + tail, dtype), []).append(slot)
+        self.groups = tuple((shape, dtype, tuple(slots))
+                            for (shape, dtype), slots in groups.items())
+        self.args = _TailArgs(
+            W=W, A=A, team_size=cfg.team_size, num_zones=m.num_zones,
+            max_zones=consts.max_zones, episode_len=cfg.episode_len,
+            steps_per_zone=consts.num_steps_per_zone,
+            point_interval=consts.zone_point_interval,
+            win_points=consts.zone_win_points,
+            force_reset_bytes=_FORCE_RESET_BYTES[fr.dtype],
+            autoheal_amount=consts.autoheal_amount_per_step,
+            lift=consts.stand_height / 2.0,
+        )
+        self.ptrs = (ctypes.c_void_p * _N_POINTERS).from_buffer(self.args)
+        self.args_ref = ctypes.byref(self.args)
+
+    def outputs(self):
+        """Fresh outputs in _OUT_SPECS order."""
+        outs = [None] * len(_OUT_SPECS)
+        for shape, dtype, slots in self.groups:
+            if len(slots) == 1:
+                outs[slots[0]] = torch.empty(shape, dtype=dtype,
+                                             device=self.device)
+                continue
+            views = torch.empty((len(slots),) + shape, dtype=dtype,
+                                device=self.device).unbind(0)
+            for slot, v in zip(slots, views):
+                outs[slot] = v
+        return outs
+
+
+_N_POINTERS = len(_INPUTS) + 4 + len(_OUT_SPECS)
+_PLANS: Dict[tuple, _Plan] = {}
+
+
+def _operands(cfg: EnvConfig, m: MapData, state: WorldState,
+              force_reset: torch.Tensor):
+    """(plan, inputs, outputs): the plan of these dtypes and shapes (made
+    and checked on their first call), the kernel's inputs in struct order
+    (made contiguous: a no-op for the step's tensors) and fresh outputs."""
+    xs = _state_inputs(state)
+    # the plan keeps cfg and m alive, so their ids stay theirs
+    key = (id(cfg), id(m), tuple(map(_dtype, xs)), tuple(map(_shape, xs)),
+           force_reset.dtype, force_reset.shape, xs[0].device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= 64:
+            _PLANS.clear()
+        plan = _PLANS[key] = _Plan(cfg, m, xs, force_reset)
+    if not all(map(torch.Tensor.is_contiguous, xs)):
+        xs = tuple(x.contiguous() for x in xs)
+    ins = xs + (force_reset.contiguous(), m.zone_frames, m.world_min,
+                m.world_max)
+    return plan, ins, plan.outputs()
+
+
 def kernel_operands(cfg: EnvConfig, m: MapData, state: WorldState,
                     force_reset: torch.Tensor
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Validate the kernel's inputs and allocate its outputs, on any
-    device: (inputs by struct field, outputs by WorldState leaf plus
-    ``new_captured``). Raises on a dtype or shape the kernel does not
-    take; inputs are made contiguous (a no-op for the step's tensors)."""
-    _check_scope(cfg)
-    W, A = state.hp.shape
-    if A != cfg.num_agents or A > MAX_AGENTS:
-        raise ValueError(f"{A} agents per world: the kernel takes "
-                         f"cfg.num_agents <= {MAX_AGENTS}")
-    dev = state.hp.device
-
-    def lead(kind):
-        return (W, A) if kind == "agent" else (W,)
-
-    ins = {}
-    for name, dtype, kind, tail in _INPUTS:
-        x = getattr(state, name)
-        if x.dtype != dtype or tuple(x.shape) != lead(kind) + tail:
-            raise ValueError(f"tail input {name}: {x.dtype} {tuple(x.shape)},"
-                             f" want {dtype} {lead(kind) + tail}")
-        ins[f"in_{name}"] = x.contiguous()
-    fr = force_reset.to(torch.int32).contiguous()
-    if tuple(fr.shape) != (W,):
-        raise ValueError(f"force_reset shape {tuple(fr.shape)}, want ({W},)")
-    if tuple(m.zone_frames.shape) != (consts.max_zones, ZONE_FRAME_COLS):
-        raise ValueError("zone_frames has the wrong shape")
-    ins.update(force_reset=fr, zone_frames=m.zone_frames,
-               world_min=m.world_min, world_max=m.world_max)
-    for name in ("zone_frames", "world_min", "world_max"):
-        if ins[name].dtype != _F or not ins[name].is_contiguous():
-            raise ValueError(f"map {name} must be contiguous float32")
-    outs = {name: torch.empty(lead(kind) + tail, dtype=dtype, device=dev)
-            for name, dtype, kind, tail in _OUTPUTS}
-    outs["new_captured"] = torch.empty((W,), dtype=_B, device=dev)
-    return ins, outs
+    """The kernel's inputs and fresh outputs, on any device, by struct
+    field: (inputs, outputs by WorldState leaf plus ``new_captured``).
+    Raises ValueError on a dtype or shape the kernel does not take."""
+    _, ins, outs = _operands(cfg, m, state, force_reset)
+    names = [f"in_{n}" for n in _IN_NAMES] + [
+        "force_reset", "zone_frames", "world_min", "world_max"]
+    return dict(zip(names, ins)), dict(zip(_OUT_NAMES, outs))
 
 
-def _launch(cfg: EnvConfig, m: MapData, ins, outs) -> None:
-    W, A = ins["in_hp"].shape
-    args = _TailArgs(
-        **{k: v.data_ptr() for k, v in ins.items()},
-        **{("new_captured" if k == "new_captured" else f"out_{k}"):
-           v.data_ptr() for k, v in outs.items()},
-        W=W, A=A, team_size=cfg.team_size, num_zones=m.num_zones,
-        max_zones=consts.max_zones, episode_len=cfg.episode_len,
-        steps_per_zone=consts.num_steps_per_zone,
-        point_interval=consts.zone_point_interval,
-        win_points=consts.zone_win_points,
-        autoheal_amount=consts.autoheal_amount_per_step,
-        lift=consts.stand_height / 2.0,
-    )
-    stream = torch.cuda.current_stream(ins["in_hp"].device).cuda_stream
-    cuda_build.check(cuda_build.launcher("tail_fused")(
-        ctypes.byref(args), ctypes.c_void_p(stream)), "tail_fused")
+def _run(entry: str, cfg: EnvConfig, m: MapData, state: WorldState,
+         force_reset: torch.Tensor) -> Tuple[WorldState, torch.Tensor]:
+    """One launch of ``entry`` (tail_fused or tail_fused_v1) on CUDA
+    tensors: (state with the outputs, new_captured)."""
+    plan, ins, outs = _operands(cfg, m, state, force_reset)
+    plan.ptrs[:] = list(map(torch.Tensor.data_ptr, ins + tuple(outs)))
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    cuda_build.check(cuda_build.launcher(entry)(plan.args_ref, stream),
+                     entry)
+    # dataclasses.replace re-runs __init__ over every leaf; a shallow copy
+    # with the outputs set is the same state at a tenth of the host time
+    out = copy.copy(state)
+    out.__dict__.update(zip(_OUT_NAMES[:-1], outs))
+    return out, outs[-1]
 
 
 def tail_fused(cfg: EnvConfig, m: MapData, state: WorldState,
                force_reset: torch.Tensor) -> Tuple[WorldState, torch.Tensor]:
     """The fused tail of one step over all worlds. CPU: the plain version;
-    CUDA: one launch of csrc/tail_fused.cu (one thread per world)."""
+    CUDA: one launch of csrc/tail_fused.cu tail_fused_kernel (a group of
+    lanes per world)."""
     dev = state.hp.device
     if dev.type == "cpu":
         return tail_fused_plain(cfg, m, state, force_reset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    ins, outs = kernel_operands(cfg, m, state, force_reset)
-    _launch(cfg, m, ins, outs)
+    out = _run("tail_fused", cfg, m, state, force_reset)
     tail_fused.launches += 1
-    new_captured = outs.pop("new_captured")
-    return state.replace(**outs), new_captured
+    return out
 
 
 tail_fused.launches = 0
+
+
+def tail_fused_v1(cfg: EnvConfig, m: MapData, state: WorldState,
+                  force_reset: torch.Tensor
+                  ) -> Tuple[WorldState, torch.Tensor]:
+    """K5's earlier kernel (csrc/tail_fused.cu tail_fused_v1_kernel: one
+    thread per world), on CUDA tensors only: the predecessor that
+    chip_smoke.py times beside tail_fused, on the same host path."""
+    if state.hp.device.type != "cuda":
+        raise ValueError("tail_fused_v1 takes CUDA tensors")
+    out = _run("tail_fused_v1", cfg, m, state, force_reset)
+    tail_fused_v1.launches += 1
+    return out
+
+
+tail_fused_v1.launches = 0

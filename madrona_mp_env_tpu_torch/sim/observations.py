@@ -29,8 +29,9 @@ from ..config import EnvConfig
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..ops.culling import cell_index, ray_cell_index
-from ..ops.raycast import (fan_route, ray_fans_culled, ray_fans_culled_v9,
-                           ray_fans_vs_tris, ray_fans_vs_tris_flat)
+from ..ops.raycast import (_ray_zoffs, fan_route, ray_fans_culled,
+                           ray_fans_culled_v9, ray_fans_vs_tris,
+                           ray_fans_vs_tris_flat)
 from ..ops.raycast_cull import fan_capsules
 from .combat import eye_offset, view_height
 from .types import WorldState
@@ -156,28 +157,26 @@ def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState):
     n_tgt = los["opp_idx"].shape[1]
     n_los = n_tgt * 4
     Fn = dirs[0].shape[-1]
-    zoff = torch.repeat_interleave(
-        zg, torch.as_tensor(zgroups, device=zg.device), dim=-1
-    )
     pos = state.pos.reshape(W * A, 3)
+    zgf = zg.reshape(W * A, -1)
     flat_dirs = tuple(c.reshape(W * A, Fn) for c in dirs)
     # the fans start at state.pos, so its cell is the cell of record
     route = fan_route(zgroups, m)
     if route == "v9":
-        t = ray_fans_culled_v9(pos, zoff.reshape(W * A, Fn), flat_dirs,
+        # per-ray offsets, spread by a cached index: no host sync
+        t = ray_fans_culled_v9(pos, _ray_zoffs(zgf, zgroups), flat_dirs,
                                ray_cell_index(m.ray_cells, pos),
                                m.ray_cells, m.tris)
     elif route == "culled":
-        t = ray_fans_culled(pos, zg.reshape(W * A, -1), flat_dirs, zgroups,
+        t = ray_fans_culled(pos, zgf, flat_dirs, zgroups,
                             cell_index(m.cells, pos), m.cells, m.tris)
     elif route == "dense":
-        t = ray_fans_vs_tris(pos, zg.reshape(W * A, -1), flat_dirs, zgroups,
-                             m.tris)
+        t = ray_fans_vs_tris(pos, zgf, flat_dirs, zgroups, m.tris)
     else:  # the JAX fallback: stacked directions, per-ray offsets
-        t = ray_fans_vs_tris_flat(pos, zoff.reshape(W * A, Fn),
+        t = ray_fans_vs_tris_flat(pos, _ray_zoffs(zgf, zgroups),
                                   torch.stack(flat_dirs, dim=-1), m.tris)
     t = t.reshape(W, A, Fn)
-    t_cap, cap_idx = fan_capsules(state.pos, zoff, dirs, state.alive > 0.0)
+    t_cap, cap_idx = fan_capsules(state.pos, zg, dirs, zgroups, state.alive)
 
     H_f, W_f = consts.fwd_lidar_height, consts.fwd_lidar_width
     H_r, W_r = consts.rear_lidar_height, consts.rear_lidar_width

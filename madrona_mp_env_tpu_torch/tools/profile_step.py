@@ -9,7 +9,11 @@ run-and-shoot action mix, then times --steps steps without and then with the pro
 JSON line: wall ms per step (host clock around synchronized steps, both
 ways), device-busy ms per step (sum of CUDA kernel times in the profiled
 window), the idle share of that window, CUDA kernel launches per step,
-and the kernels with the most device time. Needs a CUDA device.
+the kernels with the most device time, and every device operation's
+launches per step by name (to name what a change adds or removes). Needs
+a CUDA device. Run by its path (``python
+madrona_mp_env_tpu_torch/tools/profile_step.py``) from another checkout
+with ``PYTHONPATH=.`` to profile that checkout's package.
 """
 
 from __future__ import annotations
@@ -99,6 +103,8 @@ def main(argv=None):
              "ms_per_step": t / 1e3 / S}
             for n, (c, t) in top
         ],
+        "launches_by_name": {n: c / S
+                             for n, (c, _) in sorted(by_name.items())},
     }))
 
 

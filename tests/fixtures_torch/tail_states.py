@@ -77,7 +77,9 @@ def tail_scenario(leaves: dict, team_size: int, zone_frames: np.ndarray,
     lift = 65.0 / 2.0
     for w, teams in inside.items():
         for t in teams:
-            for i in range(t * team_size, (t + 1) * team_size - 1):
+            # all but one of the team (its only agent at team size 1)
+            for i in range(t * team_size,
+                           t * team_size + max(1, team_size - 1)):
                 c = zone_frames[zc[w], 0:3]
                 pos[w, i] = (c[0] + g.uniform(-3, 3), c[1] + g.uniform(-3, 3),
                              c[2] - lift)

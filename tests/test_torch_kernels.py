@@ -6,7 +6,8 @@ machine run them with
 
 Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
-capsule indices exact. The probes P4 (tensor-core products) and P1's fma,
+capsule indices exact (K3 and K5 by int32 views, so -0 differs from
++0). The probes P4 (tensor-core products) and P1's fma,
 rcp.approx and mma chains compute otherwise than their plain versions by
 design and are held to the bars their modules state
 (tools/probes/sc_mxu_probe.py MAX_DT and MAX_FLIP, tools/vpu_probe.py BARS
@@ -515,17 +516,36 @@ def test_fan_capsules_explicit_kernel(gpu_map):
     assert bool((ik >= 0).float().mean() > 0.05)
 
 
-def test_fan_capsules_kernel(gpu_map):
-    W, A, F = 64, 12, 104
+def _bits(x):
+    """int32 view of a float32 tensor: equality then tells -0 from +0."""
+    torch.cuda.synchronize()
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("A", [2, 6, 12, 32])
+def test_fan_capsules_kernel(gpu_map, A):
+    """K3 on the sensor runs, clustered agents, every fifth dead: t and
+    capsule index bit-equal (int32 views) to the plain version and to the
+    predecessor fan_capsules_v1 on per-ray offsets."""
+    W, zgroups = 64, (24, 32, 32, 8, 8)
+    F = sum(zgroups)
     pos = (_points(gpu_map, W * A, 5, (0, 1)) * 0.05).reshape(W, A, 3)
     g = torch.Generator(device="cuda").manual_seed(6)
-    alive = torch.rand((W, A), generator=g, device="cuda") > 0.2
-    zoff = torch.full((W, A, F), 50.0, device="cuda")
+    alive = (torch.rand((W, A), generator=g, device="cuda") > 0.2).float()
+    zg = 10.0 + 50.0 * torch.rand((W, A, len(zgroups)), generator=g,
+                                  device="cuda")
     d = _dirs(W * A * F, 7, flat=True).reshape(W, A, F, 3)
     dirs = tuple(d[..., k].contiguous() for k in range(3))
-    tk, ik = raycast_cull.fan_capsules(pos, zoff, dirs, alive)
-    tp, ip = raycast_cull._fan_capsules_plain(pos, zoff, dirs, alive)
-    assert _eq(tk, tp) and _eq(ik, ip)
+    n0 = raycast_cull.fan_capsules.launches
+    tk, ik = raycast_cull.fan_capsules(pos, zg, dirs, zgroups, alive)
+    assert raycast_cull.fan_capsules.launches == n0 + 1
+    tp, ip = raycast_cull._fan_capsules_plain(pos, zg, dirs, zgroups, alive)
+    assert torch.equal(_bits(tk), _bits(tp)) and _eq(ik, ip)
+    zoff = torch.repeat_interleave(zg, torch.tensor(zgroups, device="cuda"),
+                                   dim=-1)
+    tb, ib = raycast_cull.fan_capsules_v1(pos, zoff, dirs, alive > 0.0)
+    assert torch.equal(_bits(tk), _bits(tb)) and _eq(ik, ib)
+    assert bool((ik >= 0).float().mean() > 0.02)
 
 
 def test_sphere_cast_kernels(gpu_map):
@@ -647,11 +667,13 @@ def test_sphere_cast_culled_registers(gpu_map):
                                   "sphere_cast_culled_v1_kernel")[1] == 0
 
 
-@pytest.mark.parametrize("team_size", [2, 3, 6])
+@pytest.mark.parametrize("team_size", [1, 2, 3, 6, 16])
 def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
-    """K5 against its plain version on the card: every output leaf
-    bit-equal on states that rotate, contest, take and capture zones and
-    finish matches (fixtures_torch/tail_states.py)."""
+    """K5 against its plain version and its predecessor (tail_fused_v1)
+    on the card: every output leaf bit-equal (int32 views of the floats)
+    on states that rotate, contest, take and capture zones and finish
+    matches (fixtures_torch/tail_states.py), force_reset int32 and bool;
+    team size 16 fills the warp."""
     import os
     import sys
 
@@ -671,16 +693,20 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
                                                    NUM_WORLDS))
     fr = tail_scenario(leaves, team_size, m.zone_frames.cpu().numpy(),
                        m.num_zones, m.world_min.cpu().numpy(),
-                       m.world_max.cpu().numpy(), cfg.episode_len)
+                       m.world_max.cpu().numpy(), cfg.episode_len, seed=1)
     st = world_state_from_numpy(leaves, device="cuda")
-    fr = torch.as_tensor(fr, device="cuda")
-    n0 = tf.tail_fused.launches
-    sk, ck = tf.tail_fused(cfg, m, st, fr)
-    assert tf.tail_fused.launches == n0 + 1
-    sp, cp = tf.tail_fused_plain(cfg, m, st, fr)
-    assert _eq(ck, cp)
-    for k, v in sp.leaves().items():
-        assert _eq(getattr(sk, k), v), k
+    for fr_dev in (torch.as_tensor(fr, device="cuda"),
+                   torch.as_tensor(fr != 0, device="cuda")):
+        n0 = tf.tail_fused.launches
+        sk, ck = tf.tail_fused(cfg, m, st, fr_dev)
+        assert tf.tail_fused.launches == n0 + 1
+        sp, cp = tf.tail_fused_plain(cfg, m, st, fr_dev)
+        sb, cb = tf.tail_fused_v1(cfg, m, st, fr_dev)
+        assert _eq(ck, cp) and _eq(ck, cb)
+        for k, v in sp.leaves().items():
+            got = _bits(getattr(sk, k))
+            assert torch.equal(got, _bits(v)), k
+            assert torch.equal(got, _bits(getattr(sb, k))), k
 
 
 @pytest.mark.parametrize("team_size", [2, 3, 6])

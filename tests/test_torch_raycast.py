@@ -123,9 +123,9 @@ def test_fan_capsules(maps):
 
     want_t, want_i = jax.vmap(one_world)(pos, alive, d)
     got_t, got_i = raycast_cull.fan_capsules(
-        torch.as_tensor(pos), torch.as_tensor(zoff),
-        tuple(torch.as_tensor(d[..., k].copy()) for k in range(3)),
-        torch.as_tensor(alive))
+        torch.as_tensor(pos), torch.as_tensor(zoff[..., :1]),
+        tuple(torch.as_tensor(d[..., k].copy()) for k in range(3)), (F,),
+        torch.as_tensor(alive.astype(np.float32)))
 
     assert np.isfinite(np.asarray(want_t)).mean() > 0.05
     _check_t(want_t, got_t)
