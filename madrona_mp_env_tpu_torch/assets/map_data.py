@@ -11,7 +11,7 @@ on the Env's device.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -25,7 +25,7 @@ from ..ops.culling import (MOVE_MARGIN, CellTables, RayTables, ShortTables,
 from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
-from .navmesh import build_navmesh_tables
+from .navmesh import all_pairs_next_hop, build_navmesh_tables, tri_adjacency
 
 
 @dataclass
@@ -75,9 +75,24 @@ class MapData:
     goal_reward_strength: torch.Tensor  # [G]
     num_goal_regions: int
 
+    # [T, T] next-hop table of the scripted bot; built by nav_next_hop()
+    _next_hop: Optional[torch.Tensor] = field(default=None, repr=False)
+
     @property
     def max_dist(self) -> torch.Tensor:
         return norm(self.world_max - self.world_min)
+
+    def nav_next_hop(self) -> torch.Tensor:
+        """next_hop[start, goal] [T, T] int64 on the map's device (-1:
+        unreachable), built on the host on the first call (an O(T^3)
+        Floyd-Warshall, navmesh.all_pairs_next_hop) and kept."""
+        if self._next_hop is None:
+            tri = self.nav_tri_indices.cpu().numpy()
+            cent = self.nav_centroids.cpu().numpy().astype(np.float64)
+            hop = all_pairs_next_hop(cent, tri_adjacency(tri))
+            self._next_hop = torch.as_tensor(
+                hop, dtype=torch.int64, device=self.nav_centroids.device)
+        return self._next_hop
 
 
 _HARDCODED_GOAL_REGIONS = [

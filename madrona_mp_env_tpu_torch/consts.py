@@ -51,6 +51,9 @@ discrete_aim_num_pitch_buckets = 7
 
 fall_rate = 386.08858267717  # gravity-limited fall speed, u/s (sim.cpp:1051)
 
+# discreteTurnDelta() (reference src/sim.cpp:293-298)
+discrete_turn_delta = 10.0 / (num_turn_buckets // 2)
+
 # explore tracker grid (reference src/types.hpp:500-508)
 explore_grid_width = 81
 explore_grid_height = 81

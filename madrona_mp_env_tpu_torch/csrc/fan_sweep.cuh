@@ -1,10 +1,13 @@
 // One sensor fan (one block) swept over a list of triangle rows, tiled.
 //
-// Shared by K2 (csrc/fan_tris.cu: every row of the soup), K6
-// (csrc/fan_culled.cu: the fan's PVS cell candidates), K9
-// (csrc/fan_v9.cu: the fan's sensor-ray table candidates) and K7
-// (csrc/fan_flat.cu: every row of the soup, stacked directions). All rays of a
-// z-group share their origin, so the origin terms of Moller-Trumbore
+// Shared by K9 (csrc/fan_v9.cu: the fan's sensor-ray table candidates),
+// the probes P5 and P6 (csrc/fan_v9.cu: K9 on gathered tables, and its
+// candidates staged 8 at a time) and P2 (csrc/fan_probe.cu: every row of
+// the soup, the part variants below), and by the predecessors of K6 and
+// K7 kept for timing, fan_culled_v1 (csrc/fan_culled.cu: the fan's PVS
+// cell candidates) and fan_flat_v1 (csrc/fan_flat.cu: every row of the
+// soup, stacked directions); K2, K6, K7 and K1 sweep on
+// csrc/fan_sweep_rb.cuh. All rays of a z-group share their origin, so the origin terms of Moller-Trumbore
 // (tvec = o - v0, qvec = tvec x e1 and e2 . qvec) are computed once per
 // (group, row) into shared memory, as the TPU kernels hoist them; each
 // thread then sweeps its rays over the tile with only the direction terms
@@ -26,8 +29,8 @@
 // value), FanRcpApprox (rcp.approx), FanDotsOnly (the direction dots and
 // a minimum, no epilogue) and FanEpilogueOnly (the epilogue on dots read
 // per row from a [T, 4] buffer), and tiles of kTile rows (8: the
-// candidates chunked eight at a time). K2, K6, K7 and K9 take the
-// defaults.
+// candidates chunked eight at a time). K9, P5, fan_culled_v1 and
+// fan_flat_v1 take the defaults.
 #pragma once
 
 #include "tri_math.cuh"

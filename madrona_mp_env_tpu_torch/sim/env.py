@@ -17,7 +17,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .. import consts
 from ..config import EnvConfig, RewardMode, SimFlags, Task
 from ..assets.map_data import load_map
 from ..utils import rng
@@ -87,8 +86,6 @@ class Env:
     def step(self, state: WorldState, actions: Actions,
              sim_ctrl: Optional[Sequence[int]] = None,
              force_reset: Optional[torch.Tensor] = None):
-        if bool((state.policy_idx == consts.a_star_policy_id).any()):
-            raise NotImplementedError("the scripted A* bot is not ported")
         if force_reset is None:
             force_reset = torch.zeros(self.num_worlds, dtype=torch.int32,
                                       device=self.device)

@@ -12,9 +12,9 @@ For Task.Zone with RewardMode.Default (every configuration the port
 runs) autoheal, zone, match info, rewards and done are one fused pass
 (ops/tail_fused.py, K5) after breadcrumbs, filters, goal regions and
 explore, as in the JAX package's step. The reset runs only on steps where
-some world resets, as a masked update of those worlds. Ported
-configuration: Task.Zone, RewardMode.Default, policy agents only (no
-scripted bot).
+some world resets, as a masked update of those worlds, and the scripted
+bot's planner only on steps where some agent is a bot (policy idx -1).
+Ported configuration: Task.Zone, RewardMode.Default.
 """
 
 from __future__ import annotations
@@ -23,11 +23,12 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import consts
 from ..config import EnvConfig, SimFlags
 from ..assets.map_data import MapData
 from ..ops.tail_fused import tail_fused, use_tail_fused
 from ..utils import rng
-from . import breadcrumbs, combat, explore, movement, rewards, zones
+from . import bot, breadcrumbs, combat, explore, movement, rewards, zones
 from . import reset as reset_mod
 from .observations import observe_tail
 from .spawn import spawn_agents
@@ -109,8 +110,12 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
 def step_batched(cfg: EnvConfig, m: MapData, state: WorldState,
                  actions: Actions, init_key: torch.Tensor, sim_ctrl,
                  force_reset: torch.Tensor) -> Tuple[WorldState, Dict]:
-    """All worlds: core -> reset (only if some world resets) ->
-    observation tail."""
+    """All worlds: [bot overlay] -> core -> reset (only if some world
+    resets) -> observation tail. The overlay (the JAX step's lax.cond)
+    runs when some agent of some world is a bot; that check is the step's
+    one read to the host before the reset's."""
+    if bool((state.policy_idx == consts.a_star_policy_id).any()):
+        actions = bot.bot_overlay(cfg, m, state, actions)
     state, outputs = step_world_core(cfg, m, state, actions, force_reset)
     should = force_reset != 0
     if cfg.auto_reset:

@@ -1,26 +1,35 @@
-"""The evaluation rollout: the forward-only crossplay eval (the JAX
-package's train/infer.py EvalManager).
+"""The evaluation rollout: the forward-only eval of the JAX package's
+train/infer.py (EvalManager and its CLI).
 
-P policies share the worlds by the trainer's static block routing
-((world w, team t) -> policy (2w + t) % P, pbt.make_matchmaking's
-cross-play); every step normalizes the
-observations, runs each policy on its block, samples (or takes the best)
-actions, steps the env, folds finished matches into the crossplay ELO and
-clears the recurrent state of agents whose episode ended.
+Crossplay: P policies share the worlds by the trainer's static block
+routing ((world w, team t) -> policy (2w + t) % P, pbt.make_matchmaking's
+cross-play); every step normalizes the observations, runs each policy on
+its block, samples (or takes the best) actions, steps the env, folds
+finished matches into the crossplay ELO and clears the recurrent state of
+agents whose episode ended. ``vs_bot=True``: world w fields policy w % P
+on both teams, team 1 is then handed to the scripted A* bot (policy idx
+-1), the ELO is left alone and each policy's wins, draws and losses
+against the bot are counted (``vs_bot_wdl``): the win rate against the
+bot is the reference's de-facto end-to-end learning metric.
 
     env = Env(cfg, scene, num_worlds=1024)                # on the GPU
     mgr = EvalManager(cfg, EvalConfig(num_worlds=1024), env, num_policies=2)
     elo = mgr.run(policies, normalizer, elo)
 
+    python -m madrona_mp_env_tpu_torch.train.infer --num-worlds 1024 \
+        --ckpt-path policy.npz --vs-bot        # export_policy.py's layout
+
 Everything runs on the env's device (the first CUDA device unless
-``device="cpu"``). The step keys follow the JAX stream: PRNGKey(seed),
-split once per chunk, the chunk's half split into one key per step. Not
-ported yet: the vs-bot eval (needs the scripted A* bot) and the record,
-event-log and behaviour-cloning dumps (ROADMAP M14).
+``device="cpu"`` or ``--cpu``). The step keys follow the JAX stream:
+PRNGKey(seed), split once per chunk, the chunk's half split into one key
+per step. Not ported yet: the record, event-log and behaviour-cloning
+dumps (ROADMAP M14), fp16 / bf16 policies and game modes other than Zone.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -28,10 +37,11 @@ import numpy as np
 import torch
 
 from .. import consts
-from ..config import EnvConfig
+from ..config import EnvConfig, SimFlags, Task
 from ..sim.env import Env, resolve_device
 from ..sim.types import Actions
 from ..utils import rng
+from .convert import load_policy_npz
 from .distributions import (AIM_BUCKETS, DISCRETE_BUCKETS, ActorDistributions,
                             DiscreteActionDistributions)
 from .elo import elo_update_masked
@@ -42,6 +52,11 @@ from .pbt import PBTConfig, make_matchmaking
 from .trainer import POLICY_OBS_KEYS, _train_permutation
 
 EVAL_SIM_CTRL = (1, 0, 0)  # [evalMode, randomizeEpisodeLength, flipTeams]
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# vs_bot_wdl's columns [wins, draws, losses] by win_result (0: team 0 won,
+# 1: team 1, 2: a draw)
+WDL_COLUMNS = ((0, 0), (2, 1), (1, 2))
 
 
 @dataclass(frozen=True)
@@ -67,15 +82,24 @@ def chunk_keys(seed: int, num_chunks: int, chunk_steps: int, device=None):
     return torch.stack(out)
 
 
+def tally_vs_bot(wdl: np.ndarray, win, finished, world_policy) -> None:
+    """Add the matches that ended into ``wdl`` [P, 3] (wins, draws,
+    losses of the policy that fields team 0): win and finished [T, W],
+    world_policy [W]."""
+    win, finished = np.asarray(win), np.asarray(finished)
+    done = finished & (win >= 0)
+    for outcome, col in WDL_COLUMNS:
+        m = done & (win == outcome)
+        np.add.at(wdl[:, col], world_policy[m.nonzero()[1]], 1)
+
+
 class EvalManager:
-    """Forward-only rollout over a P-policy ensemble with crossplay
-    matchmaking (the trainer's static block routing)."""
+    """Forward-only rollout over a P-policy ensemble, with crossplay
+    matchmaking (the trainer's static block routing) or, with
+    ``vs_bot``, every policy against the scripted bot."""
 
     def __init__(self, cfg: EnvConfig, ecfg: EvalConfig, env: Env,
                  num_policies: int, vs_bot: bool = False, device=None):
-        if vs_bot:
-            raise NotImplementedError(
-                "the vs-bot eval needs the scripted A* bot, not ported yet")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, the eval on "
@@ -86,14 +110,24 @@ class EvalManager:
         self.ecfg = ecfg
         self.env = env
         self.P = num_policies
+        self.vs_bot = vs_bot
         self.W = ecfg.num_worlds
         self.A = cfg.num_agents
         self.B = self.W * self.A
         self.BP = self.B // self.P
 
-        assign, _ = make_matchmaking(self.W, self.A, cfg.team_size,
-                                     PBTConfig(num_train_policies=self.P))
-        perm = _train_permutation(assign, self.P).reshape(-1)
+        if vs_bot:
+            # world w -> policy w % P on every agent: each policy fields
+            # whole teams against the bot
+            if self.W % self.P:
+                raise ValueError("num_worlds must divide by the policies")
+            assign = np.repeat((np.arange(self.W) % self.P)[:, None],
+                               self.A, axis=1).astype(np.int32)
+            perm = np.argsort(assign.reshape(-1), kind="stable")
+        else:
+            assign, _ = make_matchmaking(self.W, self.A, cfg.team_size,
+                                         PBTConfig(num_train_policies=self.P))
+            perm = _train_permutation(assign, self.P).reshape(-1)
         dev = self.device
         self.assignment = torch.as_tensor(assign, device=dev)
         self.perm = torch.as_tensor(perm, device=dev)
@@ -113,7 +147,11 @@ class EvalManager:
 
     def init_state(self):
         env_state, obs = self.env.reset(sim_ctrl=EVAL_SIM_CTRL)
-        env_state = env_state.replace(policy_idx=self.assignment.clone())
+        policy_idx = self.assignment.clone()
+        if self.vs_bot:  # team 1: agents team_size .. 2 team_size - 1
+            ts = self.cfg.team_size
+            policy_idx[:, ts:2 * ts] = consts.a_star_policy_id
+        env_state = env_state.replace(policy_idx=policy_idx)
         rnn = init_rnn_states((self.P, self.BP), device=self.device)
         return env_state, obs, rnn
 
@@ -167,10 +205,11 @@ class EvalManager:
 
         res = out["episode_result"]
         win = res["win_result"]
-        # crossplay: team 1 is another ensemble policy
-        elo = elo_update_masked(elo, self.team_policies,
-                                get_episode_scores(win)[0],
-                                res["match_finished"] & (win >= 0))
+        if not self.vs_bot:
+            # crossplay: team 1 is another ensemble policy
+            elo = elo_update_masked(elo, self.team_policies,
+                                    get_episode_scores(win)[0],
+                                    res["match_finished"] & (win >= 0))
 
         done_b = self.to_blocks(out["done"])
         rnn2 = clear_rnn_states(rnn2, done_b != 0)
@@ -201,7 +240,8 @@ class EvalManager:
             bc_dump_dir: Optional[str] = None,
             iter_cb: Optional[Callable[[Dict], None]] = None,
             verbose: bool = True) -> torch.Tensor:
-        """The eval rollout; returns the final per-policy ELO [P].
+        """The eval rollout; returns the final per-policy ELO [P] (with
+        ``vs_bot`` the given one, and the counts in ``self.vs_bot_wdl``).
         ``iter_cb`` gets each chunk's stacked outputs (tensors on the
         eval's device)."""
         if record_path or event_log_dir or bc_dump_dir:
@@ -216,6 +256,8 @@ class EvalManager:
         keys = chunk_keys(ecfg.seed, num_chunks, ecfg.chunk_steps,
                           device=self.device)
         total_swaps = np.zeros((consts.max_zones,), np.int64)
+        wdl = np.zeros((self.P, 3), np.int64)
+        world_policy = self.assignment[:, 0].cpu().numpy()
         for ci in range(num_chunks):
             (env_state, obs, rnn, elo), outs = self.rollout_chunk(
                 policies, normalizer, env_state, obs, rnn, elo, keys[ci])
@@ -226,8 +268,19 @@ class EvalManager:
             total_swaps += swaps.cpu().numpy()
             if verbose and swaps.sum() > 0:
                 print("zone swaps:", total_swaps)
+            if self.vs_bot:
+                tally_vs_bot(wdl, res["win_result"].cpu(),
+                             res["match_finished"].cpu(), world_policy)
             if iter_cb is not None:
                 iter_cb(outs)
+        if self.vs_bot:
+            self.vs_bot_wdl = wdl
+            if verbose:
+                for p in range(self.P):
+                    w, d, l = wdl[p]
+                    n = max(w + d + l, 1)
+                    print(f"policy {p} vs bot: {w}W/{d}D/{l}L win-rate "
+                          f"{w / n:.1%} over {w + d + l} matches")
         return elo
 
 
@@ -237,3 +290,75 @@ def _stack(steps):
     if isinstance(first, dict):
         return {k: _stack([s[k] for s in steps]) for k in first}
     return torch.stack(steps)
+
+
+def print_elos(elos) -> None:
+    """Per-policy ELO ratings (reference scripts/common.py print_elos)."""
+    print("ELO:")
+    for i, e in enumerate(np.asarray(elos).reshape(-1)):
+        print(f"  policy {i}: {float(e):.1f}")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Evaluate exported policies "
+                                 "(crossplay ELO or win rate vs the bot)")
+    ap.add_argument("--num-worlds", type=int, required=True)
+    ap.add_argument("--num-steps", type=int, default=200)
+    ap.add_argument("--single-policy", type=int, default=None)
+    ap.add_argument("--crossplay", action="store_true")
+    ap.add_argument("--vs-bot", action="store_true",
+                    help="team 1 = scripted A* bot; report per-policy "
+                         "win-rate (the de-facto e2e learning metric)")
+    ap.add_argument("--game-mode", type=str, default="Zone")
+    ap.add_argument("--scene", type=str, default=None)
+    ap.add_argument("--ckpt-path", type=str, required=True,
+                    help="an .npz of tests/fixtures_torch/export_policy.py")
+    ap.add_argument("--record", type=str, default=None)
+    ap.add_argument("--event-log", type=str, default=None)
+    ap.add_argument("--bc-dump-dir", type=str, default=None)
+    ap.add_argument("--team-size", type=int, default=6)
+    ap.add_argument("--fp16", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the plain PyTorch path on the CPU")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """The JAX package's eval CLI: load the policies, run the eval, print
+    the ELO before and after (and the win rates vs the bot). Returns
+    (the EvalManager, the final ELO)."""
+    args = parse_args(argv)
+    unsupported = {
+        "--record / --event-log / --bc-dump-dir (dumps)":
+            bool(args.record or args.event_log or args.bc_dump_dir),
+        "--fp16 / --bf16 (mixed precision)": args.fp16 or args.bf16,
+        f"--game-mode {args.game_mode}": args.game_mode != "Zone",
+    }
+    bad = [name for name, on in unsupported.items() if on]
+    if bad:
+        raise NotImplementedError("not supported by the PyTorch port yet: "
+                                  + ", ".join(bad))
+    device = resolve_device("cpu" if args.cpu else None)
+    policies, normalizer, elo = load_policy_npz(args.ckpt_path, device)
+    if args.single_policy is not None:
+        i = args.single_policy
+        policies, elo = policies[i:i + 1], elo[i:i + 1]
+    print(len(policies))
+
+    cfg = EnvConfig(task=Task.Zone, sim_flags=SimFlags.SimEvalMode,
+                    team_size=args.team_size)
+    scene = args.scene or os.path.join(REPO, "data", "simple_map")
+    env = Env(cfg, scene, num_worlds=args.num_worlds, seed=10, device=device)
+    ecfg = EvalConfig(num_worlds=args.num_worlds,
+                      num_eval_steps=args.num_steps)
+    mgr = EvalManager(cfg, ecfg, env, len(policies), vs_bot=args.vs_bot,
+                      device=device)
+    print_elos(elo.cpu())
+    elo = mgr.run(policies, normalizer, elo)
+    print_elos(elo.cpu())
+    return mgr, elo
+
+
+if __name__ == "__main__":
+    main()

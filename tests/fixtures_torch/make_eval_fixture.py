@@ -13,9 +13,16 @@ of each agent's Gumbel-max scores (log prob + the step key's noise), into
 zone_eval_crossplay.npz beside this file. tests/test_torch_infer.py replays
 the run through madrona_mp_env_tpu_torch's EvalManager on the CPU.
 
+With ``--vs-bot`` it runs the same eval with EvalManager(vs_bot=True)
+(world w fields policy w % P, team 1 is the scripted A* bot, the ELO is
+left alone) and writes zone_eval_vs_bot.npz, with the per-policy
+win/draw/loss counts ``vs_bot_wdl`` [P, 3] and the policy idx of every
+agent after init_state.
+
 Regenerate (only after a deliberate change of the JAX reference):
 
     JAX_PLATFORMS=cpu python tests/fixtures_torch/make_eval_fixture.py
+    JAX_PLATFORMS=cpu python tests/fixtures_torch/make_eval_fixture.py --vs-bot
 
 It refuses any JAX backend other than the CPU.
 """
@@ -30,6 +37,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 PATH = os.path.join(HERE, "zone_eval_crossplay.npz")
+VS_BOT_PATH = os.path.join(HERE, "zone_eval_vs_bot.npz")
 CKPT = os.path.join(REPO, "artifacts", "zone6v6_r5_policy0")
 
 NUM_WORLDS = 2
@@ -64,7 +72,9 @@ def margins(logits, key, buckets_by_group):
     return np.min(out, axis=0)
 
 
-def main():
+def main(argv=None):
+    vs_bot = "--vs-bot" in (sys.argv[1:] if argv is None else argv)
+    path = VS_BOT_PATH if vs_bot else PATH
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -89,7 +99,7 @@ def main():
                  num_worlds=NUM_WORLDS, seed=ENV_SEED)
     ecfg = EvalConfig(num_worlds=NUM_WORLDS, num_eval_steps=NUM_STEPS,
                       chunk_steps=CHUNK_STEPS, seed=EVAL_SEED)
-    mgr = EvalManager(cfg, ecfg, env, NUM_POLICIES)
+    mgr = EvalManager(cfg, ecfg, env, NUM_POLICIES, vs_bot=vs_bot)
     params = jax.tree_util.tree_map(
         jnp.asarray, random_flax_params(WEIGHT_SEED, NUM_POLICIES))
     _, normalizer, _, _ = eval_load_ckpt(CKPT)
@@ -126,8 +136,11 @@ def main():
         rec[f"norm_mu/{k}"] = np.asarray(normalizer.mu[k])
         rec[f"norm_var/{k}"] = np.asarray(normalizer.var[k])
     rec["norm_count"] = np.asarray(normalizer.count)
-    np.savez_compressed(PATH, **rec)
-    print(f"wrote {PATH} ({os.path.getsize(PATH)} bytes); final ELO "
+    if vs_bot:
+        rec["vs_bot_wdl"] = np.asarray(mgr.vs_bot_wdl)
+        rec["policy_idx"] = np.asarray(mgr.init_state()[0].policy_idx)
+    np.savez_compressed(path, **rec)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes); final ELO "
           f"{rec['elo']}; matches finished at steps "
           f"{np.nonzero(rec['match_finished'].any(-1))[0].tolist()}; "
           f"smallest margin {float(rec['margins'].min()):.3g}")

@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
     for probe in ("movement_fused_probe", "v9_kernel_probe",
                   "v9_scan_timing", "sc_mxu_probe"):
         assert os.path.join(PKG, "tools", "probes", f"{probe}.py") in files
-    for tool in ("fan_probe", "vpu_probe"):
+    assert os.path.join(PKG, "sim", "bot.py") in files
+    for tool in ("fan_probe", "vpu_probe", "golden"):
         assert os.path.join(PKG, "tools", f"{tool}.py") in files
     for path in files:
         for name in _imported_roots(path):
@@ -91,6 +92,22 @@ def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):
         train_cli.build(train_cli.parse_args(args))
     _, _, env, mgr = train_cli.build(train_cli.parse_args(args + ["--cpu"]))
     assert env.device.type == mgr.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["golden", "infer"])
+def test_golden_and_eval_cli_default_to_cuda(monkeypatch, cli):
+    """tools/golden.py and the eval CLI (train/infer.py) run on the card
+    unless --cpu asks for the CPU."""
+    from madrona_mp_env_tpu_torch.tools import golden
+    from madrona_mp_env_tpu_torch.train import infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if cli == "golden":
+            golden.main([])
+        else:
+            infer.main(["--num-worlds", "2", "--vs-bot", "--ckpt-path",
+                        "policy.npz"])
 
 
 def test_kernel_bench_defaults_to_cuda(monkeypatch):

@@ -6,8 +6,10 @@ machine run them with
 
 Each kernel repeats its plain version's arithmetic op for op and is built
 with --fmad=false, so results must be bit-equal: t, winner rows and
-capsule indices exact (K3 and K5 by int32 views, so -0 differs from
-+0). The probes P4 (tensor-core products) and P1's fma,
+capsule indices exact, float outputs by int32 views, so -0 differs from
++0 (``_eq``). One exception, as values (``_eq_values``): K4 culled and
+K4' against their plain version, whose directionless casts' t may differ
+in the sign of 0. The probes P4 (tensor-core products) and P1's fma,
 rcp.approx and mma chains compute otherwise than their plain versions by
 design and are held to the bars their modules state
 (tools/probes/sc_mxu_probe.py MAX_DT and MAX_FLIP, tools/vpu_probe.py BARS
@@ -71,6 +73,12 @@ def _dirs(n, seed, flat=False):
 
 
 def _eq(a, b):
+    """Bit-equal: int32 views of float32 tensors (-0 differs from +0)."""
+    return torch.equal(_bits(a), _bits(b))
+
+
+def _eq_values(a, b):
+    """Equal as values (torch.equal: -0 equals +0)."""
     torch.cuda.synchronize()
     return torch.equal(a, b)
 
@@ -315,8 +323,8 @@ def test_fan_kernels_huge_edges(gpu_map, town_map):
     soup = _huge_edge_soup(gpu_map.tris, 7)
     t = raycast.ray_fans_vs_tris(org, zg, dirs, zgroups, soup)
     assert _eq(t, raycast._ray_fans_dense(org, zg, dirs, zgroups, soup))
-    assert not _eq(t, raycast.ray_fans_vs_tris(org, zg, dirs, zgroups,
-                                               gpu_map.tris))
+    assert not _eq_values(t, raycast.ray_fans_vs_tris(org, zg, dirs,
+                                                      zgroups, gpu_map.tris))
 
     org, zg, dirs, zgroups = _town_fans(town_map, 385, 24)
     soup = _huge_edge_soup(town_map.tris, 29)
@@ -325,7 +333,7 @@ def test_fan_kernels_huge_edges(gpu_map, town_map):
                                 town_map.cells, soup)
     assert _eq(t, raycast._ray_fans_culled_plain(
         org, zg, dirs, zgroups, cells, town_map.cells, soup))
-    assert not _eq(t, raycast.ray_fans_culled(
+    assert not _eq_values(t, raycast.ray_fans_culled(
         org, zg, dirs, zgroups, cells, town_map.cells, town_map.tris))
 
 
@@ -462,7 +470,7 @@ def test_ray_vs_tris_huge_edges(gpu_map, town_map):
         t = raycast.ray_vs_tris(o, d, soup)
         assert _eq(t, raycast._ray_vs_tris_dense(o, d, soup))
         assert _eq(t, raycast.ray_vs_tris_v1(o, d, soup))
-        assert not _eq(t, raycast.ray_vs_tris(o, d, m.tris))
+        assert not _eq_values(t, raycast.ray_vs_tris(o, d, m.tris))
 
 
 @pytest.mark.parametrize("scene", ["simple_map", "town_map"])
@@ -540,11 +548,11 @@ def test_fan_capsules_kernel(gpu_map, A):
     tk, ik = raycast_cull.fan_capsules(pos, zg, dirs, zgroups, alive)
     assert raycast_cull.fan_capsules.launches == n0 + 1
     tp, ip = raycast_cull._fan_capsules_plain(pos, zg, dirs, zgroups, alive)
-    assert torch.equal(_bits(tk), _bits(tp)) and _eq(ik, ip)
+    assert _eq(tk, tp) and _eq(ik, ip)
     zoff = torch.repeat_interleave(zg, torch.tensor(zgroups, device="cuda"),
                                    dim=-1)
     tb, ib = raycast_cull.fan_capsules_v1(pos, zoff, dirs, alive > 0.0)
-    assert torch.equal(_bits(tk), _bits(tb)) and _eq(ik, ib)
+    assert _eq(tk, tb) and _eq(ik, ib)
     assert bool((ik >= 0).float().mean() > 0.02)
 
 
@@ -616,7 +624,10 @@ def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
     tk, ik = entry(o, d, R, cells, short, m.tris)
     assert entry.launches == n0 + 1
     tp, ip = raycast._sphere_cast_culled_plain(o, d, R, cells, short, m.tris)
-    assert _eq(tk, tp) and _eq(ik, ip)
+    # against the plain version as values: the directionless casts' t may
+    # differ in the sign of 0 (torch.minimum and the kernel's min2 may
+    # keep different zeros of a tie); against the kernels bit for bit
+    assert _eq_values(tk, tp) and _eq(ik, ip)
     tb, ib = raycast.sphere_cast_culled_v1(o, d, R, cells, short, m.tris)
     assert _eq(tk, tb) and _eq(ik, ib)
     full = torch.full_like(short.valid_span, short.K)
@@ -636,7 +647,7 @@ def test_sphere_cast_culled_kernel(gpu_map, town_map, scene, batch):
                         nx=short.nx, ny=short.ny, K=2 * short.K)
     tg, ig = entry(o, d, R, cells, gappy, m.tris)
     tp, ip = raycast._sphere_cast_culled_plain(o, d, R, cells, gappy, m.tris)
-    assert _eq(tg, tp) and _eq(ig, ip)
+    assert _eq_values(tg, tp) and _eq(ig, ip)
 
 
 def test_sphere_cast_culled_shapes_it_cannot_take(gpu_map):
@@ -704,9 +715,9 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
         sb, cb = tf.tail_fused_v1(cfg, m, st, fr_dev)
         assert _eq(ck, cp) and _eq(ck, cb)
         for k, v in sp.leaves().items():
-            got = _bits(getattr(sk, k))
-            assert torch.equal(got, _bits(v)), k
-            assert torch.equal(got, _bits(getattr(sb, k))), k
+            got = getattr(sk, k)
+            assert _eq(got, v), k
+            assert _eq(got, getattr(sb, k)), k
 
 
 @pytest.mark.parametrize("team_size", [2, 3, 6])
@@ -771,6 +782,48 @@ def test_gpu_env_matches_cpu_env(simple_map_dir, gpu_map, scene):
         outs.append((state.pos.cpu(), state.hp.cpu()))
     assert torch.equal(outs[0][1], outs[1][1])
     assert torch.allclose(outs[0][0], outs[1][0], rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("scene,source", [("simple_map", "syn"),
+                                          ("town_map", "syn"),
+                                          ("simple_map", "plan")])
+def test_bot_planner_on_card_equals_cpu(simple_map_dir, gpu_map, scene,
+                                        source):
+    """The scripted bot's planner (plain PyTorch on every device) on the
+    card against the CPU planner on the states of
+    fixtures_torch/zone_simple_map_bots.npz (make_bot_fixture.py: drawn
+    inputs on each map, the 16 pre-step states of the Zone 2v2 rollout
+    with team 1 as bots): integer actions exact, rates bit-equal."""
+    import os
+    from types import SimpleNamespace
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.sim import bot
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(here, "fixtures_torch",
+                              "zone_simple_map_bots.npz")) as z:
+        pre = f"syn/{scene}/" if source == "syn" else "plan/"
+        leaves = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)
+                  and "/" not in k[len(pre):] and "margin" not in k}
+    if source == "syn":
+        leaves = {k: v[None] for k, v in leaves.items()}
+    path = os.path.join(os.path.dirname(simple_map_dir), scene)
+    maps = {dev: load_map(path, mt.EnvConfig(team_size=6), device=dev)
+            for dev in ("cuda", "cpu")}
+    for t in range(next(iter(leaves.values())).shape[0]):
+        outs = []
+        for dev, m in maps.items():
+            s = SimpleNamespace(**{
+                k: torch.as_tensor(v[t].astype(np.int64)
+                                   if v.dtype == np.uint32 else v[t],
+                                   device=dev) for k, v in leaves.items()})
+            key = s.key if source == "syn" else rng.system_key(
+                rng.step_key(s.episode_key, s.cur_step), rng.Salt.BOT)
+            outs.append(bot.plan_bot_actions(None, m, s, key))
+        for k, v in outs[0].leaves().items():
+            assert _eq(v.cpu(), getattr(outs[1], k)), (t, k)
 
 
 @pytest.mark.parametrize("route", ["culled", "dense"])
