@@ -102,14 +102,35 @@ Phases, each of which fails the run loudly:
    K1 and K5 50), K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
    40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
-   on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), then 1 of
-   Zone 3v3 (K7) on each map; updates/s, samples/s and each update's
-   rollout and PPO-update ms (CUDA events); finite losses, parameters
-   that move;
+   on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), 1 of
+   Zone 3v3 (K7) on each map, then 2 each of Zone 6v6 with --bf16 and
+   --fp16 (the policy's compute dtype; no float32 fallback: the stored
+   observations and BPTT start states must come out in it); updates/s,
+   samples/s and each update's rollout and PPO-update ms (CUDA events);
+   finite losses, parameters that move, the fan's launches; then the PBT
+   population through the CLI's build at 1024 worlds, Zone 6v6, E = 2,
+   P = 2, play portions 0.25 / 0.5 / 0.25, --pbt-update-frequency 1, 2
+   updates, each followed by eval_elo, store_past_policy,
+   update_population and resample_matchmaking (CUDA events each), with
+   episode_len 40 and 50 eval steps (reductions of EnvConfig's default
+   and the CLI's 1000, so that eval matches end): each kernel of the 6v6
+   path launched once per rollout and eval step (K4' three times) and
+   no other kernel, the past params bit-unchanged by each update, every
+   slot's actor count kept by each rotation, more finished eval matches
+   than the 1024 the eval's step-0 reset ends, finite ELOs and losses;
+   then the trainer's ELO fold (TrainingManager._match_elo) on planted
+   decided matches at that size, the rotated assignment and unequal
+   ratings, on "cuda" (index_add_'s atomics) against "cpu" (index order)
+   within the worst-case rounding bound of the two sums;
 9. the kernel path against the plain path: the same 4-world, 16-step env
    rollout on both maps for Zone 6v6 and Zone 3v3, the same 4-world,
    16-step eval rollout, and the trainer's 4-world, 8-step rollout and
-   one PPO update, on "cuda" and on "cpu" from one seed;
+   one PPO update, on "cuda" and on "cpu" from one seed, in float32 and
+   in bfloat16 (PARITY_BARS); then the PBT population at 8 worlds (Zone
+   2v2): one update's actions, train and past actors, eval_elo's best
+   actions and ratings (within ELO_BAR, or 32 per match finished after
+   the actions part), and store, population and rotation (donors, lr,
+   pointer, tables exact);
 10. the scripted A* bot: tools/golden.py's 100-step golden rollout (Zone
    2v2, every agent a bot) on the card against the committed golden and
    against the port's CPU rollout (hp and team points exact, pos within
@@ -1978,17 +1999,18 @@ def eval_phase(mt, kernels, card):
 
 def _gumbel_margin(logits, key):
     """Smallest top-two gap over the heads of log probs + the step key's
-    Gumbel noise (ActorDistributions.sample's stream): [P, B / P]."""
+    Gumbel noise (ActorDistributions.sample's stream): [P, B / P]. With
+    key None, of the logits alone (best() decides)."""
     import torch
     from madrona_mp_env_tpu_torch.train.distributions import (
         AIM_BUCKETS, DISCRETE_BUCKETS, gumbel)
     from madrona_mp_env_tpu_torch.utils import rng
 
-    ks = rng.split(key, 2)
+    ks = rng.split(key, 2) if key is not None else (None, None)
     gaps, off = [], 0
     for k, buckets in zip(ks, (DISCRETE_BUCKETS, AIM_BUCKETS)):
         lp = logits[..., off:off + sum(buckets)]
-        z = lp + gumbel(k, lp.shape)
+        z = lp if k is None else lp + gumbel(k, lp.shape)
         o = 0
         for b in buckets:
             two = torch.topk(z[..., o:o + b], 2, dim=-1).values
@@ -2293,15 +2315,30 @@ def bots_phase(mt, cfg, simple_rows, town_rows, card):
 
 TRAIN_WORLDS = 1024
 TRAIN_STEPS = 40  # steps_per_update, the JAX bench's train row
-# route: (map, team size, MPENV_FAN_V9, updates, the sensor fan's entry)
+# route: (map, team size, MPENV_FAN_V9, updates, the sensor fan's entry,
+# the CLI's precision flags)
 TRAIN_ROUTES = {
-    "default": (SCENE, TEAM_SIZE, "0", 3, "ray_fans_vs_tris"),
-    "v9": (SCENE, TEAM_SIZE, "1", 2, "ray_fans_culled_v9"),
-    "zone3v3": (SCENE, 3, "0", 1, "ray_fans_vs_tris_flat"),
-    "zone3v3 town_map": (TOWN, 3, "0", 1, "ray_fans_vs_tris_flat"),
+    "default": (SCENE, TEAM_SIZE, "0", 3, "ray_fans_vs_tris", []),
+    "v9": (SCENE, TEAM_SIZE, "1", 2, "ray_fans_culled_v9", []),
+    "zone3v3": (SCENE, 3, "0", 1, "ray_fans_vs_tris_flat", []),
+    "zone3v3 town_map": (TOWN, 3, "0", 1, "ray_fans_vs_tris_flat", []),
+    "bf16": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", ["--bf16"]),
+    "fp16": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", ["--fp16"]),
 }
 FAN_ENTRIES = ("ray_fans_vs_tris", "ray_fans_culled", "ray_fans_culled_v9",
                "ray_fans_vs_tris_flat")
+# the kernels of the Zone 6v6 simple_map path (phase 4)
+SIMPLE_PATH = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
+               "sphere_cast_culled", "sphere_cast_packed", "tail_fused")
+# launches of each per env step (K4' casts three times a step)
+SIMPLE_PER_STEP = {"sphere_cast_packed": 3}
+
+
+def _dtype_of(flags):
+    import torch
+
+    return {"--bf16": torch.bfloat16, "--fp16": torch.float16}.get(
+        (flags or [None])[0], torch.float32)
 
 
 def train_phase(card):
@@ -2310,20 +2347,26 @@ def train_phase(card):
     per update (4 BPTT chunks, 2 epochs x 4 minibatches), the LSTM-512
     policy, E = 1, weights from a seed, on each of TRAIN_ROUTES: Zone 6v6
     on the default fan route (K2), then with MPENV_FAN_V9=1 (K9), then
-    Zone 3v3 (K7) on each map. Each update's rollout and PPO update are
-    timed by CUDA events; every launch counter is zeroed before each run
-    and read after it; the loss must be finite, the parameters must move,
+    Zone 3v3 (K7) on each map, then Zone 6v6 with --bf16 and --fp16 (the
+    policy's compute dtype; the stored observations and BPTT start states
+    must come out in it). Each update's rollout and PPO update are timed
+    by CUDA events; every launch counter is zeroed before each run and
+    read after it; the loss must be finite, the parameters must move,
     and the sensor fans must go through the route's entry alone."""
     import torch
     from madrona_mp_env_tpu_torch.train import train as train_cli
 
-    for route, (scene, ts_, v9, n, fan) in TRAIN_ROUTES.items():
+    for route, (scene, ts_, v9, n, fan, flags) in TRAIN_ROUTES.items():
+        dtype = _dtype_of(flags)
         with mock.patch.dict(os.environ, {"MPENV_FAN_V9": v9}):
             args = train_cli.parse_args([
                 "--scene", scene, "--num-worlds", str(TRAIN_WORLDS),
                 "--steps-per-update", str(TRAIN_STEPS),
-                "--team-size", str(ts_)])
+                "--team-size", str(ts_)] + flags)
             _, tcfg, env, mgr = train_cli.build(args)
+            if mgr.model.dtype != dtype or tcfg.compute_dtype != dtype:
+                raise AssertionError(f"train {route}: compute dtype "
+                                     f"{mgr.model.dtype}, asked {dtype}")
             ts = mgr.init()
             p0 = {k: v.clone() for k, v in ts.params[0].items()}
             entries = all_entries()
@@ -2343,6 +2386,9 @@ def train_phase(card):
                 roll_ms.append(ev[0].elapsed_time(ev[1]))
                 ppo_ms.append(ev[1].elapsed_time(ev[2]))
                 losses.append(float(metrics["loss"][0]))
+                if starts.dtype != dtype or outs["obs_pack"].dtype != dtype:
+                    raise AssertionError(f"train {route}: buffers in "
+                                         f"{outs['obs_pack'].dtype}")
             t1 = time.perf_counter()
         counts = {k: f.launches for k, f in entries.items()}
         moved = max(float((ts.params[0][k] - v).abs().max())
@@ -2356,7 +2402,8 @@ def train_phase(card):
         samples = TRAIN_WORLDS * 2 * ts_ * TRAIN_STEPS
         ups = n / (t1 - t0)
         log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
-            f"{n} updates, LSTM-512, E = 1: {ups:.4f} updates/s, "
+            f"{n} updates, LSTM-512, E = 1, {str(dtype)[6:]}: {ups:.4f} "
+            f"updates/s, "
             f"{ups * samples:.1f} samples/s; rollout ms "
             + ", ".join(f"{x:.1f}" for x in roll_ms) + "; PPO update ms "
             + ", ".join(f"{x:.1f}" for x in ppo_ms)
@@ -2368,24 +2415,362 @@ def train_phase(card):
         del ts, mgr, env
 
 
-def train_parity(W=4, S=8):
+PBT_WORLDS = 1024
+PBT_UPDATES = 2
+# reductions: EnvConfig's episode_len and the CLI's --eval-elo-steps 1000,
+# so that the eval's matches end inside a short run
+PBT_EPISODE_LEN = 40
+PBT_EVAL_STEPS = 50
+PBT_FLAGS = ["--pbt-ensemble-size", "2", "--pbt-past-policies", "2",
+             "--self-play-portion", "0.25", "--cross-play-portion", "0.5",
+             "--past-play-portion", "0.25", "--pbt-update-frequency", "1",
+             "--pbt-explore-lr"]
+ELO_BAR = 1e-3  # rating points, cuda (atomic adds) against cpu
+
+
+def pbt_build(W, team_size, steps, device, extra=()):
+    """The train CLI's build with the PBT flags at episode_len
+    PBT_EPISODE_LEN: (cfg, tcfg, env, mgr)."""
+    import functools
+
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    args = train_cli.parse_args(
+        ["--scene", SCENE, "--num-worlds", str(W), "--team-size",
+         str(team_size), "--steps-per-update", str(steps),
+         "--eval-elo-steps", str(PBT_EVAL_STEPS)] + PBT_FLAGS + list(extra)
+        + (["--cpu"] if device == "cpu" else []))
+    with mock.patch.object(train_cli, "EnvConfig", functools.partial(
+            train_cli.EnvConfig, episode_len=PBT_EPISODE_LEN)):
+        return train_cli.build(args)
+
+
+def pbt_phase(card):
+    """The PBT population at full width through the train CLI's own
+    builder and its loop: Zone 6v6 on simple_map at PBT_WORLDS worlds x
+    TRAIN_STEPS steps, E = 2 train and P = 2 past policies (self / cross /
+    past play 0.25 / 0.5 / 0.25), --pbt-update-frequency 1, PBT_UPDATES
+    updates, each followed by eval_elo (PBT_EVAL_STEPS steps),
+    store_past_policy, update_population and resample_matchmaking, each
+    timed by CUDA events. Every launch counter is zeroed before and read
+    after: the kernels of the 6v6 path must launch. The past params must
+    be bit-unchanged by each update, every slot's actor count must
+    survive the rotations, the eval must finish more matches than the W
+    its step-0 reset ends, and the ELOs and losses must be finite. Each
+    kernel of SIMPLE_PATH must launch once per rollout and eval step
+    (SIMPLE_PER_STEP times), and no other kernel at all. Then
+    match_elo_parity on the last rotation's assignment."""
+    import torch
+
+    _, tcfg, env, mgr = pbt_build(PBT_WORLDS, TEAM_SIZE, TRAIN_STEPS, "cuda")
+    ts = mgr.init()
+    counts0 = torch.bincount(ts.assignment.reshape(-1).long(),
+                             minlength=mgr.E + mgr.P)
+    entries = all_entries()
+    for f in entries.values():
+        f.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in range(PBT_UPDATES):
+        past0 = [{k: v.clone() for k, v in p.items()}
+                 for p in ts.past_params]
+        ev[0].record()
+        ts, metrics = mgr.update_iter(ts)
+        ev[1].record()
+        ts, elo = mgr.eval_elo(ts, PBT_EVAL_STEPS)
+        ev[2].record()
+        ts2 = mgr.store_past_policy(ts)
+        ev[3].record()
+        ts3 = mgr.update_population(ts2)
+        ev[4].record()
+        ts4 = mgr.resample_matchmaking(ts3)
+        ev[5].record()
+        torch.cuda.synchronize()
+        unchanged = all(torch.equal(ts.past_params[p][k], v)
+                        for p, d in enumerate(past0) for k, v in d.items())
+        finished = int(mgr.eval_matches)
+        losses = metrics["loss"].tolist()
+        if not unchanged:
+            raise AssertionError(f"pbt update {u}: past params moved")
+        # the reset at eval step 0 ends the W matches in progress; more
+        # than W means matches reached their end inside the eval
+        if finished <= PBT_WORLDS or not bool(torch.isfinite(elo).all()) \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"pbt update {u}: {finished} finished "
+                                 f"matches, elo {elo}, losses {losses}")
+        counts = torch.bincount(ts4.assignment.reshape(-1).long(),
+                                minlength=mgr.E + mgr.P)
+        if not torch.equal(counts, counts0) or not torch.equal(
+                ts4.env_state.policy_idx, ts4.assignment):
+            raise AssertionError(f"pbt rotation {u}: slot counts {counts}")
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        rows.append((ms, finished, elo.tolist(), ts4.elo.tolist(),
+                     ts4.hyper_params["lr"].tolist(), ts4.past_ptr, losses))
+        ts = ts4
+    t1 = time.perf_counter()
+    launches = {k: entries[k].launches for k in SIMPLE_PATH}
+    steps = PBT_UPDATES * (TRAIN_STEPS + PBT_EVAL_STEPS)
+    expect = {k: steps * SIMPLE_PER_STEP.get(k, 1) for k in SIMPLE_PATH}
+    others = {k: f.launches for k, f in entries.items()
+              if k not in SIMPLE_PATH and f.launches}
+    if launches != expect or others:
+        raise AssertionError(f"pbt: launches {launches}, expected "
+                             f"{expect}; others {others}")
+    samples = PBT_WORLDS * 2 * TEAM_SIZE * TRAIN_STEPS
+    for u, (ms, finished, eval_elo, elo, lr, ptr, losses) in enumerate(rows):
+        log(f"[pbt] update {u + 1} of {PBT_UPDATES}, {PBT_WORLDS} worlds x "
+            f"{TRAIN_STEPS} steps, E = {mgr.E}, P = {mgr.P} (blocks "
+            f"{mgr.BE} / {mgr.BPp} actors): update_iter {ms[0]:.1f} ms "
+            f"({samples / ms[0] * 1e3:.1f} samples/s), eval_elo "
+            f"{ms[1] / PBT_EVAL_STEPS:.2f} ms/step over {PBT_EVAL_STEPS} "
+            f"steps ({finished} finished matches, ELO "
+            + ", ".join(f"{x:.2f}" for x in eval_elo)
+            + f"), store_past_policy {ms[2]:.3f} ms, update_population "
+            f"{ms[3]:.3f} ms, resample_matchmaking {ms[4]:.3f} ms (CUDA "
+            f"events); after them ELO "
+            + ", ".join(f"{x:.2f}" for x in elo) + "; lr "
+            + ", ".join(f"{x:.3g}" for x in lr)
+            + f"; past_ptr {ptr}; losses "
+            + ", ".join(f"{x:.5f}" for x in losses) + f" on {card}")
+    log(f"[pbt] {PBT_UPDATES} updates with their PBT steps in "
+        f"{t1 - t0:.2f} s; past params bit-unchanged by every update; "
+        f"slot counts {counts0.tolist()} kept by every rotation; launches "
+        + ", ".join(f"{k}={c} (expected {expect[k]})"
+                    for k, c in launches.items()) + ", no other kernel")
+    match_elo_parity(mgr, ts.assignment, card)
+    del ts, mgr, env
+
+
+def match_elo_parity(mgr, assignment, card):
+    """The trainer's ELO fold on the card against the CPU, where the
+    atomics differ: TrainingManager._match_elo on planted results of
+    PBT_EVAL_STEPS steps x mgr.W worlds routed by ``assignment`` (a
+    rotated table), each world finishing a match with probability
+    1 / PBT_EPISODE_LEN a step, won by team 0, team 1 or drawn, from
+    unequal ratings. On "cuda" index_add_ adds the deltas by atomics in
+    any order, on "cpu" in index order. Bar per slot with n finished
+    matches: each delta may differ by 32 x 2^-22 (expected_score's pow on
+    two devices), and each sum of n float32 adds rounds by at most n x
+    2^-24 x (|rating| + 32 n), for both orders."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    T, W, n = PBT_EVAL_STEPS, mgr.W, mgr.E + mgr.P
+    finished = torch.rand((T, W), generator=g) < 1.0 / PBT_EPISODE_LEN
+    win = torch.where(finished, torch.randint(0, 3, (T, W), generator=g,
+                                              dtype=torch.int32), -1)
+    if n != 4:
+        raise AssertionError(f"match elo parity: {n} slots, planted for 4")
+    ratings = 1000.0 + 60.0 * torch.tensor([0.5, -1.0, 1.75, -0.25])
+    a_cpu = assignment.cpu()
+    want = mgr._match_elo(ratings, a_cpu, win, finished)
+    got = mgr._match_elo(ratings.cuda(), assignment, win.cuda(),
+                         finished.cuda()).cpu()
+    team = a_cpu[:, ::mgr.cfg.team_size].expand(T, W, 2)
+    per_slot = torch.bincount(team[finished].reshape(-1).long(),
+                              minlength=n).double()
+    bar = (per_slot * 32 * 2.0 ** -22 + 2 * per_slot * 2.0 ** -24
+           * (ratings.double().abs() + 32 * per_slot))
+    err = (got.double() - want.double()).abs()
+    decided = int((finished & (win < 2)).sum())
+    moved = float((want - ratings).abs().max())
+    if decided == 0 or moved <= 1.0 or not bool((err <= bar).all()):
+        raise AssertionError(f"match elo parity: {decided} decided, moved "
+                             f"{moved}, err {err.tolist()} bar "
+                             f"{bar.tolist()}")
+    log(f"[pbt elo parity] TrainingManager._match_elo cuda vs cpu, {T} x "
+        f"{W} planted results ({int(finished.sum())} finished, {decided} "
+        f"decided, per slot {per_slot.long().tolist()}), ratings "
+        + ", ".join(f"{x:.2f}" for x in ratings.tolist()) + " -> "
+        + ", ".join(f"{x:.4f}" for x in want.tolist())
+        + f": max diff {float(err.max()):.3g} rating points (bar "
+        + ", ".join(f"{x:.3g}" for x in bar.tolist()) + f") on {card}")
+
+
+def _record_steps(mgr):
+    """Wrap mgr's env.step and apply_blocks: (steps, dists) lists that fill
+    with each step's actions [W, A, 6] and match results (on the CPU) and
+    each policy apply's distributions."""
+    import torch
+
+    steps, dists = [], []
+    step, apply = mgr.env.step, mgr.apply_blocks
+
+    def rec_step(state, a, *args):
+        state, out = step(state, a, *args)
+        res = out["episode_result"]
+        steps.append((torch.stack([a.move_amount, a.move_angle, a.fire,
+                                   a.stand, a.aim_yaw, a.aim_pitch],
+                                  -1).cpu(), res["win_result"].cpu(),
+                      res["match_finished"].cpu()))
+        return state, out
+
+    def rec_apply(*args):
+        out = apply(*args)
+        dists.append(out[0])
+        return out
+
+    mgr.env.step, mgr.apply_blocks = rec_step, rec_apply
+    return steps, dists
+
+
+def _block_margins(mgr, ts, dists, n, key=None):
+    """Per step [W, A] margins (CPU) of a run from ts that applied train
+    then past blocks each step: Gumbel top-two gaps from the rollout's
+    step keys (``key``: ts.key) or, with None, top-two logit gaps."""
+    import torch
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    keys = rng.split(rng.split(key, 2)[1], n) if key is not None else None
+    out = []
+    for t in range(n):
+        gaps = []
+        for j, d in enumerate(dists[2 * t:2 * t + 2]):
+            logits = torch.cat([d.discrete.packed_log_probs(),
+                                d.aim.packed_log_probs()], -1) \
+                if keys is not None else torch.cat(
+                    [d.discrete.logits, d.aim.logits], -1)
+            if keys is not None:
+                gaps.append(_gumbel_margin(logits, rng.split(keys[t],
+                                                             2)[j]))
+            else:
+                gaps.append(_gumbel_margin(logits, None))
+        flat = torch.zeros(mgr.B)
+        flat[ts.train_perm.reshape(-1).cpu()] = gaps[0].reshape(-1).cpu()
+        flat[ts.past_perm.reshape(-1).cpu()] = gaps[1].reshape(-1).cpu()
+        out.append(flat.reshape(mgr.W, mgr.A))
+    return out
+
+
+def _same_steps(label, a, b, margins, margin):
+    """Actions equal where decided and match results exact, cuda (a)
+    against cpu (b), up to the first step an action differs: (steps
+    compared, undecided actors)."""
+    undecided = 0
+    for t, ((aa, aw, af), (ba, bw, bf)) in enumerate(zip(a, b)):
+        decided = margins[t] > margin
+        undecided += int((~decided).sum())
+        same = (aa == ba).all(-1)
+        if not bool(same[decided].all()):
+            raise AssertionError(f"{label} step {t}: decided actions differ")
+        if not (bool((aw == bw).all()) and bool((af == bf).all())):
+            raise AssertionError(f"{label} step {t}: match results differ")
+        if not bool(same.all()):
+            return t + 1, undecided
+    return len(a), undecided
+
+
+def pbt_parity(W=8, S=4):
+    """The PBT population on "cuda" against "cpu" from one seed at W
+    worlds (Zone 2v2, PBT_FLAGS, S steps per update): one update_iter
+    (the environment's actions, train and past actors, equal where the
+    CPU run's Gumbel margin exceeds 1e-4, match results exact, up to the
+    first step an action differs), eval_elo from the initial state (the
+    best actions equal where the top-two logit gap exceeds 1e-4, the
+    ratings within ELO_BAR rating points, the same count of finished
+    matches), then store_past_policy, update_population and
+    resample_matchmaking on the update's state with that ELO: the
+    donors, the perturbed lr, the pointer and the tables (assignment,
+    train_perm, past_perm) exact, every copy bit-equal to its donor on
+    each device."""
+    import torch
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _, tcfg, env, mgr = pbt_build(W, 2, S, dev, ["--num-bptt-chunks",
+                                                     "2",
+                                                     "--num-minibatches",
+                                                     "2"])
+        steps, dists = _record_steps(mgr)
+        ts0 = mgr.init()
+        ts1, m = mgr.update_iter(ts0)
+        roll = (list(steps), list(dists))
+        steps.clear()
+        dists.clear()
+        _, elo = mgr.eval_elo(ts0, PBT_EVAL_STEPS)
+        ev = (list(steps), list(dists), int(mgr.eval_matches))
+        s = mgr.store_past_policy(dataclasses.replace(ts1, elo=elo))
+        p = mgr.update_population(s)
+        r = mgr.resample_matchmaking(p)
+        runs[dev] = (mgr, ts0, ts1, m, roll, ev, elo, s, p, r)
+    g, c = runs["cuda"], runs["cpu"]
+    mc, ts0c = c[0], c[1]
+    margins = _block_margins(mc, ts0c, c[4][1], S, key=ts0c.key)
+    n_roll, und_roll = _same_steps("pbt parity rollout", g[4][0], c[4][0],
+                                   margins, 1e-4)
+    margins = _block_margins(mc, ts0c, c[5][1], PBT_EVAL_STEPS)
+    n_eval, und_eval = _same_steps("pbt parity eval", g[5][0], c[5][0],
+                                   margins, 1e-4)
+    elo_err = float((g[6].cpu() - c[6]).abs().max())
+    # once the actions part, each match either run finishes later moves
+    # a rating by at most 32 (the CPU test's bound)
+    late = sum(int((f & (w >= 0)).sum()) for run in (g, c)
+               for _, w, f in run[5][0][n_eval:])
+    elo_bar = ELO_BAR + 32.0 * late
+    if elo_err > elo_bar or min(g[5][2], c[5][2]) <= W or (
+            n_eval == PBT_EVAL_STEPS and g[5][2] != c[5][2]):
+        raise AssertionError(f"pbt parity: eval ELO {g[6]} vs {c[6]} (bar "
+                             f"{elo_bar}), finished {g[5][2]} vs {c[5][2]}")
+    for name, a, b in (("store", g[7], c[7]), ("population", g[8], c[8]),
+                       ("rotation", g[9], c[9])):
+        for k in ("assignment", "train_perm", "past_perm", "key"):
+            if not torch.equal(getattr(a, k).cpu(), getattr(b, k)):
+                raise AssertionError(f"pbt parity {name}: {k} differs")
+        if a.past_ptr != b.past_ptr or not torch.equal(
+                a.hyper_params["lr"].cpu(), b.hyper_params["lr"]):
+            raise AssertionError(f"pbt parity {name}: lr or pointer differ")
+    donors = []
+    for run in (g, c):
+        s, p = run[7], run[8]
+        src = [next(j for j in range(len(s.params)) if all(
+            torch.equal(p.params[e][k], s.params[j][k]) for k in s.params[j]))
+            for e in range(len(p.params))]
+        donors.append(src)
+    if donors[0] != donors[1]:
+        raise AssertionError(f"pbt parity: donors {donors}")
+    log(f"[pbt parity] cuda vs cpu, {W} worlds, E = 2, P = 2: rollout "
+        f"{n_roll} of {S} steps compared ({und_roll} undecided actors), "
+        f"eval {n_eval} of {PBT_EVAL_STEPS} steps ({und_eval} undecided), "
+        f"{g[5][2]} / {c[5][2]} finished matches, ELO max diff {elo_err:.3g}"
+        f" (bar {elo_bar}: {ELO_BAR} + 32 x {late} later matches); store, "
+        f"population (donors {donors[0]}, lr "
+        + ", ".join(f"{x:.6g}" for x in c[8].hyper_params["lr"].tolist())
+        + ") and rotation tables exact")
+
+
+# train_parity's bars by compute dtype: (the Gumbel margin that decides an
+# action, values (relative), loss terms (relative, floor 1)). bf16: 4 eps
+# of the dtype (2^-7): cuBLAS and the CPU round the same bf16 products
+# after sums in other orders, a few roundings apart in every layer
+PARITY_BARS = {"float32": (1e-4, 1e-4, 1e-4),
+               "bfloat16": (2.0 ** -4, 2.0 ** -5, 2.0 ** -5)}
+
+
+def train_parity(W=4, S=8, flags=()):
     """The trainer on "cuda" against "cpu" from one seed at W worlds x S
-    steps: the rollouts' actions equal where the CPU run's Gumbel top-two
-    margin exceeds 1e-4, values and rewards within 1e-4 relative, up to
-    the first step an action differs; then one PPO update of each device
-    on the CPU rollout's data: loss terms within 1e-4 * max(1, |x|) and
-    parameters within 2.5 lr."""
+    steps (``flags``: --bf16 for the bfloat16 compute dtype), to
+    PARITY_BARS: the rollouts' actions equal where the CPU run's Gumbel
+    top-two margin exceeds the bar, values and rewards (1e-4) within
+    their bars relative, up to the first step an action differs; then
+    one PPO update of each device on the CPU rollout's data: loss terms
+    within their bar * max(1, |x|), parameters within 2.5 lr (float32),
+    or (bfloat16) 95% of them within 0.5 lr and all within 8.2 lr, the
+    bound of 4 Adam steps that disagree in sign."""
     import torch
     from madrona_mp_env_tpu_torch.train import train as train_cli
     from madrona_mp_env_tpu_torch.utils import rng
 
+    dtype = _dtype_of(list(flags))
+    margin_bar, value_bar, loss_bar = PARITY_BARS[str(dtype)[6:]]
     runs = {}
     for dev in ("cuda", "cpu"):
         args = train_cli.parse_args([
             "--scene", SCENE, "--num-worlds", str(W), "--steps-per-update",
             str(S), "--num-bptt-chunks", "2", "--num-minibatches", "2",
-            "--team-size", str(TEAM_SIZE)] + (["--cpu"] if dev == "cpu"
-                                              else []))
+            "--team-size", str(TEAM_SIZE)] + list(flags)
+            + (["--cpu"] if dev == "cpu" else []))
         _, tcfg, env, mgr = train_cli.build(args)
         ts = mgr.init()
         logits = []
@@ -2404,12 +2789,13 @@ def train_parity(W=4, S=8):
         runs["cuda"], runs["cpu"])
     keys = rng.split(rng.split(tc.key, 2)[1], S)  # the rollout's steps
     compared, undecided = 0, 0
+    worst = {}
     for t in range(S):
         margin = _gumbel_margin(torch.cat(
             [lc[t].discrete.packed_log_probs(),
              lc[t].aim.packed_log_probs()], -1),
             rng.split(keys[t], 2)[0]).reshape(-1)
-        decided = margin > 1e-4
+        decided = margin > margin_bar
         undecided += int((~decided).sum())
         ag = og["act_pack"].reshape((S,) + og["act_pack"].shape[2:])[t]
         ac = oc["act_pack"].reshape((S,) + oc["act_pack"].shape[2:])[t]
@@ -2417,11 +2803,12 @@ def train_parity(W=4, S=8):
         if not bool(same[decided].all()):
             raise AssertionError(f"train parity step {t}: decided actions "
                                  "differ")
-        for k in ("values", "rewards"):
+        for k, bar in (("values", value_bar), ("rewards", 1e-4)):
             a = og[k].reshape((S, -1))[t].cpu()
             b = oc[k].reshape((S, -1))[t]
             e = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-            if e > 1e-4:
+            worst[k] = max(worst.get(k, 0.0), e)
+            if e > bar:
                 raise AssertionError(f"train parity step {t}: {k} {e}")
         compared = t + 1
         if not bool(same.all()):
@@ -2433,23 +2820,35 @@ def train_parity(W=4, S=8):
     tsg = dataclasses.replace(tg, key=tc1.key.cuda())
     ug, mgm = mg.ppo_update(tsg, sc.cuda(), to, bc.cuda())
     uc, mcm = mc.ppo_update(tc1, sc, oc, bc)
-    worst = 0.0
+    loss_err = 0.0
     for k in mcm:
         e = float(((mgm[k].cpu() - mcm[k]).abs()
                    / mcm[k].abs().clamp(min=1.0)).max())
-        worst = max(worst, e)
-        if e > 1e-4:
+        loss_err = max(loss_err, e)
+        if e > loss_bar:
             raise AssertionError(f"train parity: {k} rel err {e}")
-    dp = max(float((ug.params[0][k].cpu() - v).abs().max())
-             for k, v in uc.params[0].items())
     lr = mc.tcfg.lr
-    if dp > 2.5 * lr:
-        raise AssertionError(f"train parity: params differ by {dp}")
-    log(f"[train parity] cuda vs cpu, {W} worlds x {S} steps: {compared} "
-        f"steps compared, actions equal where decided ({undecided} "
-        f"undecided), values and rewards within 1e-4; PPO update on one "
-        f"rollout: loss terms max rel err {worst:.3g}, params max abs diff "
-        f"{dp:.3g} ({dp / lr:.3g} lr)")
+    dp = torch.cat([(ug.params[0][k].cpu() - v).abs().reshape(-1) / lr
+                    for k, v in uc.params[0].items()])
+    near = float((dp <= 0.5).double().mean())
+    if dtype == torch.float32 and float(dp.max()) > 2.5:
+        raise AssertionError(f"train parity: params differ by "
+                             f"{float(dp.max())} lr")
+    if dtype != torch.float32 and (float(dp.max()) > 8.2 or near < 0.95):
+        raise AssertionError(f"train parity: params differ by up to "
+                             f"{float(dp.max())} lr, {near:.4f} within 0.5")
+    reduced = ""
+    if dtype == torch.bfloat16:
+        on = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        reduced = (f"; cuBLAS bf16 reduced-precision reductions "
+                   f"{'on' if on else 'off'}")
+    log(f"[train parity {str(dtype)[6:]}] cuda vs cpu, {W} worlds x {S} "
+        f"steps: {compared} steps compared, actions equal where decided "
+        f"(margin {margin_bar:.3g}; {undecided} undecided), values max rel "
+        f"err {worst['values']:.3g}, rewards {worst['rewards']:.3g}; PPO "
+        f"update on one rollout: loss terms max rel err {loss_err:.3g} (bar "
+        f"{loss_bar:.3g}), params max abs diff {float(dp.max()):.3g} lr, "
+        f"{near:.4f} within 0.5 lr{reduced}")
 
 
 def main() -> int:
@@ -2627,8 +3026,10 @@ def main() -> int:
         expect_launches(rows3, "K1 ray_vs_tris", TEAM3_STEPS)
     del team3, env3
 
-    # 8. the training path: full width on the card, then against the CPU
+    # 8. the training path: full width on the card (float32, bfloat16,
+    # float16), then the PBT population
     train_phase(card)
+    pbt_phase(card)
 
     # 9. kernel path vs plain path
     env_parity(mt, cfg, SCENE, 4, 16)
@@ -2637,6 +3038,8 @@ def main() -> int:
     env_parity(mt, cfg3, TOWN, 4, 16)
     eval_parity(mt, 4, 16)
     train_parity()
+    train_parity(flags=["--bf16"])
+    pbt_parity()
 
     # 10. the scripted bot: the golden, the vs-bot eval, cuda vs cpu
     bots_phase(mt, cfg, main_simple, town_rows, card)

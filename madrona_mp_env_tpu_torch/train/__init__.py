@@ -1,11 +1,12 @@
 """The policy, the trainer and the crossplay eval of the port (the JAX
 package's train/): ActorCriticNet and its distributions, the observation
-normalizer, PPO and the TrainingManager (rollout, GAE, recurrent PPO),
-the JAX weight conversion, ELO and EvalManager. The PBT population
-update comes later."""
+normalizer, PPO and the TrainingManager (rollout, GAE, recurrent PPO, the
+PBT population, mixed precision), the JAX weight conversion, ELO and
+EvalManager."""
 
 from .convert import (load_policy_npz, normalizer_from_jax,
-                      opt_state_from_jax, params_from_jax)
+                      opt_state_from_jax, params_from_jax,
+                      pbt_fields_from_jax)
 from .infer import EvalConfig, EvalManager
 from .normalizer import (EMANormalizerState, init_normalizer, normalize_obs,
                          update_normalizer)
@@ -31,6 +32,7 @@ __all__ = [
     "normalizer_from_jax",
     "opt_state_from_jax",
     "params_from_jax",
+    "pbt_fields_from_jax",
     "ppo_loss",
     "update_normalizer",
 ]

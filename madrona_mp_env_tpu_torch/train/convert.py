@@ -14,8 +14,10 @@ writes such a checkpoint to an ``.npz`` of flat "/"-joined keys:
 port's policies; ``params_from_jax`` and ``normalizer_from_jax`` do the
 mapping on nested dicts of arrays. ``opt_state_from_jax`` carries a JAX
 TrainState's Adam moments (the optax chain's ScaleByAdamState, stacked
-[E, ...] like the params) across, so a port trainer can start where a
-JAX one stands.
+[E, ...] like the params) across, and ``pbt_fields_from_jax`` its PBT
+leaves (past params, ELO, the past ring's pointer, hyperparameters and
+the matchmaking tables), so a port trainer can start where a JAX one
+stands.
 """
 
 from __future__ import annotations
@@ -139,14 +141,36 @@ def opt_state_from_jax(mu, nu, count) -> List[AdamState]:
                                params_from_jax(nu))]
 
 
-def load_policy_npz(path: str, device=None
+def pbt_fields_from_jax(jts, device=None) -> dict:
+    """The PBT leaves of a JAX TrainState (or any object with its
+    attributes, as numpy or JAX arrays) -> the port's TrainState fields:
+    ``dataclasses.replace(ts, **pbt_fields_from_jax(jts, ts.elo.device))``
+    continues from them."""
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return {
+        "past_params": [{k: v.to(device) for k, v in p.items()}
+                        for p in params_from_jax(jts.past_params)],
+        "elo": t(jts.elo, torch.float32),
+        "past_ptr": int(np.asarray(jts.past_ptr)),
+        "hyper_params": {k: t(v, torch.float32)
+                         for k, v in jts.hyper_params.items()},
+        "assignment": t(jts.assignment, torch.int32),
+        "train_perm": t(jts.train_perm, torch.int64),
+        "past_perm": t(jts.past_perm, torch.int64),
+        "pending_reset": bool(np.asarray(jts.pending_reset)),
+    }
+
+
+def load_policy_npz(path: str, device=None, dtype=torch.float32
                     ) -> Tuple[List[ActorCriticNet], EMANormalizerState,
                                torch.Tensor]:
-    """(P policies, normalizer, elo [P]) from an export_policy.py file, on
-    ``device`` (None: the first CUDA device)."""
+    """(P policies computing in ``dtype``, normalizer, elo [P]) from an
+    export_policy.py file, on ``device`` (None: the first CUDA device)."""
     with np.load(path) as z:
         tree = unflatten({k: z[k] for k in z.files})
-    nets = [build_actor_critic(sd, device=device)
+    nets = [build_actor_critic(sd, device=device, dtype=dtype)
             for sd in params_from_jax(tree["params"])]
     dev = next(nets[0].parameters()).device
     norm = normalizer_from_jax(tree["normalizer"]).to(dev)

@@ -22,8 +22,11 @@ bot is the reference's de-facto end-to-end learning metric.
 Everything runs on the env's device (the first CUDA device unless
 ``device="cpu"`` or ``--cpu``). The step keys follow the JAX stream:
 PRNGKey(seed), split once per chunk, the chunk's half split into one key
-per step. Not ported yet: the record, event-log and behaviour-cloning
-dumps (ROADMAP M14), fp16 / bf16 policies and game modes other than Zone.
+per step. ``EvalConfig.policy_dtype`` (``--bf16`` / ``--fp16``) is the
+policies' compute dtype: each ActorCriticNet must be built with it
+(build_actor_critic / load_policy_npz ``dtype``). Not ported yet: the
+record, event-log and behaviour-cloning dumps (ROADMAP M14) and game
+modes other than Zone.
 """
 
 from __future__ import annotations
@@ -44,14 +47,13 @@ from ..utils import rng
 from .convert import load_policy_npz
 from .distributions import (AIM_BUCKETS, DISCRETE_BUCKETS, ActorDistributions,
                             DiscreteActionDistributions)
-from .elo import elo_update_masked
+from .elo import elo_update_masked, print_elos
 from .normalizer import EMANormalizerState, normalize_obs
 from .policy import (ActorCriticNet, clear_rnn_states, get_episode_scores,
                      init_rnn_states)
 from .pbt import PBTConfig, make_matchmaking
-from .trainer import POLICY_OBS_KEYS, _train_permutation
+from .trainer import EVAL_SIM_CTRL, POLICY_OBS_KEYS, slot_permutations
 
-EVAL_SIM_CTRL = (1, 0, 0)  # [evalMode, randomizeEpisodeLength, flipTeams]
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # vs_bot_wdl's columns [wins, draws, losses] by win_result (0: team 0 won,
@@ -62,10 +64,11 @@ WDL_COLUMNS = ((0, 0), (2, 1), (1, 2))
 @dataclass(frozen=True)
 class EvalConfig:
     """The fields of the JAX package's EvalConfig that its rollout reads;
-    the policy runs in float32."""
+    ``policy_dtype`` is a torch dtype."""
 
     num_worlds: int
     num_eval_steps: int = 200
+    policy_dtype: torch.dtype = torch.float32
     use_deterministic_policy: bool = False
     seed: int = 10
     chunk_steps: int = 10  # host flush granularity
@@ -127,7 +130,7 @@ class EvalManager:
         else:
             assign, _ = make_matchmaking(self.W, self.A, cfg.team_size,
                                          PBTConfig(num_train_policies=self.P))
-            perm = _train_permutation(assign, self.P).reshape(-1)
+            perm = slot_permutations(assign, self.P, 0)[0].reshape(-1)
         dev = self.device
         self.assignment = torch.as_tensor(assign, device=dev)
         self.perm = torch.as_tensor(perm, device=dev)
@@ -170,7 +173,7 @@ class EvalManager:
         S] logits, values [P, B / P], new rnn [2, 2, P, B / P, H])."""
         blocks = {k: self.to_blocks(v)
                   for k, v in self._policy_obs(obs).items()}
-        norm_obs = normalize_obs(normalizer, blocks)
+        norm_obs = normalize_obs(normalizer, blocks, self.ecfg.policy_dtype)
         outs = [net(rnn[:, :, p], {k: v[p] for k, v in norm_obs.items()})
                 for p, net in enumerate(policies)]
         dists = ActorDistributions(
@@ -250,6 +253,9 @@ class EvalManager:
         if len(policies) != self.P:
             raise ValueError(f"{len(policies)} policies for P = {self.P}")
         ecfg = self.ecfg
+        if any(p.dtype != ecfg.policy_dtype for p in policies):
+            raise ValueError(f"the policies must compute in "
+                             f"{ecfg.policy_dtype}")
         env_state, obs, rnn = self.init_state()
         elo = elo.to(self.device, torch.float32)
         num_chunks = -(-ecfg.num_eval_steps // ecfg.chunk_steps)
@@ -292,13 +298,6 @@ def _stack(steps):
     return torch.stack(steps)
 
 
-def print_elos(elos) -> None:
-    """Per-policy ELO ratings (reference scripts/common.py print_elos)."""
-    print("ELO:")
-    for i, e in enumerate(np.asarray(elos).reshape(-1)):
-        print(f"  policy {i}: {float(e):.1f}")
-
-
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Evaluate exported policies "
                                  "(crossplay ELO or win rate vs the bot)")
@@ -332,7 +331,6 @@ def main(argv=None):
     unsupported = {
         "--record / --event-log / --bc-dump-dir (dumps)":
             bool(args.record or args.event_log or args.bc_dump_dir),
-        "--fp16 / --bf16 (mixed precision)": args.fp16 or args.bf16,
         f"--game-mode {args.game_mode}": args.game_mode != "Zone",
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -340,7 +338,10 @@ def main(argv=None):
         raise NotImplementedError("not supported by the PyTorch port yet: "
                                   + ", ".join(bad))
     device = resolve_device("cpu" if args.cpu else None)
-    policies, normalizer, elo = load_policy_npz(args.ckpt_path, device)
+    dtype = (torch.float16 if args.fp16 else
+             torch.bfloat16 if args.bf16 else torch.float32)
+    policies, normalizer, elo = load_policy_npz(args.ckpt_path, device,
+                                                dtype)
     if args.single_policy is not None:
         i = args.single_policy
         policies, elo = policies[i:i + 1], elo[i:i + 1]
@@ -351,7 +352,7 @@ def main(argv=None):
     scene = args.scene or os.path.join(REPO, "data", "simple_map")
     env = Env(cfg, scene, num_worlds=args.num_worlds, seed=10, device=device)
     ecfg = EvalConfig(num_worlds=args.num_worlds,
-                      num_eval_steps=args.num_steps)
+                      num_eval_steps=args.num_steps, policy_dtype=dtype)
     mgr = EvalManager(cfg, ecfg, env, len(policies), vs_bot=args.vs_bot,
                       device=device)
     print_elos(elo.cpu())

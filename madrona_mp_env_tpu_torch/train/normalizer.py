@@ -55,15 +55,18 @@ def init_normalizer(obs_example: Dict[str, torch.Tensor]
                                                 device=dev))
 
 
-def normalize_obs(state: EMANormalizerState, obs: Dict[str, torch.Tensor]
+def normalize_obs(state: EMANormalizerState, obs: Dict[str, torch.Tensor],
+                  dtype: torch.dtype = torch.float32
                   ) -> Dict[str, torch.Tensor]:
-    """(v - mu) * rsqrt(var + 1e-5) per key with stats; others as float32."""
+    """(v - mu) * rsqrt(var + 1e-5) per key with stats, in float32, then
+    cast to the policy's compute dtype; the other keys cast as they are."""
     out = {}
     for k, v in obs.items():
         if k in SKIP_KEYS or k not in state.mu:
-            out[k] = v.to(torch.float32)
+            out[k] = v.to(dtype)
         else:
-            out[k] = (v - state.mu[k]) * torch.rsqrt(state.var[k] + 1e-5)
+            out[k] = ((v - state.mu[k])
+                      * torch.rsqrt(state.var[k] + 1e-5)).to(dtype)
     return out
 
 

@@ -4,9 +4,12 @@ Per-group observation embeddings with a 16-frequency sinusoidal position
 encoding, opponent masking on the actor side, MaxPoolNet (self + lidars +
 max-pool over entities -> MLP 512 x 3) feeding an LSTM(512) + LayerNorm,
 separate actor and critic encoders, dense discrete heads {move: [3, 8, 3,
-3], aim: [13, 7]} and a dense critic. Float32 throughout. ``forward`` is
-the single step of the rollouts, ``sequence`` the BPTT recomputation of
-the PPO loss.
+3], aim: [13, 7]} and a dense critic. ``forward`` is the single step of
+the rollouts, ``sequence`` the BPTT recomputation of the PPO loss.
+``ActorCriticNet(dtype=...)`` runs in float32, bfloat16 or float16 as the
+flax net does (models.py): float32 parameters, the observations arriving
+in the compute dtype (normalize_obs), float32 logits, values and
+recurrent state out.
 """
 
 from __future__ import annotations
@@ -23,21 +26,25 @@ from ..sim.env import resolve_device
 from ..sim.types import OTHER_OB_DIM, SELF_OB_DIM
 from .distributions import AIM_BUCKETS, DISCRETE_BUCKETS, ActorDistributions
 from .models import (DenseLayerCritic, DenseLayerDiscreteActor, EmbedBlock,
-                     MLP, PolicyLSTM)
+                     DTYPES, MLP, PolicyLSTM, check_dtype,
+                     rounded)
 
 RNN_HIDDEN = 512
 EMBED_CHANNELS = 64
 NUM_FREQS = 16
 FWD_LIDAR_DIM = consts.fwd_lidar_height * consts.fwd_lidar_width * 4
 REAR_LIDAR_DIM = consts.rear_lidar_height * consts.rear_lidar_width * 4
+_PI = {dt: rounded(math.pi, dt) for dt in DTYPES}
 
 
 def sinusoidal_embedding(pos, num_freqs: int = NUM_FREQS):
     """[sin(p * 2^i * pi), cos(p * 2^i * pi)] for i < num_freqs / 2, each
-    [..., D], concatenated in that order: [..., num_freqs * D]."""
+    [..., D], concatenated in that order: [..., num_freqs * D], in pos's
+    dtype. pi is rounded to that dtype first, as jnp's weakly typed
+    constant is (bf16 pi is 3.140625)."""
     outs = []
     for i in range(num_freqs // 2):
-        v = pos * (2.0 ** i) * math.pi
+        v = pos * (2.0 ** i) * _PI[pos.dtype]
         outs.append(torch.sin(v))
         outs.append(torch.cos(v))
     return torch.cat(outs, dim=-1)
@@ -56,15 +63,17 @@ class PrefixCommon(nn.Module):
 
     def __init__(self, self_dim=SELF_OB_DIM, other_dim=OTHER_OB_DIM,
                  fwd_dim=FWD_LIDAR_DIM, rear_dim=REAR_LIDAR_DIM,
-                 num_coefs=cfgmod.NUM_REWARD_COEFS, channels=EMBED_CHANNELS):
+                 num_coefs=cfgmod.NUM_REWARD_COEFS, channels=EMBED_CHANNELS,
+                 dtype=torch.float32):
         super().__init__()
-        self.fwd_lidar_embed = EmbedBlock(fwd_dim, channels)
-        self.rear_lidar_embed = EmbedBlock(rear_dim, channels)
+        self.fwd_lidar_embed = EmbedBlock(fwd_dim, channels, dtype)
+        self.rear_lidar_embed = EmbedBlock(rear_dim, channels, dtype)
         self.self_embed = EmbedBlock(self_dim + num_coefs + 3 * NUM_FREQS,
-                                     channels)
-        self.teammates_embed = EmbedBlock(other_dim, channels)
-        self.opponents_embed = EmbedBlock(other_dim, channels)
-        self.opponents_last_known_embed = EmbedBlock(other_dim, channels)
+                                     channels, dtype)
+        self.teammates_embed = EmbedBlock(other_dim, channels, dtype)
+        self.opponents_embed = EmbedBlock(other_dim, channels, dtype)
+        self.opponents_last_known_embed = EmbedBlock(other_dim, channels,
+                                                     dtype)
 
     def forward(self, obs: Dict[str, torch.Tensor]):
         self_features = torch.cat(
@@ -86,9 +95,10 @@ class PrefixCommon(nn.Module):
 class MaxPoolNet(nn.Module):
     """concat(self, lidars, max-pool of each entity group) -> MLP 512 x 3."""
 
-    def __init__(self, channels=EMBED_CHANNELS, width=RNN_HIDDEN):
+    def __init__(self, channels=EMBED_CHANNELS, width=RNN_HIDDEN,
+                 dtype=torch.float32):
         super().__init__()
-        self.mlp = MLP(6 * channels, width, 3)
+        self.mlp = MLP(6 * channels, width, 3, dtype)
 
     def forward(self, feats):
         x = torch.cat([
@@ -101,19 +111,21 @@ class MaxPoolNet(nn.Module):
 
 class ActorCriticNet(nn.Module):
     """Prefix + (masked actor net + LSTM) and (critic net + LSTM), then the
-    actor heads and the critic head."""
+    actor heads and the critic head, in the compute ``dtype``."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.prefix = PrefixCommon()
-        self.actor_net = MaxPoolNet()
-        self.critic_net = MaxPoolNet()
-        self.actor_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN)
-        self.critic_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN)
-        self.actor_head_discrete = DenseLayerDiscreteActor(RNN_HIDDEN,
-                                                           DISCRETE_BUCKETS)
-        self.actor_head_aim = DenseLayerDiscreteActor(RNN_HIDDEN, AIM_BUCKETS)
-        self.critic_head = DenseLayerCritic(RNN_HIDDEN)
+        self.dtype = check_dtype(dtype)
+        self.prefix = PrefixCommon(dtype=dtype)
+        self.actor_net = MaxPoolNet(dtype=dtype)
+        self.critic_net = MaxPoolNet(dtype=dtype)
+        self.actor_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN, dtype)
+        self.critic_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN, dtype)
+        self.actor_head_discrete = DenseLayerDiscreteActor(
+            RNN_HIDDEN, DISCRETE_BUCKETS, dtype)
+        self.actor_head_aim = DenseLayerDiscreteActor(RNN_HIDDEN, AIM_BUCKETS,
+                                                      dtype)
+        self.critic_head = DenseLayerCritic(RNN_HIDDEN, dtype)
 
     def _features(self, obs: Dict[str, torch.Tensor]):
         """(actor, critic) encoder outputs [..., 512]."""
@@ -170,12 +182,14 @@ def _seeded_init(net: ActorCriticNet, seed: int) -> None:
 
 
 def build_actor_critic(state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                       seed: int = 0, device=None) -> ActorCriticNet:
+                       seed: int = 0, device=None,
+                       dtype: torch.dtype = torch.float32) -> ActorCriticNet:
     """The policy on ``device`` (None: the first CUDA device, raising
-    without one) in eval mode, with ``state_dict`` (e.g. from
-    convert.params_from_jax) or else weights made from ``seed``."""
+    without one) in eval mode, computing in ``dtype``, with
+    ``state_dict`` (e.g. from convert.params_from_jax) or else weights made
+    from ``seed``."""
     dev = resolve_device(device)
-    net = ActorCriticNet()
+    net = ActorCriticNet(dtype)
     if state_dict is None:
         _seeded_init(net, seed)
     else:

@@ -4,15 +4,19 @@ with every update's metrics logged, and saves a checkpoint every
 ``--ckpt-frequency`` updates and at the end.
 
     python -m madrona_mp_env_tpu_torch.train.train --scene data/simple_map \
-        --num-worlds 1024 --num-updates 1000 --steps-per-update 40
+        --num-worlds 1024 --num-updates 1000 --steps-per-update 40 --bf16
 
 It runs on the first CUDA device; ``--cpu`` runs the plain PyTorch
 versions on the CPU (tiny shapes only). ``MPENV_FAN_V9=1`` in the
 environment sends the sensor fans through the sensor-ray tables (K9).
-Flags of the JAX CLI that this port does not support yet raise: the
-population update (``--pbt-update-frequency`` > 0), past policies,
-``--num-devices``, ``--distributed``, ``--fp16`` / ``--bf16`` and the
-profiler server.
+``--bf16`` / ``--fp16`` set the policy's compute dtype. The PBT
+population: ``--pbt-ensemble-size`` train policies, ``--pbt-past-policies``
+frozen ones and the play portions; every ``--pbt-update-frequency``
+updates (checked after each group of updates) the deterministic eval ELO
+(``--eval-elo-steps``) when there are two slots or more, then
+store_past_policy, update_population and resample_matchmaking. Flags of
+the JAX CLI that this port does not support yet raise: ``--num-devices``,
+``--distributed`` and the profiler server.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ import argparse
 import os
 import time
 
+import torch
+
 from ..config import EnvConfig, SimFlags, Task
 from ..sim.env import Env
+from .elo import print_elos
 from .metrics import MetricsWriter
 from .pbt import ParamExplore, PBTConfig
 from .ppo import PPOConfig
@@ -84,13 +91,8 @@ def parse_args(argv=None):
 def check_supported(args) -> None:
     """Raise on a flag whose feature is not ported yet."""
     unsupported = {
-        "--pbt-update-frequency > 0 (population update, eval ELO)":
-            args.pbt_update_frequency > 0,
-        "--pbt-past-policies > 0 (past-policy history)":
-            args.pbt_past_policies > 0,
         "--num-devices (data mesh)": args.num_devices > 0,
         "--distributed (multi-host)": args.distributed,
-        "--fp16 / --bf16 (mixed precision)": args.fp16 or args.bf16,
         "--profile-port": args.profile_port is not None,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -115,10 +117,18 @@ def build(args):
     cfg = EnvConfig(task=game_mode, sim_flags=sim_flags,
                     team_size=args.team_size)
 
+    if args.fp16:
+        dtype = torch.float16
+    elif args.bf16:
+        dtype = torch.bfloat16
+    else:
+        dtype = torch.float32
+
     pbt = lr_explore = None
-    if args.pbt_ensemble_size > 1:
+    if args.pbt_ensemble_size > 1 or args.pbt_past_policies > 0:
         pbt = PBTConfig(
             num_train_policies=args.pbt_ensemble_size,
+            num_past_policies=args.pbt_past_policies,
             self_play_portion=args.self_play_portion,
             cross_play_portion=args.cross_play_portion,
             past_play_portion=args.past_play_portion,
@@ -141,6 +151,7 @@ def build(args):
         num_train_policies=args.pbt_ensemble_size,
         pbt=pbt,
         lr_explore=lr_explore,
+        compute_dtype=dtype,
         seed=args.seed,
     )
     device = "cpu" if args.cpu else None
@@ -165,6 +176,16 @@ def main(argv=None):
         n = min(args.metrics_buffer_size, args.num_updates - ts.update_idx)
         ts, metrics = mgr.update_loop(ts, n)
         metrics = {k: v.cpu() for k, v in metrics.items()}  # waits
+        if (args.pbt_update_frequency
+                and ts.update_idx % args.pbt_update_frequency == 0):
+            # deterministic eval matches -> ELO, then the best policy into
+            # the past ring, truncation selection and re-paired teams
+            if mgr.E + mgr.P > 1:
+                ts, eval_elos = mgr.eval_elo(ts, args.eval_elo_steps)
+                print_elos(eval_elos.cpu())
+            ts = mgr.store_past_policy(ts)
+            ts = mgr.update_population(ts)
+            ts = mgr.resample_matchmaking(ts)
         update_id = ts.update_idx
         now = time.time()
         fps = (args.num_worlds * args.steps_per_update

@@ -1,5 +1,6 @@
 """The actor-learner (the JAX package's train/trainer.py): rollout, GAE
-and recurrent PPO over an ensemble of E train policies.
+and recurrent PPO over an ensemble of E train policies, with the PBT
+population around it.
 
     env = Env(cfg, scene, num_worlds=1024)                 # on the GPU
     mgr = TrainingManager(cfg, TrainConfig(num_worlds=1024), env)
@@ -16,17 +17,27 @@ learning rate). Every random draw follows the JAX key stream: the same
 TrainState gives the same actions (up to ulp-level ties of the Gumbel
 scores) and the same minibatch order.
 
-Actors are routed to policies by a static block permutation ((world w,
-team t) -> policy (2w + t) % E, cross-play). The JAX code vmaps the
-policy over E; here a loop over the E policies applies each one's
-parameters to the shared module with ``torch.func.functional_call``.
+Actors are routed to policy slots by the matchmaking tables in the
+TrainState: slots [0, E) are the train policies, [E, E + P) the frozen
+past policies (self / cross / past play portions, pbt.make_matchmaking),
+each slot's actors one block of a static size. The JAX code vmaps the
+policy over a block axis; here a loop over the blocks applies each
+policy's parameters to the shared module with
+``torch.func.functional_call``. The PBT operations between updates are
+``eval_elo`` (deterministic matches from the current state, ELO from
+1000), ``store_past_policy`` (the best train policy into the past
+ring), ``update_population`` (ELO-ranked truncation selection) and
+``resample_matchmaking`` (re-paired teams, a forced reset on the next
+rollout's first step).
+
 The state is a TrainState of tensors: parameter and Adam moment dicts
 per policy (names as ActorCriticNet's state_dict), so that a JAX
 TrainState converts to it (convert.py) and a checkpoint is a
-``torch.save`` of dicts. Float32 throughout. Not ported yet: the
-past-policy history, the population update, the deterministic-eval ELO
-and dynamic matchmaking (the PBT slice), mixed precision, and the
-multi-device data mesh.
+``torch.save`` of dicts. ``TrainConfig.compute_dtype`` (float32,
+bfloat16 or float16) is the policy's compute dtype in the rollout, the
+stored observations and BPTT start states and the loss; parameters,
+Adam state, values, log probs and the loss terms stay float32. Not
+ported yet: the multi-device data mesh.
 """
 
 from __future__ import annotations
@@ -46,10 +57,11 @@ from ..sim.types import Actions, WorldState
 from ..utils import rng
 from .distributions import (AIM_BUCKETS, DISCRETE_BUCKETS, ActorDistributions,
                             DiscreteActionDistributions)
-from .elo import elo_update_masked
+from .elo import accumulate_match_scores, elo_update_masked
 from .normalizer import (EMANormalizerState, init_normalizer, normalize_obs,
                          update_normalizer)
-from .pbt import ParamExplore, PBTConfig, make_matchmaking
+from .pbt import (ParamExplore, PBTConfig, make_matchmaking,
+                  update_population)
 from .policy import (ActorCriticNet, _seeded_init, clear_rnn_states,
                      init_rnn_states)
 from .ppo import PPOConfig, compute_gae, ppo_loss
@@ -73,12 +85,15 @@ POLICY_OBS_KEYS = (
 )
 
 TRAIN_SIM_CTRL = (0, 1, 1)  # [evalMode, randomizeEpisodeLength, flipTeams]
+EVAL_SIM_CTRL = (1, 0, 0)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig, float32 only."""
+    """The JAX package's TrainConfig: ``compute_dtype`` is a torch dtype,
+    float32 (the default), bfloat16 or float16 (no loss scaling, as in
+    the JAX package)."""
 
     num_worlds: int = 512
     steps_per_update: int = 40
@@ -88,8 +103,9 @@ class TrainConfig:
     gae_lambda: float = 0.95
     ppo: PPOConfig = field(default_factory=PPOConfig)
     num_train_policies: int = 1  # PBT ensemble size
-    pbt: Optional[PBTConfig] = None  # play portions (past policies: later)
+    pbt: Optional[PBTConfig] = None  # play portions, past policies
     lr_explore: Optional[ParamExplore] = None  # per-policy lr spread
+    compute_dtype: torch.dtype = torch.float32
     seed: int = 5
 
     @property
@@ -119,19 +135,37 @@ class TrainState:
     env_state: WorldState  # [W, ...]
     cur_obs: Dict[str, torch.Tensor]  # policy obs [W, A, ...]
     rnn_states: torch.Tensor  # [2, 2, E, BE, H]
+    past_rnn_states: torch.Tensor  # [2, 2, P, BPp, H] (P may be 0)
     key: torch.Tensor  # [2]
     update_idx: int
-    elo: torch.Tensor  # [E] per-policy rating
+    elo: torch.Tensor  # [E + P] per-slot rating
     hyper_params: Dict[str, torch.Tensor]  # per policy, {"lr": [E]}
+    past_params: List[Params]  # P frozen past policies
+    past_ptr: int  # the next past slot to overwrite (mod P)
+    # the matchmaking tables (resample_matchmaking re-draws them)
+    assignment: torch.Tensor  # [W, A] int32 policy slot per actor
+    train_perm: torch.Tensor  # [E, BE] flat-actor indices per train block
+    past_perm: torch.Tensor  # [P, BPp]
+    pending_reset: bool  # force-reset every world on the next rollout
 
 
-def _train_permutation(assign: np.ndarray, E: int) -> np.ndarray:
-    """The flat actor indices of each train slot, [E, BE] (equal counts)."""
+def slot_permutations(assign: np.ndarray, E: int, P: int):
+    """The flat actor indices of each train slot [E, BE] and each past
+    slot [P, BPp] (slots [E, E + P)), each set of blocks of equal size."""
     flat = assign.reshape(-1)
-    idx = [np.nonzero(flat == e)[0] for e in range(E)]
-    if len({len(i) for i in idx}) != 1:
-        raise ValueError("unequal train-slot actor counts")
-    return np.stack(idx).astype(np.int64)
+
+    def blocks(slots, what):
+        idx = [np.nonzero(flat == s)[0] for s in slots]
+        if len({len(i) for i in idx}) > 1:
+            raise ValueError(f"unequal {what}-slot actor counts")
+        return np.stack(idx).astype(np.int64) if idx else np.zeros(
+            (0, 0), np.int64)
+
+    return blocks(range(E), "train"), blocks(range(E, E + P), "past")
+
+
+def _clone(params: Params) -> Params:
+    return {k: v.clone() for k, v in params.items()}
 
 
 class _Sequence(nn.Module):
@@ -194,36 +228,57 @@ class TrainingManager:
         self.pbt = tcfg.pbt or PBTConfig(num_train_policies=self.E)
         if self.pbt.num_train_policies != self.E:
             raise ValueError("PBTConfig and TrainConfig disagree on E")
-        if self.pbt.num_past_policies:
-            raise NotImplementedError(
-                "past policies come with the PBT slice (ROADMAP M10 rest)")
+        self.P = self.pbt.num_past_policies
         assign, _ = make_matchmaking(self.W, self.A, cfg.team_size, self.pbt)
+        train_perm, past_perm = slot_permutations(assign, self.E, self.P)
         dev = self.device
-        self.assignment = torch.as_tensor(assign, device=dev)  # [W, A] slot
-        # [E, BE] flat-actor indices of each train block
-        self.train_perm = torch.as_tensor(_train_permutation(assign, self.E),
-                                          device=dev)
-        self.BE = self.train_perm.shape[1]
-        self.model = ActorCriticNet().to(dev).requires_grad_(False)
+        # init's tables (assignment [W, A], train_perm [E, BE], past_perm
+        # [P, BPp]); routing reads a TrainState's own, which matchmaking
+        # rotates
+        self._tables0 = (assign, train_perm, past_perm)
+        self.BE = train_perm.shape[1]
+        self.BPp = past_perm.shape[1]
+        # past slots with no actors (past_play_portion 0) never act
+        self.has_past = self.P > 0 and self.BPp > 0
+        # the multiset of per-team slots, which matchmaking re-pairs
+        self.team_slots_base = torch.as_tensor(
+            assign[:, ::cfg.team_size].reshape(-1), device=dev)  # [2W]
+        self.model = ActorCriticNet(tcfg.compute_dtype).to(
+            dev).requires_grad_(False)
         self._seq = _Sequence(self.model)
         self._obs_slots = None
+        self._zf = torch.zeros((self.W, self.A), dtype=torch.float32,
+                               device=dev)  # the aim rates
+        self.eval_matches = None  # finished matches of the last eval_elo
 
     # -------------------------------------------------- block routing
-    def to_blocks(self, x):
-        """[W, A, ...] -> train blocks [E, BE, ...]. One policy: a
-        reshape (every actor is in block 0, in index order)."""
-        if self.E == 1:
-            return x.reshape((1, self.B) + x.shape[2:])
-        return x.reshape((self.B,) + x.shape[2:])[self.train_perm]
+    def identity_blocks(self) -> bool:
+        """One train policy and no acting past policy: every actor is in
+        train block 0 in index order, whatever matchmaking does."""
+        return self.E == 1 and not self.has_past
 
-    def from_blocks(self, train_b):
-        """Train blocks [E, BE, ...] back to [W, A, ...]."""
+    def to_blocks(self, x, train_perm):
+        """[W, A, ...] -> train blocks [E, BE, ...] (``train_perm``: a
+        TrainState's table)."""
+        if self.identity_blocks():
+            return x.reshape((1, self.B) + x.shape[2:])
+        return x.reshape((self.B,) + x.shape[2:])[train_perm]
+
+    def to_past_blocks(self, x, past_perm):
+        """[W, A, ...] -> past blocks [P, BPp, ...]."""
+        return x.reshape((self.B,) + x.shape[2:])[past_perm]
+
+    def from_blocks(self, train_b, past_b, train_perm, past_perm):
+        """Train blocks [E, BE, ...] (and past blocks [P, BPp, ...], or
+        None) back to [W, A, ...]."""
         tail = train_b.shape[2:]
-        if self.E == 1:
+        if self.identity_blocks():
             return train_b.reshape((self.W, self.A) + tail)
         flat = torch.zeros((self.B,) + tail, dtype=train_b.dtype,
                            device=train_b.device)
-        flat[self.train_perm.reshape(-1)] = train_b.reshape((-1,) + tail)
+        flat[train_perm.reshape(-1)] = train_b.reshape((-1,) + tail)
+        if past_b is not None and self.has_past:
+            flat[past_perm.reshape(-1)] = past_b.reshape((-1,) + tail)
         return flat.reshape((self.W, self.A) + tail)
 
     def _policy_obs(self, obs):
@@ -260,7 +315,8 @@ class TrainingManager:
         """Reset every world and start E policies: ``params`` (e.g. from
         convert.params_from_jax) or weights made from ``seed`` (the
         port's seeded scheme, not flax's initializers), zero Adam
-        moments, a fresh normalizer, ELO 1000."""
+        moments, a fresh normalizer, ELO 1000; the P past policies start
+        as copies of train policies p % E."""
         seed = self.tcfg.seed if seed is None else seed
         dev = self.device
         k_param, k_state, k_hp = rng.split(rng.prng_key(seed, device=dev), 3)
@@ -281,7 +337,9 @@ class TrainingManager:
             mu={k: torch.zeros_like(v) for k, v in p.items()},
             nu={k: torch.zeros_like(v) for k, v in p.items()})
             for p in params]
-        blocks = {k: self.to_blocks(v) for k, v in pobs.items()}
+        assignment, train_perm, past_perm = (
+            torch.as_tensor(t, device=dev) for t in self._tables0)
+        blocks = {k: self.to_blocks(v, train_perm) for k, v in pobs.items()}
         self._obs_slots = self._slots(blocks)
         normalizer = init_normalizer({k: v[0] for k, v in blocks.items()})
         if self.tcfg.lr_explore is not None:
@@ -290,23 +348,27 @@ class TrainingManager:
             lr0 = torch.full((self.E,), self.tcfg.lr, dtype=torch.float32)
         return TrainState(
             params=params, opt_state=opt_state, normalizer=normalizer,
-            env_state=env_state.replace(policy_idx=self.assignment.clone()),
+            env_state=env_state.replace(policy_idx=assignment.clone()),
             cur_obs=pobs,
             rnn_states=init_rnn_states((self.E, self.BE), device=dev),
+            past_rnn_states=init_rnn_states((self.P, self.BPp), device=dev),
             key=k_state, update_idx=0,
-            elo=torch.full((self.E,), 1000.0, device=dev),
+            elo=torch.full((self.E + self.P,), 1000.0, device=dev),
             hyper_params={"lr": lr0.to(dev)},
+            past_params=[_clone(params[p % self.E]) for p in range(self.P)],
+            past_ptr=0, assignment=assignment, train_perm=train_perm,
+            past_perm=past_perm, pending_reset=False,
         )
 
     # -------------------------------------------------- policy apply
     def apply_blocks(self, params: List[Params], rnn_states, obs_blocks):
-        """Each policy on its block. rnn_states [2, 2, E, BE, H]; obs
-        leaves [E, BE, ...] -> (dists with [E, BE, S] logits, values [E,
-        BE], new rnn_states)."""
+        """Each policy on its block. rnn_states [2, 2, N, BN, H]; obs
+        leaves [N, BN, ...] for N = len(params) -> (dists with [N, BN, S]
+        logits, values [N, BN], new rnn_states)."""
         outs = [functional_call(self.model, params[e],
                                 (rnn_states[:, :, e],
                                  {k: v[e] for k, v in obs_blocks.items()}))
-                for e in range(self.E)]
+                for e in range(len(params))]
         dists = ActorDistributions(
             discrete=DiscreteActionDistributions(
                 torch.stack([o[0].discrete.logits for o in outs]),
@@ -316,38 +378,81 @@ class TrainingManager:
         return (dists, torch.stack([o[1] for o in outs]),
                 torch.stack([o[2] for o in outs], dim=2))
 
+    def _policy_step(self, ts: TrainState, obs, rnn, past_rnn, norm,
+                     keys=None):
+        """One step's policy half: the train blocks (and the acting past
+        blocks) normalized in the compute dtype and run through their
+        policies, then Gumbel-max samples from ``keys`` (train, past) or,
+        with None, the best actions. Returns (env Actions, train obs
+        blocks, normalized train obs, train actions, their log probs (None
+        for the best), values, rnn, past_rnn)."""
+        dt = self.tcfg.compute_dtype
+        tperm, pperm = ts.train_perm, ts.past_perm
+        obs_blocks = {k: self.to_blocks(v, tperm) for k, v in obs.items()}
+        norm_obs = normalize_obs(norm, obs_blocks, dt)
+        dists, values, rnn = self.apply_blocks(ts.params, rnn, norm_obs)
+        if keys is None:
+            actions, log_probs = dists.best(), None
+        else:
+            actions, log_probs = dists.sample(keys[0])
+        past = None
+        if self.has_past:
+            past_obs = {k: self.to_past_blocks(v, pperm)
+                        for k, v in obs.items()}
+            pdists, _, past_rnn = self.apply_blocks(
+                ts.past_params, past_rnn, normalize_obs(norm, past_obs, dt))
+            past = pdists.best() if keys is None else pdists.sample(
+                keys[1])[0]
+        da = self.from_blocks(actions["discrete"],
+                              past and past["discrete"], tperm, pperm)
+        aa = self.from_blocks(actions["aim"], past and past["aim"], tperm,
+                              pperm)
+        env_actions = Actions(
+            move_amount=da[..., 0], move_angle=da[..., 1], fire=da[..., 2],
+            stand=da[..., 3], aim_yaw=aa[..., 0], aim_pitch=aa[..., 1],
+            aim_yaw_rate=self._zf, aim_pitch_rate=self._zf)
+        return (env_actions, obs_blocks, norm_obs, actions, log_probs,
+                values, rnn, past_rnn)
+
+    def _clear_done(self, ts: TrainState, done, rnn, past_rnn):
+        """Zero the recurrent state of actors whose episode ended."""
+        done_b = self.to_blocks(done, ts.train_perm)
+        rnn = clear_rnn_states(rnn, done_b != 0)
+        if self.has_past:
+            past_rnn = clear_rnn_states(
+                past_rnn, self.to_past_blocks(done, ts.past_perm) != 0)
+        return done_b, rnn, past_rnn
+
+    def _all_worlds(self) -> torch.Tensor:
+        return torch.ones(self.W, dtype=torch.int32, device=self.device)
+
     # -------------------------------------------------- rollout
     @torch.no_grad()
     def rollout(self, ts: TrainState):
         """``steps_per_update`` steps of every policy and the env. Returns
-        (ts, rnn_starts [K, 2, 2, E, BE, H], outs with [K, L, ...] leaves,
-        bootstrap values [E, BE])."""
+        (ts, rnn_starts [K, 2, 2, E, BE, H] in the compute dtype, outs
+        with [K, L, ...] leaves, bootstrap values [E, BE]). A pending
+        matchmaking rotation resets every world on the first step."""
         tcfg = self.tcfg
         K, L = tcfg.num_bptt_chunks, tcfg.chunk_len
         key, sub = rng.split(ts.key, 2)
         step_keys = rng.split(sub, K * L)
-        env_state, obs, rnn, norm = (ts.env_state, ts.cur_obs, ts.rnn_states,
-                                     ts.normalizer)
-        zf = torch.zeros((self.W, self.A), dtype=torch.float32,
-                         device=self.device)
+        env_state, obs, rnn, past_rnn, norm = (
+            ts.env_state, ts.cur_obs, ts.rnn_states, ts.past_rnn_states,
+            ts.normalizer)
         rnn_starts, steps = [], []
         for t in range(K * L):
             if t % L == 0:
-                rnn_starts.append(rnn)
-            k_train = rng.split(step_keys[t], 2)[0]
-            obs_blocks = {k: self.to_blocks(v) for k, v in obs.items()}
-            norm_obs = normalize_obs(norm, obs_blocks)
-            dists, values, rnn = self.apply_blocks(ts.params, rnn, norm_obs)
-            actions, log_probs = dists.sample(k_train)
-            da = self.from_blocks(actions["discrete"])
-            aa = self.from_blocks(actions["aim"])
-            env_state, out = self.env.step(env_state, Actions(
-                move_amount=da[..., 0], move_angle=da[..., 1],
-                fire=da[..., 2], stand=da[..., 3], aim_yaw=aa[..., 0],
-                aim_pitch=aa[..., 1], aim_yaw_rate=zf, aim_pitch_rate=zf,
-            ), TRAIN_SIM_CTRL)
-            done_b = self.to_blocks(out["done"])
-            rnn = clear_rnn_states(rnn, done_b != 0)
+                rnn_starts.append(rnn.to(tcfg.compute_dtype))
+            (env_actions, obs_blocks, norm_obs, actions, log_probs, values,
+             rnn, past_rnn) = self._policy_step(
+                ts, obs, rnn, past_rnn, norm, rng.split(step_keys[t], 2))
+            force = self._all_worlds() if t == 0 and ts.pending_reset \
+                else None
+            env_state, out = self.env.step(env_state, env_actions,
+                                           TRAIN_SIM_CTRL, force)
+            done_b, rnn, past_rnn = self._clear_done(ts, out["done"], rnn,
+                                                     past_rnn)
             obs = self._policy_obs(out["obs"])
             norm = update_normalizer(norm, obs_blocks)
             res = out["episode_result"]
@@ -356,16 +461,17 @@ class TrainingManager:
                 "act_pack": torch.cat([actions["discrete"], actions["aim"]],
                                       dim=-1),
                 "log_probs": log_probs, "values": values,
-                "rewards": self.to_blocks(out["reward"]),
+                "rewards": self.to_blocks(out["reward"], ts.train_perm),
                 "dones": done_b, "win_result": res["win_result"],
                 "match_finished": res["match_finished"],
             })
         outs = _stack(steps, (K, L))
-        final = {k: self.to_blocks(v) for k, v in obs.items()}
-        _, bootstrap, _ = self.apply_blocks(ts.params, rnn,
-                                            normalize_obs(norm, final))
+        final = {k: self.to_blocks(v, ts.train_perm) for k, v in obs.items()}
+        _, bootstrap, _ = self.apply_blocks(
+            ts.params, rnn, normalize_obs(norm, final, tcfg.compute_dtype))
         ts = replace(ts, env_state=env_state, cur_obs=obs, rnn_states=rnn,
-                     normalizer=norm, key=key)
+                     past_rnn_states=past_rnn, normalizer=norm, key=key,
+                     pending_reset=False)
         return ts, torch.stack(rnn_starts), outs, bootstrap
 
     # -------------------------------------------------- ppo update
@@ -464,6 +570,17 @@ class TrainingManager:
             metrics
 
     # -------------------------------------------------- full update
+    def _match_elo(self, ratings, assignment, win, finished):
+        """``ratings`` updated by every finished match of win and finished
+        [..., W]: the two teams' policy slots from ``assignment``."""
+        team_policies = assignment[:, ::self.cfg.team_size]  # [W, 2]
+        n = finished.numel()
+        pairs, score_a, valid = accumulate_match_scores(
+            win.reshape(n),
+            team_policies.expand(finished.shape + (2,)).reshape(n, 2))
+        return elo_update_masked(ratings, pairs, score_a,
+                                 finished.reshape(n) & valid)
+
     def update_iter(self, ts: TrainState):
         """One rollout + PPO update; (ts, metrics)."""
         ts, rnn_starts, outs, bootstrap = self.rollout(ts)
@@ -473,15 +590,9 @@ class TrainingManager:
             metrics["value_mean"] = outs["values"].mean()
             finished = outs["match_finished"]
             metrics["episodes_finished"] = finished.to(torch.int32).sum()
-            # ELO between ensemble members from every finished match
-            team_policies = self.assignment[:, ::self.cfg.team_size]  # [W, 2]
-            n = finished.numel()
-            pairs = team_policies.expand(finished.shape + (2,)).reshape(n, 2)
-            win = outs["win_result"].reshape(n)
-            score_a = torch.where(win == 0, 1.0,
-                                  torch.where(win == 1, 0.0, 0.5))
-            elo = elo_update_masked(ts.elo, pairs, score_a,
-                                    finished.reshape(n) & (win >= 0))
+            # ELO between the slots from every finished match
+            elo = self._match_elo(ts.elo, ts.assignment, outs["win_result"],
+                                  finished)
         metrics["elo"] = elo
         return replace(ts, update_idx=ts.update_idx + 1, elo=elo), metrics
 
@@ -494,20 +605,112 @@ class TrainingManager:
             rows.append(m)
         return ts, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
+    # ------------------------------------------- dynamic matchmaking
+    def resample_matchmaking(self, ts: TrainState) -> TrainState:
+        """Re-pair the teams: permute the per-team slot multiset (so every
+        slot keeps its actor count and every block its size), rebuild the
+        tables with a stable sort, clear both recurrent states, route the
+        env's agents and reset every world on the next rollout's first
+        step."""
+        key, sub = rng.split(ts.key, 2)
+        team_slots = self.team_slots_base[rng.permutation(sub, 2 * self.W)]
+        assignment = team_slots.reshape(self.W, 2).repeat_interleave(
+            self.cfg.team_size, dim=1)  # [W, A]
+        order = torch.argsort(assignment.reshape(-1), stable=True)
+        n_train = self.E * self.BE
+        past_perm = order[n_train:].reshape(self.P, self.BPp) \
+            if self.has_past else ts.past_perm
+        dev = self.device
+        return replace(
+            ts, env_state=ts.env_state.replace(policy_idx=assignment.clone()),
+            assignment=assignment,
+            train_perm=order[:n_train].reshape(self.E, self.BE),
+            past_perm=past_perm,
+            rnn_states=init_rnn_states((self.E, self.BE), device=dev),
+            past_rnn_states=init_rnn_states((self.P, self.BPp), device=dev),
+            pending_reset=True, key=key)
+
+    # ------------------------------------------- deterministic eval ELO
+    @torch.no_grad()
+    def eval_elo(self, ts: TrainState, num_steps: int = 1000):
+        """ELO from deterministic matches: every policy's best actions,
+        the eval-mode sim control, every world reset on the first step,
+        from a scratch run of ts.env_state with cleared recurrent states.
+        The ratings restart at 1000 and take every finished match at
+        once. Returns (ts with that elo and a pending reset, elo); the
+        count of finished matches is left in ``self.eval_matches``."""
+        env_state, obs = ts.env_state, ts.cur_obs
+        dev = self.device
+        rnn = init_rnn_states((self.E, self.BE), device=dev)
+        past_rnn = init_rnn_states((self.P, self.BPp), device=dev)
+        wins, finished = [], []
+        for t in range(num_steps):
+            env_actions, *_, rnn, past_rnn = self._policy_step(
+                ts, obs, rnn, past_rnn, ts.normalizer)
+            env_state, out = self.env.step(
+                env_state, env_actions, EVAL_SIM_CTRL,
+                self._all_worlds() if t == 0 else None)
+            _, rnn, past_rnn = self._clear_done(ts, out["done"], rnn,
+                                                past_rnn)
+            obs = self._policy_obs(out["obs"])
+            wins.append(out["episode_result"]["win_result"])
+            finished.append(out["episode_result"]["match_finished"])
+        win, finished = torch.stack(wins), torch.stack(finished)
+        self.eval_matches = (finished & (win >= 0)).sum()
+        elo = self._match_elo(torch.full_like(ts.elo, 1000.0),
+                              ts.assignment, win, finished)
+        # the eval's episodes restart on the next training rollout
+        return replace(ts, elo=elo, pending_reset=True), elo
+
+    # -------------------------------------------------- PBT population
+    def store_past_policy(self, ts: TrainState) -> TrainState:
+        """Snapshot the best train policy (by ELO, the first on ties) into
+        the past ring slot past_ptr % P, with its rating."""
+        if self.P == 0:
+            return ts
+        best = int(torch.argmax(ts.elo[:self.E]))
+        slot = ts.past_ptr % self.P
+        past_params = list(ts.past_params)
+        past_params[slot] = _clone(ts.params[best])
+        elo = ts.elo.clone()
+        elo[self.E + slot] = ts.elo[best]
+        return replace(ts, past_params=past_params,
+                       past_ptr=ts.past_ptr + 1, elo=elo)
+
+    def update_population(self, ts: TrainState) -> TrainState:
+        """ELO-ranked truncation selection over the train policies
+        (pbt.update_population): the lr explored as tcfg.lr_explore, or
+        log-uniform x/÷10 around tcfg.lr."""
+        key, sub = rng.split(ts.key, 2)
+        explore = {"lr": self.tcfg.lr_explore or ParamExplore(
+            base=self.tcfg.lr, min_scale=0.1, max_scale=10.0,
+            log10_scale=True)}
+        params, opt_state, hyper_params, train_elo = update_population(
+            sub, ts.params, ts.opt_state, ts.hyper_params, ts.elo[:self.E],
+            explore)
+        elo = torch.cat([train_elo, ts.elo[self.E:]])
+        return replace(ts, params=params, opt_state=opt_state,
+                       hyper_params=hyper_params, elo=elo, key=key)
+
     # -------------------------------------------------- checkpointing
     def save_ckpt(self, ts: TrainState, path: str) -> str:
         """``<path>/<update_idx>.pt``: params, Adam state, normalizer,
-        update index, ELO and hyperparameters (torch.save of dicts)."""
+        update index, ELO, hyperparameters, the past ring's pointer and,
+        when P > 0, its params (torch.save of dicts)."""
         os.makedirs(path, exist_ok=True)
         out = os.path.join(os.path.abspath(path), f"{ts.update_idx}.pt")
-        torch.save({
+        ckpt = {
             "params": ts.params,
             "opt_state": [vars(o) for o in ts.opt_state],
             "normalizer": vars(ts.normalizer),
             "update_idx": ts.update_idx,
             "elo": ts.elo,
             "hyper_params": ts.hyper_params,
-        }, out)
+            "past_ptr": ts.past_ptr,
+        }
+        if self.P > 0:
+            ckpt["past_params"] = ts.past_params
+        torch.save(ckpt, out)
         return out
 
     def restore_ckpt(self, ts: TrainState, path: str) -> TrainState:
@@ -518,7 +721,9 @@ class TrainingManager:
             opt_state=[AdamState(**o) for o in ck["opt_state"]],
             normalizer=EMANormalizerState(**ck["normalizer"]),
             update_idx=int(ck["update_idx"]), elo=ck["elo"],
-            hyper_params=ck["hyper_params"])
+            hyper_params=ck["hyper_params"],
+            past_ptr=int(ck["past_ptr"]),
+            past_params=ck.get("past_params", ts.past_params))
 
 
 def _stack(steps: List[Dict[str, Any]], lead):

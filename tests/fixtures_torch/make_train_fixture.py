@@ -22,11 +22,15 @@ Records into zone_train.npz beside this file:
 
 tests/test_torch_train.py starts the port's TrainingManager from the same
 point (the same weights, zero Adam moments, the same env seed and key)
-and holds it to these.
+and holds it to these. With ``--bf16`` the manager computes in bfloat16
+(TrainConfig.compute_dtype) and the file is zone_train_bf16.npz
+(tests/test_torch_mixed_precision.py); its bfloat16 buffers (the packed
+obs, the BPTT start states) are stored as their float32 values.
 
 Regenerate (only after a deliberate change of the JAX reference):
 
     JAX_PLATFORMS=cpu python tests/fixtures_torch/make_train_fixture.py
+    JAX_PLATFORMS=cpu python tests/fixtures_torch/make_train_fixture.py --bf16
 
 It refuses any JAX backend other than the CPU (about two minutes).
 """
@@ -41,6 +45,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 PATH = os.path.join(HERE, "zone_train.npz")
+BF16_PATH = os.path.join(HERE, "zone_train_bf16.npz")
 
 NUM_WORLDS = 2
 TEAM_SIZE = 2
@@ -62,7 +67,12 @@ def sample_index(flat_key: str, size: int) -> np.ndarray:
     return np.sort(g.choice(size, n, replace=False)).astype(np.int64)
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bf16", action="store_true")
+    args = ap.parse_args(argv)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -88,6 +98,7 @@ def main():
         num_worlds=NUM_WORLDS, steps_per_update=STEPS,
         num_bptt_chunks=CHUNKS,
         ppo=PPOConfig(num_epochs=EPOCHS, num_minibatches=MINIBATCHES),
+        compute_dtype=jnp.bfloat16 if args.bf16 else jnp.float32,
         seed=TRAIN_SEED)
     env = mp.Env(cfg, os.path.join(REPO, "data", "simple_map"),
                  num_worlds=NUM_WORLDS, seed=ENV_SEED)
@@ -107,8 +118,9 @@ def main():
         "values": np.asarray(outs["values"]),
         "rewards": np.asarray(outs["rewards"]),
         "dones": np.asarray(outs["dones"]),
-        "obs_pack": np.asarray(outs["obs_pack"]),
-        "rnn_starts": np.asarray(rnn_starts),  # [K, 2, 2, E, BE, H]
+        "obs_pack": np.asarray(outs["obs_pack"].astype(jnp.float32)),
+        # [K, 2, 2, E, BE, H]
+        "rnn_starts": np.asarray(rnn_starts.astype(jnp.float32)),
         "bootstrap": np.asarray(boot),
         "key1": np.asarray(ts1.key),
     })
@@ -171,9 +183,10 @@ def main():
         i = sample_index(key, v0.numel())
         out[f"delta/{key}"] = (after[key].reshape(-1)[i]
                                - v0.reshape(-1)[i]).numpy()
-    np.savez_compressed(PATH, **out)
-    print(f"wrote {PATH}: {len(out)} arrays, "
-          f"{os.path.getsize(PATH) / 1024:.0f} KB")
+    path = BF16_PATH if args.bf16 else PATH
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}: {len(out)} arrays, "
+          f"{os.path.getsize(path) / 1024:.0f} KB")
 
 
 if __name__ == "__main__":

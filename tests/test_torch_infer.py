@@ -214,12 +214,46 @@ def _env_with_seed(env_seed, cfg, scene, num_worlds, seed, device):
     return mt.Env(cfg, scene, num_worlds, seed=env_seed, device=device)
 
 
-@pytest.mark.parametrize("flag", [["--record", "x"], ["--bf16"],
+@pytest.mark.parametrize("flag", [["--record", "x"],
                                   ["--game-mode", "TDM"]])
 def test_eval_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
         infer.main(["--cpu", "--num-worlds", "2", "--ckpt-path", "x.npz"]
                    + flag)
+
+
+@pytest.mark.parametrize("flag", ["--bf16", "--fp16"])
+def test_eval_cli_runs_low_precision(flag, simple_map_dir, tmp_path,
+                                     monkeypatch):
+    """--bf16 / --fp16: the policies computing in that dtype on the
+    fixture's weights, crossplay at 2 worlds x 10 steps (episode_len 6,
+    so matches end): finite values, log probs and ELO."""
+    want = dict(np.load(fx.PATH))
+    tree = {"params": random_flax_params(fx.WEIGHT_SEED, fx.NUM_POLICIES),
+            "normalizer": {
+                "mu": {k.split("/")[1]: v for k, v in want.items()
+                       if k.startswith("norm_mu/")},
+                "var": {k.split("/")[1]: v for k, v in want.items()
+                        if k.startswith("norm_var/")},
+                "count": want["norm_count"]},
+            "elo": want["elo0"]}
+    path = str(tmp_path / "policy.npz")
+    np.savez(path, **flatten(tree))
+    monkeypatch.setattr(infer, "EnvConfig", functools.partial(
+        mt.EnvConfig, episode_len=fx.EPISODE_LEN))
+    monkeypatch.setattr(infer, "EvalManager", _Recording)
+    mgr, elo = infer.main([
+        "--cpu", "--num-worlds", str(fx.NUM_WORLDS), "--num-steps", "10",
+        "--team-size", str(fx.TEAM_SIZE), "--scene", simple_map_dir,
+        "--ckpt-path", path, flag])
+    dtype = torch.bfloat16 if flag == "--bf16" else torch.float16
+    assert mgr.ecfg.policy_dtype == dtype
+    got = _record(mgr.chunks)
+    assert np.isfinite(got["values"]).all() and np.isfinite(
+        got["logits"]).all()
+    ended = got["match_finished"] & (got["win_result"] >= 0)
+    assert ended.any()
+    assert np.isfinite(elo.numpy()).all()
 
 
 def test_eval_refuses_what_is_not_ported(simple_map_dir, monkeypatch):

@@ -36,7 +36,9 @@ same weights, zero Adam moments, env seed and key:
   v_loss within 1e-4 relative.
 
 The train CLI runs two tiny updates on the CPU with two policies,
-checkpoints, restores, and raises on the flags it does not support.
+checkpoints, restores, runs the PBT flags (--pbt-update-frequency,
+--pbt-past-policies) and --bf16 / --fp16, and raises on the flags it does
+not support.
 """
 
 import os
@@ -458,9 +460,70 @@ def test_train_cli_runs_checkpoints_and_restores(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pbt-update-frequency", "5"], ["--pbt-past-policies", "1"],
-    ["--num-devices", "2"], ["--distributed"], ["--bf16"], ["--fp16"],
+    ["--num-devices", "2"], ["--distributed"], ["--profile-port", "9999"],
 ])
 def test_train_cli_rejects_unsupported_flags(flags):
     with pytest.raises(NotImplementedError, match="not supported"):
         train_cli.build(train_cli.parse_args(["--cpu"] + flags))
+
+
+_PORTED = {
+    # a population update after every update: eval ELO, store, selection,
+    # rotation (E = 2, no past policies)
+    "--pbt-update-frequency": ["--pbt-update-frequency", "1",
+                               "--eval-elo-steps", "4"],
+    # one past policy fielding team 1 of the past-play world
+    "--pbt-past-policies": ["--pbt-ensemble-size", "1",
+                            "--pbt-past-policies", "1",
+                            "--cross-play-portion", "0.5",
+                            "--past-play-portion", "0.5"],
+    "--bf16": ["--bf16"],
+    "--fp16": ["--fp16"],
+}
+
+
+@pytest.mark.parametrize("flag", list(_PORTED))
+def test_train_cli_runs_ported_flags(flag, tmp_path, monkeypatch, capsys):
+    """Each flag the port used to refuse, through the CLI on the CPU at 2
+    worlds x 4 steps, 2 updates: what it set up and what it did."""
+    import json
+
+    from madrona_mp_env_tpu_torch.train.policy import (ActorCriticNet,
+                                                       _seeded_init)
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    argv = _cli_args(tmp_path, 2) + _PORTED[flag]
+    _, tcfg, _, mgr = train_cli.build(train_cli.parse_args(argv))
+    ts = train_cli.main(argv)
+    assert ts.update_idx == 2
+    rows = [json.loads(line)
+            for line in open(tmp_path / "tb" / "r" / "metrics.jsonl")]
+    assert all(np.isfinite(r["value"]) for r in rows if "loss" in r["tag"])
+    if flag in ("--bf16", "--fp16"):
+        dtype = torch.bfloat16 if flag == "--bf16" else torch.float16
+        assert tcfg.compute_dtype == mgr.model.dtype == dtype
+        assert all(v.dtype == torch.float32 for v in ts.params[0].values())
+    elif flag == "--pbt-update-frequency":
+        # ELO ties -> policy 1 copies policy 0, its lr perturbed twice
+        assert capsys.readouterr().out.count("ELO:") == 2
+        assert ts.pending_reset and (mgr.E, mgr.P) == (2, 0)
+        for k, v in ts.params[0].items():
+            assert torch.equal(ts.params[1][k], v)
+        lr = ts.hyper_params["lr"].tolist()
+        assert lr[0] == pytest.approx(1e-4) and lr[1] != lr[0]
+        assert 0.8 ** 2 * 1e-4 <= lr[1] <= 1.25 ** 2 * 1e-4
+        counts = np.bincount(ts.assignment.reshape(-1).numpy())
+        assert counts.tolist() == [4, 4]
+    else:
+        assert (mgr.E, mgr.P, mgr.BPp) == (1, 1, 2)
+        assert ts.elo.shape == (2,) and ts.assignment[1, 2:].tolist() == [1,
+                                                                          1]
+        net = ActorCriticNet()
+        _seeded_init(net, 5)  # the seeded train policy it copied
+        init = net.state_dict()
+        for k, v in init.items():  # it acted, and never learned
+            assert torch.equal(ts.past_params[0][k], v)
+        assert any(not torch.equal(ts.params[0][k], v)
+                   for k, v in init.items())
+        ck = torch.load(tmp_path / "ck" / "r" / "2.pt", weights_only=True)
+        assert ck["past_ptr"] == 0 and len(ck["past_params"]) == 1
