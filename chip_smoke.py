@@ -143,7 +143,25 @@ Phases, each of which fails the run loudly:
    per step (CUDA events) and CUDA launches per step with bots and
    without; then 4 worlds x 8 steps with team 1 as bots on "cuda"
    against "cpu" on each map, to the bars of phase 9;
-11. a line of kernel results (JSON, one row per kernel and map, each with
+11. every game mode and flag (modes_phase): TDM, ZoneCaptureDefend +
+   HardcodedSpawns, Turret, Explore + NavmeshSpawn, Zone + Flank, Zone +
+   SubZones, TDM + highlevel_move and Zone + RandomizeHPMagazine at 1024
+   worlds of team size 6 on simple_map: K1 at each new shape (the
+   turret's and hl_battle's LOS, W x A x ts rays; Flank's LOS refresh,
+   W x A x 8 ts) and, on Flank, K2 and K3 on the 48-ray LOS run, each
+   bit-equal to its plain version with its time and bound; reset + 50
+   steps with every counter zeroed before and read after, each kernel
+   held to its count (K1 once a step, twice with a turret or a Flank
+   refresh, hl_battle's in place of the hitscan; K5 only on the flags
+   configuration), env-steps/s and CUDA launches per step; Zone + Flank
+   on town_map for 20 steps (K6 on the 48-ray run, held to its plain
+   version); each configuration's 4-world, 16-step rollout on "cuda"
+   against "cpu" to phase 9's bars; one train-CLI update at 1024 worlds
+   x 40 steps of each --game-mode (TDM, ZoneCaptureDefend, Turret,
+   Explore): finite losses, parameters that move. SpawnInMiddle is not
+   driven: the bundled maps' mid-map spawn boxes overflow the spawn-usage
+   tables, and Env refuses it as the JAX package's spawn fails there;
+12. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS), then the card line, then the last line {"ok": true,
@@ -1849,9 +1867,11 @@ def actions_at(env, acts, s):
                         for k, v in acts.items()})
 
 
-def rollout(mt, cfg, scene, W, steps, device, seed=5, bots=False):
+def rollout(mt, cfg, scene, W, steps, device, seed=5, bots=False,
+            states=None):
     """``steps`` steps of bench.py's actions; ``bots``: team 1 of every
-    world is the scripted bot from the reset on."""
+    world is the scripted bot from the reset on. ``states``, a list,
+    receives the env and each step's state."""
     env = mt.Env(cfg, scene, num_worlds=W, seed=seed, device=device)
     acts = bench_actions(W, cfg.num_agents, steps)
     state, obs = env.reset()
@@ -1866,7 +1886,46 @@ def rollout(mt, cfg, scene, W, steps, device, seed=5, bots=False):
             "reward": out["reward"], "fwd_lidar": out["obs"]["fwd_lidar"],
             "self": out["obs"]["self"],
         })
+        if states is not None:
+            states.append((env, state))
     return [{k: v.cpu().numpy() for k, v in h.items()} for h in hist]
+
+
+def lidar_undecided(env, state, rays, delta):
+    """For forward-lidar rays ``rays`` [(w, a, h, x), ...] of ``state`` (a
+    CPU state), whether the ray's first hit (a capsule, or the world as
+    -1) changes when every capsule's radius shrinks or grows by
+    ``delta[w]``: a ray within delta of grazing a capsule or of a tie, so
+    a position gap of that size between two devices may flip its hit."""
+    import torch
+    from madrona_mp_env_tpu_torch import consts
+    from madrona_mp_env_tpu_torch.ops import raycast
+    from madrona_mp_env_tpu_torch.ops.raycast_cull import CAPSULE_SEG_H
+    from madrona_mp_env_tpu_torch.sim import observations as ob
+
+    cfg = env.cfg
+    _, dirs, zg, zgroups = ob.sensor_fan(cfg, state)
+    sensor = ob.build_sensor_rays(cfg, env.map_data, state)
+    n_los, r0 = zgroups[0], consts.agent_radius
+    out = []
+    for w, a, h, x in rays:
+        f = n_los + h * consts.fwd_lidar_width + x
+        o = state.pos[w, a] + torch.tensor([0.0, 0.0, float(zg[w, a, 1 + h])])
+        d = torch.stack([c[w, a, f] for c in dirs])
+        t_world = float(sensor["fwd_t"][w, a, h, x])
+        live = (state.alive[w] > 0.0) & (torch.arange(cfg.num_agents) != a)
+        first = []
+        for r in (r0 - delta[w], r0 + delta[w]):
+            p0 = state.pos[w] + torch.tensor([0.0, 0.0, r0])
+            seg = torch.tensor([0.0, 0.0, CAPSULE_SEG_H]).expand_as(p0)
+            t = raycast._ray_vs_segment_capsule(
+                o, d, p0, seg, torch.full_like(p0[:, 0], CAPSULE_SEG_H ** 2),
+                r)
+            t = torch.where(live, t, float("inf"))
+            tc, ic = t.min(0)
+            first.append(int(ic) if float(tc) < t_world else -1)
+        out.append(first[0] != first[1])
+    return out
 
 
 PROFILE_STEPS = 10
@@ -2161,15 +2220,22 @@ def drive_path(label, env, acts, steps, rows, not_launched, card,
     return state, out, sps
 
 
-def env_parity(mt, cfg, scene, W, S, bots=False):
+def env_parity(mt, cfg, scene, W, S, bots=False, label="Zone",
+               graze=False):
     """The env rollout on "cuda" against "cpu" from one seed (``bots``:
-    team 1 the scripted bot): hp, alive, team points and done exact; pos
-    and reward within 1e-4, lidar and self observations within 1e-3, each
-    times max(1, |x|)."""
+    team 1 the scripted bot): hp, alive, team points and done exact; NaN
+    at the same places; pos and reward within 1e-4, lidar and self
+    observations within 1e-3, each times max(1, |x|). ``label`` names
+    the configuration. With ``graze``, a forward-lidar ray outside its
+    bar passes when lidar_undecided finds it within 4x its world's
+    largest pos gap between the devices (+ 1e-3) of changing its hit;
+    such rays are counted and logged."""
+    cpu_states = []
     gpu = rollout(mt, cfg, scene, W, S, "cuda", bots=bots)
-    cpu = rollout(mt, cfg, scene, W, S, "cpu", bots=bots)
-    worst = {}
-    name = os.path.basename(scene)
+    cpu = rollout(mt, cfg, scene, W, S, "cpu", bots=bots,
+                  states=cpu_states if graze else None)
+    worst, grazes = {}, 0
+    name = f"{os.path.basename(scene)} {label}"
     for s, (a, b) in enumerate(zip(gpu, cpu)):
         for k in ("hp", "alive", "team_points", "done"):
             if not np.array_equal(a[k], b[k]):
@@ -2177,16 +2243,34 @@ def env_parity(mt, cfg, scene, W, S, bots=False):
                                      "cpu")
         for k, rel in (("pos", 1e-4), ("reward", 1e-4), ("fwd_lidar", 1e-3),
                        ("self", 1e-3)):
-            e = np.abs(a[k] - b[k]) / np.maximum(1.0, np.abs(b[k]))
+            if not np.array_equal(np.isnan(a[k]), np.isnan(b[k])):
+                raise AssertionError(f"{name} step {s}: {k} NaN differs")
+            e = np.nan_to_num(np.abs(a[k] - b[k])
+                              / np.maximum(1.0, np.abs(b[k])))
+            if graze and k == "fwd_lidar" and e.max() > rel:
+                rays = np.argwhere(e.max(-1) > rel)
+                gap = np.abs(a["pos"] - b["pos"]).max((1, 2))
+                env, st = cpu_states[s]
+                if not all(lidar_undecided(env, st, rays, 4 * gap + 1e-3)):
+                    raise AssertionError(
+                        f"{name} step {s}: lidar rays {rays.tolist()} differ "
+                        f"and are decided (pos gap {gap.tolist()})")
+                log(f"[parity] {name} step {s}: lidar rays "
+                    f"{rays.tolist()} differ within a graze (pos gap "
+                    f"{gap.max():.3g}): cuda {a[k][tuple(rays.T)].tolist()}"
+                    f" cpu {b[k][tuple(rays.T)].tolist()}")
+                grazes += len(rays)
+                e[tuple(rays.T)] = 0.0
             worst[k] = max(worst.get(k, 0.0), float(e.max()))
             if e.max() > rel:
                 raise AssertionError(f"{name} step {s}: {k} rel err "
                                      f"{e.max()}")
-    log(f"[parity] {name} Zone {cfg.team_size}v{cfg.team_size}"
+    log(f"[parity] {name} {cfg.team_size}v{cfg.team_size}"
         f"{', team 1 bots' if bots else ''} cuda vs cpu, "
         f"{W} worlds x {S} steps: discrete "
         "exact, " + ", ".join(f"{k} max rel err {v:.3g}"
-                              for k, v in worst.items()))
+                              for k, v in worst.items())
+        + (f", {grazes} lidar rays within a graze" if graze else ""))
 
 
 def golden_on_card(card):
@@ -2353,66 +2437,73 @@ def train_phase(card):
     by CUDA events; every launch counter is zeroed before each run and
     read after it; the loss must be finite, the parameters must move,
     and the sensor fans must go through the route's entry alone."""
+    for route, (scene, ts_, v9, n, fan, flags) in TRAIN_ROUTES.items():
+        train_run(route, scene, ts_, v9, n, fan, flags, card)
+
+
+def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=()):
+    """``n`` updates of one route of train_phase (``extra``: more flags of
+    the CLI, such as a --game-mode), checked and logged as train_phase
+    says."""
     import torch
     from madrona_mp_env_tpu_torch.train import train as train_cli
 
-    for route, (scene, ts_, v9, n, fan, flags) in TRAIN_ROUTES.items():
-        dtype = _dtype_of(flags)
-        with mock.patch.dict(os.environ, {"MPENV_FAN_V9": v9}):
-            args = train_cli.parse_args([
-                "--scene", scene, "--num-worlds", str(TRAIN_WORLDS),
-                "--steps-per-update", str(TRAIN_STEPS),
-                "--team-size", str(ts_)] + flags)
-            _, tcfg, env, mgr = train_cli.build(args)
-            if mgr.model.dtype != dtype or tcfg.compute_dtype != dtype:
-                raise AssertionError(f"train {route}: compute dtype "
-                                     f"{mgr.model.dtype}, asked {dtype}")
-            ts = mgr.init()
-            p0 = {k: v.clone() for k, v in ts.params[0].items()}
-            entries = all_entries()
-            for f in entries.values():
-                f.launches = 0
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            roll_ms, ppo_ms, losses = [], [], []
+    dtype = _dtype_of(flags)
+    with mock.patch.dict(os.environ, {"MPENV_FAN_V9": v9}):
+        args = train_cli.parse_args([
+            "--scene", scene, "--num-worlds", str(TRAIN_WORLDS),
+            "--steps-per-update", str(TRAIN_STEPS),
+            "--team-size", str(ts_)] + flags + list(extra))
+        cfg, tcfg, env, mgr = train_cli.build(args)
+        if mgr.model.dtype != dtype or tcfg.compute_dtype != dtype:
+            raise AssertionError(f"train {route}: compute dtype "
+                                 f"{mgr.model.dtype}, asked {dtype}")
+        ts = mgr.init()
+        p0 = {k: v.clone() for k, v in ts.params[0].items()}
+        entries = all_entries()
+        for f in entries.values():
+            f.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        roll_ms, ppo_ms, losses = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ev[0].record()
+            ts, starts, outs, boot = mgr.rollout(ts)
+            ev[1].record()
+            ts, metrics = mgr.ppo_update(ts, starts, outs, boot)
+            ev[2].record()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                ev[0].record()
-                ts, starts, outs, boot = mgr.rollout(ts)
-                ev[1].record()
-                ts, metrics = mgr.ppo_update(ts, starts, outs, boot)
-                ev[2].record()
-                torch.cuda.synchronize()
-                roll_ms.append(ev[0].elapsed_time(ev[1]))
-                ppo_ms.append(ev[1].elapsed_time(ev[2]))
-                losses.append(float(metrics["loss"][0]))
-                if starts.dtype != dtype or outs["obs_pack"].dtype != dtype:
-                    raise AssertionError(f"train {route}: buffers in "
-                                         f"{outs['obs_pack'].dtype}")
-            t1 = time.perf_counter()
-        counts = {k: f.launches for k, f in entries.items()}
-        moved = max(float((ts.params[0][k] - v).abs().max())
-                    for k, v in p0.items())
-        if not all(np.isfinite(losses)) or moved == 0.0:
-            raise AssertionError(f"train {route}: losses {losses}, params "
-                                 f"moved {moved}")
-        if counts[fan] != n * TRAIN_STEPS or any(
-                counts[f] for f in FAN_ENTRIES if f != fan):
-            raise AssertionError(f"train {route}: fan launches {counts}")
-        samples = TRAIN_WORLDS * 2 * ts_ * TRAIN_STEPS
-        ups = n / (t1 - t0)
-        log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
-            f"{n} updates, LSTM-512, E = 1, {str(dtype)[6:]}: {ups:.4f} "
-            f"updates/s, "
-            f"{ups * samples:.1f} samples/s; rollout ms "
-            + ", ".join(f"{x:.1f}" for x in roll_ms) + "; PPO update ms "
-            + ", ".join(f"{x:.1f}" for x in ppo_ms)
-            + f" (CUDA events); losses "
-            + ", ".join(f"{x:.5f}" for x in losses)
-            + f"; params moved up to {moved:.3g}; launches "
-            + ", ".join(f"{k}={c}" for k, c in counts.items())
-            + f" on {card}")
-        del ts, mgr, env
+            roll_ms.append(ev[0].elapsed_time(ev[1]))
+            ppo_ms.append(ev[1].elapsed_time(ev[2]))
+            losses.append(float(metrics["loss"][0]))
+            if starts.dtype != dtype or outs["obs_pack"].dtype != dtype:
+                raise AssertionError(f"train {route}: buffers in "
+                                     f"{outs['obs_pack'].dtype}")
+        t1 = time.perf_counter()
+    counts = {k: f.launches for k, f in entries.items()}
+    moved = max(float((ts.params[0][k] - v).abs().max())
+                for k, v in p0.items())
+    if not all(np.isfinite(losses)) or moved == 0.0:
+        raise AssertionError(f"train {route}: losses {losses}, params "
+                             f"moved {moved}")
+    if counts[fan] != n * TRAIN_STEPS or any(
+            counts[f] for f in FAN_ENTRIES if f != fan):
+        raise AssertionError(f"train {route}: fan launches {counts}")
+    samples = TRAIN_WORLDS * cfg.num_agents * TRAIN_STEPS
+    ups = n / (t1 - t0)
+    log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
+        f"{n} updates, LSTM-512, E = 1, {str(dtype)[6:]}: {ups:.4f} "
+        f"updates/s, "
+        f"{ups * samples:.1f} samples/s; rollout ms "
+        + ", ".join(f"{x:.1f}" for x in roll_ms) + "; PPO update ms "
+        + ", ".join(f"{x:.1f}" for x in ppo_ms)
+        + f" (CUDA events); losses "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; params moved up to {moved:.3g}; launches "
+        + ", ".join(f"{k}={c}" for k, c in counts.items())
+        + f" on {card}")
+    del ts, mgr, env
 
 
 PBT_WORLDS = 1024
@@ -2850,6 +2941,341 @@ def train_parity(W=4, S=8, flags=()):
         f"{loss_bar:.3g}), params max abs diff {float(dp.max()):.3g} lr, "
         f"{near:.4f} within 0.5 lr{reduced}")
 
+# the game modes (phase 11): 1024 worlds of team size 6 on simple_map,
+# StaggerStarts | RandomFlipTeams and each configuration's own settings;
+# name: (EnvConfig settings, K1 launches a step, K5 launches a step, the
+# module whose K1 launch has a shape of its own)
+MODE_STEPS = 50
+MODE_TOWN_STEPS = 20
+MODE_BASE_FLAGS = ("StaggerStarts", "RandomFlipTeams")
+MODE_CONFIGS = {
+    "TDM": (dict(task="TDM"), 1, 0, None),
+    "ZoneCaptureDefend": (dict(task="ZoneCaptureDefend",
+                               flags=("HardcodedSpawns",)), 1, 0, None),
+    "Turret": (dict(task="Turret"), 2, 0, "turret"),
+    "Explore": (dict(task="Explore", flags=("NavmeshSpawn",)), 1, 0, None),
+    "Zone Flank": (dict(task="Zone", reward_mode="Flank"), 2, 0,
+                   "observations"),
+    "Zone SubZones": (dict(task="Zone", flags=("SubZones",)), 1, 0, None),
+    "TDM highlevel_move": (dict(task="TDM", highlevel_move=True), 1, 0,
+                           "hl_battle"),
+    "Zone RandomizeHPMagazine": (dict(task="Zone",
+                                      flags=("RandomizeHPMagazine",)),
+                                 1, 1, None),
+}
+# the modules whose K1 launch has a shape of its own: the row's label
+K1_SITES = {"turret": "turret LOS", "hl_battle": "hl_battle LOS",
+            "observations": "Flank LOS refresh"}
+# the train CLI's game modes other than Zone (phase 8 trains Zone)
+MODE_TRAIN = ("TDM", "ZoneCaptureDefend", "Turret", "Explore")
+
+
+def mode_cfg(mt, spec, team_size=TEAM_SIZE):
+    fl = mt.SimFlags.Default
+    for f in MODE_BASE_FLAGS + spec.get("flags", ()):
+        fl |= getattr(mt.SimFlags, f)
+    return mt.EnvConfig(
+        task=getattr(mt.Task, spec["task"]), sim_flags=fl,
+        reward_mode=getattr(mt.RewardMode, spec.get("reward_mode",
+                                                    "Default")),
+        highlevel_move=spec.get("highlevel_move", False),
+        team_size=team_size)
+
+
+def capture_k1(env, state, actions):
+    """One env.step with K1's entry wrapped in each module that calls it:
+    {module: [(o, d) of each call]} (tensors cloned)."""
+    import importlib
+
+    calls = {}
+    saved = []
+    for site in ("combat",) + tuple(K1_SITES):
+        mod = importlib.import_module(f"madrona_mp_env_tpu_torch.sim.{site}")
+        fn = mod.ray_vs_tris
+        calls[site] = []
+
+        def rec(o, d, soup, _fn=fn, _site=site):
+            calls[_site].append((o.clone(), d.clone()))
+            return _fn(o, d, soup)
+
+        saved.append((mod, fn))
+        mod.ray_vs_tris = rec
+    try:
+        env.step(state, actions)
+    finally:
+        for mod, fn in saved:
+            mod.ray_vs_tris = fn
+    return calls
+
+
+def k1_row(ph, label, o, d):
+    """K1 on one launch of a new shape: bit-equal (int32 views) to its
+    plain version (over chunks of rays), its time and its bound."""
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    soup = ph.soup
+    R = o[..., 0].numel()
+    o2, d2 = o.reshape(R, 3), d.reshape(R, 3)
+
+    def kernel():
+        return raycast.ray_vs_tris(o, d, soup)
+
+    def plain():
+        return chunked(lambda s: raycast._ray_vs_tris_dense(
+            o2[s], d2[s], soup), R, max(1024, 2 ** 22 // soup.num_tris)
+        ).reshape(o.shape[:-1])
+
+    err = check_equal(f"K1 ray_vs_tris ({label})", (kernel(), plain()))
+    return ph.record(
+        f"K1 ray_vs_tris ({label})",
+        "madrona_mp_env_tpu_torch/csrc/ray_tris.cu",
+        "madrona_mp_env_tpu/ops/raycast_pallas.py:111", raycast.ray_vs_tris,
+        err, cuda_time_ms(kernel, 50), cuda_time_ms(plain, 3),
+        R * 28 + ph.T_real * 40, R * ph.T_real * OPS_RAY_TRI,
+        [list(o.shape[:-1])],
+        split=raycast.ray_split(soup.num_tris, R,
+                                raycast._sm_count(o.device)))
+
+
+def k6_row(ph, calls):
+    """K6 on a step's fans (town_map Flank's 48-ray LOS run): bit-equal
+    (int32 views) to its plain version, its time and its bound."""
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    soup = ph.soup
+    (org, zgf, dirf, zgroups, cells, tables, _), = calls["ray_fans_culled"]
+    N, G = zgf.shape
+    F = dirf[0].shape[-1]
+
+    def kernel():
+        return raycast.ray_fans_culled(org, zgf, dirf, zgroups, cells,
+                                       tables, soup)
+
+    def plain():
+        return chunked(lambda s: raycast._ray_fans_culled_plain(
+            org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, cells[s],
+            tables, soup), N, 256)
+
+    err = check_equal("K6 ray_fans_culled", (kernel(), plain()))
+    n_valid = int((tables.cand_idx >= 0).sum(-1)[cells.long()].sum())
+    return ph.record(
+        "K6 ray_fans_culled", "madrona_mp_env_tpu_torch/csrc/fan_culled.cu",
+        "madrona_mp_env_tpu/ops/raycast_pallas.py:465",
+        raycast.ray_fans_culled, err, cuda_time_ms(kernel, 10),
+        cuda_time_ms(plain, 1),
+        N * (16 + 4 * G) + 3 * N * F * 4 + tables.cand_idx.numel() * 4
+        + ph.T_real * 40 + N * F * 4,
+        n_valid * F * OPS_FAN_PAIR + n_valid * G * OPS_FAN_HOIST,
+        [[N, F, tables.K]])
+
+
+def k2_row(ph, calls):
+    """K2 on a step's fans (Flank's 128-ray fans on simple_map): bit-equal
+    (int32 views) to its plain version, its time and its bound."""
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    soup = ph.soup
+    (org, zgf, dirf, zgroups, _), = calls["ray_fans_vs_tris"]
+    N, G = zgf.shape
+    F = dirf[0].shape[-1]
+
+    def kernel():
+        return raycast.ray_fans_vs_tris(org, zgf, dirf, zgroups, soup)
+
+    def plain():
+        return chunked(lambda s: raycast._ray_fans_dense(
+            org[s], zgf[s], tuple(c[s] for c in dirf), zgroups, soup), N,
+            max(16, 2 ** 18 // soup.num_tris))
+
+    err = check_equal("K2 ray_fans_vs_tris", (kernel(), plain()))
+    return ph.record(
+        "K2 ray_fans_vs_tris", "madrona_mp_env_tpu_torch/csrc/fan_tris.cu",
+        "madrona_mp_env_tpu/ops/raycast_pallas.py:383",
+        raycast.ray_fans_vs_tris, err, cuda_time_ms(kernel, 10),
+        cuda_time_ms(plain, 1),
+        N * (12 + 4 * G) + 3 * N * F * 4 + ph.T_real * 40 + N * F * 4,
+        N * F * ph.T_real * OPS_FAN_PAIR + N * G * ph.T_real * OPS_FAN_HOIST,
+        [[N, F, soup.num_tris]])
+
+
+def k3_row(ph, calls):
+    """K3 on a step's fans (Flank's 128 rays a fan): t and capsule index
+    bit-equal (int32 views) to its plain version, its time and its bound
+    from the pairs that reach a root (cap_roots)."""
+    from madrona_mp_env_tpu_torch.ops import raycast_cull
+
+    (pos, zg, dirs, zgroups, alive), = calls["fan_capsules"]
+    W, A, G = zg.shape
+    F = dirs[0].shape[-1]
+
+    def kernel():
+        return raycast_cull.fan_capsules(pos, zg, dirs, zgroups, alive)
+
+    def plain():
+        return chunked(lambda s: raycast_cull._fan_capsules_plain(
+            pos[s], zg[s], tuple(c[s] for c in dirs), zgroups, alive[s]),
+            W, 128)
+
+    (tk, ik), ((tp, ip), pms) = kernel(), timed_once(plain)
+    err = check_equal("K3 fan_capsules", (tk, tp), (ik, ip))
+    pairs, cyl, sph = (sum(x) for x in zip(*(
+        cap_roots(pos[s], zg[s], tuple(c[s] for c in dirs), zgroups,
+                  alive[s]) for s in chunks(W, 64))))
+    return ph.record(
+        "K3 fan_capsules", "madrona_mp_env_tpu_torch/csrc/fan_capsules.cu",
+        "madrona_mp_env_tpu/ops/raycast_cull.py:120",
+        raycast_cull.fan_capsules, err, cuda_time_ms(kernel, 50), pms,
+        W * A * 16 + W * A * G * 4 + W * A * F * 12 + F * 4 + W * A * F * 8,
+        pairs * OPS_CAP_PAIR + cyl * OPS_CAP_CYL + sph * OPS_CAP_SPHERE
+        + W * A * G * A * OPS_CAP_HOIST + W * A * F * OPS_CAP_RAY,
+        [[W, A, F, G]], root_share=round((cyl + sph) / (3 * pairs), 4))
+
+
+def mode_expect(k1, k5, steps, town=False):
+    """Exact launches of every kernel entry on a game mode's path: reset +
+    ``steps`` steps."""
+    fan = "ray_fans_culled" if town else "ray_fans_vs_tris"
+    expect = {"ray_vs_tris": k1 * steps, fan: steps + 1,
+              "fan_capsules": steps + 1, "sphere_cast_culled": steps,
+              "sphere_cast_packed": 3 * steps, "tail_fused": k5 * steps}
+    if town:
+        expect["fan_cell_order"] = steps + 1
+    return expect
+
+
+MODE_PROFILE_STEPS = 5
+
+
+def launches_per_step(env, state, actions):
+    """CUDA device operations per env step over MODE_PROFILE_STEPS steps
+    (torch.profiler tracing the device alone: the host's op events cost
+    seconds a step to gather), after one step unprofiled. Steps where a
+    world resets add the reset's launches, so the count is a mean."""
+    import torch
+
+    state, _ = env.step(state, actions)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(MODE_PROFILE_STEPS):
+            state, _ = env.step(state, actions)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no CUDA kernels")
+    return len(dev) / MODE_PROFILE_STEPS
+
+
+MODE_NOT_LAUNCHED = ("sphere_cast", "ray_fans_culled_v9",
+                     "ray_fans_vs_tris_flat", "apply_velocity_fall_fused")
+
+
+def modes_phase(mt, card):
+    """Every game mode and flag on the card (Env(device="cuda"), 1024
+    worlds, team size 6): for each of MODE_CONFIGS, K1 at its new shape
+    (the turret's and hl_battle's LOS, W * A * ts rays; Flank's LOS
+    refresh, W * A * 8 ts) bit-equal to its plain version with its time
+    and bound, and on Flank the sensor fans' 48-ray LOS run through K2
+    and K3 (KernelPhase's checks); reset + MODE_STEPS steps of bench.py's
+    actions with every launch counter zeroed before and read after, each
+    kernel held to its count (K1 once a step, twice with a turret or a
+    Flank refresh; K5 only on the flags configuration); env-steps/s and
+    CUDA launches per step (torch.profiler). Then Zone + Flank on
+    town_map (MODE_TOWN_STEPS steps, K6 on the 48-ray run, held to its
+    plain version); each configuration's 4-world, 16-step rollout on
+    "cuda" against "cpu" (phase 9's bars); one train-CLI update at 1024
+    worlds x 40 steps of each game mode of MODE_TRAIN. Returns the new
+    kernel rows."""
+    import torch
+
+    t_start = time.perf_counter()
+    rows = []
+    simple_entries = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
+                      "sphere_cast_culled", "sphere_cast_packed")
+    for label, (spec, k1, k5, site) in MODE_CONFIGS.items():
+        cfg = mode_cfg(mt, spec)
+        env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5,
+                     device="cuda")
+        acts = bench_actions(NUM_WORLDS, cfg.num_agents, MODE_STEPS)
+        ph = KernelPhase(env.map_data.tris, f"simple_map {label}")
+        state, _ = env.reset()
+        a0 = actions_at(env, acts, 0)
+        mine = []
+        if site is not None:
+            calls = capture_k1(env, state, a0)
+            n = {k: len(v) for k, v in calls.items()}
+            # hl_battle replaces the hitscan; the others add to it
+            if n[site] != 1 or n["combat"] != int(site != "hl_battle"):
+                raise AssertionError(f"{label}: K1 calls {n}")
+            (o, d), = calls[site]
+            mine.append(k1_row(ph, K1_SITES[site], o, d))
+        if label == "Zone Flank":
+            expect = simple_entries + ("tail_fused",) * k5
+            fan_calls = capture_step_calls(env, state, a0, expect)
+            zgroups = fan_calls["ray_fans_vs_tris"][0][3]
+            if zgroups[0] != 8 * TEAM_SIZE:
+                raise AssertionError(f"Flank LOS run {zgroups[0]}")
+            mine += [k2_row(ph, fan_calls), k3_row(ph, fan_calls)]
+        del state
+        state, out, sps = drive_path(
+            f"{label} simple_map", env, acts, MODE_STEPS, mine,
+            MODE_NOT_LAUNCHED + ("ray_fans_culled", "fan_cell_order"),
+            card, expect=mode_expect(k1, k5, MODE_STEPS))
+        # SubZones' first reward after a world's reset is NaN, as the JAX
+        # package's (an infinite approach distance times the blend's 0)
+        r = out["reward"]
+        if label == "Zone SubZones":
+            r = torch.nan_to_num(r, nan=0.0, posinf=np.inf, neginf=-np.inf)
+        if not bool(torch.isfinite(r).all()):
+            raise AssertionError(f"{label}: non-finite rewards")
+        per_step = launches_per_step(env, state, a0)
+        log(f"[modes] {label}: {sps:.1f} env-steps/s, {per_step:.1f} CUDA "
+            f"launches per step (torch.profiler, {MODE_PROFILE_STEPS} "
+            f"steps) at {NUM_WORLDS} worlds on {card}; "
+            f"{time.perf_counter() - t_start:.1f} s into the phase")
+        rows += mine
+        del env, state, out
+
+    # Zone + Flank on town_map: K6 on the 48-ray LOS run
+    spec, k1, k5, _ = MODE_CONFIGS["Zone Flank"]
+    cfg = mode_cfg(mt, spec)
+    env = mt.Env(cfg, TOWN, num_worlds=NUM_WORLDS, seed=5, device="cuda")
+    acts = bench_actions(NUM_WORLDS, cfg.num_agents, MODE_TOWN_STEPS)
+    ph = KernelPhase(env.map_data.tris, "town_map Zone Flank")
+    state, _ = env.reset()
+    a0 = actions_at(env, acts, 0)
+    calls = capture_k1(env, state, a0)
+    (o, d), = calls["observations"]
+    k1_row(ph, K1_SITES["observations"], o, d)
+    fan_calls = capture_step_calls(
+        env, state, a0, ("ray_vs_tris", "ray_fans_culled", "fan_capsules",
+                         "sphere_cast_culled", "sphere_cast_packed"))
+    k6_row(ph, fan_calls)
+    del state
+    drive_path("Zone Flank town_map", env, acts, MODE_TOWN_STEPS,
+               ph.results, MODE_NOT_LAUNCHED + ("ray_fans_vs_tris",), card,
+               expect=mode_expect(k1, k5, MODE_TOWN_STEPS, town=True))
+    rows += ph.results
+    del env
+    t_town = time.perf_counter()
+
+    # the kernel path against the plain path, each configuration
+    for label, (spec, *_) in MODE_CONFIGS.items():
+        env_parity(mt, mode_cfg(mt, spec), SCENE, 4, 16, label=label,
+                   graze=True)
+    t_parity = time.perf_counter()
+
+    # one update of the train CLI per game mode
+    for mode in MODE_TRAIN:
+        train_run(mode, SCENE, TEAM_SIZE, "0", 1, "ray_fans_vs_tris", [],
+                  card, extra=["--game-mode", mode])
+    t_end = time.perf_counter()
+    log(f"[modes] phase {t_end - t_start:.1f} s: paths to the town path "
+        f"{t_town - t_start:.1f}, parity {t_parity - t_town:.1f}, training "
+        f"{t_end - t_parity:.1f}")
+    return rows
+
 
 def main() -> int:
     import torch
@@ -3044,7 +3470,10 @@ def main() -> int:
     # 10. the scripted bot: the golden, the vs-bot eval, cuda vs cpu
     bots_phase(mt, cfg, main_simple, town_rows, card)
 
-    # 11. results
+    # 11. every game mode and flag
+    kernels += modes_phase(mt, card)
+
+    # 12. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import consts
-from ..config import EnvConfig
+from ..config import EnvConfig, SimFlags
 from ..ops.culling import (MOVE_MARGIN, CellTables, RayTables, ShortTables,
                            load_cell_tables, load_ray_tables,
                            load_short_tables)
@@ -75,6 +75,12 @@ class MapData:
     goal_reward_strength: torch.Tensor  # [G]
     num_goal_regions: int
 
+    # the 8 sub-zones of SimFlags.SubZones (sim/subzones.py): [8, 3] boxes
+    # and [8] rotations, map zones 1-2 then the hardcoded boxes
+    subzone_min: torch.Tensor
+    subzone_max: torch.Tensor
+    subzone_rot: torch.Tensor
+
     # [T, T] next-hop table of the scripted bot; built by nav_next_hop()
     _next_hop: Optional[torch.Tensor] = field(default=None, repr=False)
 
@@ -114,6 +120,60 @@ _HARDCODED_GOAL_REGIONS = [
         1.0,
     ),
 ]
+
+
+# hardcoded sub-zone boxes 2..7 (reference level_gen.cpp:290-326)
+HARDCODED_SUBZONES = np.asarray(
+    [
+        [[-950.0, -500.0, 0.0], [-50.0, 500.0, 1000.0]],
+        [[50.0, -500.0, 0.0], [950.0, 500.0, 1000.0]],
+        [[-1000.0, -1650.0, 0.0], [-50.0, -600.0, 1000.0]],
+        [[50.0, -1650.0, 0.0], [1000.0, -600.0, 1000.0]],
+        [[-1000.0, 600.0, 0.0], [-50.0, 1650.0, 1000.0]],
+        [[1000.0, 600.0, 0.0], [50.0, 1650.0, 1000.0]],
+    ],
+    np.float32,
+)
+
+
+def mid_map_extra_spawns(cfg: EnvConfig, tri_verts: np.ndarray):
+    """Mid-map spawn cells for SpawnInMiddle (reference
+    src/mgr.cpp:1243-1300): a 20 x 20 grid over [-280, -200]..[280, 200];
+    the cells that overlap no collision triangle's AABB become spawn boxes,
+    the left half side A's extras and the right half side B's. Returns
+    ([Na, 8], [Nb, 8]) rows, empty without the flag."""
+    empty = np.zeros((0, 8), np.float32)
+    if not cfg.has_flag(SimFlags.SpawnInMiddle):
+        return empty, empty
+    region_min = np.array([-280.0, -200.0, 0.5], np.float32)
+    region_max = np.array([280.0, 200.0, 0.5], np.float32)
+    cell_dim = 20
+    diff = region_max - region_min
+    cw, ch = diff[0] / cell_dim, diff[1] / cell_dim
+    tri_min = tri_verts.min(axis=1)
+    tri_max = tri_verts.max(axis=1)
+    a_rows, b_rows = [], []
+    for y in range(cell_dim):
+        for x in range(cell_dim):
+            cmin = region_min + np.array([cw * x, ch * y, 0.5], np.float32)
+            cmax = cmin + np.array([cw, ch, 0.5], np.float32)
+            overlaps = np.any(np.all(tri_min <= cmax, axis=-1)
+                              & np.all(tri_max >= cmin, axis=-1))
+            if not overlaps:
+                row = np.concatenate([cmin, cmax, [0.0, 2.0 * np.pi]]
+                                     ).astype(np.float32)
+                (b_rows if x >= cell_dim // 2 else a_rows).append(row)
+    return (np.stack(a_rows) if a_rows else empty,
+            np.stack(b_rows) if b_rows else empty)
+
+
+def subzone_boxes(zmin: np.ndarray, zmax: np.ndarray, zrot: np.ndarray):
+    """[8, 3] mins, [8, 3] maxs, [8] rotations: sub-zones 0-1 are map
+    zones 1-2 (level_gen.cpp:283-289), 2-7 the hardcoded boxes."""
+    mins = np.concatenate([zmin[1:3], HARDCODED_SUBZONES[:, 0]], axis=0)
+    maxs = np.concatenate([zmax[1:3], HARDCODED_SUBZONES[:, 1]], axis=0)
+    rots = np.concatenate([zrot[1:3], np.zeros((6,), np.float32)], axis=0)
+    return mins, maxs, rots
 
 
 # columns of MapData.zone_frames
@@ -165,6 +225,10 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
                                  tag="_mv", device=device)
 
     a_sp, b_sp = spawns.a_spawns, spawns.b_spawns
+    num_default = np.array([len(a_sp), len(b_sp)], np.int32)
+    extra_a, extra_b = mid_map_extra_spawns(cfg, col.tri_verts)
+    a_sp = np.concatenate([a_sp, extra_a], axis=0)
+    b_sp = np.concatenate([b_sp, extra_b], axis=0)
     n_side = max(len(a_sp), len(b_sp), 1)
     side = np.zeros((2, n_side, 8), np.float32)
     side[0, : len(a_sp)] = a_sp
@@ -178,7 +242,8 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
     zmax[:nz] = zones.aabb_max
     zrot[:nz] = zones.rotations
 
-    weapons = cfg.weapons
+    sub_min, sub_max, sub_rot = subzone_boxes(zmin, zmax, zrot)
+    weapons = cfg.effective_weapons
     num_goals = len(_HARDCODED_GOAL_REGIONS)
     max_sub = 3
     gmin = np.zeros((num_goals, max_sub, 3), np.float32)
@@ -212,8 +277,9 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         nav_centroids=dev(nav.centroids),
         nav_area_cdf=dev(nav.area_cdf),
         side_spawns=dev(side),
-        num_default_side_spawns=np.array([len(a_sp), len(b_sp)], np.int32),
-        num_extra_side_spawns=np.zeros((2,), np.int32),
+        num_default_side_spawns=num_default,
+        num_extra_side_spawns=np.array([len(extra_a), len(extra_b)],
+                                       np.int32),
         common_respawns=dev(spawns.common_respawns),
         num_common_respawns=int(spawns.common_respawns.shape[0]),
         zone_min=dev(zmin),
@@ -233,4 +299,7 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         goal_attacker_team=dev(gatt),
         goal_reward_strength=dev(gstr),
         num_goal_regions=num_goals,
+        subzone_min=dev(sub_min),
+        subzone_max=dev(sub_max),
+        subzone_rot=dev(sub_rot),
     )

@@ -127,16 +127,40 @@ class EnvConfig:
         default_factory=RewardHyperParamsDefaults
     )
     episode_len: int = consts.episode_len
+    # high-level movement mode: combat is auto-resolved (hlBattleSystem,
+    # sim.cpp:1346-1441 replaces fireSystem — TaskConfig.highlevelMove)
+    highlevel_move: bool = False
     # capacity of the per-world breadcrumb pool; the reference allocates
     # entities dynamically, we use a fixed ring (1 active crumb chain per
     # agent, decaying over penalty/decay = 40 steps; new crumb at most every
     # 10 steps -> <= 4 live crumbs per agent typical; 6/agent is safe).
     breadcrumb_pool_per_agent: int = 6
+    # the navmesh spawn curriculum (reference src/sim.cpp:5915-5924); not
+    # ported: Env raises when it is on
+    enable_spawn_curriculum: bool = False
 
     @property
     def num_agents(self) -> int:
-        # two teams (the only ported task is Zone)
+        if self.task == Task.Explore:
+            return 1
+        # Turret task: team 1's rows are the turrets (frozen in place,
+        # driven by the auto-aim controller, sim/turret.py)
         return self.team_size * 2
+
+    @property
+    def effective_weapons(self) -> tuple:
+        """Weapon table including the turret weapon for the Turret task
+        (accuracy 0.15, dmg 10, auto-reload 15; sim.cpp:1728-1755)."""
+        if self.task == Task.Turret:
+            return self.weapons + (
+                WeaponStats(mag_size=30, reload_time=15, dmg_per_bullet=10.0,
+                            accuracy_scale=0.15),
+            )
+        return self.weapons
+
+    @property
+    def num_weapon_types(self) -> int:
+        return len(self.effective_weapons)
 
     @property
     def breadcrumb_pool_size(self) -> int:

@@ -47,6 +47,13 @@ def cross(a, b):
     )
 
 
+def lift(z):
+    """(0, 0, z) for each z: [..., 3], built on z's device (no host
+    constant); p + lift(z) keeps p's x and y as p + (0, 0, z) does."""
+    zero = torch.zeros_like(z)
+    return torch.stack([zero, zero, z], dim=-1)
+
+
 def wrap_pi(angle):
     """One-shot wrap into [-pi, pi] (matches computeAim, utils.cpp:142-146):
     a single conditional add, not a modulo, mirroring the reference."""

@@ -17,26 +17,38 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import EnvConfig, RewardMode, SimFlags, Task
+from .. import consts
+from ..config import EnvConfig, SimFlags
 from ..assets.map_data import load_map
 from ..utils import rng
 from . import step as step_mod
 from .types import Actions, WorldState, init_world_state
 
-# configuration this port runs; everything else raises at construction
-_PORTED_FLAGS = (SimFlags.StaggerStarts | SimFlags.RandomFlipTeams
-                 | SimFlags.SimEvalMode | SimFlags.NavmeshSpawn
-                 | SimFlags.NoRespawn)
+# flags this port does not run; they raise at construction (StaticFlipTeams
+# is read by no system of the JAX package either)
+_UNPORTED_FLAGS = (SimFlags.EnableCurriculum | SimFlags.FullTeamPolicy
+                   | SimFlags.StaticFlipTeams)
 
 
 def _check_ported(cfg: EnvConfig) -> None:
-    if cfg.task != Task.Zone or cfg.reward_mode != RewardMode.Default:
-        raise NotImplementedError(
-            "the PyTorch port runs Task.Zone with RewardMode.Default only"
-        )
-    extra = SimFlags(cfg.sim_flags & ~_PORTED_FLAGS)
+    extra = SimFlags(cfg.sim_flags & _UNPORTED_FLAGS)
     if extra:
         raise NotImplementedError(f"not ported: {extra!r}")
+    if cfg.enable_spawn_curriculum:
+        raise NotImplementedError("not ported: enable_spawn_curriculum")
+
+
+def _check_spawn_tables(m) -> None:
+    """The spawn-usage tables hold consts.max_spawns boxes a side. The
+    mid-map extras of SpawnInMiddle overflow them on both bundled maps
+    (208 and 196 boxes); the JAX package's initial spawn fails there too
+    (a broadcast of the 128-wide table against the boxes)."""
+    ns = m.side_spawns.shape[1]
+    if ns > consts.max_spawns:
+        raise ValueError(
+            f"{ns} spawn boxes on a side ({m.num_extra_side_spawns.tolist()} "
+            f"from SpawnInMiddle) exceed the usage tables' "
+            f"{consts.max_spawns}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,7 +64,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Env:
-    """Batched multiplayer FPS environment (Zone task)."""
+    """Batched multiplayer FPS environment (every Task and RewardMode)."""
 
     def __init__(self, cfg: EnvConfig, scene_dir: str, num_worlds: int,
                  seed: int = 5, device=None):
@@ -61,6 +73,7 @@ class Env:
         self.num_worlds = num_worlds
         self.device = resolve_device(device)
         self.map_data = load_map(scene_dir, cfg, device=self.device)
+        _check_spawn_tables(self.map_data)
         self.init_key = rng.prng_key(seed, device=self.device)
 
     def init_state(self) -> WorldState:

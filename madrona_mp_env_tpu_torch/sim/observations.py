@@ -6,12 +6,13 @@ isAgentVisible in src/utils.cpp:186-271), pvpOpponentMasksSystem
 (sim.cpp:2562-2614), pvpObservationsSystem (sim.cpp:2645-3052) and
 pvpLidarSystem (sim.cpp:3324-3506) over [W, A, ...] tensors. All of an
 agent's sensor rays (4 LOS samples per opponent + 2x32 forward + 2x8 rear
-lidar) share its position as origin with a z offset per run, and go
-through two launches per step: the fan vs the world (ops/raycast.py
-fan_route: K2 over the whole soup, K6 over the agent's PVS cell on big
-maps, K9 over its sensor-ray table cell with MPENV_FAN_V9=1, or K7 over
-the whole soup when a run is not a multiple of 8, as an odd team size's
-LOS run is) and the same rays vs the agent capsules (kernel K3).
+lidar; in RewardMode.Flank 4 per agent of both teams) share its position
+as origin with a z offset per run, and go through two launches per step:
+the fan vs the world (ops/raycast.py fan_route: K2 over the whole soup,
+K6 over the agent's PVS cell on big maps, K9 over its sensor-ray table
+cell with MPENV_FAN_V9=1, or K7 over the whole soup when a run is not a
+multiple of 8, as an odd team size's LOS run is) and the same rays vs
+the agent capsules (kernel K3).
 
 Observation keys match the reference trainInterface (mgr.cpp:2383-2430).
 """
@@ -25,14 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import consts
-from ..config import EnvConfig
+from ..config import EnvConfig, RewardMode, Task
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..ops.culling import cell_index, ray_cell_index
 from ..ops.raycast import (_ray_zoffs, fan_route, ray_fans_culled,
                            ray_fans_culled_v9, ray_fans_vs_tris,
-                           ray_fans_vs_tris_flat)
-from ..ops.raycast_cull import fan_capsules
+                           ray_fans_vs_tris_flat, ray_vs_tris)
+from ..ops.raycast_cull import fan_capsules, ray_vs_capsules
 from .combat import eye_offset, view_height
 from .types import WorldState
 
@@ -47,11 +48,16 @@ _HY = 1.0 / math.hypot(_F, 1.0)
 
 def _index_tables(cfg: EnvConfig, device):
     """teams [A]; opp_idx [A, ts] (j-th opponent of agent a); mate_idx
-    [A, ts - 1] (teammates in index order)."""
+    [A, ts - 1] (teammates in index order). Explore's one agent has no
+    opponents: its opp_idx points past A and is clamped to the last row,
+    as the JAX package's gathers clamp it (no ray hits that row: it is
+    the agent itself)."""
     A, ts = cfg.num_agents, cfg.team_size
     agent = torch.arange(A, device=device)
     teams = agent // ts
-    opp_idx = (1 - teams[:, None]) * ts + torch.arange(ts, device=device)
+    opp_idx = torch.clamp(
+        (1 - teams[:, None]) * ts + torch.arange(ts, device=device),
+        max=A - 1)
     mate = (teams[:, None] == teams[None, :]) & (agent[:, None]
                                                  != agent[None, :])
     mate_idx = torch.argsort(torch.where(mate, agent[None, :], A), dim=-1,
@@ -59,15 +65,26 @@ def _index_tables(cfg: EnvConfig, device):
     return teams.to(torch.int32), opp_idx, mate_idx
 
 
+def flank_los(cfg: EnvConfig) -> bool:
+    """RewardMode.Flank also needs each agent's LOS to its own team
+    (flankRewardSystem's teammate term, sim.cpp:4233-4246)."""
+    return cfg.task == Task.Zone and cfg.reward_mode == RewardMode.Flank
+
+
 def _los_geometry(cfg: EnvConfig, state: WorldState):
-    """LOS sample rays, 4 per opponent (isAgentVisible, utils.cpp:186-271):
+    """LOS sample rays, 4 per target (isAgentVisible, utils.cpp:186-271):
     target bottom, target eye and the eye shifted +-0.9 r along the
-    viewer's aim right."""
-    _, opp_idx, _ = _index_tables(cfg, state.pos.device)
+    viewer's aim right. The targets are the opponents, and in Flank mode
+    then the agent's own team (its own slot fails the pretests)."""
+    teams, opp_idx, _ = _index_tables(cfg, state.pos.device)
+    if flank_los(cfg):
+        own_idx = teams[:, None] * cfg.team_size + torch.arange(
+            cfg.team_size, device=teams.device)
+        opp_idx = torch.cat([opp_idx, own_idx], dim=1)  # [A, 2 ts]
     eye = state.pos + eye_offset(state.stand_cur)
     fwd, right, up = geom.aim_vectors(state.yaw, state.pitch)
-    r_up = torch.tensor([0.0, 0.0, 1.0], device=state.pos.device)
-    bottom = state.pos + r_up * consts.agent_radius
+    bottom = state.pos + geom.lift(torch.full_like(state.hp,
+                                                   consts.agent_radius))
     top = state.pos + eye_offset(state.stand_cur)
     delta_r = (right * (0.9 * consts.agent_radius))[:, :, None, :]
     t_bottom = bottom[:, opp_idx]  # [W, A, ts, 3]
@@ -88,6 +105,7 @@ def _los_geometry(cfg: EnvConfig, state: WorldState):
     far_enough = dist >= consts.agent_radius
     ray_d = to_s / torch.clamp(dist[..., None], min=1e-30)
     return {
+        "eye": eye,
         "opp_idx": opp_idx,
         "ray_d": ray_d,
         "pretests": in_front & in_frustum & far_enough,
@@ -198,17 +216,52 @@ def _hit_agent(t_world, cap_t, cap_idx):
     return torch.where(cap_t < t_world, cap_idx, -1)
 
 
-def visibility_system(cfg: EnvConfig, state: WorldState, sensor):
-    """can_see [W, A, ts]: a sample ray passes the pretests and its first
-    hit is the target's capsule."""
-    los = sensor["los"]
+def _trace_los(m: MapData, state: WorldState, los):
+    """The LOS sample rays traced on their own (world: kernel K1; agent
+    capsules, the viewer's own excluded: plain PyTorch). Returns (t_world,
+    t_cap, cap_idx), each [W, A, n, 4]."""
+    A = state.hp.shape[1]
+    ray_d = los["ray_d"]  # [W, A, n, 4, 3]
+    o = los["eye"][:, :, None, None, :].expand_as(ray_d)
+    t_world = ray_vs_tris(o, ray_d, m.tris)
+    t_caps = ray_vs_capsules(o, ray_d, state.pos[:, None, None, None],
+                             (state.alive > 0.0)[:, None, None, None])
+    agent = torch.arange(A, device=o.device)
+    t_caps = torch.where(agent[:, None, None, None] == agent, float("inf"),
+                         t_caps)
+    t_cap, cap_idx = t_caps.min(dim=-1)
+    return t_world, t_cap, cap_idx
+
+
+def visibility_system(cfg: EnvConfig, m: MapData, state: WorldState,
+                      sensor=None):
+    """can_see [W, A, n]: a sample ray passes the pretests and its first
+    hit is the target's capsule. ``sensor`` (build_sensor_rays) holds the
+    step's fan hits; without it the LOS rays are traced here
+    (_trace_los), as Flank's reward refresh does."""
+    if sensor is None:
+        los = _los_geometry(cfg, state)
+        hit = _hit_agent(*_trace_los(m, state, los))
+    else:
+        los = sensor["los"]
+        hit = _hit_agent(sensor["los_t"], sensor["los_cap_t"],
+                         sensor["los_cap_idx"])
     opp_idx = los["opp_idx"]
-    hit = _hit_agent(sensor["los_t"], sensor["los_cap_t"],
-                     sensor["los_cap_idx"])
     ray_ok = hit == opp_idx[:, :, None]
     can_see = (los["pretests"] & ray_ok).any(-1)
     alive = state.alive > 0.0
     return can_see & alive[..., None] & alive[:, opp_idx], opp_idx
+
+
+def split_visibility(cfg: EnvConfig, state: WorldState, can_see, opp_idx):
+    """In Flank mode, write the own-team half of the table into
+    state.prev_teammate_vis and keep the opponent half for the masks and
+    observations."""
+    if flank_los(cfg):
+        ts = cfg.team_size
+        state = state.replace(prev_teammate_vis=can_see[..., ts:])
+        can_see, opp_idx = can_see[..., :ts], opp_idx[:, :ts]
+    return state, can_see, opp_idx
 
 
 def opponent_masks_system(cfg: EnvConfig, state: WorldState, can_see,
@@ -217,8 +270,12 @@ def opponent_masks_system(cfg: EnvConfig, state: WorldState, can_see,
     opponent fired recently."""
     W, A = state.hp.shape
     ts = cfg.team_size
-    team_any = can_see.reshape(W, 2, ts, ts).any(2)  # [W, team, slot]
     teams = torch.arange(A, device=can_see.device) // ts
+    if A == 2 * ts:
+        team_any = can_see.reshape(W, 2, ts, ts).any(2)  # [W, team, slot]
+    else:  # Explore: one agent
+        team_any = torch.stack([(can_see & (teams == t)[:, None]).any(1)
+                                for t in (0, 1)], dim=1)
     shared = team_any[:, teams]
     opp_fired = (state.fired_shot_t >= 0.0)[:, opp_idx]
     alive = state.alive > 0.0
@@ -296,8 +353,10 @@ def _combat_ob(state: WorldState):
 
 
 def _zone_ob(cfg: EnvConfig, m: MapData, state: WorldState, teams):
-    """ZoneObservation [W, A, 16] (sim.cpp:2800-2874)."""
+    """ZoneObservation [W, A, 16] (sim.cpp:2800-2874); zeros in TDM."""
     W, A = state.hp.shape
+    if cfg.task == Task.TDM:
+        return torch.zeros(W, A, 16, device=state.pos.device)
     zi = state.zone_cur.long()
     zc = 0.5 * (m.zone_min[zi] + m.zone_max[zi])  # [W, 3]
     n_center = _normalized_pos(m, zc)
@@ -451,9 +510,11 @@ def lidar_system(cfg: EnvConfig, m: MapData, state: WorldState, sensor):
 
 
 def observe_tail(cfg: EnvConfig, m: MapData, state: WorldState):
-    """sensor rays -> visibility -> masks -> obs -> lidar."""
+    """sensor rays -> visibility (-> Flank's own-team split) -> masks ->
+    obs -> lidar."""
     sensor = build_sensor_rays(cfg, m, state)
-    can_see, opp_idx = visibility_system(cfg, state, sensor)
+    can_see, opp_idx = visibility_system(cfg, m, state, sensor)
+    state, can_see, opp_idx = split_visibility(cfg, state, can_see, opp_idx)
     masks = opponent_masks_system(cfg, state, can_see, opp_idx)
     state, obs = observations_system(cfg, m, state, can_see, opp_idx, masks)
     state, lidar_obs = lidar_system(cfg, m, state, sensor)

@@ -14,7 +14,7 @@ import dataclasses
 import torch
 
 from .. import consts
-from ..config import EnvConfig
+from ..config import EnvConfig, Task
 from ..assets.map_data import MapData
 from ..utils import rng
 from .spawn import spawn_agents
@@ -41,7 +41,12 @@ def init_world(cfg: EnvConfig, m: MapData, state: WorldState,
     cur_step = torch.where(
         stagger, rng.randint(k_stagger, (), 0, cfg.episode_len - 1), 0
     ).to(torch.int32)
-    zone_cur = rng.randint(k_zone, (), 0, m.num_zones)  # Task.Zone
+    if cfg.task == Task.Zone:
+        zone_cur = rng.randint(k_zone, (), 0, m.num_zones)
+    else:
+        # ZoneCaptureDefend holds zone 3; the zoneless tasks keep 0
+        zone_cur = torch.full((W,), 3 if cfg.task == Task.ZoneCaptureDefend
+                              else 0, dtype=torch.int32, device=dev)
 
     f, i, b = torch.float32, torch.int32, torch.bool
 

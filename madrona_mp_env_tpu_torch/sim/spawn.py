@@ -7,24 +7,45 @@ the core is a Python loop over the A agents with every world in the batch
 dimension. The random draws are batched outside the loop, one draw per
 purpose, keyed exactly as the JAX package keys them.
 
-Paths: the initial spawn with usage-recency retry and the scored respawn,
-plus the NavmeshSpawn override. SpawnInMiddle, the LearnShooting
-curriculum, hardcoded spawns, the spawn curriculum and turret rows are
-not ported.
+Paths: the initial spawn with usage-recency retry (SpawnInMiddle draws
+between the default boxes and the mid-map extras) and the scored respawn,
+then the overrides: NavmeshSpawn, HardcodedSpawns (first spawn only) and
+the Turret task's turret rows (navmesh points, a random yaw, never
+respawned); RandomizeHPMagazine draws hp and the magazine. The
+LearnShooting curriculum and the spawn curriculum are not ported.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import consts
-from ..config import EnvConfig, SimFlags
+from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..utils import rng
 from .types import Pose, WorldState
 
 _BIG = 1e18
+
+# hardcoded spawn table (reference src/utils.cpp:503-543): x, y, z, yaw;
+# 3 per side
+HARDCODED_SPAWNS = (
+    (510.0, 179.1, -64.0, -2.05),
+    (525.8, 17.1, -64.0, -0.80),
+    (434.3, 184.7, -64.0, -1.80),
+    (1037.2, 449.0, -56.0, 2.37),
+    (1094.3, 200.1, -56.0, 1.41),
+    (1045.8, 416.8, -56.0, 2.37),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _hardcoded_spawns(device: torch.device) -> torch.Tensor:
+    """HARDCODED_SPAWNS [6, 4] on ``device``, copied there once."""
+    return torch.tensor(HARDCODED_SPAWNS, dtype=torch.float32, device=device)
 
 
 def _sample_navmesh_points(u, m: MapData):
@@ -62,11 +83,20 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
     agent = torch.arange(A, device=dev)
     teams = (agent // ts).to(torch.int32)
 
-    _, kbody = rng.split(key, 2).unbind(-2)
+    kmid, kbody = rng.split(key, 2).unbind(-2)
+    if cfg.has_flag(SimFlags.SpawnInMiddle):
+        use_middle = rng.uniform(kmid) < 0.5  # [W]
+    else:
+        use_middle = None
     cur_step_u32 = state.cur_step.to(torch.int64) & 0xFFFFFFFF  # [W]
     zc = state.zone_cur.long()
     zone_center = 0.5 * (m.zone_min[zc] + m.zone_max[zc])  # [W, 3]
     dead = state.alive == 0.0
+    turret = cfg.task == Task.Turret
+    is_turret_row = (teams == 1) if turret else torch.zeros_like(teams,
+                                                                  dtype=bool)
+    if turret and is_respawn:
+        dead = dead & ~is_turret_row
 
     ks = rng.split(kbody, 8)  # [W, 8, 2]
     u_cand = rng.uniform(ks[:, 0], (A, 6))
@@ -75,11 +105,19 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
     weapon = rng.randint(ks[:, 4], (A,), 0, len(cfg.weapons))
 
     side_all = torch.where(teams == state.team_a[:, None], 0, 1)  # [W, A]
+    if cfg.has_flag(SimFlags.HardcodedSpawns) and not is_respawn:
+        hc_idx = torch.clamp(torch.where(side_all == 0, 0, 3)
+                             + (agent - teams * ts), 0, 5)
+        hc_rows = _hardcoded_spawns(dev)[hc_idx]  # [W, A, 4]
+    else:
+        hc_rows = None
+    u_misc = rng.uniform(ks[:, 7], (A, 4)) if turret else None
 
     rows = m.common_respawns  # [Nc, 8]
     nc = rows.shape[0]
     centers = 0.5 * (rows[:, 0:3] + rows[:, 3:6])
     n_def = m.num_default_side_spawns
+    n_extra = m.num_extra_side_spawns
     ns = m.side_spawns.shape[1]
     ns_full = state.spawn_a_used.shape[1]
     ns_iota = torch.arange(ns_full, device=dev)
@@ -133,8 +171,14 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
         else:
             # initial spawn with usage-recency retry (utils.cpp:340-389)
             nd_s = torch.where(is_a, int(n_def[0]), int(n_def[1]))
-            count = torch.clamp(nd_s, min=1)
-            cands = torch.minimum(
+            if use_middle is None:
+                offset, count = 0, torch.clamp(nd_s, min=1)
+            else:
+                ne_s = torch.where(is_a, int(n_extra[0]), int(n_extra[1]))
+                offset = torch.where(use_middle, nd_s, 0)[:, None]
+                count = torch.clamp(torch.where(use_middle, ne_s, nd_s),
+                                    min=1)
+            cands = offset + torch.minimum(
                 (u_cand[:, i] * count[:, None].to(torch.float32)).to(
                     torch.int32),
                 count[:, None] - 1,
@@ -169,9 +213,17 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
                                     side_used_c)
             respawn_used = respawn_used_c
 
+        if cfg.has_flag(SimFlags.NavmeshSpawn) or (turret and i >= ts):
+            nav_pt = _sample_navmesh_points(u_nav[:, i, :3], m)
         if cfg.has_flag(SimFlags.NavmeshSpawn):
-            pt = _sample_navmesh_points(u_nav[:, i, :3], m)
+            pt = nav_pt
             yaw = u_nav[:, i, 3] * 2.0 * consts.pi
+        if hc_rows is not None:
+            pt, yaw = hc_rows[:, i, 0:3], hc_rows[:, i, 3]
+        if turret and i >= ts:
+            # a turret row: a navmesh point and a random yaw
+            pt = nav_pt
+            yaw = u_misc[:, i, 3] * 2.0 * consts.pi
 
         do = dead[:, i]  # [W]
         commit = do[:, None] & (agent == i)  # [W, A]
@@ -189,7 +241,19 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
     pts = torch.stack(pts_l, dim=1)  # [W, A, 3]
     yaws = torch.stack(yaws_l, dim=1)
 
-    mag = m.weapon_mag_size[weapon.long()]
+    if turret:
+        # the turret weapon follows the user's table
+        # (EnvConfig.effective_weapons)
+        weapon = torch.where(is_turret_row, len(cfg.weapons), weapon)
+    mag_size = m.weapon_mag_size[weapon.long()]
+    if cfg.has_flag(SimFlags.RandomizeHPMagazine):
+        hp = rng.randint(ks[:, 5], (A,), 1, 11).to(torch.float32) * 10.0
+        u_mag = rng.uniform(ks[:, 6], (A,))
+        mag = torch.minimum((u_mag * mag_size.to(torch.float32)).to(
+            torch.int32), mag_size - 1)
+    else:
+        hp = torch.full_like(state.hp, 100.0)
+        mag = mag_size
 
     # zone membership at spawn
     rot = m.zone_rot[zc]  # [W]
@@ -197,8 +261,8 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
     zmin_f = geom.rotate_z(m.zone_min[zc], -rot)[:, None]
     zmax_f = geom.rotate_z(m.zone_max[zc], -rot)[:, None]
     in_zone = ((p_zf >= zmin_f) & (p_zf <= zmax_f)).all(-1)
-    raised = pts + torch.tensor([0.0, 0.0, consts.stand_height / 2.0],
-                                device=dev)
+    raised = pts + geom.lift(
+        torch.full_like(pts[..., 2], consts.stand_height / 2.0))
     min_dist_zone = geom.norm(raised - zone_center[:, None])
 
     d = dead
@@ -209,7 +273,7 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
         yaw=torch.where(d, yaw, state.yaw),
         pitch=torch.where(d, pitch, state.pitch),
         alive=torch.maximum(state.alive, d.to(torch.float32)),
-        hp=torch.where(d, 100.0, state.hp),
+        hp=torch.where(d, hp, state.hp),
         mag_bullets=torch.where(d, mag, state.mag_bullets),
         mag_reloading=torch.where(d, 0, state.mag_reloading),
         weapon_type=torch.where(d, weapon, state.weapon_type),

@@ -8,13 +8,15 @@ worlds at once:
   -> goal regions -> explore -> rewards -> done -> [reset]
   -> sensor rays -> visibility -> masks -> obs -> lidar
 
-For Task.Zone with RewardMode.Default (every configuration the port
-runs) autoheal, zone, match info, rewards and done are one fused pass
-(ops/tail_fused.py, K5) after breadcrumbs, filters, goal regions and
-explore, as in the JAX package's step. The reset runs only on steps where
-some world resets, as a masked update of those worlds, and the scripted
-bot's planner only on steps where some agent is a bot (policy idx -1).
-Ported configuration: Task.Zone, RewardMode.Default.
+For Task.Zone with RewardMode.Default and no sub-zones, autoheal, zone,
+match info, rewards and done are one fused pass (ops/tail_fused.py, K5)
+after breadcrumbs, filters, goal regions and explore, as in the JAX
+package's step; the other tasks, Flank and SubZones take the unfused
+chain (unfused_tail). The Turret task's auto-aim overlay drives the
+turret rows before the movement, and EnvConfig.highlevel_move replaces
+the fire system by hl_battle. The reset runs only on steps where some
+world resets, as a masked update of those worlds, and the scripted bot's
+planner only on steps where some agent is a bot (policy idx -1).
 """
 
 from __future__ import annotations
@@ -24,13 +26,14 @@ from typing import Dict, Tuple
 import torch
 
 from .. import consts
-from ..config import EnvConfig, SimFlags
+from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
 from ..ops.tail_fused import tail_fused, use_tail_fused
 from ..utils import rng
-from . import bot, breadcrumbs, combat, explore, movement, rewards, zones
+from . import bot, breadcrumbs, combat, explore, hl_battle, movement
 from . import reset as reset_mod
-from .observations import observe_tail
+from . import rewards, subzones, turret, zones
+from .observations import flank_los, observe_tail
 from .spawn import spawn_agents
 from .types import Actions, WorldState
 
@@ -52,17 +55,30 @@ def fused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
 
 def unfused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
                  force_reset: torch.Tensor):
-    """The reference's system order, one system at a time; equal to
-    fused_tail bit for bit on every device. Returns (state,
+    """The reference's system order, one system at a time (every task;
+    equal to fused_tail bit for bit where that runs). Returns (state,
     new_captured)."""
     state = combat.autoheal_system(cfg, state)
-    state = zones.zone_system(cfg, m, state)
+    if cfg.task in (Task.Zone, Task.ZoneCaptureDefend):
+        state = zones.zone_system(cfg, m, state)
+    if cfg.has_flag(SimFlags.SubZones):
+        state = subzones.subzone_system(cfg, m, state)
     state = breadcrumbs.breadcrumb_system(cfg, state)
-    state, new_captured = zones.zone_match_info_system(cfg, m, state,
-                                                       force_reset != 0)
+    finish = force_reset != 0
+    if cfg.task in (Task.Zone, Task.ZoneCaptureDefend):
+        state, new_captured = zones.zone_match_info_system(cfg, m, state,
+                                                           finish)
+    elif cfg.task == Task.Turret:
+        state, new_captured = turret.turret_match_info_system(cfg, state,
+                                                              finish)
+    else:
+        state, new_captured = zones.tdm_match_info_system(cfg, state,
+                                                          finish)
     state = explore.filters_system(cfg, state, shot_victim)
     state = explore.goal_regions_system(cfg, m, state)
     state = explore.explore_visited_system(cfg, state)
+    if flank_los(cfg):
+        state = rewards.refresh_flank_los(cfg, m, state)
     state = rewards.reward_system(cfg, m, state)
     done = state.is_finished.to(torch.int32)[:, None].expand(
         -1, cfg.num_agents)
@@ -75,14 +91,19 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
     """Everything before the reset and the observation tail."""
     stepk = rng.step_key(state.episode_key, state.cur_step)
 
+    # the turret rows' auto-aim (turretFireSystem, sim.cpp:1617-1792)
+    actions = turret.turret_ai_system(cfg, m, state, actions)
     state = movement.movement_system(cfg, state, actions)
     state = movement.aim_systems(cfg, state, actions)
     state = movement.apply_velocity_system(cfg, m, state)
     state = movement.fall_system(cfg, m, state)
 
-    state, fire_events = combat.fire_system(
-        cfg, m, state, actions, rng.system_key(stepk, rng.Salt.FIRE)
-    )
+    if cfg.highlevel_move:
+        state, fire_events = hl_battle.hl_battle_system(cfg, m, state)
+    else:
+        state, fire_events = combat.fire_system(
+            cfg, m, state, actions, rng.system_key(stepk, rng.Salt.FIRE)
+        )
     state = combat.apply_damage_system(cfg, state)
     if not cfg.has_flag(SimFlags.NoRespawn):
         state = spawn_agents(cfg, m, state,

@@ -3,8 +3,10 @@
 zoneSystem (reference src/sim.cpp:1892-1976): zone rotation every 600
 controlled steps, membership in the rotated-AABB frame, contested and
 controlling logic. zoneMatchInfoSystem (sim.cpp:4470-4673): step counter,
-kill tally, a point every 20 controlled steps, win at 125 points, zone
-stats. Per-world scalars are [W] tensors.
+kill tally, a point every 20 controlled steps, win at 125 points, the
+ZoneCaptureDefend win conditions, zone stats. tdmMatchInfoSystem
+(sim.cpp:4396-4467) for TDM and Explore. Per-world scalars are [W]
+tensors.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import consts
-from ..config import EnvConfig
+from ..config import EnvConfig, Task
 from ..assets.map_data import MapData, ZF_CENTER, ZF_COS, ZF_MAX, ZF_MIN, ZF_SIN
 from ..ops import geom
 from .types import WorldState
@@ -101,8 +103,8 @@ def zone_system(cfg: EnvConfig, m: MapData, state: WorldState):
 
 def zone_match_info_system(cfg: EnvConfig, m: MapData, state: WorldState,
                            force_reset: torch.Tensor):
-    """zoneMatchInfoSystem for Task.Zone; force_reset [W] bool. Returns
-    (state, new_captured [W])."""
+    """zoneMatchInfoSystem for Task.Zone and Task.ZoneCaptureDefend;
+    force_reset [W] bool. Returns (state, new_captured [W])."""
     teams = _teams(cfg, state.pos.device)
     cur_step = state.cur_step + 1
     match_finished = (cur_step >= cfg.episode_len) | force_reset
@@ -131,6 +133,23 @@ def zone_match_info_system(cfg: EnvConfig, m: MapData, state: WorldState,
     match_finished = match_finished | (
         team_points >= consts.zone_win_points).any(-1)
 
+    zcd = cfg.task == Task.ZoneCaptureDefend
+    if zcd:
+        # the attackers win on 1 point, the defenders on 8 or when every
+        # attacker has died (sim.cpp:4534-4571, 4637-4660)
+        attacker = (state.team_a == 1).long()
+        defender = 1 - attacker
+        def pts_of(t):
+            return torch.gather(team_points, 1, t[:, None])[:, 0]
+
+        att_win = pts_of(attacker) == 1
+        team_all_died = torch.stack(
+            [(state.has_died | (teams != t)).all(-1) for t in (0, 1)], -1)
+        att_all_died = torch.gather(team_all_died, 1,
+                                    attacker[:, None])[:, 0]
+        def_win = (pts_of(defender) == 8) | att_all_died
+        match_finished = match_finished | att_win | def_win
+
     # zone stats (sim.cpp:4573-4589)
     zs = state.zone_stats.clone()
     w = torch.arange(zs.shape[0], device=zs.device)
@@ -140,10 +159,14 @@ def zone_match_info_system(cfg: EnvConfig, m: MapData, state: WorldState,
     zs[w, zi, ZS_CONTESTED] += state.zone_contested.to(torch.int32)
     zs[w, zi, ZS_SWAPS] += new_captured.to(torch.int32)
 
-    result = torch.where(
-        team_points[:, 0] > team_points[:, 1], 0,
-        torch.where(team_points[:, 1] > team_points[:, 0], 1, 2),
-    )
+    if zcd:
+        result = torch.where(att_win, attacker, torch.where(def_win,
+                                                            defender, 2))
+    else:
+        result = torch.where(
+            team_points[:, 0] > team_points[:, 1], 0,
+            torch.where(team_points[:, 1] > team_points[:, 0], 1, 2),
+        )
     win_result = torch.where(match_finished, result, win_result)
 
     return state.replace(
@@ -157,3 +180,39 @@ def zone_match_info_system(cfg: EnvConfig, m: MapData, state: WorldState,
         zone_steps_until_point=steps_until_point,
         zone_stats=zs,
     ), new_captured
+
+
+def tdm_match_info_system(cfg: EnvConfig, state: WorldState,
+                          force_reset: torch.Tensor):
+    """tdmMatchInfoSystem + updateTDMMatchResultsSystem
+    (sim.cpp:4396-4467): the match ends when a side has no live agent (the
+    one-agent Explore task: every step) or at the episode's end; the side
+    with more kills wins. Returns (state, new_captured [W], all False)."""
+    teams = _teams(cfg, state.pos.device)
+    alive = state.alive > 0.0
+    cur_step = state.cur_step + 1
+    match_finished = ((~(alive & (teams == 0)).any(-1))
+                      | (~(alive & (teams == 1)).any(-1))
+                      | (cur_step >= cfg.episode_len) | force_reset)
+
+    first = (cur_step == 1)[:, None]
+    team_kills = torch.where(first, 0, state.team_kills)
+    team_points = torch.where(first, 0, state.team_points)
+    win_result = torch.where(cur_step == 1, -1, state.win_result)
+    team_kills = team_kills + torch.stack(
+        [(state.was_killed & (teams == 1)).sum(-1),
+         (state.was_killed & (teams == 0)).sum(-1)], dim=-1,
+    )
+    result = torch.where(
+        team_kills[:, 0] > team_kills[:, 1], 0,
+        torch.where(team_kills[:, 1] > team_kills[:, 0], 1, 2),
+    )
+    win_result = torch.where(match_finished, result, win_result)
+    return state.replace(
+        cur_step=cur_step,
+        is_finished=match_finished,
+        team_kills=team_kills.to(torch.int32),
+        team_points=team_points.to(torch.int32),
+        win_result=win_result.to(torch.int32),
+        zone_earned_point=torch.zeros_like(state.zone_earned_point),
+    ), torch.zeros_like(match_finished)

@@ -24,9 +24,10 @@ Everything runs on the env's device (the first CUDA device unless
 PRNGKey(seed), split once per chunk, the chunk's half split into one key
 per step. ``EvalConfig.policy_dtype`` (``--bf16`` / ``--fp16``) is the
 policies' compute dtype: each ActorCriticNet must be built with it
-(build_actor_critic / load_policy_npz ``dtype``). Not ported yet: the
-record, event-log and behaviour-cloning dumps (ROADMAP M14) and game
-modes other than Zone.
+(build_actor_critic / load_policy_npz ``dtype``). ``--game-mode`` takes
+every Task (ZoneCaptureDefend with its hardcoded spawns, as the JAX CLI).
+Not ported yet: the record, event-log and behaviour-cloning dumps
+(ROADMAP M14).
 """
 
 from __future__ import annotations
@@ -135,7 +136,12 @@ class EvalManager:
         self.assignment = torch.as_tensor(assign, device=dev)
         self.perm = torch.as_tensor(perm, device=dev)
         self.inv_perm = torch.as_tensor(np.argsort(perm), device=dev)
-        self.team_policies = self.assignment[:, ::cfg.team_size]  # [W, 2]
+        # [W, 2]: the policy of each team's first agent; Explore's one
+        # agent fields both columns (the JAX package's gather clamps the
+        # second to the last agent), a match of a policy with itself
+        first = torch.clamp(torch.arange(2, device=dev) * cfg.team_size,
+                            max=self.A - 1)
+        self.team_policies = self.assignment[:, first]
         self._no_reset = torch.zeros(self.W, dtype=torch.int32, device=dev)
 
     def to_blocks(self, x):
@@ -328,15 +334,10 @@ def main(argv=None):
     the ELO before and after (and the win rates vs the bot). Returns
     (the EvalManager, the final ELO)."""
     args = parse_args(argv)
-    unsupported = {
-        "--record / --event-log / --bc-dump-dir (dumps)":
-            bool(args.record or args.event_log or args.bc_dump_dir),
-        f"--game-mode {args.game_mode}": args.game_mode != "Zone",
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise NotImplementedError("not supported by the PyTorch port yet: "
-                                  + ", ".join(bad))
+    if args.record or args.event_log or args.bc_dump_dir:
+        raise NotImplementedError(
+            "not supported by the PyTorch port yet: --record / --event-log "
+            "/ --bc-dump-dir (dumps)")
     device = resolve_device("cpu" if args.cpu else None)
     dtype = (torch.float16 if args.fp16 else
              torch.bfloat16 if args.bf16 else torch.float32)
@@ -347,7 +348,11 @@ def main(argv=None):
         policies, elo = policies[i:i + 1], elo[i:i + 1]
     print(len(policies))
 
-    cfg = EnvConfig(task=Task.Zone, sim_flags=SimFlags.SimEvalMode,
+    game_mode = getattr(Task, args.game_mode)
+    sim_flags = SimFlags.SimEvalMode
+    if game_mode == Task.ZoneCaptureDefend:
+        sim_flags |= SimFlags.HardcodedSpawns
+    cfg = EnvConfig(task=game_mode, sim_flags=sim_flags,
                     team_size=args.team_size)
     scene = args.scene or os.path.join(REPO, "data", "simple_map")
     env = Env(cfg, scene, num_worlds=args.num_worlds, seed=10, device=device)

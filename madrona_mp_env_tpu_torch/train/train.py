@@ -7,7 +7,11 @@ with every update's metrics logged, and saves a checkpoint every
         --num-worlds 1024 --num-updates 1000 --steps-per-update 40 --bf16
 
 It runs on the first CUDA device; ``--cpu`` runs the plain PyTorch
-versions on the CPU (tiny shapes only). ``MPENV_FAN_V9=1`` in the
+versions on the CPU (tiny shapes only). ``--game-mode`` takes every Task
+(ZoneCaptureDefend adds HardcodedSpawns, as the JAX CLI does);
+``--use-middle-spawns`` raises on the bundled maps, whose mid-map spawn
+boxes overflow the spawn-usage tables, as the JAX package's spawn fails
+there. ``MPENV_FAN_V9=1`` in the
 environment sends the sensor fans through the sensor-ray tables (K9).
 ``--bf16`` / ``--fp16`` set the policy's compute dtype. The PBT
 population: ``--pbt-ensemble-size`` train policies, ``--pbt-past-policies``

@@ -76,9 +76,15 @@ def test_kernel_entries_refuse_other_devices():
 
 
 def test_unported_config_raises(simple_map_dir):
-    cfg = mt.EnvConfig(task=mt.Task.TDM, team_size=2)
-    with pytest.raises(NotImplementedError):
-        mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
+    """FullTeamPolicy, EnableCurriculum and the spawn curriculum are not
+    ported yet; Env refuses them."""
+    for cfg in (
+        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.FullTeamPolicy),
+        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.EnableCurriculum),
+        mt.EnvConfig(team_size=2, enable_spawn_curriculum=True),
+    ):
+        with pytest.raises(NotImplementedError):
+            mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
 
 
 def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):

@@ -215,7 +215,7 @@ def _env_with_seed(env_seed, cfg, scene, num_worlds, seed, device):
 
 
 @pytest.mark.parametrize("flag", [["--record", "x"],
-                                  ["--game-mode", "TDM"]])
+                                  ["--bc-dump-dir", "x"]])
 def test_eval_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
         infer.main(["--cpu", "--num-worlds", "2", "--ckpt-path", "x.npz"]
