@@ -101,8 +101,8 @@ Phases, each of which fails the run loudly:
    steps at 1024 worlds: K1, K7 and K5 must launch (K7 and K3 51 times,
    K1 and K5 50), K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
-   40 steps per update, the LSTM-512 policy, E = 1: 3 updates of Zone 6v6
-   on the default fan route (K2), 2 with MPENV_FAN_V9=1 (K9), 1 of
+   40 steps per update, the LSTM-512 policy, E = 1: 2 updates of Zone 6v6
+   on the default fan route (K2), 1 with MPENV_FAN_V9=1 (K9), 1 of
    Zone 3v3 (K7) on each map, then 2 each of Zone 6v6 with --bf16 and
    --fp16 (the policy's compute dtype; no float32 fallback: the stored
    observations and BPTT start states must come out in it); updates/s,
@@ -149,8 +149,9 @@ Phases, each of which fails the run loudly:
    worlds of team size 6 on simple_map: K1 at each new shape (the
    turret's and hl_battle's LOS, W x A x ts rays; Flank's LOS refresh,
    W x A x 8 ts) and, on Flank, K2 and K3 on the 48-ray LOS run, each
-   bit-equal to its plain version with its time and bound; reset + 50
-   steps with every counter zeroed before and read after, each kernel
+   bit-equal to its plain version with its time and bound; reset + 30
+   steps (the configurations with the same map inputs sharing one loaded
+   map) with every counter zeroed before and read after, each kernel
    held to its count (K1 once a step, twice with a turret or a Flank
    refresh, hl_battle's in place of the hitscan; K5 only on the flags
    configuration), env-steps/s and CUDA launches per step; Zone + Flank
@@ -161,7 +162,29 @@ Phases, each of which fails the run loudly:
    Explore): finite losses, parameters that move. SpawnInMiddle is not
    driven: the bundled maps' mid-map spawn boxes overflow the spawn-usage
    tables, and Env refuses it as the JAX package's spawn fails there;
-12. a line of kernel results (JSON, one row per kernel and map, each with
+12. the world curriculum, the full-team interface and the spawn
+   curriculum (curriculum_phase), 1024 worlds of Zone 6v6:
+   SimFlags.EnableCurriculum on simple_map (40-step episodes), reset +
+   50 steps held to their counts, the share of LearnShooting worlds,
+   then K5's LearnShooting instantiation bit-equal (int32 views) to its
+   plain version on the next step's tail (both curricula present),
+   timed with its bound and its device time (first in the phase: late
+   in a whole run torch.profiler has traced no CUDA event);
+   SimFlags.FullTeamPolicy on simple_map (reset + 50 steps) and town_map
+   (20), every counter zeroed before and read after, each kernel of the
+   6v6 path held to its count and no other launched, the team reward the
+   sum of its members', env-steps/s and CUDA launches per step; the
+   full-team policy (FullTeamActorCriticNet at full width, seeded
+   weights) driving that env for 40 steps on 2048 teams, its forward ms
+   per step and one sequence forward + backward over the 40 steps (4
+   minibatches of 512 teams), in float32 and bfloat16, by CUDA events,
+   gradients finite; the spawn curriculum on each map: the tables'
+   build time cold and cached, and each tier's mean team separation at a
+   reset of 1024 worlds; each configuration's 4-world, 16-step rollout
+   on "cuda" against "cpu" on simple_map (phase 9's bars, the full-team
+   observations within 1e-3) and the full-team network's outputs cuda
+   against cpu within FT_NET_BAR;
+13. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS), then the card line, then the last line {"ok": true,
@@ -232,7 +255,8 @@ OPS_SC_NORMAL = 95
 OPS_TAIL_AGENT = 41
 # the redesigned kernels' rows (K1, K2, K6, K7, K4 culled, K4', K3, K5)
 # also carry: their predecessor's time in the same call, their device time
-# (torch.profiler; K1's, K7's, K4's, K3's and K5's predecessors' too), the
+# (torch.profiler, null where no window of it holds the kernel's events;
+# K1's, K7's, K4's, K3's and K5's predecessors' too), the
 # floor at one f32 instruction per operation (--fmad=false: 33.5 T/s),
 # ptxas -v's registers and spill bytes, the launches of any helper per
 # call, the blocks of a cluster that split the rows (K1, K7), on the
@@ -247,7 +271,7 @@ REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "per_ray_ms", "per_ray_before_ms", "per_ray_plain_ms",
                  "per_ray_bound_ms", "root_share",
                  "host_us", "before_host_us", "vs_bot_launches",
-                 "vs_bot_path")
+                 "vs_bot_path", "ls_share")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
                 "ray_fans_culled_v1", "sphere_cast_culled_v1",
@@ -413,18 +437,43 @@ def turns_ms(new, old, reps):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
-def device_ms(fn, kernel, reps=10):
-    """Device ms per call of the CUDA kernels of ``fn`` whose name holds
-    ``kernel`` (kernel_bench.device_ms: torch.profiler, else CUDA events
-    around single calls, logged), without the host's gaps between
-    calls."""
+def device_ms(fn, kernel, reps=10, digits=4):
+    """Device ms per call (rounded to ``digits``) of the CUDA kernels of
+    ``fn`` whose name holds ``kernel``, without the host's gaps between
+    calls: torch.profiler's times (kernel_bench.device_ms), else those of
+    a window that traces the device alone, else None (logged with what
+    that window held)."""
+    import torch
     from madrona_mp_env_tpu_torch.tools import kernel_bench
 
     ms, how = kernel_bench.device_ms(fn, kernel, reps)
-    if how != "profiler":
-        log(f"[profiler] no {kernel} event in 3 windows: its device time "
-            f"by CUDA events around single calls ({ms:.4f} ms)")
-    return ms
+    if how == "profiler":
+        return round_or_none(ms, digits)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e.device_time_total for e in dev
+            if kernel in e.name and e.device_time_total > 0]
+    names = sorted({e.name[:60] for e in dev})[:4]
+    log(f"[profiler] no {kernel} event in 3 windows of host and device; "
+        f"a window of the device alone held {len(dev)} CUDA events, "
+        f"{len(mine)} of it (names {names})")
+    return round_or_none(sum(mine) / 1e3 / len(mine) if mine else None,
+                         digits)
+
+
+def round_or_none(x, digits=4):
+    return x if x is None or digits is None else round(x, digits)
+
+
+def add_or_none(a, b):
+    return None if a is None or b is None else a + b
 
 
 # where the step calls each kernel's entry: (sim module, name)
@@ -591,8 +640,8 @@ class KernelPhase:
             raycast.ray_vs_tris, err, ms, cuda_time_ms(plain, 20),
             R1 * 28 + self.T_real * 40, nops, [list(o1.shape[:-1])],
             before_ms=round(before_ms, 4),
-            device_ms=round(device_ms(kernel, "ray_tris_rb_kernel"), 4),
-            before_device_ms=round(device_ms(before, "ray_tris_v1_kernel"), 4),
+            device_ms=device_ms(kernel, "ray_tris_rb_kernel"),
+            before_device_ms=device_ms(before, "ray_tris_v1_kernel"),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill, helper_launches=0,
             split=raycast.ray_split(soup.num_tris, R1,
@@ -635,8 +684,7 @@ class KernelPhase:
             raycast.ray_fans_vs_tris, err, ms, cuda_time_ms(fan_plain, 1),
             N * (12 + 4 * G) + 3 * N * F * 4 + self.T_real * 40 + N * F * 4,
             nops, [[N, F, soup.num_tris]], before_ms=round(before, 4),
-            device_ms=round(device_ms(fan_kernel, "fan_tris_rb_kernel",
-                                      reps), 4),
+            device_ms=device_ms(fan_kernel, "fan_tris_rb_kernel", reps),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill,
             helper_launches=0)
@@ -737,7 +785,7 @@ class KernelPhase:
             raycast.fan_cell_order, 0.0, cuda_time_ms(order_kernel, 50),
             cuda_time_ms(order_plain, 50), 2 * N * 4 + C * 4, 2 * N,
             [[N, C]], library_ms=cuda_time_ms(order_library, 50),
-            device_ms=round(device_ms(order_kernel, "fan_cell_order"), 4))
+            device_ms=device_ms(order_kernel, "fan_cell_order"))
         t2 = self.k2(org, zgf, dirf, zgroups)
         torch.cuda.synchronize()
         same = float(((t6 == t2) | (torch.isinf(t6) & torch.isinf(t2)))
@@ -865,9 +913,8 @@ class KernelPhase:
             [[N, F, soup.num_tris]], runs_per_fan=round(runs / N, 3),
             hit_share=round(float(torch.isfinite(t).float().mean()), 4),
             before_ms=round(before_ms, 4),
-            device_ms=round(device_ms(kernel, "fan_flat_rb_kernel", reps), 4),
-            before_device_ms=round(
-                device_ms(before, "fan_flat_v1_kernel", reps), 4),
+            device_ms=device_ms(kernel, "fan_flat_rb_kernel", reps),
+            before_device_ms=device_ms(before, "fan_flat_v1_kernel", reps),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill, helper_launches=0,
             split=raycast.flat_split(soup.num_tris), **extra)
@@ -992,9 +1039,8 @@ class KernelPhase:
             W * A * 16 + W * A * G * 4 + W * A * F * 12 + F * 4
             + W * A * F * 8, nops, [[W, A, F, G]],
             before_ms=round(before_ms, 4),
-            device_ms=round(device_ms(kernel, "fan_capsules_kernel", 20), 4),
-            before_device_ms=round(
-                device_ms(before, "fan_capsules_v1_kernel", 20), 4),
+            device_ms=device_ms(kernel, "fan_capsules_kernel", 20),
+            before_device_ms=device_ms(before, "fan_capsules_v1_kernel", 20),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill, helper_launches=0,
             root_share=round((cyl + sph) / (3 * pairs), 4))
@@ -1079,9 +1125,10 @@ class KernelPhase:
             check_equal(f"{name} against its predecessor", (tk, tb), (ik, ib))
             new, old = turns_ms(kernel, before, 50)
             ms, before_ms, pms = ms + new, before_ms + old, pms + p_ms
-            dev += device_ms(kernel, "sc_culled_kernel", 20)
-            dev_before += device_ms(before, "sphere_cast_culled_v1_kernel",
-                                    20)
+            dev = add_or_none(dev, device_ms(kernel, "sc_culled_kernel",
+                                             20, None))
+            dev_before = add_or_none(dev_before, device_ms(
+                before, "sphere_cast_culled_v1_kernel", 20, None))
             # casts in (24 B) and out (8 B), cells, the table and its
             # span, the rows
             nbytes += (N * CPA * 32 + N * 4 + short.cand.numel() * 4
@@ -1093,8 +1140,8 @@ class KernelPhase:
         nops = pairs * OPS_SPHERE_TRI
         return dict(err=err, ms=ms, pms=pms, nbytes=nbytes, nops=nops,
                     shapes=shapes, before_ms=round(before_ms, 4),
-                    device_ms=round(dev, 4),
-                    before_device_ms=round(dev_before, 4),
+                    device_ms=round_or_none(dev),
+                    before_device_ms=round_or_none(dev_before),
                     fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
                     registers=regs, spill_bytes=spill,
                     helper_launches=0), plains
@@ -1188,7 +1235,7 @@ class KernelPhase:
         ts5 = cfg5.team_size
         lanes = 16 if A5 <= 16 else 32
         regs, spill = cuda_build.ptxas_usage(
-            "tail_fused", f"tail_fused_kernelILi{lanes}E")
+            "tail_fused", f"tail_fused_kernelILi{lanes}ELb0E")
         host, before_host = (host_us(f, 200) for f in (kernel, before))
         log(f"[kernel] K5 tail_fused [{self.scene}]: host {host:.1f} us "
             f"per call (predecessor on the same host path "
@@ -1198,14 +1245,24 @@ class KernelPhase:
             "K5 tail_fused", "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
             "madrona_mp_env_tpu/ops/tail_pallas.py:143", tail_fused.tail_fused,
             err, ms, pms,
-            sum(x.nbytes for x in (*ins.values(), *outs.values())), nops,
+            k5_bytes(cfg5, ins, outs), nops,
             [[W5, A5]], before_ms=round(before_ms, 4),
-            device_ms=round(device_ms(kernel, "tail_fused_kernel", 20), 4),
-            before_device_ms=round(
-                device_ms(before, "tail_fused_v1_kernel", 20), 4),
+            device_ms=device_ms(kernel, "tail_fused_kernel", 20),
+            before_device_ms=device_ms(before, "tail_fused_v1_kernel", 20),
             fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
             registers=regs, spill_bytes=spill, helper_launches=0,
             host_us=round(host, 1), before_host_us=round(before_host, 1))
+
+
+def k5_bytes(cfg, ins, outs):
+    """The bytes K5 must move: each operand once, world_curriculum only
+    where the kernel reads it (EnableCurriculum)."""
+    from madrona_mp_env_tpu_torch.config import SimFlags
+
+    skip = (() if cfg.has_flag(SimFlags.EnableCurriculum)
+            else ("in_world_curriculum",))
+    return sum(x.nbytes for k, x in (*ins.items(), *outs.items())
+               if k not in skip)
 
 
 def cap_roots(pos, zg, dirs, zgroups, alive):
@@ -1774,8 +1831,7 @@ def vpu_rows():
             n * loop * insns, [[vp.ROWS, vp.COLS, loop]],
             peak=PEAK_F32_INSNS, more=[(sfu_ops, PEAK_SFU)], rel_err=rel,
             short_max_abs_err=short_err, short_rel_err=short_rel,
-            device_ms=round(device_ms(lambda: fn(a, b, loop), "vpu_", 20),
-                            5)))
+            device_ms=device_ms(lambda: fn(a, b, loop), "vpu_", 20, 5)))
     for K, M, N in vp.MM_SHAPES:
         a, b = vp.mm_inputs(rs, K, M, N, device="cuda")
         fn = vp.MM_ENTRIES[K]
@@ -1794,8 +1850,8 @@ def vpu_rows():
             M * K * 2 + K * N * 2 + M * N * 4, vp.MM_DEPTH * M * N * K * 2,
             [[M, K, N, vp.MM_DEPTH]], peak=PEAK_BF16, library_ms=library,
             rel_err=rel,
-            device_ms=round(device_ms(lambda: fn(a, b, vp.MM_DEPTH), "vpu_",
-                                      20), 5)))
+            device_ms=device_ms(lambda: fn(a, b, vp.MM_DEPTH), "vpu_",
+                                20, 5)))
     return rows
 
 
@@ -1868,10 +1924,11 @@ def actions_at(env, acts, s):
 
 
 def rollout(mt, cfg, scene, W, steps, device, seed=5, bots=False,
-            states=None):
+            states=None, obs_keys=()):
     """``steps`` steps of bench.py's actions; ``bots``: team 1 of every
     world is the scripted bot from the reset on. ``states``, a list,
-    receives the env and each step's state."""
+    receives the env and each step's state; ``obs_keys``: more
+    observations recorded."""
     env = mt.Env(cfg, scene, num_worlds=W, seed=seed, device=device)
     acts = bench_actions(W, cfg.num_agents, steps)
     state, obs = env.reset()
@@ -1885,6 +1942,7 @@ def rollout(mt, cfg, scene, W, steps, device, seed=5, bots=False,
             "team_points": state.team_points, "done": out["done"],
             "reward": out["reward"], "fwd_lidar": out["obs"]["fwd_lidar"],
             "self": out["obs"]["self"],
+            **{k: out["obs"][k] for k in obs_keys},
         })
         if states is not None:
             states.append((env, state))
@@ -2221,7 +2279,7 @@ def drive_path(label, env, acts, steps, rows, not_launched, card,
 
 
 def env_parity(mt, cfg, scene, W, S, bots=False, label="Zone",
-               graze=False):
+               graze=False, obs_keys=()):
     """The env rollout on "cuda" against "cpu" from one seed (``bots``:
     team 1 the scripted bot): hp, alive, team points and done exact; NaN
     at the same places; pos and reward within 1e-4, lidar and self
@@ -2229,11 +2287,13 @@ def env_parity(mt, cfg, scene, W, S, bots=False, label="Zone",
     the configuration. With ``graze``, a forward-lidar ray outside its
     bar passes when lidar_undecided finds it within 4x its world's
     largest pos gap between the devices (+ 1e-3) of changing its hit;
-    such rays are counted and logged."""
+    such rays are counted and logged. ``obs_keys``: more observations,
+    compared as "self"."""
     cpu_states = []
-    gpu = rollout(mt, cfg, scene, W, S, "cuda", bots=bots)
+    gpu = rollout(mt, cfg, scene, W, S, "cuda", bots=bots,
+                  obs_keys=obs_keys)
     cpu = rollout(mt, cfg, scene, W, S, "cpu", bots=bots,
-                  states=cpu_states if graze else None)
+                  states=cpu_states if graze else None, obs_keys=obs_keys)
     worst, grazes = {}, 0
     name = f"{os.path.basename(scene)} {label}"
     for s, (a, b) in enumerate(zip(gpu, cpu)):
@@ -2242,7 +2302,7 @@ def env_parity(mt, cfg, scene, W, S, bots=False, label="Zone",
                 raise AssertionError(f"{name} step {s}: {k} differs cuda vs "
                                      "cpu")
         for k, rel in (("pos", 1e-4), ("reward", 1e-4), ("fwd_lidar", 1e-3),
-                       ("self", 1e-3)):
+                       ("self", 1e-3)) + tuple((k, 1e-3) for k in obs_keys):
             if not np.array_equal(np.isnan(a[k]), np.isnan(b[k])):
                 raise AssertionError(f"{name} step {s}: {k} NaN differs")
             e = np.nan_to_num(np.abs(a[k] - b[k])
@@ -2402,8 +2462,8 @@ TRAIN_STEPS = 40  # steps_per_update, the JAX bench's train row
 # route: (map, team size, MPENV_FAN_V9, updates, the sensor fan's entry,
 # the CLI's precision flags)
 TRAIN_ROUTES = {
-    "default": (SCENE, TEAM_SIZE, "0", 3, "ray_fans_vs_tris", []),
-    "v9": (SCENE, TEAM_SIZE, "1", 2, "ray_fans_culled_v9", []),
+    "default": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", []),
+    "v9": (SCENE, TEAM_SIZE, "1", 1, "ray_fans_culled_v9", []),
     "zone3v3": (SCENE, 3, "0", 1, "ray_fans_vs_tris_flat", []),
     "zone3v3 town_map": (TOWN, 3, "0", 1, "ray_fans_vs_tris_flat", []),
     "bf16": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", ["--bf16"]),
@@ -2945,7 +3005,7 @@ def train_parity(W=4, S=8, flags=()):
 # StaggerStarts | RandomFlipTeams and each configuration's own settings;
 # name: (EnvConfig settings, K1 launches a step, K5 launches a step, the
 # module whose K1 launch has a shape of its own)
-MODE_STEPS = 50
+MODE_STEPS = 30
 MODE_TOWN_STEPS = 20
 MODE_BASE_FLAGS = ("StaggerStarts", "RandomFlipTeams")
 MODE_CONFIGS = {
@@ -2968,6 +3028,19 @@ K1_SITES = {"turret": "turret LOS", "hl_battle": "hl_battle LOS",
             "observations": "Flank LOS refresh"}
 # the train CLI's game modes other than Zone (phase 8 trains Zone)
 MODE_TRAIN = ("TDM", "ZoneCaptureDefend", "Turret", "Explore")
+
+
+def shared_env(mt, cfg, scene, maps):
+    """An Env of NUM_WORLDS worlds on the card that shares the map an
+    earlier configuration of the same map_key loaded; ``maps`` keeps
+    them."""
+    from madrona_mp_env_tpu_torch.assets.map_data import map_key
+
+    key = map_key(scene, cfg)
+    env = mt.Env(cfg, scene, num_worlds=NUM_WORLDS, seed=5, device="cuda",
+                 map_data=maps.get(key))
+    maps[key] = env.map_data
+    return env
 
 
 def mode_cfg(mt, spec, team_size=TEAM_SIZE):
@@ -3190,13 +3263,12 @@ def modes_phase(mt, card):
     import torch
 
     t_start = time.perf_counter()
-    rows = []
+    rows, maps = [], {}
     simple_entries = ("ray_vs_tris", "ray_fans_vs_tris", "fan_capsules",
                       "sphere_cast_culled", "sphere_cast_packed")
     for label, (spec, k1, k5, site) in MODE_CONFIGS.items():
         cfg = mode_cfg(mt, spec)
-        env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5,
-                     device="cuda")
+        env = shared_env(mt, cfg, SCENE, maps)
         acts = bench_actions(NUM_WORLDS, cfg.num_agents, MODE_STEPS)
         ph = KernelPhase(env.map_data.tris, f"simple_map {label}")
         state, _ = env.reset()
@@ -3240,7 +3312,7 @@ def modes_phase(mt, card):
     # Zone + Flank on town_map: K6 on the 48-ray LOS run
     spec, k1, k5, _ = MODE_CONFIGS["Zone Flank"]
     cfg = mode_cfg(mt, spec)
-    env = mt.Env(cfg, TOWN, num_worlds=NUM_WORLDS, seed=5, device="cuda")
+    env = shared_env(mt, cfg, TOWN, maps)
     acts = bench_actions(NUM_WORLDS, cfg.num_agents, MODE_TOWN_STEPS)
     ph = KernelPhase(env.map_data.tris, "town_map Zone Flank")
     state, _ = env.reset()
@@ -3257,7 +3329,7 @@ def modes_phase(mt, card):
                ph.results, MODE_NOT_LAUNCHED + ("ray_fans_vs_tris",), card,
                expect=mode_expect(k1, k5, MODE_TOWN_STEPS, town=True))
     rows += ph.results
-    del env
+    del env, maps
     t_town = time.perf_counter()
 
     # the kernel path against the plain path, each configuration
@@ -3277,6 +3349,430 @@ def modes_phase(mt, card):
     return rows
 
 
+# phase 12: the full-team interface and its policy, the LearnShooting
+# world curriculum with K5's override and the spawn curriculum, 1024
+# worlds of Zone 6v6 with StaggerStarts | RandomFlipTeams
+FT_STEPS = 50
+FT_TOWN_STEPS = 20
+FT_SEQ_STEPS = 40  # the sequence forward + backward: the trainer's 40
+FT_SEQ_TEAMS = 512  # teams a minibatch (the trainer's 4 minibatches)
+CURR_STEPS = 50
+# EnableCurriculum's episodes cut to 40 steps (EnvConfig's default is
+# consts.episode_len), so that every world resets inside the path: the
+# first reset draws one curriculum for every world (the same step key:
+# the JAX package's too), the later resets each world's own
+CURR_EPISODE_LEN = 40
+# the full-team observations compared cuda against cpu (1e-3, as "self"):
+# the continuous ones; the enemies' and last-known tables hold sight
+# flags, which a graze may flip
+FT_PARITY_KEYS = ("full_team_players", "full_team_global",
+                  "full_team_reward")
+# cuda against cpu for the full-team network's outputs: cuDNN's and the
+# CPU's convolution sums and the minimap's atomic adds (index_add_) add
+# in other orders, a few float32 roundings apart
+FT_NET_BAR = 1e-4
+FT_NET_MARGIN = 1e-4  # actions compared where the Gumbel margin exceeds it
+# the configurations of the phase (mode_cfg specs; the spawn curriculum's
+# EnvConfig fields beside them)
+CURRICULUM_CONFIGS = {
+    "FullTeamPolicy": dict(task="Zone", flags=("FullTeamPolicy",)),
+    "EnableCurriculum": dict(task="Zone", flags=("EnableCurriculum",),
+                             episode_len=CURR_EPISODE_LEN),
+    "spawn curriculum": dict(task="Zone"),
+}
+
+
+def curriculum_cfg(mt, label, **kw):
+    spec = dict(CURRICULUM_CONFIGS[label])
+    kw.setdefault("episode_len", spec.pop("episode_len",
+                                          mt.EnvConfig.episode_len))
+    if label == "spawn curriculum":
+        kw.setdefault("enable_spawn_curriculum", True)
+    return dataclasses.replace(mode_cfg(mt, spec), **kw)
+
+
+def team_sums(r, ts):
+    """[W, A] -> [W, 2]: each team's members summed in index order."""
+    r = r.reshape(r.shape[0], 2, ts)
+    total = r[..., 0]
+    for k in range(1, ts):
+        total = total + r[..., k]
+    return total
+
+
+def full_team_paths(mt, card):
+    """FullTeamPolicy Zone 6v6 on each map (FT_STEPS, FT_TOWN_STEPS):
+    every counter zeroed before and read after, each kernel held to its
+    count (K1, K4 culled and K5 once a step, K2 or K6 and K3 once a step
+    and at the reset, K4' three times a step: the 6v6 path's, no more),
+    the full-team observations finite, the team reward the sum of its
+    members' and done their all; env-steps/s and CUDA launches per step.
+    Returns the simple_map Env and its last state."""
+    import torch
+
+    cfg = curriculum_cfg(mt, "FullTeamPolicy")
+    kept = None
+    for scene, steps in ((SCENE, FT_STEPS), (TOWN, FT_TOWN_STEPS)):
+        town = scene == TOWN
+        name = os.path.basename(scene)
+        env = mt.Env(cfg, scene, num_worlds=NUM_WORLDS, seed=5,
+                     device="cuda")
+        acts = bench_actions(NUM_WORLDS, cfg.num_agents, steps)
+        fan = ("ray_fans_vs_tris",) if town else ("ray_fans_culled",
+                                                  "fan_cell_order")
+        state, out, sps = drive_path(
+            f"FullTeamPolicy {name}", env, acts, steps, [],
+            MODE_NOT_LAUNCHED + fan, card,
+            expect=mode_expect(1, 1, steps, town=town))
+        ob = out["obs"]
+        if not (torch.equal(ob["full_team_reward"],
+                            team_sums(out["reward"], TEAM_SIZE))
+                and torch.equal(ob["full_team_done"], (out["done"].reshape(
+                    NUM_WORLDS, 2, TEAM_SIZE) != 0).all(-1).int())):
+            raise AssertionError(f"FullTeamPolicy {name}: team reward or "
+                                 "done is not its members'")
+        per_step = launches_per_step(env, state, actions_at(env, acts, 0))
+        log(f"[full team] {name}: {sps:.1f} env-steps/s, {per_step:.1f} "
+            f"CUDA launches per step (torch.profiler, {MODE_PROFILE_STEPS} "
+            f"steps) at {NUM_WORLDS} worlds, the team reward and done its "
+            f"members' on {card}; obs "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in ob.items()
+                        if k.startswith("full_team")))
+        if not town:
+            kept = env, state, ob
+        del out
+    return kept
+
+
+def _ft_loss(lp, ent, vals):
+    return ((lp["discrete"] + lp["aim"]).mean()
+            + 0.01 * (ent["discrete"] + ent["aim"]).mean()
+            + 0.5 * (vals * vals).mean())
+
+
+def full_team_policy_phase(mt, env, state, obs, card):
+    """FullTeamActorCriticNet at full width (embeddings 64, LSTM 256,
+    minimap 16 x 16, team size 6; weights from a seed) driving the
+    FullTeamPolicy env on 2 x NUM_WORLDS teams for FT_SEQ_STEPS steps:
+    the forward's ms per step (CUDA events), then one sequence forward +
+    backward over those steps (in minibatches of FT_SEQ_TEAMS teams), in
+    float32 and in bfloat16; finite gradients."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import full_team_policy as ftp
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    dev = env.device
+    B = 2 * NUM_WORLDS
+    net = ftp.build_full_team_policy(TEAM_SIZE, seed=0, device=dev)
+    key0 = rng.prng_key(11, device=dev)
+    rnn = ftp.init_team_rnn_states((B,), device=dev)
+    seq_obs, seq_acts, seq_done = [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fwd_ms = []
+    for s in range(FT_SEQ_STEPS):
+        tob = ftp.team_obs(obs)
+        with torch.no_grad():
+            ev[0].record()
+            dists, value, rnn = net(rnn, tob)
+            ev[1].record()
+            actions, _ = dists.sample(rng.fold_in(key0, s))
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        seq_obs.append(tob)
+        seq_acts.append(actions)
+        state, out = env.step(state, ftp.env_actions(actions,
+                                                     env.zero_actions()))
+        obs = out["obs"]
+        seq_done.append(obs["full_team_done"].reshape(B))
+    if not bool(torch.isfinite(value).all()):
+        raise AssertionError("full-team policy: non-finite values")
+    obs_t = {k: torch.stack([o[k] for o in seq_obs]) for k in seq_obs[0]}
+    acts_t = {k: torch.stack([a[k] for a in seq_acts]) for k in seq_acts[0]}
+    dones = torch.stack(seq_done)
+    start = ftp.init_team_rnn_states((B,), device=dev)
+    sd = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = ftp.build_full_team_policy(TEAM_SIZE, state_dict=sd, device=dev,
+                                       dtype=dtype)
+        rnn = ftp.init_team_rnn_states((B,), device=dev)
+        ms = []
+        with torch.no_grad():
+            for s in range(FT_SEQ_STEPS):
+                tob = {k: v[s] for k, v in obs_t.items()}
+                ev[0].record()
+                _, _, rnn = m(rnn, tob)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ev[0].record()
+        for sl in chunks(B, FT_SEQ_TEAMS):
+            lp, ent, vals = m.sequence(
+                start[:, :, sl], dones[:, sl],
+                {k: v[:, sl] for k, v in obs_t.items()},
+                {k: v[:, sl] for k, v in acts_t.items()})
+            _ft_loss(lp, ent, vals).backward()
+        ev[1].record()
+        torch.cuda.synchronize()
+        seq_ms = ev[0].elapsed_time(ev[1])
+        grads = [p.grad for p in m.parameters()]
+        if any(g is None or not bool(torch.isfinite(g).all())
+               for g in grads):
+            raise AssertionError(f"full-team policy {dtype}: gradients "
+                                 "missing or non-finite")
+        steady = ms[1:]
+        log(f"[full team policy] {str(dtype)[6:]}, {B} teams of "
+            f"{TEAM_SIZE}, embeddings {ftp.EMBED_CH}, LSTM "
+            f"{ftp.TEAM_RNN_HIDDEN}, minimap {ftp.MINIMAP_RES}^2: forward "
+            f"{np.mean(steady):.3f} ms/step (min {min(steady):.3f}, first "
+            f"{ms[0]:.3f}; driving the env: "
+            f"{np.mean(fwd_ms[1:]):.3f} in float32); sequence forward + "
+            f"backward over {FT_SEQ_STEPS} steps in {B // FT_SEQ_TEAMS} "
+            f"minibatches of {FT_SEQ_TEAMS} teams {seq_ms:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"gradients finite (CUDA events) on {card}")
+        del m, grads
+    del obs_t, acts_t, seq_obs, seq_acts
+
+
+def k5_ls_row(ph, calls, ls_share):
+    """K5's LearnShooting instantiation on a step's tail with both
+    curricula present: every output bit-equal (int32 views) to the plain
+    version, its time, device time, registers and bound (the step's K5
+    bytes and one int32 more per world)."""
+    from madrona_mp_env_tpu_torch.ops import cuda_build, tail_fused
+
+    (cfg5, m5, st5, fr5), = calls["tail_fused"]
+    wc = st5.world_curriculum
+    if not (bool((wc == 0).any()) and bool((wc == 1).any())):
+        raise AssertionError("the captured step lacks one curriculum")
+
+    def kernel():
+        return tail_fused.tail_fused(cfg5, m5, st5, fr5)
+
+    def plain():
+        return tail_fused.tail_fused_plain(cfg5, m5, st5, fr5)
+
+    out, (want, pms) = kernel(), timed_once(plain)
+    err = check_tail("K5 tail_fused LearnShooting", out, want)
+    ms = cuda_time_ms(kernel, 200)
+    ins, outs = tail_fused.kernel_operands(cfg5, m5, st5, fr5)
+    W5, A5 = st5.hp.shape
+    ts5 = cfg5.team_size
+    lanes = 16 if A5 <= 16 else 32
+    regs, spill = cuda_build.ptxas_usage(
+        "tail_fused", f"tail_fused_kernelILi{lanes}ELb1E")
+    n_ls = int((wc == 0).sum())
+    # the step's K5 operations, and the override's subtraction per agent
+    # of a LearnShooting world
+    nops = (W5 * A5 * (OPS_TAIL_AGENT + 2 * (ts5 - 1) + 5 * (ts5 - 2))
+            + n_ls * A5)
+    return ph.record(
+        "K5 tail_fused LearnShooting",
+        "madrona_mp_env_tpu_torch/csrc/tail_fused.cu",
+        "madrona_mp_env_tpu/ops/tail_pallas.py:330", tail_fused.tail_fused,
+        err, ms, pms,
+        k5_bytes(cfg5, ins, outs), nops,
+        [[W5, A5]],
+        device_ms=device_ms(kernel, "tail_fused_kernel", 20),
+        fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+        registers=regs, spill_bytes=spill, helper_launches=0,
+        ls_share=round(ls_share, 4))
+
+
+def curriculum_path(mt, card):
+    """EnableCurriculum Zone 6v6 on simple_map (episodes of
+    CURR_EPISODE_LEN steps): reset + CURR_STEPS steps with every counter
+    zeroed before and read after, each kernel held to its count; the
+    share of LearnShooting worlds; then the K5 LearnShooting row on the
+    next step's tail, where both curricula are present. Returns the row,
+    its launches those of the path."""
+    from madrona_mp_env_tpu_torch.ops import tail_fused
+
+    cfg = curriculum_cfg(mt, "EnableCurriculum")
+    env = mt.Env(cfg, SCENE, num_worlds=NUM_WORLDS, seed=5, device="cuda")
+    acts = bench_actions(NUM_WORLDS, cfg.num_agents, CURR_STEPS + 1)
+    label = "EnableCurriculum simple_map"
+    state, out, sps = drive_path(
+        label, env, acts, CURR_STEPS, [],
+        MODE_NOT_LAUNCHED + ("ray_fans_culled", "fan_cell_order"), card,
+        expect=mode_expect(1, 1, CURR_STEPS))
+    launches = tail_fused.tail_fused.launches
+    share = float((state.world_curriculum == 0).float().mean())
+    resets = int(state.episode_counter.min())
+    calls = capture_step_calls(env, state,
+                               actions_at(env, acts, CURR_STEPS),
+                               SIMPLE_ENTRIES)
+    row = k5_ls_row(KernelPhase(env.map_data.tris, "simple_map"), calls,
+                    share)
+    row.update(launches=launches, path=label)
+    log(f"[curriculum] {label}: LearnShooting worlds {share:.4f} of "
+        f"{NUM_WORLDS} after {CURR_STEPS} steps (every world's episode "
+        f"counter at least {resets}, episodes of {CURR_EPISODE_LEN} "
+        f"steps); "
+        f"{sps:.1f} env-steps/s on {card}")
+    return row
+
+
+def spawn_curriculum_phase(mt, card):
+    """On each map: the spawn-curriculum tables' build time, cold (a fresh
+    cache directory) and from the cache, then for each tier (a one-hot
+    curriculum_tier_probs, every episode on the curriculum) a reset of
+    NUM_WORLDS worlds sharing one loaded map, and the mean distance
+    between the two teams' centroids (x, y)."""
+    import shutil
+    import torch
+    from madrona_mp_env_tpu_torch.assets import formats, navmesh
+    from madrona_mp_env_tpu_torch.assets import spawn_curriculum as psc
+
+    tmp = os.path.join(REPO, "build", "spawn_curriculum_smoke")
+    for scene in (SCENE, TOWN):
+        name = os.path.basename(scene)
+        nav = navmesh.build_navmesh_tables(
+            formats.load_navmesh(os.path.join(scene, "navmesh.bin")))
+        shutil.rmtree(tmp, ignore_errors=True)
+        t0 = time.perf_counter()
+        sc = psc.build_spawn_curriculum(nav, cache_dir=tmp)
+        t1 = time.perf_counter()
+        psc.build_spawn_curriculum(nav, cache_dir=tmp)
+        t2 = time.perf_counter()
+        shutil.rmtree(tmp, ignore_errors=True)
+        cfg = curriculum_cfg(mt, "spawn curriculum")
+        seps, maps = [], {}
+        for tier in range(psc.NUM_TIERS):
+            cfg_t = dataclasses.replace(cfg, curriculum_tier_probs=tuple(
+                float(t == tier) for t in range(psc.NUM_TIERS)))
+            env_t = shared_env(mt, cfg_t, scene, maps)
+            state, obs = env_t.reset()
+            if not (bool(state.curr_spawn_active.all())
+                    and bool((state.curr_spawn_tier == tier).all())):
+                raise AssertionError(f"spawn curriculum {name} tier {tier}:"
+                                     " draws off the tier")
+            for k, x in obs.items():
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"spawn curriculum {name}: "
+                                         f"non-finite {k}")
+            c = state.pos[..., :2].reshape(NUM_WORLDS, 2, TEAM_SIZE, 2)
+            sep = torch.linalg.vector_norm(c[:, 0].mean(1) - c[:, 1].mean(1),
+                                           dim=-1)
+            seps.append(float(sep.mean()))
+            del env_t, state, obs
+        log(f"[spawn curriculum] {name}: tables ({sc.num_spawns.tolist()} "
+            f"pairs a tier) built in {t1 - t0:.3f} s cold, {t2 - t1:.4f} s "
+            f"from the cache (host); mean team separation at reset over "
+            f"{NUM_WORLDS} worlds by tier (target "
+            + ", ".join(f"{x:.0f}" for x in psc.TIER_SEPARATIONS) + "): "
+            + ", ".join(f"{x:.1f}" for x in seps) + f" on {card}")
+        del maps
+
+
+def ft_net_parity(mt, W=4, S=8):
+    """The full-team policy (weights from a seed) on the observations of
+    a W-world, S-step CPU rollout of the FullTeamPolicy env, on "cuda"
+    against "cpu": the forward's logits, values and recurrent state at
+    every step and the sequence's log probs, entropies and values within
+    FT_NET_BAR * max(1, |x|), sampled actions equal where the Gumbel
+    margin exceeds FT_NET_MARGIN."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import full_team_policy as ftp
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    cfg = curriculum_cfg(mt, "FullTeamPolicy")
+    env = mt.Env(cfg, SCENE, num_worlds=W, seed=5, device="cpu")
+    acts = bench_actions(W, cfg.num_agents, S)
+    state, obs = env.reset()
+    seq = []
+    for s in range(S):
+        seq.append(ftp.team_obs(obs))
+        state, out = env.step(state, actions_at(env, acts, s))
+        obs = out["obs"]
+    B = 2 * W
+    nets = {d: ftp.build_full_team_policy(TEAM_SIZE, seed=0, device=d)
+            for d in ("cpu", "cuda")}
+    res = {}
+    for d, net in nets.items():
+        rnn = ftp.init_team_rnn_states((B,), device=d)
+        outs, margins, sampled = [], [], []
+        with torch.no_grad():
+            for s, tob in enumerate(seq):
+                key = rng.fold_in(rng.prng_key(3, device=d), s)
+                dists, v, rnn = net(rnn, {k: x.to(d) for k, x in
+                                          tob.items()})
+                a, _ = dists.sample(key)
+                outs.append(torch.cat([dists.discrete.logits.flatten(),
+                                       dists.aim.logits.flatten(),
+                                       v, rnn.flatten()]).cpu())
+                margins.append(_gumbel_margin(torch.cat(
+                    [dists.discrete.packed_log_probs(),
+                     dists.aim.packed_log_probs()], -1), key).cpu())
+                sampled.append(torch.cat([a["discrete"], a["aim"]],
+                                         -1).cpu())
+            ob_t = {k: torch.stack([o[k] for o in seq]).to(d)
+                    for k in seq[0]}
+            act_t = {"discrete": torch.stack([x[..., :4] for x in sampled
+                                              ]).to(d),
+                     "aim": torch.stack([x[..., 4:] for x in sampled]
+                                        ).to(d)}
+            lp, ent, vals = net.sequence(
+                ftp.init_team_rnn_states((B,), device=d),
+                torch.zeros(S, B, dtype=torch.int32, device=d), ob_t, act_t)
+        res[d] = dict(step=torch.stack(outs), margin=torch.stack(margins),
+                      actions=torch.stack(sampled),
+                      seq=torch.cat([x.flatten() for x in (
+                          lp["discrete"], lp["aim"], ent["discrete"],
+                          ent["aim"], vals)]).cpu())
+    worst = {}
+    for k in ("step", "seq"):
+        a, b = res["cuda"][k], res["cpu"][k]
+        e = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        worst[k] = e
+        if e > FT_NET_BAR:
+            raise AssertionError(f"full-team net {k}: cuda vs cpu rel err "
+                                 f"{e}")
+    decided = torch.minimum(res["cuda"]["margin"], res["cpu"]["margin"]
+                            ) > FT_NET_MARGIN
+    ga, gb = res["cuda"]["actions"], res["cpu"]["actions"]
+    if not torch.equal(ga[decided], gb[decided]):
+        raise AssertionError("full-team net: decided actions differ cuda "
+                             "vs cpu")
+    log(f"[parity] full-team policy cuda vs cpu, {W} worlds x {S} steps: "
+        f"forward max rel err {worst['step']:.3g}, sequence "
+        f"{worst['seq']:.3g} (bar {FT_NET_BAR}), actions equal where "
+        f"decided ({int((~decided).sum())} of {decided.numel()} "
+        f"undecided at {FT_NET_MARGIN})")
+
+
+def curriculum_phase(mt, card):
+    """Phase 12: the EnableCurriculum path with its K5 row, the
+    FullTeamPolicy paths and the full-team policy, the spawn curriculum on
+    each map, then each configuration's 4-world, 16-step rollout on "cuda"
+    against "cpu" (phase 9's bars, the full-team observations within
+    1e-3) and the full-team network's. Returns the new kernel rows."""
+    # the K5 row first: after the full-team policy's phase in a whole run,
+    # torch.profiler has traced no CUDA event at all
+    t0 = time.perf_counter()
+    row = curriculum_path(mt, card)
+    t1 = time.perf_counter()
+    env, state, obs = full_team_paths(mt, card)
+    full_team_policy_phase(mt, env, state, obs, card)
+    del env, state, obs
+    t2 = time.perf_counter()
+    spawn_curriculum_phase(mt, card)
+    t3 = time.perf_counter()
+    for label in CURRICULUM_CONFIGS:
+        cfg = curriculum_cfg(mt, label)
+        env_parity(mt, cfg, SCENE, 4, 16, label=label, graze=True,
+                   obs_keys=FT_PARITY_KEYS if label == "FullTeamPolicy"
+                   else ())
+    ft_net_parity(mt)
+    t4 = time.perf_counter()
+    log(f"[curriculum] phase {t4 - t0:.1f} s: EnableCurriculum "
+        f"{t1 - t0:.1f}, full team {t2 - t1:.1f}, spawn curriculum "
+        f"{t3 - t2:.1f}, parity {t4 - t3:.1f}")
+    return [row]
+
+
 def main() -> int:
     import torch
 
@@ -3286,6 +3782,13 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import madrona_mp_env_tpu_torch as mt
     from madrona_mp_env_tpu_torch.ops import cuda_build
+
+    t_main = time.perf_counter()
+
+    def mark(phase):
+        """Log the wall s since the start after ``phase``."""
+        log(f"[time] after phase {phase}: "
+            f"{time.perf_counter() - t_main:.1f} s")
 
     # 1. the card
     card = card_line()
@@ -3317,8 +3820,10 @@ def main() -> int:
                       ("fan_capsules", "fan_capsules_kernel"),
                       ("fan_capsules", "fan_capsules_v1_kernel"),
                       ("fan_capsules", "fan_capsules_explicit_kernel"),
-                      ("tail_fused", "tail_fused_kernelILi16E"),
-                      ("tail_fused", "tail_fused_kernelILi32E"),
+                      ("tail_fused", "tail_fused_kernelILi16ELb0E"),
+                      ("tail_fused", "tail_fused_kernelILi32ELb0E"),
+                      ("tail_fused", "tail_fused_kernelILi16ELb1E"),
+                      ("tail_fused", "tail_fused_kernelILi32ELb1E"),
                       ("tail_fused", "tail_fused_v1_kernel")):
         regs, spill = cuda_build.ptxas_usage(src, kern)
         log(f"[build] {kern}: {regs} registers, {spill} bytes spilled")
@@ -3359,6 +3864,7 @@ def main() -> int:
     probes = probes_phase(cfg, card)
     kernels = (simple + town + [r for _, rs in team3.values() for r in rs]
                + bench + probes)
+    mark(3)
 
     def rows(scene, *names):
         return [k for k in kernels if k["scene"] == scene
@@ -3409,8 +3915,10 @@ def main() -> int:
                    expect={"fan_capsules": NUM_STEPS + 1,
                            "tail_fused": NUM_STEPS})
 
+    mark(4)
     # 5. the crossplay eval on the card (simple_map's kernels)
     eval_phase(mt, main_simple, card)
+    mark(5)
 
     # 6. K4 dense: the L2/L3/fall casts over the soup (MPENV_SC_PACK=0)
     with mock.patch.dict(os.environ, MPENV_SC_PACK="0"):
@@ -3451,11 +3959,13 @@ def main() -> int:
         expect_launches(rows3, "K7 ray_fans_vs_tris_flat", TEAM3_STEPS + 1)
         expect_launches(rows3, "K1 ray_vs_tris", TEAM3_STEPS)
     del team3, env3
+    mark(7)
 
     # 8. the training path: full width on the card (float32, bfloat16,
     # float16), then the PBT population
     train_phase(card)
     pbt_phase(card)
+    mark(8)
 
     # 9. kernel path vs plain path
     env_parity(mt, cfg, SCENE, 4, 16)
@@ -3466,14 +3976,21 @@ def main() -> int:
     train_parity()
     train_parity(flags=["--bf16"])
     pbt_parity()
+    mark(9)
 
     # 10. the scripted bot: the golden, the vs-bot eval, cuda vs cpu
     bots_phase(mt, cfg, main_simple, town_rows, card)
+    mark(10)
 
     # 11. every game mode and flag
     kernels += modes_phase(mt, card)
+    mark(11)
 
-    # 12. results
+    # 12. the full-team interface and policy, the world and spawn curricula
+    kernels += curriculum_phase(mt, card)
+    mark(12)
+
+    # 13. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

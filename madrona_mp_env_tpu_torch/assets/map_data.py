@@ -4,7 +4,8 @@ Everything the reference's Manager::Impl::init uploads (reference
 src/mgr.cpp:1213-1913) that this port's step reads: collision soup, the
 PVS cell tables of big maps, the sensor-ray tables where the map has
 them, the short-range culling tables (two margins), navmesh spawn
-tables, spawn boxes, zones, weapon stats and goal regions. Tensors live
+tables, the spawn curriculum's region pairs, spawn boxes, zones, weapon
+stats and goal regions. Tensors live
 on the Env's device.
 """
 
@@ -26,6 +27,7 @@ from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
 from .navmesh import all_pairs_next_hop, build_navmesh_tables, tri_adjacency
+from .spawn_curriculum import NUM_TIERS, build_spawn_curriculum
 
 
 @dataclass
@@ -80,6 +82,22 @@ class MapData:
     subzone_min: torch.Tensor
     subzone_max: torch.Tensor
     subzone_rot: torch.Tensor
+
+    # the 5-tier navmesh spawn curriculum (EnvConfig.enable_spawn_curriculum;
+    # assets/spawn_curriculum.py): per tier, pairs of navmesh regions
+    # [5, S, K] (-1 pad), each side's facing yaw [5, S] and the pairs a
+    # tier has [5]; one-entry placeholders when the flag is off
+    curr_spawn_a_tris: torch.Tensor
+    curr_spawn_b_tris: torch.Tensor
+    curr_spawn_a_yaw: torch.Tensor
+    curr_spawn_b_yaw: torch.Tensor
+    curr_spawn_counts: torch.Tensor
+    # every tier has a pair: only then do resets draw from the curriculum.
+    # On a map where some tier is empty the flag silently does nothing, as
+    # in the JAX package (its load_map's has_sc)
+    has_spawn_curriculum: bool
+    # map_key of the scene and configuration it was loaded for
+    key: tuple = field(default=(), repr=False)
 
     # [T, T] next-hop table of the scripted bot; built by nav_next_hop()
     _next_hop: Optional[torch.Tensor] = field(default=None, repr=False)
@@ -200,6 +218,15 @@ def zone_frames(zmin: torch.Tensor, zmax: torch.Tensor,
     ], dim=-1).contiguous()
 
 
+def map_key(scene_dir: str, cfg: EnvConfig) -> tuple:
+    """What a loaded map depends on of its scene and configuration (the
+    cfg fields load_map reads): configurations of one key can share one
+    MapData."""
+    return (os.path.realpath(scene_dir), cfg.effective_weapons,
+            cfg.has_flag(SimFlags.SpawnInMiddle),
+            cfg.enable_spawn_curriculum)
+
+
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
              tri_pad: int = 128) -> MapData:
     """Load a map directory (collisions.bin, navmesh.bin, spawns.bin,
@@ -264,6 +291,19 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x, dtype), device=device)
 
+    # the spawn curriculum's tables, built (or read from their cache) only
+    # when the flag is on
+    if cfg.enable_spawn_curriculum:
+        sc = build_spawn_curriculum(nav)
+        sc_tables = (sc.a_tris, sc.b_tris, sc.a_yaw, sc.b_yaw,
+                     sc.num_spawns)
+    else:
+        sc_tables = (np.full((NUM_TIERS, 1, 1), -1, np.int32),
+                     np.full((NUM_TIERS, 1, 1), -1, np.int32),
+                     np.zeros((NUM_TIERS, 1), np.float32),
+                     np.zeros((NUM_TIERS, 1), np.float32),
+                     np.zeros((NUM_TIERS,), np.int32))
+
     return MapData(
         tris=soup,
         world_min=dev(col.world_bounds_min),
@@ -302,4 +342,11 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         subzone_min=dev(sub_min),
         subzone_max=dev(sub_max),
         subzone_rot=dev(sub_rot),
+        curr_spawn_a_tris=dev(sc_tables[0], np.int64),
+        curr_spawn_b_tris=dev(sc_tables[1], np.int64),
+        curr_spawn_a_yaw=dev(sc_tables[2]),
+        curr_spawn_b_yaw=dev(sc_tables[3]),
+        curr_spawn_counts=dev(sc_tables[4]),
+        has_spawn_curriculum=bool((sc_tables[4] > 0).all()),
+        key=map_key(scene_dir, cfg),
     )

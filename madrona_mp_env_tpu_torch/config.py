@@ -135,9 +135,18 @@ class EnvConfig:
     # agent, decaying over penalty/decay = 40 steps; new crumb at most every
     # 10 steps -> <= 4 live crumbs per agent typical; 6/agent is safe).
     breadcrumb_pool_per_agent: int = 6
-    # the navmesh spawn curriculum (reference src/sim.cpp:5915-5924); not
-    # ported: Env raises when it is on
+    # trajectory curriculum restore probability at reset
+    # (level_gen.cpp:499); read only with a curriculum_path, which Env
+    # refuses until the data pipeline is ported (ROADMAP Queue 1 item 7)
+    trajectory_curriculum_prob: float = 0.5
+    # the navmesh spawn curriculum (reference src/sim.cpp:5915-5924) and
+    # its Manager::Config::enableSpawnCurriculum gate: with probability
+    # use_curriculum_spawn_prob an episode spawns both teams on a pair of
+    # navmesh regions of a tier drawn from curriculum_tier_probs
+    # (assets/spawn_curriculum.py, sim/reset.py, sim/spawn.py)
     enable_spawn_curriculum: bool = False
+    use_curriculum_spawn_prob: float = 1.0
+    curriculum_tier_probs: tuple = (0.0, 0.0, 0.3, 0.3, 0.4)
 
     @property
     def num_agents(self) -> int:

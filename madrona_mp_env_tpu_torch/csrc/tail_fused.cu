@@ -3,8 +3,9 @@
 // autoheal -> zone rotation, membership and control -> match info (step
 // counter, team kills, points, win) -> zone reward (breadcrumb, reload,
 // kill, shot, explore, zone-distance, in-zone and control terms, team-area
-// spread bonus) -> dead agents' flags cleared -> team mean and team-spirit
-// blend -> done -> per-zone stats.
+// spread bonus; in a LearnShooting world of the world curriculum the
+// shooting reward instead) -> dead agents' flags cleared -> team mean and
+// team-spirit blend -> done -> per-zone stats.
 //
 // Replaces the TPU kernel madrona_mp_env_tpu/ops/tail_pallas.py
 // _make_kernel (via _get_tail_call / tail_fused_system). Plain version:
@@ -32,7 +33,17 @@
 // __shfl_sync and add them in index order, as the plain version does.
 // tail_fused_v1_kernel, the predecessor: one thread per world walking its
 // agents serially (8 blocks of 128 threads at 1024 worlds); timed beside
-// it, launched by no path.
+// it, launched by no path. It has no LearnShooting override and refuses
+// arguments that ask for one.
+//
+// The LearnShooting override (SimFlags.EnableCurriculum; the TPU kernel's
+// tail_pallas.py:330-337) is a second instantiation,
+// tail_fused_kernel<L, true>: after the spread bonus, a lane of a world
+// whose world_curriculum is LearnShooting (0) takes the shooting reward
+// (+0.5 landed, else -0.05 fired, minus 0.5 reloaded) for its task reward
+// and keeps the zone system's distance; the flags' clearing and the team
+// blend follow as before. tail_fused_kernel<L, false>, the step's without
+// the flag, is the code it was.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -65,6 +76,7 @@ struct TailArgs {
   const int* zone_rem;
   const int* zone_sup;
   const int* zone_stats;
+  const int* world_curr;  // [W] WorldCurriculum (LearnShooting = 0)
   const void* force_reset;  // [W] bool or integer, read as != 0
   // map constants
   const float* zone_frames;  // [max_zones, kZoneCols]
@@ -102,6 +114,7 @@ struct TailArgs {
   int W, A, team_size, num_zones, max_zones, episode_len, steps_per_zone,
       point_interval, win_points;
   int force_reset_bytes;  // force_reset's element size: 1, 2, 4 or 8
+  int curriculum;         // SimFlags.EnableCurriculum: read world_curr
   float autoheal_amount, lift;
 };
 
@@ -315,7 +328,7 @@ __device__ __forceinline__ int zone_inc(int c, bool new_captured, bool captured,
   }
 }
 
-template <int L>
+template <int L, bool LS>
 __global__ void tail_fused_kernel(const TailArgs a) {
   constexpr unsigned kFull = 0xffffffffu;
   const int gw = (int)((blockIdx.x * blockDim.x + threadIdx.x) / L);
@@ -407,6 +420,7 @@ __global__ void tail_fused_kernel(const TailArgs a) {
   v = v - (wk ? 1.5f : 0.0f);
   v = v - (a.wsc[k] > 0 ? rc[kShot] : 0.0f);
   v = v + (float)a.new_cells[k] * rc[kExplore];
+  [[maybe_unused]] const float mind_zone = mind;
   const bool closer = !inz && dist < mind;
   const float scale = rc[kZoneDist] * (a.has_died[k] ? 1.0f : 10.0f);
   const float approach = closer ? scale * (mind - dist) : 0.0f;
@@ -437,6 +451,15 @@ __global__ void tail_fused_kernel(const TailArgs a) {
   }
   const float spread = poly / area2 * 0.01f;
   v = v + (dead ? 0.0f : spread);
+  if constexpr (LS) {
+    // a LearnShooting world: the shooting reward replaces the task's (its
+    // 0 + x is x: no term is -0) and the zone distance keeps its value
+    if (a.world_curr[w] == 0) {
+      v = (a.landed[k] >= 0 ? 0.5f : (a.fired_t[k] >= 0.0f ? -0.05f : 0.0f)) -
+          (a.reloaded[k] ? 0.5f : 0.0f);
+      mind = mind_zone;
+    }
+  }
 
   // team mean (members in index order) + team-spirit blend
   float s0 = 0.0f, s1 = 0.0f;
@@ -504,16 +527,21 @@ extern "C" int tail_fused_launch(const TailArgs* args, void* stream) {
   if (!tail_args_ok(args)) return (int)cudaErrorInvalidValue;
   const int lanes = args->A <= 16 ? 16 : 32;
   const unsigned blocks = (unsigned)(((size_t)args->W * lanes + kTailThreads - 1) / kTailThreads);
-  if (lanes == 16)
-    tail_fused_kernel<16><<<blocks, kTailThreads, 0, (cudaStream_t)stream>>>(*args);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 16 && args->curriculum)
+    tail_fused_kernel<16, true><<<blocks, kTailThreads, 0, st>>>(*args);
+  else if (lanes == 16)
+    tail_fused_kernel<16, false><<<blocks, kTailThreads, 0, st>>>(*args);
+  else if (args->curriculum)
+    tail_fused_kernel<32, true><<<blocks, kTailThreads, 0, st>>>(*args);
   else
-    tail_fused_kernel<32><<<blocks, kTailThreads, 0, (cudaStream_t)stream>>>(*args);
+    tail_fused_kernel<32, false><<<blocks, kTailThreads, 0, st>>>(*args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tail_fused_v1_launch(const TailArgs* args, void* stream) {
   if (args->W <= 0) return 0;
-  if (!tail_args_ok(args)) return (int)cudaErrorInvalidValue;
+  if (!tail_args_ok(args) || args->curriculum) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   tail_fused_v1_kernel<<<(args->W + threads - 1) / threads, threads, 0,
                          (cudaStream_t)stream>>>(*args);

@@ -2,9 +2,11 @@
 
 One pass over every world for the scalar bookkeeping half of the step:
 autoHealSystem -> zoneSystem -> zoneMatchInfoSystem -> zoneRewardSystem
-(with the team-area spread bonus, the team mean and the team-spirit blend)
--> doneSystem (reference src/sim.cpp:1875-1890, 1892-1976, 4470-4673,
-3849-3996, 4292-4339, 4712-4717). Breadcrumbs, filters, goal regions and
+(with the team-area spread bonus; under SimFlags.EnableCurriculum a
+LearnShooting world's learnShootingRewardSystem in its place, the team
+mean and the team-spirit blend) -> doneSystem (reference
+src/sim.cpp:1875-1890, 1892-1976, 4470-4673, 3849-3996, 3707-3733,
+4292-4339, 4712-4717). Breadcrumbs, filters, goal regions and
 explore run before it in the step: none of them reads zone or match state,
 and the filters get the post-increment step explicitly (sim/step.py).
 
@@ -26,14 +28,16 @@ Two implementations side by side, as for the ray kernels:
 plain version, CUDA tensors the kernel (a failed build or launch raises).
 It counts its kernel launches in ``tail_fused.launches``. The host side
 checks the inputs' dtypes and shapes once per (cfg, map, dtypes, shapes)
-(``_Plan``), allocates the 27 outputs in 8 tensors, reads
+(``_Plan``), allocates the 27 outputs in 8 tensors, passes the worlds'
+``world_curriculum`` and the curriculum flag (the kernel's LearnShooting
+instantiation runs only under the flag), reads
 ``force_reset`` in its own dtype and fills the argument struct's pointers
 in one slice assignment.
 
 Replaces the TPU kernel madrona_mp_env_tpu/ops/tail_pallas.py
 (``_make_kernel``, called through ``_get_tail_call`` / ``tail_fused_system``).
-Scope: Task.Zone + RewardMode.Default, no SubZones; the LearnShooting
-curriculum override (SimFlags.EnableCurriculum) is not ported and raises.
+Scope: Task.Zone + RewardMode.Default, no SubZones, with or without the
+LearnShooting override (SimFlags.EnableCurriculum).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from .. import consts
 from ..assets.map_data import MapData, ZONE_FRAME_COLS
 from ..config import EnvConfig, RewardMode, SimFlags, Task
 from ..sim import rewards, zones
-from ..sim.types import WorldState
+from ..sim.types import WorldCurriculum, WorldState
 from . import cuda_build
 
 MAX_AGENTS = 32  # csrc/tail_fused.cu kMaxAgents
@@ -69,10 +73,6 @@ def _check_scope(cfg: EnvConfig) -> None:
     if not use_tail_fused(cfg):
         raise NotImplementedError(
             "the fused tail covers Task.Zone, RewardMode.Default, no SubZones")
-    if cfg.has_flag(SimFlags.EnableCurriculum):
-        raise NotImplementedError(
-            "the LearnShooting reward override (EnableCurriculum) is not "
-            "ported")
 
 
 def tail_fused_plain(cfg: EnvConfig, m: MapData, state: WorldState,
@@ -112,6 +112,7 @@ def tail_fused_plain(cfg: EnvConfig, m: MapData, state: WorldState,
     dist = zones.zone_center_dist(m, zcur, state.pos)
     min_dist = torch.where(rotate[:, None], dist, state.min_dist_to_zone)
     in_zone = zones.zone_membership(m, zcur, state.pos)
+    min_dist_zone = min_dist
     num_a = (in_zone & ~team1).sum(-1)
     num_b = (in_zone & team1).sum(-1)
     zsup = zsup - 1
@@ -185,6 +186,13 @@ def tail_fused_plain(cfg: EnvConfig, m: MapData, state: WorldState,
     r = r + rz
     r = r + torch.where(dead, 0.0,
                         rewards._team_spread_bonus(cfg, m, state, team))
+    if cfg.has_flag(SimFlags.EnableCurriculum):
+        # a LearnShooting world: the shooting reward for the task's, the
+        # zone system's distance kept
+        ls = (state.world_curriculum == WorldCurriculum.LearnShooting)[:,
+                                                                       None]
+        r = torch.where(ls, rewards.learn_shooting_reward(state), r)
+        min_dist = torch.where(ls, min_dist_zone, min_dist)
 
     # team mean (members in index order) + team-spirit blend; the divisor
     # is a tensor so that CPU and CUDA both divide (ATen's CUDA division by
@@ -240,6 +248,7 @@ _INPUTS = (
     ("zone_steps_remaining", _I, "world", ()),
     ("zone_steps_until_point", _I, "world", ()),
     ("zone_stats", _I, "world", (consts.max_zones, 5)),
+    ("world_curriculum", _I, "world", ()),
 )
 _OUTPUTS = (
     ("hp", _F, "agent", ()), ("autoheal_steps", _I, "agent", ()),
@@ -262,7 +271,7 @@ _OUTPUTS = (
 # scalar fields after the pointers: ints, then floats
 _INT_FIELDS = ("W", "A", "team_size", "num_zones", "max_zones",
                "episode_len", "steps_per_zone", "point_interval",
-               "win_points", "force_reset_bytes")
+               "win_points", "force_reset_bytes", "curriculum")
 _FLOAT_FIELDS = ("autoheal_amount", "lift")
 
 
@@ -333,6 +342,7 @@ class _Plan:
             point_interval=consts.zone_point_interval,
             win_points=consts.zone_win_points,
             force_reset_bytes=_FORCE_RESET_BYTES[fr.dtype],
+            curriculum=int(cfg.has_flag(SimFlags.EnableCurriculum)),
             autoheal_amount=consts.autoheal_amount_per_step,
             lift=consts.stand_height / 2.0,
         )
@@ -430,9 +440,12 @@ def tail_fused_v1(cfg: EnvConfig, m: MapData, state: WorldState,
                   ) -> Tuple[WorldState, torch.Tensor]:
     """K5's earlier kernel (csrc/tail_fused.cu tail_fused_v1_kernel: one
     thread per world), on CUDA tensors only: the predecessor that
-    chip_smoke.py times beside tail_fused, on the same host path."""
+    chip_smoke.py times beside tail_fused, on the same host path. It has
+    no LearnShooting override."""
     if state.hp.device.type != "cuda":
         raise ValueError("tail_fused_v1 takes CUDA tensors")
+    if cfg.has_flag(SimFlags.EnableCurriculum):
+        raise ValueError("tail_fused_v1 has no LearnShooting override")
     out = _run("tail_fused_v1", cfg, m, state, force_reset)
     tail_fused_v1.launches += 1
     return out

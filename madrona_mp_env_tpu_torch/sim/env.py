@@ -19,23 +19,31 @@ import torch
 
 from .. import consts
 from ..config import EnvConfig, SimFlags
-from ..assets.map_data import load_map
+from ..assets.map_data import MapData, load_map, map_key
 from ..utils import rng
 from . import step as step_mod
 from .types import Actions, WorldState, init_world_state
 
-# flags this port does not run; they raise at construction (StaticFlipTeams
-# is read by no system of the JAX package either)
-_UNPORTED_FLAGS = (SimFlags.EnableCurriculum | SimFlags.FullTeamPolicy
-                   | SimFlags.StaticFlipTeams)
+_DEFAULT_TRAJECTORY_PROB = EnvConfig.__dataclass_fields__[
+    "trajectory_curriculum_prob"].default
 
 
-def _check_ported(cfg: EnvConfig) -> None:
-    extra = SimFlags(cfg.sim_flags & _UNPORTED_FLAGS)
-    if extra:
-        raise NotImplementedError(f"not ported: {extra!r}")
-    if cfg.enable_spawn_curriculum:
-        raise NotImplementedError("not ported: enable_spawn_curriculum")
+def _check_config(cfg: EnvConfig, curriculum_path) -> None:
+    """Every flag and field of the JAX package's Env runs here
+    (StaticFlipTeams, as there, is read by no system) but the trajectory
+    curriculum restore, which needs the data pipeline; and the full-team
+    interface needs two teams, which Explore's one agent is not (the JAX
+    package's team reshape fails there)."""
+    if (curriculum_path is not None or cfg.trajectory_curriculum_prob
+            != _DEFAULT_TRAJECTORY_PROB):
+        raise NotImplementedError(
+            "the trajectory curriculum restore (curriculum_path, "
+            "trajectory_curriculum_prob) is not ported: ROADMAP Queue 1 "
+            "item 7")
+    if cfg.has_flag(SimFlags.FullTeamPolicy) and cfg.num_agents != (
+            2 * cfg.team_size):
+        raise ValueError("SimFlags.FullTeamPolicy needs two full teams; "
+                         f"{cfg.task.name} has {cfg.num_agents} agent(s)")
 
 
 def _check_spawn_tables(m) -> None:
@@ -64,15 +72,28 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Env:
-    """Batched multiplayer FPS environment (every Task and RewardMode)."""
+    """Batched multiplayer FPS environment (every Task, RewardMode and
+    SimFlag, the spawn curriculum; ``curriculum_path`` raises)."""
 
     def __init__(self, cfg: EnvConfig, scene_dir: str, num_worlds: int,
-                 seed: int = 5, device=None):
-        _check_ported(cfg)
+                 seed: int = 5, device=None,
+                 map_data: Optional[MapData] = None,
+                 curriculum_path: Optional[str] = None):
+        """``map_data``: a map that load_map loaded on ``device`` for a
+        configuration of the same map_key, shared instead of loading
+        ``scene_dir`` again; raises ValueError on another key or kind of
+        device."""
+        _check_config(cfg, curriculum_path)
         self.cfg = cfg
         self.num_worlds = num_worlds
         self.device = resolve_device(device)
-        self.map_data = load_map(scene_dir, cfg, device=self.device)
+        if map_data is None:
+            map_data = load_map(scene_dir, cfg, device=self.device)
+        elif (map_data.key != map_key(scene_dir, cfg)
+              or map_data.world_min.device.type != self.device.type):
+            raise ValueError("map_data was loaded for another scene, "
+                             "map configuration or device")
+        self.map_data = map_data
         _check_spawn_tables(self.map_data)
         self.init_key = rng.prng_key(seed, device=self.device)
 

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import consts
-from ..config import EnvConfig, RewardMode, Task
+from ..config import EnvConfig, RewardMode, SimFlags, Task
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..ops.culling import cell_index, ray_cell_index
@@ -34,6 +34,7 @@ from ..ops.raycast import (_ray_zoffs, fan_route, ray_fans_culled,
                            ray_fans_culled_v9, ray_fans_vs_tris,
                            ray_fans_vs_tris_flat, ray_vs_tris)
 from ..ops.raycast_cull import fan_capsules, ray_vs_capsules
+from . import full_team
 from .combat import eye_offset, view_height
 from .types import WorldState
 
@@ -511,7 +512,8 @@ def lidar_system(cfg: EnvConfig, m: MapData, state: WorldState, sensor):
 
 def observe_tail(cfg: EnvConfig, m: MapData, state: WorldState):
     """sensor rays -> visibility (-> Flank's own-team split) -> masks ->
-    obs -> lidar."""
+    obs -> lidar (-> the full-team observations, reward and done under
+    SimFlags.FullTeamPolicy, which write state.ft_last_known)."""
     sensor = build_sensor_rays(cfg, m, state)
     can_see, opp_idx = visibility_system(cfg, m, state, sensor)
     state, can_see, opp_idx = split_visibility(cfg, state, can_see, opp_idx)
@@ -519,4 +521,11 @@ def observe_tail(cfg: EnvConfig, m: MapData, state: WorldState):
     state, obs = observations_system(cfg, m, state, can_see, opp_idx, masks)
     state, lidar_obs = lidar_system(cfg, m, state, sensor)
     obs.update(lidar_obs)
+    if cfg.has_flag(SimFlags.FullTeamPolicy):
+        ft_obs, ft_lk = full_team.full_team_observations_system(
+            cfg, m, state, can_see, obs["fwd_lidar"], obs["rear_lidar"])
+        ft_obs["full_team_reward"], ft_obs["full_team_done"] = (
+            full_team.full_team_done_reward(cfg, state))
+        obs.update(ft_obs)
+        state = state.replace(ft_last_known=ft_lk)
     return state, obs

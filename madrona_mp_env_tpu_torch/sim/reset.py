@@ -2,9 +2,12 @@
 src/sim.cpp:732-872; resetPersistentEntities, src/level_gen.cpp:330-582).
 
 A reset is a masked update: the fresh-episode state is computed for every
-world and selected per world by the reset predicate. The trajectory
-curriculum restore, the LearnShooting world curriculum and the spawn
-curriculum are not ported.
+world and selected per world by the reset predicate. With
+SimFlags.EnableCurriculum a resetting world draws its world curriculum
+(LearnShooting or FullMatch) over its first 50 episodes; with
+EnvConfig.enable_spawn_curriculum (on a map whose every tier has region
+pairs) an episode draws its spawn tier and pair. The trajectory
+curriculum restore is not ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -14,11 +17,32 @@ import dataclasses
 import torch
 
 from .. import consts
-from ..config import EnvConfig, Task
+from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
 from ..utils import rng
 from .spawn import spawn_agents
-from .types import WorldState
+from .types import WorldCurriculum, WorldState
+
+# the world curriculum's schedule covers a world's first episodes
+CURRICULUM_EPISODES = 50
+
+
+def _spawn_curriculum_sample(cfg: EnvConfig, m: MapData, k_curr, W, dev):
+    """The episode's spawn-curriculum draw (initWorld, sim.cpp:766-794):
+    (active [W] bool, tier [W] i32, pair index [W] i32) from three keys
+    split off ``k_curr`` [W, 2]; all zero without the curriculum."""
+    if not (cfg.enable_spawn_curriculum and m.has_spawn_curriculum):
+        zero = torch.zeros(W, dtype=torch.int32, device=dev)
+        return zero.bool(), zero, zero
+    k1, k2, k3 = rng.split(k_curr, 3).unbind(-2)
+    active = rng.uniform(k1) < cfg.use_curriculum_spawn_prob
+    cdf = torch.cumsum(torch.tensor(cfg.curriculum_tier_probs,
+                                    dtype=torch.float32, device=dev), 0)
+    u = rng.uniform(k2) * cdf[-1]
+    tier = torch.clamp(torch.searchsorted(cdf, u), 0, 4)
+    n_spawns = torch.clamp(m.curr_spawn_counts[tier], min=1)
+    idx = rng.randint(k3, (), 0, 2 ** 30) % n_spawns
+    return active, tier.to(torch.int32), idx.to(torch.int32)
 
 
 def init_world(cfg: EnvConfig, m: MapData, state: WorldState,
@@ -33,7 +57,8 @@ def init_world(cfg: EnvConfig, m: MapData, state: WorldState,
     ep_key = rng.episode_key(init_key, state.episode_idx, state.world_idx)
     base = rng.step_key(ep_key, -1)
     keys = rng.split(base, 6)  # flip, stagger, zone, spawn, curr, coef
-    k_flip, k_stagger, k_zone, k_spawn = (keys[:, j] for j in range(4))
+    k_flip, k_stagger, k_zone, k_spawn, k_curr = (keys[:, j]
+                                                  for j in range(5))
 
     flip = bool(sim_ctrl[2]) & (rng.uniform(k_flip) < 0.5)
     team_a = flip.to(torch.int32)
@@ -54,10 +79,12 @@ def init_world(cfg: EnvConfig, m: MapData, state: WorldState,
         return torch.full((W,) + tuple(shape), v, dtype=dtype, device=dev)
 
     coefs = torch.tensor(cfg.reward_defaults.as_tuple(), dtype=f, device=dev)
+    sc_active, sc_tier, sc_idx = _spawn_curriculum_sample(cfg, m, k_curr, W,
+                                                          dev)
     state = state.replace(
-        curr_spawn_active=full((), False, b),
-        curr_spawn_tier=full((), 0, i),
-        curr_spawn_idx=full((), 0, i),
+        curr_spawn_active=sc_active,
+        curr_spawn_tier=sc_tier,
+        curr_spawn_idx=sc_idx,
         team_a=team_a,
         cur_step=cur_step,
         is_finished=full((), False, b),
@@ -116,15 +143,29 @@ def reset_system(cfg: EnvConfig, m: MapData, state: WorldState,
                  init_key: torch.Tensor, sim_ctrl, force_reset: torch.Tensor
                  ) -> WorldState:
     """resetSystem (sim.cpp:835-872): reset the worlds whose match ended
-    (auto reset) or that are forced; force_reset [W]."""
+    (auto reset) or that are forced; force_reset [W]. With
+    SimFlags.EnableCurriculum a resetting world in its first
+    CURRICULUM_EPISODES episodes plays FullMatch with probability
+    (episode + 1) / 50, else LearnShooting (drawn from its last step's
+    key), and FullMatch after them."""
     should = force_reset != 0
     if cfg.auto_reset:
         should = should | state.is_finished
+    episode = state.episode_counter
+    world_curr = state.world_curriculum
+    if cfg.has_flag(SimFlags.EnableCurriculum):
+        ck = rng.system_key(rng.step_key(state.episode_key, state.cur_step),
+                            rng.Salt.CURRICULUM)
+        frac = (episode.to(torch.float32) + 1.0) / torch.full(
+            (), float(CURRICULUM_EPISODES), device=episode.device)
+        sched = torch.where(
+            (episode < CURRICULUM_EPISODES) & ~(rng.uniform(ck) < frac),
+            WorldCurriculum.LearnShooting, WorldCurriculum.FullMatch)
+        world_curr = torch.where(should, sched, world_curr).to(torch.int32)
     pre = state.replace(
-        episode_idx=torch.where(should, state.episode_counter,
-                                state.episode_idx),
-        episode_counter=(state.episode_counter + should.to(torch.int64))
-        & 0xFFFFFFFF,
+        episode_idx=torch.where(should, episode, state.episode_idx),
+        episode_counter=(episode + should.to(torch.int64)) & 0xFFFFFFFF,
+        world_curriculum=world_curr,
         was_reset=should,
     )
     fresh = init_world(cfg, m, pre, init_key, sim_ctrl,

@@ -4,7 +4,10 @@ zoneRewardSystem (reference src/sim.cpp:3849-3996), tdmRewardSystem
 (sim.cpp:3599-3705), zoneCaptureDefendRewardSystem (sim.cpp:4089-4209),
 flankRewardSystem (sim.cpp:4211-4290), exploreRewardSystem
 (sim.cpp:3538-3551), turretRewardSystem (sim/turret.py) and
-subzoneRewardSystem (sim/subzones.py), then pvpTeamReward (per-team mean,
+subzoneRewardSystem (sim/subzones.py); in a LearnShooting world
+(SimFlags.EnableCurriculum) learnShootingRewardSystem (sim.cpp:3707-3733)
+replaces the task's reward of Zone, TDM and ZoneCaptureDefend and keeps
+the zone distance; then pvpTeamReward (per-team mean,
 sim.cpp:4292-4313) and pvpFinalReward (team-spirit blend,
 sim.cpp:4315-4339). Coefficients come from the per-agent reward_coefs
 tensor (RewardHyperParams, types.hpp:254-264).
@@ -19,8 +22,17 @@ from .. import consts
 from ..config import EnvConfig, RewardMode, SimFlags, Task
 from ..assets.map_data import MapData
 from ..ops import geom
-from .types import WorldState
+from .types import WorldCurriculum, WorldState
 from .zones import zone_center_dist
+
+
+def learn_shooting_reward(state: WorldState):
+    """+0.5 for a landed shot, else -0.05 for a shot fired, minus 0.5 for
+    reloading a full magazine [W, A]."""
+    r = torch.zeros_like(state.reward)
+    r = r + torch.where(state.landed_shot_on >= 0, 0.5,
+                        torch.where(state.fired_shot_t >= 0.0, -0.05, 0.0))
+    return r - torch.where(state.reloaded_full_mag, 0.5, 0.0)
 
 
 def _team_spread_bonus(cfg: EnvConfig, m: MapData, state: WorldState,
@@ -219,5 +231,10 @@ def reward_system(cfg: EnvConfig, m: MapData, state: WorldState
         terminal = torch.where(win == 2, -5.0,
                                torch.where(win == teams, 20.0, -20.0))
         r = r + torch.where(state.is_finished[:, None], terminal, 0.0)
+    if cfg.has_flag(SimFlags.EnableCurriculum):
+        ls = (state.world_curriculum == WorldCurriculum.LearnShooting)[:,
+                                                                       None]
+        r = torch.where(ls, learn_shooting_reward(state), r)
+        new_min = torch.where(ls, state.min_dist_to_zone, new_min)
     state = state.replace(min_dist_to_zone=new_min)
     return clear_dead_and_blend(cfg, state, r)

@@ -9,10 +9,14 @@ purpose, keyed exactly as the JAX package keys them.
 
 Paths: the initial spawn with usage-recency retry (SpawnInMiddle draws
 between the default boxes and the mid-map extras) and the scored respawn,
-then the overrides: NavmeshSpawn, HardcodedSpawns (first spawn only) and
-the Turret task's turret rows (navmesh points, a random yaw, never
-respawned); RandomizeHPMagazine draws hp and the magazine. The
-LearnShooting curriculum and the spawn curriculum are not ported.
+then the overrides in the JAX package's order: the LearnShooting point
+(SimFlags.EnableCurriculum, in a LearnShooting world: x in [-700, 700],
+|y| up to 350 on the standard point's side of y = 0), NavmeshSpawn,
+HardcodedSpawns (first spawn only), the spawn curriculum (first spawn
+only, in an episode that drew it: a point of the team's region of the
+episode's pair, facing the other region) and the Turret task's turret
+rows (navmesh points, a random yaw, never respawned); RandomizeHPMagazine
+draws hp and the magazine.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
 from ..ops import geom
 from ..utils import rng
-from .types import Pose, WorldState
+from .types import Pose, WorldCurriculum, WorldState
 
 _BIG = 1e18
 
@@ -48,18 +52,44 @@ def _hardcoded_spawns(device: torch.device) -> torch.Tensor:
     return torch.tensor(HARDCODED_SPAWNS, dtype=torch.float32, device=device)
 
 
-def _sample_navmesh_points(u, m: MapData):
-    """Uniform-by-area navmesh points: u [..., 3] uniforms -> [..., 3]
-    (madrona::Navmesh::samplePoint)."""
-    tri = torch.searchsorted(m.nav_area_cdf, u[..., 0].contiguous())
-    tri = torch.clamp(tri, 0, m.nav_area_cdf.shape[0] - 1)
-    uv = u[..., 1:3]
+def _tri_point(m: MapData, tri, uv):
+    """Points of navmesh triangles tri [...] at barycentric uniforms uv
+    [..., 2], folded into the triangle -> [..., 3]."""
     flip = uv.sum(-1) > 1.0
     uv = torch.where(flip[..., None], 1.0 - uv, uv)
     w = 1.0 - uv[..., 0] - uv[..., 1]
     pts = m.nav_verts[m.nav_tri_indices[tri]]  # [..., 3, 3]
     return (pts[..., 0, :] * uv[..., 0:1] + pts[..., 1, :] * uv[..., 1:2]
             + pts[..., 2, :] * w[..., None])
+
+
+def _sample_navmesh_points(u, m: MapData):
+    """Uniform-by-area navmesh points: u [..., 3] uniforms -> [..., 3]
+    (madrona::Navmesh::samplePoint)."""
+    tri = torch.searchsorted(m.nav_area_cdf, u[..., 0].contiguous())
+    tri = torch.clamp(tri, 0, m.nav_area_cdf.shape[0] - 1)
+    return _tri_point(m, tri, u[..., 1:3])
+
+
+def _curriculum_points(m: MapData, state: WorldState, side_all, u_misc):
+    """The spawn curriculum's points and yaws [W, A] (curriculumSpawnPoint,
+    utils.cpp:653-717): each agent takes a uniform triangle of its side's
+    region of the episode's (tier, pair) and a uniform point in it, facing
+    the other region."""
+    tier = state.curr_spawn_tier.long()
+    idx = state.curr_spawn_idx.long()
+    is_a = side_all == 0  # [W, A]
+    tri_list = torch.where(is_a[..., None],
+                           m.curr_spawn_a_tris[tier, idx][:, None],
+                           m.curr_spawn_b_tris[tier, idx][:, None])
+    yaw = torch.where(is_a, m.curr_spawn_a_yaw[tier, idx][:, None],
+                      m.curr_spawn_b_yaw[tier, idx][:, None])
+    n_valid = torch.clamp((tri_list >= 0).sum(-1).to(torch.int32), min=1)
+    pick = (u_misc[..., 0] * n_valid.to(torch.float32)).to(torch.int32)
+    pick = torch.clamp(pick, 0, tri_list.shape[-1] - 1).long()
+    tri = torch.clamp(torch.gather(tri_list, -1, pick[..., None])[..., 0],
+                      0, m.nav_tri_indices.shape[0] - 1)
+    return _tri_point(m, tri, u_misc[..., 1:3]), yaw
 
 
 def _sample_in_spawn(u4, row):
@@ -103,6 +133,14 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
     u_box = rng.uniform(ks[:, 1], (A, 4))
     u_nav = rng.uniform(ks[:, 3], (A, 4))
     weapon = rng.randint(ks[:, 4], (A,), 0, len(cfg.weapons))
+    curriculum = cfg.has_flag(SimFlags.EnableCurriculum)
+    if curriculum:
+        learn_shooting = (state.world_curriculum
+                          == WorldCurriculum.LearnShooting)  # [W]
+        u_ls = rng.uniform(ks[:, 2], (A, 2))
+        ls_x = -700.0 + u_ls[..., 0] * 1400.0  # [W, A]
+    spawn_curr = (cfg.enable_spawn_curriculum and m.has_spawn_curriculum
+                  and not is_respawn)
 
     side_all = torch.where(teams == state.team_a[:, None], 0, 1)  # [W, A]
     if cfg.has_flag(SimFlags.HardcodedSpawns) and not is_respawn:
@@ -111,7 +149,12 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
         hc_rows = _hardcoded_spawns(dev)[hc_idx]  # [W, A, 4]
     else:
         hc_rows = None
-    u_misc = rng.uniform(ks[:, 7], (A, 4)) if turret else None
+    # the curriculum's pick and uv, the turret's yaw
+    u_misc = (rng.uniform(ks[:, 7], (A, 4)) if turret or spawn_curr
+              else None)
+    if spawn_curr:
+        sc_pts, sc_yaws = _curriculum_points(m, state, side_all, u_misc)
+        sc_active = state.curr_spawn_active  # [W]
 
     rows = m.common_respawns  # [Nc, 8]
     nc = rows.shape[0]
@@ -213,6 +256,13 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
                                     side_used_c)
             respawn_used = respawn_used_c
 
+        if curriculum:
+            # the LearnShooting point, on the standard point's side of y = 0
+            ls_y = torch.where(pt[:, 1] > 0.0, u_ls[:, i, 1] * 350.0,
+                               -u_ls[:, i, 1] * 350.0)
+            ls_pt = torch.stack([ls_x[:, i], ls_y, torch.zeros_like(ls_y)],
+                                -1)
+            pt = torch.where(learn_shooting[:, None], ls_pt, pt)
         if cfg.has_flag(SimFlags.NavmeshSpawn) or (turret and i >= ts):
             nav_pt = _sample_navmesh_points(u_nav[:, i, :3], m)
         if cfg.has_flag(SimFlags.NavmeshSpawn):
@@ -220,6 +270,9 @@ def spawn_agents(cfg: EnvConfig, m: MapData, state: WorldState,
             yaw = u_nav[:, i, 3] * 2.0 * consts.pi
         if hc_rows is not None:
             pt, yaw = hc_rows[:, i, 0:3], hc_rows[:, i, 3]
+        if spawn_curr:
+            pt = torch.where(sc_active[:, None], sc_pts[:, i], pt)
+            yaw = torch.where(sc_active, sc_yaws[:, i], yaw)
         if turret and i >= ts:
             # a turret row: a navmesh point and a random yaw
             pt = nav_pt

@@ -2,11 +2,14 @@
 package's train/): ActorCriticNet and its distributions, the observation
 normalizer, PPO and the TrainingManager (rollout, GAE, recurrent PPO, the
 PBT population, mixed precision), the JAX weight conversion, ELO and
-EvalManager."""
+EvalManager; the full-team policy (FullTeamActorCriticNet, one policy
+for a whole team over the full-team observations)."""
 
-from .convert import (load_policy_npz, normalizer_from_jax,
-                      opt_state_from_jax, params_from_jax,
-                      pbt_fields_from_jax)
+from .convert import (full_team_params_from_jax, load_policy_npz,
+                      normalizer_from_jax, opt_state_from_jax,
+                      params_from_jax, pbt_fields_from_jax)
+from .full_team_policy import (FullTeamActorCriticNet,
+                               build_full_team_policy, init_team_rnn_states)
 from .infer import EvalConfig, EvalManager
 from .normalizer import (EMANormalizerState, init_normalizer, normalize_obs,
                          update_normalizer)
@@ -19,14 +22,18 @@ __all__ = [
     "EMANormalizerState",
     "EvalConfig",
     "EvalManager",
+    "FullTeamActorCriticNet",
     "PPOConfig",
     "TrainConfig",
     "TrainState",
     "TrainingManager",
     "build_actor_critic",
+    "build_full_team_policy",
     "compute_gae",
+    "full_team_params_from_jax",
     "init_normalizer",
     "init_rnn_states",
+    "init_team_rnn_states",
     "load_policy_npz",
     "normalize_obs",
     "normalizer_from_jax",

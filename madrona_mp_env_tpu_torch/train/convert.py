@@ -12,7 +12,8 @@ writes such a checkpoint to an ``.npz`` of flat "/"-joined keys:
 
 ``load_policy_npz`` reads that file with numpy alone and builds the
 port's policies; ``params_from_jax`` and ``normalizer_from_jax`` do the
-mapping on nested dicts of arrays. ``opt_state_from_jax`` carries a JAX
+mapping on nested dicts of arrays, ``full_team_params_from_jax`` for the
+full-team policy (train/full_team_policy.py). ``opt_state_from_jax`` carries a JAX
 TrainState's Adam moments (the optax chain's ScaleByAdamState, stacked
 [E, ...] like the params) across, and ``pbt_fields_from_jax`` its PBT
 leaves (past params, ELO, the past ring's pointer, hyperparameters and
@@ -70,6 +71,33 @@ def _dense(flat, src, dst, out, bias):
         out[f"{dst}.bias"] = flat.pop(f"{src}/bias")
 
 
+def _conv(flat, src, dst, out):
+    """flax Conv [k..., in, out] -> torch [out, in, k...]."""
+    k = flat.pop(f"{src}/kernel")
+    out[f"{dst}.weight"] = np.moveaxis(k, (-1, -2), (0, 1))
+    out[f"{dst}.bias"] = flat.pop(f"{src}/bias")
+
+
+def _lstm(flat, rnn, out):
+    cell = f"{rnn}/OptimizedLSTMCell_0"
+    # LSTMCellParams: columns of Wi, Wh and b concatenated in (i, f, g, o)
+    # order; the port's Linear weights are their transposes
+    out[f"{rnn}.x_proj.weight"] = np.concatenate(
+        [flat.pop(f"{cell}/i{g}/kernel") for g in _LSTM_GATES], -1).T
+    out[f"{rnn}.h_proj.weight"] = np.concatenate(
+        [flat.pop(f"{cell}/h{g}/kernel") for g in _LSTM_GATES], -1).T
+    out[f"{rnn}.h_proj.bias"] = np.concatenate(
+        [flat.pop(f"{cell}/h{g}/bias") for g in _LSTM_GATES], -1)
+    _ln(flat, f"{rnn}/LayerNorm_0", f"{rnn}.out_ln", out)
+
+
+def _checked(flat, out) -> Dict[str, torch.Tensor]:
+    if flat:
+        raise ValueError(f"unmapped flax params: {sorted(flat)}")
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
 def _policy_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """One policy's flax leaves (no P axis) -> the port's state_dict."""
     flat = dict(flat)
@@ -85,21 +113,48 @@ def _policy_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             _ln(flat, f"{net}/MLP_0/LayerNorm_{i}",
                 f"{net}.mlp.layers.{i}.ln", out)
     for rnn in ("actor_rnn", "critic_rnn"):
-        cell = f"{rnn}/OptimizedLSTMCell_0"
-        # LSTMCellParams: columns of Wi, Wh and b concatenated in (i, f, g,
-        # o) order; the port's Linear weights are their transposes
-        out[f"{rnn}.x_proj.weight"] = np.concatenate(
-            [flat.pop(f"{cell}/i{g}/kernel") for g in _LSTM_GATES], -1).T
-        out[f"{rnn}.h_proj.weight"] = np.concatenate(
-            [flat.pop(f"{cell}/h{g}/kernel") for g in _LSTM_GATES], -1).T
-        out[f"{rnn}.h_proj.bias"] = np.concatenate(
-            [flat.pop(f"{cell}/h{g}/bias") for g in _LSTM_GATES], -1)
-        _ln(flat, f"{rnn}/LayerNorm_0", f"{rnn}.out_ln", out)
+        _lstm(flat, rnn, out)
     for head in ("actor_head_discrete", "actor_head_aim", "critic_head"):
         _dense(flat, f"{head}/Dense_0", f"{head}.dense", out, bias=True)
     if flat:
         raise ValueError(f"unmapped flax params: {sorted(flat)}")
     return out
+
+
+def full_team_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The flax param tree of the JAX package's FullTeamActorCriticNet
+    (nested dicts of arrays, one policy) -> the state_dict of
+    train/full_team_policy.py's FullTeamActorCriticNet, float32 on the
+    CPU. Also maps a gradient tree the same way."""
+    flat = flatten(tree)
+    out: Dict[str, np.ndarray] = {}
+    _dense(flat, "prefix/global_embed", "prefix.global_embed", out,
+           bias=True)
+    for name in ("my_embed", "enemy_embed", "last_known_enemy_embed"):
+        _dense(flat, f"prefix/{name}/Dense_0", f"prefix.{name}.dense", out,
+               bias=True)
+        _ln(flat, f"prefix/{name}/LayerNorm_0", f"prefix.{name}.ln", out)
+    for name in ("fwd_lidar_conv", "rear_lidar_conv"):
+        for i in range(3):
+            _conv(flat, f"prefix/{name}/Conv_{i}",
+                  f"prefix.{name}.convs.{i}", out)
+        _ln(flat, f"prefix/{name}/LayerNorm_0", f"prefix.{name}.ln", out)
+    for net in ("actor_net", "critic_net"):
+        for i in range(3):
+            _conv(flat, f"{net}/ConvBackbone_0/Conv_{i}",
+                  f"{net}.backbone.convs.{i}", out)
+        _ln(flat, f"{net}/ConvBackbone_0/LayerNorm_0", f"{net}.backbone.ln",
+            out)
+    for rnn in ("actor_rnn", "critic_rnn"):
+        _lstm(flat, rnn, out)
+    _dense(flat, "actor_head/actor_merge", "actor_head.actor_merge", out,
+           bias=True)
+    _ln(flat, "actor_head/LayerNorm_0", "actor_head.ln", out)
+    for i, head in enumerate(("discrete", "aim")):
+        _dense(flat, f"actor_head/DenseLayerDiscreteActor_{i}/Dense_0",
+               f"actor_head.{head}.dense", out, bias=True)
+    _dense(flat, "critic_head/Dense_0", "critic_head.dense", out, bias=True)
+    return _checked(flat, out)
 
 
 def params_from_jax(tree) -> List[Dict[str, torch.Tensor]]:

@@ -162,18 +162,18 @@ class ActorCriticNet(nn.Module):
         return log_probs, entropies, self.critic_head(c_outs)
 
 
-def _seeded_init(net: ActorCriticNet, seed: int) -> None:
+def _seeded_init(net: nn.Module, seed: int) -> None:
     """Weights from a seed (CPU generator, so every device gets the same
-    values): each dense kernel N(0, gain^2 / fan_in) with flax's gains
-    (sqrt(2) for the trunk, 1 for the LSTM and the heads), biases zero,
-    LayerNorm scale one."""
+    values): each dense (and convolution) kernel N(0, gain^2 / fan_in)
+    with flax's gains (sqrt(2) for the trunk, 1 for the LSTM and the
+    heads), biases zero, LayerNorm scale one."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, mod in net.named_modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 gain = 1.0 if ("rnn" in name or "head" in name) else 2 ** 0.5
                 w = torch.randn(mod.weight.shape, generator=g)
-                mod.weight.copy_(w * (gain / mod.in_features ** 0.5))
+                mod.weight.copy_(w * (gain / mod.weight[0].numel() ** 0.5))
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):

@@ -31,9 +31,9 @@ def _imported_roots(path):
             yield node.module or ""
 
 
-TRAIN_MODULES = ("__init__", "convert", "distributions", "elo", "infer",
-                 "metrics", "models", "normalizer", "pbt", "policy", "ppo",
-                 "train", "trainer")
+TRAIN_MODULES = ("__init__", "convert", "distributions", "elo",
+                 "full_team_policy", "infer", "metrics", "models",
+                 "normalizer", "pbt", "policy", "ppo", "train", "trainer")
 
 
 def test_port_imports_no_jax():
@@ -76,15 +76,63 @@ def test_kernel_entries_refuse_other_devices():
 
 
 def test_unported_config_raises(simple_map_dir):
-    """FullTeamPolicy, EnableCurriculum and the spawn curriculum are not
-    ported yet; Env refuses them."""
+    """FullTeamPolicy, EnableCurriculum, StaticFlipTeams and the spawn
+    curriculum construct and step on the CPU; the trajectory curriculum
+    restore (curriculum_path, trajectory_curriculum_prob) still raises,
+    naming the ROADMAP item that ports it."""
     for cfg in (
         mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.FullTeamPolicy),
         mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.EnableCurriculum),
+        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.StaticFlipTeams),
         mt.EnvConfig(team_size=2, enable_spawn_curriculum=True),
     ):
-        with pytest.raises(NotImplementedError):
-            mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
+        env = mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
+        state, _ = env.reset()
+        _, out = env.step(state, env.zero_actions())
+        assert bool(torch.isfinite(out["reward"]).all())
+    cfg = mt.EnvConfig(team_size=2)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu",
+               curriculum_path="curriculum.bin")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        mt.Env(mt.EnvConfig(team_size=2, trajectory_curriculum_prob=1.0),
+               simple_map_dir, num_worlds=1, device="cpu")
+    with pytest.raises(ValueError, match="two full teams"):
+        mt.Env(mt.EnvConfig(task=mt.Task.Explore,
+                            sim_flags=mt.SimFlags.FullTeamPolicy),
+               simple_map_dir, num_worlds=1, device="cpu")
+
+
+def test_shared_map_checked(simple_map_dir):
+    """Env(map_data=...) shares a map loaded for a configuration of the
+    same map_key (another task and flags that load_map does not read), and
+    raises on a map loaded for other map inputs."""
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+
+    m = load_map(simple_map_dir, mt.EnvConfig(team_size=2), device="cpu")
+    cfg = mt.EnvConfig(task=mt.Task.TDM, team_size=3,
+                       sim_flags=mt.SimFlags.EnableCurriculum)
+    env = mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu",
+                 map_data=m)
+    assert env.map_data is m
+    for other in (mt.EnvConfig(team_size=2, enable_spawn_curriculum=True),
+                  mt.EnvConfig(team_size=2,
+                               sim_flags=mt.SimFlags.SpawnInMiddle)):
+        with pytest.raises(ValueError, match="map_data"):
+            mt.Env(other, simple_map_dir, num_worlds=1, device="cpu",
+                   map_data=m)
+
+
+def test_full_team_policy_defaults_to_cuda(monkeypatch):
+    """build_full_team_policy puts the net on the card unless asked for
+    the CPU."""
+    from madrona_mp_env_tpu_torch.train import build_full_team_policy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_full_team_policy(2)
+    net = build_full_team_policy(2, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"
 
 
 def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):

@@ -720,6 +720,53 @@ def test_tail_fused_kernel(simple_map_dir, gpu_map, team_size):
             assert _eq(got, getattr(sb, k)), k
 
 
+@pytest.mark.parametrize("team_size", [2, 6, 16])
+@pytest.mark.parametrize("curriculum", [True, False])
+def test_tail_fused_learn_shooting_kernel(simple_map_dir, gpu_map, team_size,
+                                          curriculum):
+    """K5 with LearnShooting and FullMatch worlds mixed, under
+    SimFlags.EnableCurriculum (the kernel's LearnShooting instantiation)
+    and without it (the step's, which ignores world_curriculum): every
+    output leaf bit-equal (int32 views) to its plain version; the
+    predecessor refuses the flag."""
+    import os
+    import sys
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.ops import tail_fused as tf
+    from madrona_mp_env_tpu_torch.sim.types import (init_world_state,
+                                                    world_state_from_numpy,
+                                                    world_state_to_numpy)
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__),
+                                    "fixtures_torch"))
+    from tail_states import NUM_WORLDS, tail_scenario
+
+    flags = mt.SimFlags.EnableCurriculum if curriculum else (
+        mt.SimFlags.Default)
+    cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=team_size,
+                       sim_flags=flags)
+    m = load_map(simple_map_dir, cfg, device="cuda")
+    leaves = world_state_to_numpy(init_world_state(cfg, m.num_goal_regions,
+                                                   NUM_WORLDS))
+    fr = tail_scenario(leaves, team_size, m.zone_frames.cpu().numpy(),
+                       m.num_zones, m.world_min.cpu().numpy(),
+                       m.world_max.cpu().numpy(), cfg.episode_len, seed=2)
+    leaves["world_curriculum"] = np.array([0, 1, 0, 1], np.int32)
+    st = world_state_from_numpy(leaves, device="cuda")
+    fr_dev = torch.as_tensor(fr, device="cuda")
+    n0 = tf.tail_fused.launches
+    sk, ck = tf.tail_fused(cfg, m, st, fr_dev)
+    assert tf.tail_fused.launches == n0 + 1
+    sp, cp = tf.tail_fused_plain(cfg, m, st, fr_dev)
+    assert _eq(ck, cp)
+    for k, v in sp.leaves().items():
+        assert _eq(getattr(sk, k), v), k
+    if curriculum:
+        with pytest.raises(ValueError, match="LearnShooting"):
+            tf.tail_fused_v1(cfg, m, st, fr_dev)
+
+
 @pytest.mark.parametrize("team_size", [2, 3, 6])
 def test_unfused_tail_equals_fused_plain_on_card(simple_map_dir, gpu_map,
                                                  team_size):

@@ -180,12 +180,19 @@ def test_kernel_operands_match_plain_outputs(maps):
 
 
 def test_tail_scope(maps):
+    """The fused tail covers Zone with RewardMode.Default, EnableCurriculum
+    included (its LearnShooting override), and runs there; the other
+    tasks take the unfused chain."""
     m = maps[6]
     leaves, fr, _ = _states(6, m)
     cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=6,
                        sim_flags=mt.SimFlags.EnableCurriculum)
-    with pytest.raises(NotImplementedError, match="EnableCurriculum"):
-        tf.tail_fused(cfg, m, world_state_from_numpy(leaves),
-                      torch.as_tensor(fr))
+    assert tf.use_tail_fused(cfg)
+    st, cap = tf.tail_fused(cfg, m, world_state_from_numpy(leaves),
+                            torch.as_tensor(fr))
+    assert st.reward.shape == (NUM_WORLDS, 12) and cap.shape == (NUM_WORLDS,)
+    ins, _ = tf.kernel_operands(cfg, m, world_state_from_numpy(leaves),
+                                torch.as_tensor(fr))
+    assert ins["in_world_curriculum"].dtype == torch.int32
     assert tf.use_tail_fused(_cfg(6))
     assert not tf.use_tail_fused(mt.EnvConfig(task=mt.Task.TDM))
