@@ -184,7 +184,33 @@ Phases, each of which fails the run loudly:
    on "cuda" against "cpu" on simple_map (phase 9's bars, the full-team
    observations within 1e-3) and the full-team network's outputs cuda
    against cpu within FT_NET_BAR;
-13. a line of kernel results (JSON, one row per kernel and map, each with
+13. record and replay (record_phase), 1024 worlds of Zone 6v6 on each
+   map: the logging step (Env(collect_log=True), reset + 30 steps, its
+   exports through the record and event-log writers a chunk of 10 steps
+   at a time) with every counter zeroed before and read after: K1, K4
+   culled and 3 K4' a step, K2 (simple_map) or K6 and its cell order
+   (town_map) and K3 once a step and at the reset, K5 never (the step
+   log is read inside the unfused tail); env-steps/s, CUDA launches per
+   step and the writers' host ms and bytes per step beside the same
+   steps without logging; then Env.replay_step over that record: K2 and
+   K3 on its first step's launches bit-equal to their plain versions
+   (the replay sweeps the whole soup on town_map too, as the JAX
+   replay), each once a replayed step, K3 and the reset's fan (K2, or K6
+   and its cell order on town_map) at the reset, no other kernel, the
+   replayed match-state stream equal to the recorded snapshots'; a 4-world,
+   16-step logging rollout and the replay of its cpu record on "cuda"
+   against "cpu" (step log, snapshot and events exact but floats, to
+   phase 9's bars; an int16 snapshot field one count off only where its
+   float sits within the pos bar of a truncation edge, counted); the
+   eval CLI's --record and --event-log over 30 steps and --bc-dump-dir
+   over 5 (a whole chunk of 10 runs) at 1024 worlds, host ms and bytes
+   per step; build_db -> select_windows -> build_curriculum on the
+   simple_map event log (host seconds), then Env(curriculum_path,
+   trajectory_curriculum_prob 0.5): the share of restored worlds within
+   4 sigma of 0.5, reset + 30 steps held to the 6v6 counts (K5 too), and
+   the restored reset at 4 worlds bit-equal cuda against cpu. The phase
+   logs its own seconds;
+14. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS), then the card line, then the last line {"ok": true,
@@ -500,9 +526,10 @@ def _clone(x):
     return x
 
 
-def capture_step_calls(env, state, actions, expect):
-    """Run one env.step with every kernel entry wrapped where the sim calls
-    it; returns {entry name: [args of each call, in order]} (tensors
+def capture_step_calls(env, state, actions, expect, step=None):
+    """Run one env.step (or ``step``, e.g. env.replay_step with a step
+    log for ``actions``) with every kernel entry wrapped where the sim
+    calls it; returns {entry name: [args of each call, in order]} (tensors
     cloned), so the kernels can be checked and timed on the main path's
     own launches at its own shapes. ``expect``: the entries this path
     must call (and only those)."""
@@ -522,7 +549,7 @@ def capture_step_calls(env, state, actions, expect):
         saved.append((mod, name, fn))
         setattr(mod, name, rec)
     try:
-        env.step(state, actions)
+        (step or env.step)(state, actions)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -1986,7 +2013,9 @@ def lidar_undecided(env, state, rays, delta):
     return out
 
 
-PROFILE_STEPS = 10
+# steps of each step_profile window: the profiler's host events cost
+# seconds a step to gather (cut from 10 to keep the run in its limit)
+PROFILE_STEPS = 5
 
 
 def step_profile(env, state, actions, fused_tail=True, profile=True):
@@ -2000,7 +2029,7 @@ def step_profile(env, state, actions, fused_tail=True, profile=True):
 
     saved = step_mod.use_tail_fused
     if not fused_tail:
-        step_mod.use_tail_fused = lambda cfg: False
+        step_mod.use_tail_fused = lambda cfg, collect_log=False: False
     try:
         state, _ = env.step(state, actions)
         torch.cuda.synchronize()
@@ -2217,6 +2246,14 @@ def all_entries():
         *vpu_probe.ENTRIES.values(), *vpu_probe.MM_ENTRIES.values())}
 
 
+def zero_counts():
+    """Every kernel entry's launch counter set to 0; returns the entries."""
+    entries = all_entries()
+    for f in entries.values():
+        f.launches = 0
+    return entries
+
+
 def expect_launches(rows, name, n, key="launches"):
     """The path's launches of the kernel row ``name`` (drive_path; with
     ``key`` "vs_bot_launches" the vs-bot eval's, bots_phase) are n: one
@@ -2240,9 +2277,7 @@ def drive_path(label, env, acts, steps, rows, not_launched, card,
     often. Returns (state, out, env-steps/s)."""
     import torch
 
-    entries = all_entries()
-    for f in entries.values():
-        f.launches = 0
+    entries = zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, obs = env.reset()
@@ -2251,10 +2286,25 @@ def drive_path(label, env, acts, steps, rows, not_launched, card,
         state, out = env.step(state, actions_at(env, acts, s))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    counts = {n: f.launches for n, f in entries.items()}
     for name, x in out["obs"].items():
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{label}: non-finite obs {name}")
+    counts = check_counts(label, entries, rows, not_launched, expect)
+    sps = env.num_worlds * steps / (t1 - t_reset)
+    log(f"[{label}] {env.num_worlds} worlds x {steps} steps: reset "
+        f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
+        f"env-steps/s on {card}; launches "
+        + ", ".join(f"{n}={c}" for n, c in counts.items()))
+    return state, out, sps
+
+
+def check_counts(label, entries, rows, not_launched, expect):
+    """The launch counters of ``entries`` after a path: each row of
+    ``rows`` gets its entry's count as ``launches`` (> 0) and the path's
+    ``label``; the entries of ``not_launched`` and the predecessors stay
+    at 0; each entry of ``expect`` ({name: count}) launched exactly that
+    often. Returns {entry: count}."""
+    counts = {n: f.launches for n, f in entries.items()}
     for row in rows:
         row["launches"] = row["entry"].launches
         row["path"] = label
@@ -2270,12 +2320,7 @@ def drive_path(label, env, acts, steps, rows, not_launched, card,
             raise AssertionError(f"{label}: {name} launched {counts[name]} "
                                  f"times, expected {n}")
         log(f"[launches] {name}: {n} on {label}")
-    sps = env.num_worlds * steps / (t1 - t_reset)
-    log(f"[{label}] {env.num_worlds} worlds x {steps} steps: reset "
-        f"{t_reset - t0:.3f} s, steps {t1 - t_reset:.3f} s, {sps:.1f} "
-        f"env-steps/s on {card}; launches "
-        + ", ".join(f"{n}={c}" for n, c in counts.items()))
-    return state, out, sps
+    return counts
 
 
 def env_parity(mt, cfg, scene, W, S, bots=False, label="Zone",
@@ -3219,19 +3264,22 @@ def mode_expect(k1, k5, steps, town=False):
 MODE_PROFILE_STEPS = 5
 
 
-def launches_per_step(env, state, actions):
-    """CUDA device operations per env step over MODE_PROFILE_STEPS steps
-    (torch.profiler tracing the device alone: the host's op events cost
-    seconds a step to gather), after one step unprofiled. Steps where a
-    world resets add the reset's launches, so the count is a mean."""
+def launches_per_step(env, state, actions, step=None):
+    """CUDA device operations per env step (or ``step``, e.g.
+    env.replay_step with a step log for ``actions``) over
+    MODE_PROFILE_STEPS steps (torch.profiler tracing the device alone:
+    the host's op events cost seconds a step to gather), after one step
+    unprofiled. Steps where a world resets add the reset's launches, so
+    the count is a mean."""
     import torch
 
-    state, _ = env.step(state, actions)
+    step = step or env.step
+    state, _ = step(state, actions)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(MODE_PROFILE_STEPS):
-            state, _ = env.step(state, actions)
+            state, _ = step(state, actions)
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3773,6 +3821,496 @@ def curriculum_phase(mt, card):
     return [row]
 
 
+# phase 13: the logging step, replay, the eval's dumps and the trajectory
+# curriculum, 1024 worlds of Zone 6v6 with StaggerStarts | RandomFlipTeams
+LOG_STEPS = 30
+LOG_CHUNK = 10  # steps a writer copy takes (the eval's chunk_steps)
+LOG_GROUPS = ("step_log", "snapshot", "game_events")
+# the eval CLI's dumps, reductions of its --num-steps 200: the record and
+# the event log over LOG_STEPS, the behaviour-cloning dump (~150 MB a step
+# at 1024 worlds) over CLI_BC_STEPS
+CLI_BC_STEPS = 5
+# the DB's trajectories, cut to the LOG_STEPS-step run: windows of
+# CURR_WINDOW match steps (any events), every CURR_SUBSAMPLE-th step a
+# snapshot (build_trajectory_curriculum's defaults: 100 and 20)
+CURR_WINDOW = 20
+CURR_SUBSAMPLE = 5
+CURR_MAX_WINDOWS = 64
+CURR_PROB = 0.5
+# the snapshot's int16 fields cuda against cpu: the pos bar of phase 9
+LOG_POS_BAR = 1e-4
+# the restore's leaves held exact cuda against cpu
+RESTORE_KEYS = ("pos", "yaw", "pitch", "hp", "mag_bullets", "mag_reloading",
+                "stand_cur", "stand_tgt", "stand_transition", "cur_step",
+                "zone_cur", "zone_controlling", "zone_captured",
+                "zone_steps_remaining", "zone_steps_until_point", "team_a")
+
+
+def stack_outs(outs):
+    """A list of steps' {group: {key: tensor}} -> {group: {key: [T, ...]}}."""
+    import torch
+
+    return {g: {k: torch.stack([o[g][k] for o in outs]) for k in outs[0][g]}
+            for g in LOG_GROUPS}
+
+
+def logging_path(label, env, acts, steps, out_dir, card, expect,
+                 not_launched):
+    """Reset + ``steps`` steps of the logging ``env`` (collect_log) with
+    every counter zeroed before and read after, each kernel held to
+    ``expect``; the exports go through the writers in chunks of LOG_CHUNK
+    steps (one device-to-host copy a chunk and group) into ``out_dir``.
+    Returns (env-steps/s with the writers, writer stats {name: (s, bytes,
+    steps)})."""
+    import torch
+    from madrona_mp_env_tpu_torch.data import EventLogWriter, RecordLogWriter
+
+    entries = zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = env.reset()
+    t_reset = time.perf_counter()
+    with RecordLogWriter(os.path.join(out_dir, "record.bin")) as rw, \
+            EventLogWriter(os.path.join(out_dir, "events")) as ew:
+        chunk = []
+        for s in range(steps):
+            state, out = env.step(state, actions_at(env, acts, s))
+            chunk.append({g: out[g] for g in LOG_GROUPS})
+            if len(chunk) == LOG_CHUNK or s == steps - 1:
+                c = stack_outs(chunk)
+                rw.append_chunk(c["step_log"])
+                ew.append_chunk(c["snapshot"], c["game_events"])
+                chunk = []
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for name, x in out["obs"].items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: non-finite obs {name}")
+    counts = check_counts(label, entries, [], not_launched, expect)
+    sps = env.num_worlds * steps / (t1 - t_reset)
+    stats = {w: (x.seconds, x.bytes_written, x.steps)
+             for w, x in (("record", rw), ("event log", ew))}
+    log(f"[{label}] {env.num_worlds} worlds x {steps} steps: reset "
+        f"{t_reset - t0:.3f} s, steps and writers {t1 - t_reset:.3f} s, "
+        f"{sps:.1f} env-steps/s on {card}; writers' host ms and bytes per "
+        "step: " + ", ".join(f"{w} {s * 1e3 / n:.3f} ms {b / n:.0f} B"
+                             for w, (s, b, n) in stats.items())
+        + "; launches " + ", ".join(f"{n}={c}" for n, c in counts.items()))
+    return sps, stats
+
+
+def replay_path(label, env, out_dir, card, expect, not_launched, rows):
+    """Env.replay_step over the record in ``out_dir`` from a reset, every
+    counter zeroed before and read after (``rows``: the replay's kernel
+    rows, which get its launches): each kernel held to ``expect``, the
+    replayed match-state stream equal to the recorded snapshots'.
+    Returns (the env's last state, the last step log, env-steps/s)."""
+    import torch
+    from madrona_mp_env_tpu_torch.data import (ReplayLogReader,
+                                               read_step_snapshots)
+
+    W = env.num_worlds
+    reader = ReplayLogReader(os.path.join(out_dir, "record.bin"), W)
+    logs = reader.tensors(env.device)
+    recorded = read_step_snapshots(os.path.join(out_dir, "events"))
+    recorded = recorded["match_state"].reshape(len(reader), W)
+    fields = (("step", "match_step"), ("cur_zone", "cur_zone"),
+              ("cur_zone_controller", "cur_zone_controller"),
+              ("zone_steps_remaining", "zone_steps_remaining"),
+              ("steps_until_point", "steps_until_point"))
+    entries = zero_counts()
+    torch.cuda.synchronize()
+    state, _ = env.reset()
+    t0 = time.perf_counter()
+    replayed = []
+    for t in range(len(reader)):
+        log_t = {k: v[t] for k, v in logs.items()}
+        state, out = env.replay_step(state, log_t)
+        replayed.append(torch.stack([out["snapshot"][k].to(torch.int64)
+                                     for _, k in fields]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check_counts(label, entries, rows, not_launched, expect)
+    got = torch.stack(replayed).cpu().numpy()
+    for j, (field, _) in enumerate(fields):
+        want = recorded[field]
+        if not np.array_equal(got[:, j].astype(want.dtype), want):
+            n = int((got[:, j].astype(want.dtype) != want).sum())
+            raise AssertionError(f"{label}: replayed {field} differs from "
+                                 f"the recorded one at {n} of {want.size}")
+    sps = W * len(reader) / (t1 - t0)
+    log(f"[{label}] {W} worlds x {len(reader)} replayed steps: {sps:.1f} "
+        f"env-steps/s on {card}; the match-state stream equals the "
+        "recorded snapshots'")
+    return state, log_t, sps
+
+
+def snapshot_parity(name, got, want, floats):
+    """Snapshots cuda (``got``) against cpu (``want``), numpy [T, W, ...]
+    each: every field exact, but an int16 field may be one count off where
+    its cpu float (``floats``: {field: [T, W, ...]}) sits within
+    LOG_POS_BAR * max(1, |x|) of an integer (the truncation's edge).
+    Returns (fields near an edge, fields one count off)."""
+    near = off = 0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {k}: {g.dtype}{g.shape} vs "
+                                 f"{w.dtype}{w.shape}")
+        diff = np.abs(g.astype(np.int64) - w.astype(np.int64))
+        if k in floats:
+            f = floats[k].astype(np.float64)
+            edge = (np.abs(f - np.round(f))
+                    <= LOG_POS_BAR * np.maximum(1.0, np.abs(f)))
+            near += int(edge.sum())
+            off += int((diff == 1).sum())
+            bad = (diff > 1) | ((diff == 1) & ~edge)
+        else:
+            bad = diff != 0
+        if bad.any():
+            raise AssertionError(f"{name} {k}: {int(bad.sum())} of {w.size} "
+                                 f"differ cuda vs cpu")
+    return near, off
+
+
+def float_parity(name, got, want, rel):
+    """Floats within rel * max(1, |x|), NaN and infinities at the same
+    places; returns the max relative error."""
+    if not np.array_equal(np.isfinite(got), np.isfinite(want)) or \
+            not np.array_equal(got[~np.isfinite(got)],
+                               want[~np.isfinite(want)]):
+        raise AssertionError(f"{name}: non-finite values differ")
+    fin = np.isfinite(want)
+    e = (np.abs(got[fin].astype(np.float64) - want[fin])
+         / np.maximum(1.0, np.abs(want[fin].astype(np.float64))))
+    worst = float(e.max()) if e.size else 0.0
+    if worst > rel:
+        raise AssertionError(f"{name}: rel err {worst}")
+    return worst
+
+
+def log_parity(mt, cfg, scene, W=4, S=16):
+    """A W-world, S-step logging rollout on "cuda" against "cpu" from one
+    seed: step log, snapshot and events exact (the step log's floats to
+    phase 9's pos bar, an int16 snapshot field one count off only at a
+    truncation edge, snapshot_parity); then the cpu record replayed on both
+    devices: snapshots and events the same way, "self" and the forward
+    lidar within 1e-3 * max(1, |x|), reward within 1e-4."""
+    import torch
+    from madrona_mp_env_tpu_torch.data.recorder import host_arrays
+
+    name = f"{os.path.basename(scene)} logging"
+    scale = 32768.0 / np.pi
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        env = mt.Env(cfg, scene, num_worlds=W, seed=5, device=dev,
+                     collect_log=True)
+        acts = bench_actions(W, cfg.num_agents, S)
+        state, _ = env.reset()
+        outs = []
+        for s in range(S):
+            state, out = env.step(state, actions_at(env, acts, s))
+            outs.append({g: out[g] for g in LOG_GROUPS})
+        runs[dev] = {g: host_arrays(v) for g, v in stack_outs(outs).items()}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    worst = {}
+    for k, w in cpu["step_log"].items():
+        g = gpu["step_log"][k]
+        if w.dtype.kind == "f" and k != "hp":
+            worst[k] = float_parity(f"{name} step_log {k}", g, w, LOG_POS_BAR)
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{name} step_log {k} differs cuda vs cpu")
+    for k, w in cpu["game_events"].items():
+        if not np.array_equal(gpu["game_events"][k], w):
+            raise AssertionError(f"{name} game_events {k} differs cuda vs "
+                                 "cpu")
+    sl = cpu["step_log"]
+    # the live players' floats (the padded rows are 0 on both devices)
+    live = np.arange(sl["pos"].shape[2]) < cfg.num_agents
+    floats = {k: np.where(live.reshape((1, 1, -1) + (1,) * (v.ndim - 3)),
+                          v, np.nan)
+              for k, v in (("player_pos", sl["pos"]),
+                           ("player_yaw", sl["aim_yaw"] * scale),
+                           ("player_pitch", sl["aim_pitch"] * scale))}
+    near, off = snapshot_parity(f"{name} snapshot", gpu["snapshot"],
+                                cpu["snapshot"], floats)
+
+    # the cpu record replayed on both devices
+    reps = {}
+    for dev in ("cuda", "cpu"):
+        env = mt.Env(cfg, scene, num_worlds=W, seed=5, device=dev)
+        state, _ = env.reset()
+        outs = []
+        for t in range(S):
+            state, out = env.replay_step(
+                state, {k: v[t] for k, v in sl.items()})
+            outs.append({**{f"snapshot/{k}": v
+                            for k, v in out["snapshot"].items()},
+                         **{f"game_events/{k}": v
+                            for k, v in out["game_events"].items()},
+                         "self": out["obs"]["self"],
+                         "fwd_lidar": out["obs"]["fwd_lidar"],
+                         "reward": out["reward"]})
+        reps[dev] = host_arrays({k: torch.stack([o[k] for o in outs])
+                                 for k in outs[0]})
+    rg, rc = reps["cuda"], reps["cpu"]
+    for k, w in rc.items():
+        if k.startswith("game_events/") and not np.array_equal(rg[k], w):
+            raise AssertionError(f"{name} replay {k} differs")
+    r_near, r_off = snapshot_parity(
+        f"{name} replay snapshot",
+        {k[9:]: v for k, v in rg.items() if k.startswith("snapshot/")},
+        {k[9:]: v for k, v in rc.items() if k.startswith("snapshot/")},
+        floats)
+    for k, rel in (("self", 1e-3), ("fwd_lidar", 1e-3), ("reward", 1e-4)):
+        worst["replay " + k] = float_parity(f"{name} replay {k}", rg[k],
+                                            rc[k], rel)
+    log(f"[parity] {name} cuda vs cpu, {W} worlds x {S} steps: step log, "
+        f"snapshot and events exact but floats ("
+        + ", ".join(f"{k} max rel err {v:.3g}" for k, v in worst.items())
+        + f"); int16 snapshot fields at a truncation edge: {near} (one "
+        f"count off: {off}), in the replay {r_near} ({r_off})")
+
+
+def seeded_policy_npz(mt, path, W):
+    """An export_policy.py-layout .npz of P = EVAL_POLICIES seeded policies
+    (tests/fixtures_torch/policy_weights.py, numpy alone) with eval_setup's
+    seeded normalizer stats, for the eval CLI."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "fixtures_torch"))
+    from policy_weights import random_flax_params
+    from madrona_mp_env_tpu_torch.train.convert import flatten
+
+    _, _, norm, _ = eval_setup(mt, W, 1, 1, "cuda")
+    tree = {"params": random_flax_params(0, EVAL_POLICIES),
+            "normalizer": {
+                "mu": {k: v.cpu().numpy() for k, v in norm.mu.items()},
+                "var": {k: v.cpu().numpy() for k, v in norm.var.items()},
+                "count": norm.count.cpu().numpy()},
+            "elo": np.full(EVAL_POLICIES, 1500.0, np.float32)}
+    np.savez(path, **flatten(tree))
+
+
+def eval_cli_dumps(mt, card, tmp):
+    """The eval CLI on the card at 1024 worlds: --record and --event-log
+    over LOG_STEPS steps, --bc-dump-dir over CLI_BC_STEPS; each dump's
+    host ms and bytes per step (mgr.dump_stats) and its files' sizes."""
+    from madrona_mp_env_tpu_torch.train import infer
+
+    npz = os.path.join(tmp, "policy.npz")
+    # the normalizer's stats are per observation key: 4 worlds give them
+    seeded_policy_npz(mt, npz, 4)
+    base = ["--num-worlds", str(NUM_WORLDS), "--ckpt-path", npz]
+    runs = (
+        ["--num-steps", str(LOG_STEPS), "--record",
+         os.path.join(tmp, "cli_record.bin"), "--event-log",
+         os.path.join(tmp, "cli_events")],
+        ["--num-steps", str(CLI_BC_STEPS), "--bc-dump-dir",
+         os.path.join(tmp, "cli_bc")],
+    )
+    for extra in runs:
+        t0 = time.perf_counter()
+        mgr, elo = infer.main(base + extra)
+        wall = time.perf_counter() - t0
+        stats = mgr.dump_stats
+        # the eval runs whole chunks (chunk_steps), as the JAX eval does
+        ecfg = mgr.ecfg
+        steps = -(-ecfg.num_eval_steps // ecfg.chunk_steps) * ecfg.chunk_steps
+        if not stats or any(s["steps"] != steps for s in stats.values()):
+            raise AssertionError(f"eval CLI {extra}: dumps {stats}")
+        if not np.isfinite(elo.cpu().numpy()).all():
+            raise AssertionError("eval CLI: non-finite ELO")
+        dumps = " ".join(extra[2::2])
+        log(f"[eval CLI] {NUM_WORLDS} worlds, --num-steps "
+            f"{ecfg.num_eval_steps} ({steps} steps run: whole chunks of "
+            f"{ecfg.chunk_steps}), {dumps}: {wall:.1f} s "
+            "(the policies' load and the Env's included); "
+            + ", ".join(f"{n} {s['seconds'] * 1e3 / s['steps']:.2f} host ms "
+                        f"and {s['bytes'] / s['steps']:.0f} bytes per step"
+                        for n, s in stats.items()) + f" on {card}")
+        del mgr
+
+
+def curriculum_files(out_dir, tmp):
+    """build_db -> select_windows -> build_curriculum on the logging
+    path's event log: (the curriculum file, its snapshots), each tool's
+    host seconds logged."""
+    from madrona_mp_env_tpu_torch.data import build_db
+    from madrona_mp_env_tpu_torch.data.build_trajectory_curriculum import (
+        build_curriculum)
+    from madrona_mp_env_tpu_torch.data.select_trajectories import (
+        select_windows)
+    from madrona_mp_env_tpu_torch.data.trajectory_db import write_dump_items
+
+    db = os.path.join(tmp, "analytics.db")
+    t0 = time.perf_counter()
+    n_matches, n_steps = build_db.build_db(os.path.join(out_dir, "events"),
+                                           db)
+    t1 = time.perf_counter()
+    sid, tid = select_windows(db, 0, CURR_WINDOW, CURR_MAX_WINDOWS)
+    dump = os.path.join(tmp, "trajectories.bin")
+    write_dump_items(dump, sid, tid)
+    t2 = time.perf_counter()
+    curr = os.path.join(tmp, "curriculum.bin")
+    n = build_curriculum(db, dump, curr, CURR_WINDOW, CURR_SUBSAMPLE)
+    t3 = time.perf_counter()
+    if not n:
+        raise AssertionError("the curriculum has no snapshot")
+    log(f"[curriculum file] build_db {n_matches} matches, {n_steps} steps "
+        f"in {t1 - t0:.2f} s; select_windows {len(sid) // CURR_WINDOW} "
+        f"windows of {CURR_WINDOW} in {t2 - t1:.2f} s; "
+        f"build_curriculum {n} snapshots in {t3 - t2:.2f} s (host)")
+    return curr, n
+
+
+def restore_phase(mt, cfg, curr, n_snap, plain_env, card):
+    """Env(curriculum_path, trajectory_curriculum_prob=CURR_PROB) at 1024
+    worlds: the share of worlds the reset restored (those whose players
+    left the plain reset's positions) within 4 sigma of CURR_PROB; reset +
+    LOG_STEPS steps with each 6v6 kernel held to its count, K5 included;
+    then the restored reset at 4 worlds (prob 1) cuda against cpu, exact."""
+    import torch
+
+    ccfg = dataclasses.replace(cfg, trajectory_curriculum_prob=CURR_PROB)
+    env = mt.Env(ccfg, SCENE, num_worlds=NUM_WORLDS, seed=5, device="cuda",
+                 curriculum_path=curr)
+    if env.map_data.num_curriculum_snapshots != n_snap:
+        raise AssertionError("the curriculum's snapshots did not load")
+    state, _ = env.reset()
+    plain, _ = plain_env.reset()
+    restored = (state.pos != plain.pos).any(-1).any(-1)
+    share = float(restored.float().mean())
+    sigma = (CURR_PROB * (1 - CURR_PROB) / NUM_WORLDS) ** 0.5
+    if abs(share - CURR_PROB) > 4 * sigma:
+        raise AssertionError(f"restored share {share} is not within 4 sigma "
+                             f"of {CURR_PROB}")
+    del state, plain
+    acts = bench_actions(NUM_WORLDS, cfg.num_agents, LOG_STEPS)
+    _, _, sps = drive_path(
+        "trajectory curriculum simple_map", env, acts, LOG_STEPS, [],
+        MODE_NOT_LAUNCHED + ("ray_fans_culled", "fan_cell_order"), card,
+        expect=mode_expect(1, 1, LOG_STEPS))
+    del env
+    leaves = {}
+    for dev in ("cuda", "cpu"):
+        e = mt.Env(dataclasses.replace(cfg, trajectory_curriculum_prob=1.0),
+                   SCENE, num_worlds=4, seed=5, device=dev,
+                   curriculum_path=curr)
+        st, _ = e.reset()
+        leaves[dev] = {k: getattr(st, k).cpu() for k in RESTORE_KEYS}
+    for k in RESTORE_KEYS:
+        g, w = leaves["cuda"][k], leaves["cpu"][k]
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError(f"restored reset {k} differs cuda vs cpu")
+    log(f"[curriculum] {n_snap} snapshots, trajectory_curriculum_prob "
+        f"{CURR_PROB}: {share:.4f} of {NUM_WORLDS} worlds restored at the "
+        f"reset (4 sigma {4 * sigma:.4f}); {sps:.1f} env-steps/s over "
+        f"{LOG_STEPS} steps on {card}; the restored reset at 4 worlds "
+        "bit-equal cuda vs cpu")
+
+
+def record_phase(mt, cfg, card):
+    """Phase 13 on each map: the logging step (reset + LOG_STEPS steps,
+    every counter zeroed before and read after; K1, K3, K4 culled, 3 K4'
+    a step and K2 or K6 with its cell order, K5 never) against the same
+    steps without logging (env-steps/s, CUDA launches per step); the
+    replay of its record (K2 and K3 once a replayed step, K3 and the
+    step's fan route at the reset, no other kernel; K2 and K3 on the
+    replay's launches held to their plain versions; the match-state
+    stream equal to the recorded one); then the
+    4-world logging rollout and replay cuda against cpu. Then the eval
+    CLI's dumps, the curriculum file from the simple_map event log, and
+    the trajectory-curriculum restore. Returns the new kernel rows."""
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    rows = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_record_")
+    try:
+        plain_simple = None
+        for scene in (SCENE, TOWN):
+            town = scene == TOWN
+            name = os.path.basename(scene)
+            out_dir = os.path.join(tmp, name)
+            os.makedirs(out_dir)
+            env = mt.Env(cfg, scene, num_worlds=NUM_WORLDS, seed=5,
+                         device="cuda", collect_log=True)
+            plain = mt.Env(cfg, scene, num_worlds=NUM_WORLDS, seed=5,
+                           device="cuda", map_data=env.map_data)
+            acts = bench_actions(NUM_WORLDS, cfg.num_agents, LOG_STEPS)
+            fan = ("ray_fans_vs_tris",) if town else ("ray_fans_culled",
+                                                      "fan_cell_order")
+            log_sps, _ = logging_path(
+                f"logging {name}", env, acts, LOG_STEPS, out_dir, card,
+                mode_expect(1, 0, LOG_STEPS, town=town),
+                MODE_NOT_LAUNCHED + fan)
+            state, _, plain_sps = drive_path(
+                f"not logging {name}", plain, acts, LOG_STEPS, [],
+                MODE_NOT_LAUNCHED + fan, card,
+                expect=mode_expect(1, 1, LOG_STEPS, town=town))
+            a0 = actions_at(env, acts, 0)
+            per_log = launches_per_step(env, state, a0)
+            per_plain = launches_per_step(plain, state, a0)
+
+            # the replay: K2 and K3 on its launches against their plain
+            # versions, then the path
+            ph = KernelPhase(env.map_data.tris, f"{name} replay")
+            from madrona_mp_env_tpu_torch.data import ReplayLogReader
+
+            logs = ReplayLogReader(os.path.join(out_dir, "record.bin"),
+                                   NUM_WORLDS).tensors(env.device)
+            st, _ = env.reset()
+            log0 = {k: v[0] for k, v in logs.items()}
+            calls = capture_step_calls(env, st, log0,
+                                       ("ray_fans_vs_tris", "fan_capsules"),
+                                       step=env.replay_step)
+            mine = [k2_row(ph, calls), k3_row(ph, calls)]
+            del st, calls, logs
+            # the reset's observations take the step's route (K6 and its
+            # cell order on town_map); every replayed step K2
+            n = LOG_STEPS
+            state, log_t, rep_sps = replay_path(
+                f"replay {name}", env, out_dir, card,
+                {"ray_fans_vs_tris": n + (not town), "fan_capsules": n + 1,
+                 "ray_vs_tris": 0, "sphere_cast_culled": 0,
+                 "sphere_cast_packed": 0, "tail_fused": 0,
+                 "ray_fans_culled": int(town), "fan_cell_order": int(town)},
+                MODE_NOT_LAUNCHED, mine)
+            per_rep = launches_per_step(env, state, log_t,
+                                        step=env.replay_step)
+            rows += mine
+            log(f"[record] {name}: {NUM_WORLDS} worlds, CUDA launches per "
+                f"step (torch.profiler, {MODE_PROFILE_STEPS} steps) "
+                f"{per_log:.1f} logging, {per_plain:.1f} not logging, "
+                f"{per_rep:.1f} replaying; env-steps/s {log_sps:.1f} logging "
+                f"(writers included), {plain_sps:.1f} not, {rep_sps:.1f} "
+                f"replaying, on {card}; "
+                f"{time.perf_counter() - t_start:.1f} s into the phase")
+            del env, state, log_t
+            if town:
+                del plain
+            else:
+                plain_simple = plain
+        t_paths = time.perf_counter()
+        for scene in (SCENE, TOWN):
+            log_parity(mt, cfg, scene)
+        t_parity = time.perf_counter()
+        eval_cli_dumps(mt, card, tmp)
+        t_cli = time.perf_counter()
+        curr, n_snap = curriculum_files(os.path.join(tmp, "simple_map"), tmp)
+        restore_phase(mt, cfg, curr, n_snap, plain_simple, card)
+        del plain_simple
+        t_end = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[record] phase {t_end - t_start:.1f} s: logging and replay paths "
+        f"{t_paths - t_start:.1f}, parity {t_parity - t_paths:.1f}, eval "
+        f"CLI {t_cli - t_parity:.1f}, curriculum {t_end - t_cli:.1f}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3990,7 +4528,12 @@ def main() -> int:
     kernels += curriculum_phase(mt, card)
     mark(12)
 
-    # 13. results
+    # 13. the logging step, replay, the eval's dumps, the trajectory
+    # curriculum
+    kernels += record_phase(mt, cfg, card)
+    mark(13)
+
+    # 14. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

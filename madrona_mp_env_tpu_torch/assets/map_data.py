@@ -5,12 +5,13 @@ src/mgr.cpp:1213-1913) that this port's step reads: collision soup, the
 PVS cell tables of big maps, the sensor-ray tables where the map has
 them, the short-range culling tables (two margins), navmesh spawn
 tables, the spawn curriculum's region pairs, spawn boxes, zones, weapon
-stats and goal regions. Tensors live
-on the Env's device.
+stats, goal regions and the trajectory curriculum's snapshots. Tensors
+live on the Env's device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass, field
 from typing import Optional
@@ -96,6 +97,14 @@ class MapData:
     # On a map where some tier is empty the flag silently does nothing, as
     # in the JAX package (its load_map's has_sc)
     has_spawn_curriculum: bool
+    # the trajectory curriculum's snapshots (data/formats.py
+    # CURRICULUM_DTYPE; restored by sim/reset.py): match state [S, 5] i32
+    # (step, zone, controller, steps remaining, until point) and players
+    # [S, 12, 9] f32 (pos xyz, yaw, pitch, bullets, reloading, hp,
+    # flags); one zero entry and a count of 0 without a curriculum file
+    curriculum_match_state: torch.Tensor
+    curriculum_players: torch.Tensor
+    num_curriculum_snapshots: int
     # map_key of the scene and configuration it was loaded for
     key: tuple = field(default=(), repr=False)
 
@@ -218,20 +227,28 @@ def zone_frames(zmin: torch.Tensor, zmax: torch.Tensor,
     ], dim=-1).contiguous()
 
 
-def map_key(scene_dir: str, cfg: EnvConfig) -> tuple:
-    """What a loaded map depends on of its scene and configuration (the
-    cfg fields load_map reads): configurations of one key can share one
-    MapData."""
+def map_key(scene_dir: str, cfg: EnvConfig,
+            curriculum_snapshots: Optional[np.ndarray] = None) -> tuple:
+    """What a loaded map depends on of its scene, configuration (the cfg
+    fields load_map reads) and trajectory-curriculum snapshots (a digest
+    of their bytes): configurations of one key can share one MapData."""
+    snaps = None
+    if curriculum_snapshots is not None and len(curriculum_snapshots):
+        snaps = hashlib.sha256(
+            np.ascontiguousarray(curriculum_snapshots).tobytes()).hexdigest()
     return (os.path.realpath(scene_dir), cfg.effective_weapons,
             cfg.has_flag(SimFlags.SpawnInMiddle),
-            cfg.enable_spawn_curriculum)
+            cfg.enable_spawn_curriculum, snaps)
 
 
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
-             tri_pad: int = 128) -> MapData:
+             tri_pad: int = 128,
+             curriculum_snapshots: Optional[np.ndarray] = None) -> MapData:
     """Load a map directory (collisions.bin, navmesh.bin, spawns.bin,
     zones.bin, culling.npz and culling_ray.npz when present,
-    culling_short.npz and culling_short_mv.npz) onto ``device``."""
+    culling_short.npz and culling_short_mv.npz) onto ``device``, with the
+    trajectory curriculum's ``curriculum_snapshots`` (records of
+    data/formats.py CURRICULUM_DTYPE, load_curriculum_snapshots)."""
     col = formats.load_collision_data(
         os.path.join(scene_dir, "collisions.bin")
     )
@@ -304,6 +321,14 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
                      np.zeros((NUM_TIERS, 1), np.float32),
                      np.zeros((NUM_TIERS,), np.int32))
 
+    if curriculum_snapshots is not None and len(curriculum_snapshots):
+        cms = curriculum_snapshots["match_state"]
+        cpl = curriculum_snapshots["players"]
+    else:
+        cms = np.zeros((1, 5), np.int32)
+        cpl = np.zeros((1, 2 * consts.max_team_size, 9), np.float32)
+    n_snap = 0 if curriculum_snapshots is None else len(curriculum_snapshots)
+
     return MapData(
         tris=soup,
         world_min=dev(col.world_bounds_min),
@@ -348,5 +373,8 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
         curr_spawn_b_yaw=dev(sc_tables[3]),
         curr_spawn_counts=dev(sc_tables[4]),
         has_spawn_curriculum=bool((sc_tables[4] > 0).all()),
-        key=map_key(scene_dir, cfg),
+        curriculum_match_state=dev(cms, np.int32),
+        curriculum_players=dev(cpl, np.float32),
+        num_curriculum_snapshots=n_snap,
+        key=map_key(scene_dir, cfg, curriculum_snapshots),
     )

@@ -136,8 +136,8 @@ class EnvConfig:
     # 10 steps -> <= 4 live crumbs per agent typical; 6/agent is safe).
     breadcrumb_pool_per_agent: int = 6
     # trajectory curriculum restore probability at reset
-    # (level_gen.cpp:499); read only with a curriculum_path, which Env
-    # refuses until the data pipeline is ported (ROADMAP Queue 1 item 7)
+    # (level_gen.cpp:499); read only on a map with curriculum snapshots
+    # (Env's curriculum_path, sim/reset.py)
     trajectory_curriculum_prob: float = 0.5
     # the navmesh spawn curriculum (reference src/sim.cpp:5915-5924) and
     # its Manager::Config::enableSpawnCurriculum gate: with probability

@@ -60,13 +60,15 @@ from . import cuda_build
 MAX_AGENTS = 32  # csrc/tail_fused.cu kMaxAgents
 
 
-def use_tail_fused(cfg: EnvConfig) -> bool:
+def use_tail_fused(cfg: EnvConfig, collect_log: bool = False) -> bool:
     """The step's gate: the fused tail covers Task.Zone with
-    RewardMode.Default and no sub-zones (the JAX package's
-    tail_pallas.use_tail_fused without its TPU switch)."""
+    RewardMode.Default and no sub-zones, and not the logging step, which
+    reads the step log between the zone system and match info (the JAX
+    package's tail_pallas.use_tail_fused without its TPU switch)."""
     return (cfg.task == Task.Zone
             and cfg.reward_mode == RewardMode.Default
-            and not cfg.has_flag(SimFlags.SubZones))
+            and not cfg.has_flag(SimFlags.SubZones)
+            and not collect_log)
 
 
 def _check_scope(cfg: EnvConfig) -> None:

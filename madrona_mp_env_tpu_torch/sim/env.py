@@ -9,6 +9,14 @@ The state is a WorldState of [num_worlds, ...] tensors on ``env.device``;
 ``step`` runs the whole batch eagerly. ``device=None`` means the first
 CUDA device and raises when there is none; pass ``device="cpu"`` to run
 the plain PyTorch versions of the kernels on the CPU.
+
+Record and replay: ``Env(..., collect_log=True)`` makes every step return
+"step_log", "snapshot" and "game_events" (data/export.py; the writers of
+data/recorder.py pack them), and ``replay_step`` drives the worlds from a
+recorded step log (sim/replay.py). ``curriculum_path``: a
+CurriculumSnapshot file (data/build_trajectory_curriculum.py) whose
+snapshots a reset restores with probability
+EnvConfig.trajectory_curriculum_prob outside eval mode (sim/reset.py).
 """
 
 from __future__ import annotations
@@ -21,25 +29,16 @@ from .. import consts
 from ..config import EnvConfig, SimFlags
 from ..assets.map_data import MapData, load_map, map_key
 from ..utils import rng
+from . import replay as replay_mod
 from . import step as step_mod
 from .types import Actions, WorldState, init_world_state
 
-_DEFAULT_TRAJECTORY_PROB = EnvConfig.__dataclass_fields__[
-    "trajectory_curriculum_prob"].default
 
-
-def _check_config(cfg: EnvConfig, curriculum_path) -> None:
+def _check_config(cfg: EnvConfig) -> None:
     """Every flag and field of the JAX package's Env runs here
-    (StaticFlipTeams, as there, is read by no system) but the trajectory
-    curriculum restore, which needs the data pipeline; and the full-team
+    (StaticFlipTeams, as there, is read by no system); but the full-team
     interface needs two teams, which Explore's one agent is not (the JAX
     package's team reshape fails there)."""
-    if (curriculum_path is not None or cfg.trajectory_curriculum_prob
-            != _DEFAULT_TRAJECTORY_PROB):
-        raise NotImplementedError(
-            "the trajectory curriculum restore (curriculum_path, "
-            "trajectory_curriculum_prob) is not ported: ROADMAP Queue 1 "
-            "item 7")
     if cfg.has_flag(SimFlags.FullTeamPolicy) and cfg.num_agents != (
             2 * cfg.team_size):
         raise ValueError("SimFlags.FullTeamPolicy needs two full teams; "
@@ -73,26 +72,34 @@ def resolve_device(device=None) -> torch.device:
 
 class Env:
     """Batched multiplayer FPS environment (every Task, RewardMode and
-    SimFlag, the spawn curriculum; ``curriculum_path`` raises)."""
+    SimFlag, the spawn and trajectory curricula, record and replay)."""
 
     def __init__(self, cfg: EnvConfig, scene_dir: str, num_worlds: int,
                  seed: int = 5, device=None,
                  map_data: Optional[MapData] = None,
+                 collect_log: bool = False,
                  curriculum_path: Optional[str] = None):
         """``map_data``: a map that load_map loaded on ``device`` for a
-        configuration of the same map_key, shared instead of loading
-        ``scene_dir`` again; raises ValueError on another key or kind of
-        device."""
-        _check_config(cfg, curriculum_path)
+        configuration of the same map_key (the curriculum file's
+        snapshots included), shared instead of loading ``scene_dir``
+        again; raises ValueError on another key or kind of device."""
+        _check_config(cfg)
         self.cfg = cfg
         self.num_worlds = num_worlds
         self.device = resolve_device(device)
+        self.collect_log = collect_log
+        snaps = None
+        if curriculum_path is not None:
+            from ..data.formats import load_curriculum_snapshots
+
+            snaps = load_curriculum_snapshots(curriculum_path)
         if map_data is None:
-            map_data = load_map(scene_dir, cfg, device=self.device)
-        elif (map_data.key != map_key(scene_dir, cfg)
+            map_data = load_map(scene_dir, cfg, device=self.device,
+                                curriculum_snapshots=snaps)
+        elif (map_data.key != map_key(scene_dir, cfg, snaps)
               or map_data.world_min.device.type != self.device.type):
             raise ValueError("map_data was loaded for another scene, "
-                             "map configuration or device")
+                             "map configuration, curriculum or device")
         self.map_data = map_data
         _check_spawn_tables(self.map_data)
         self.init_key = rng.prng_key(seed, device=self.device)
@@ -102,9 +109,12 @@ class Env:
         return init_world_state(self.cfg, self.map_data.num_goal_regions,
                                 self.num_worlds, device=self.device)
 
-    def default_sim_ctrl(self) -> Tuple[int, ...]:
+    def default_sim_ctrl(self, eval_mode: bool = False) -> Tuple[int, ...]:
         """TrainControl [evalMode, randomizeEpisodeLength,
-        randomizeTeamSides] (reference mgr.cpp:1397-1413)."""
+        randomizeTeamSides] (reference mgr.cpp:1397-1413); in
+        ``eval_mode`` (1, 0, 0)."""
+        if eval_mode:
+            return (1, 0, 0)
         f = self.cfg.has_flag
         return (int(f(SimFlags.SimEvalMode)), int(f(SimFlags.StaggerStarts)),
                 int(f(SimFlags.RandomFlipTeams)))
@@ -125,8 +135,27 @@ class Env:
                                       device=self.device)
         return step_mod.step_batched(
             self.cfg, self.map_data, state, actions, self.init_key,
-            self._ctrl(sim_ctrl), force_reset,
+            self._ctrl(sim_ctrl), force_reset, collect_log=self.collect_log,
         )
+
+    def replay_step(self, state: WorldState, step_log,
+                    sim_ctrl: Optional[Sequence[int]] = None,
+                    force_reset: Optional[torch.Tensor] = None):
+        """Step every world from a recorded step log (tensors or numpy
+        arrays, [num_worlds, 12, ...] and cur_step [num_worlds]: one step
+        of data/recorder.py ReplayLogReader) instead of simulating it
+        (pvpReplaySystem, reference sim.cpp:4794-4843); ``sim_ctrl``
+        defaults to eval mode."""
+        if sim_ctrl is None:
+            sim_ctrl = self.default_sim_ctrl(eval_mode=True)
+        if force_reset is None:
+            force_reset = torch.zeros(self.num_worlds, dtype=torch.int32,
+                                      device=self.device)
+        log = {k: torch.as_tensor(v, device=self.device)
+               for k, v in step_log.items()}
+        return replay_mod.replay_step(
+            self.cfg, self.map_data, state, log, self.init_key,
+            self._ctrl(sim_ctrl), force_reset)
 
     def zero_actions(self) -> Actions:
         return Actions.zeros(self.num_worlds, self.cfg.num_agents,

@@ -167,10 +167,12 @@ def sensor_fan(cfg: EnvConfig, state: WorldState):
     return los, dirs, zg, zgroups
 
 
-def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState):
+def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState,
+                      culled: bool = True):
     """All sensor rays of every agent in two launches (world fan K2, K6,
     K9 or K7, capsule fan K3). Returns the LOS geometry and world/capsule
-    hits."""
+    hits. ``culled=False`` sweeps the whole soup (K2) where the route
+    would take the PVS cells (K6): the JAX replay passes no cells."""
     W, A = state.hp.shape
     los, dirs, zg, zgroups = sensor_fan(cfg, state)
     n_tgt = los["opp_idx"].shape[1]
@@ -181,6 +183,8 @@ def build_sensor_rays(cfg: EnvConfig, m: MapData, state: WorldState):
     flat_dirs = tuple(c.reshape(W * A, Fn) for c in dirs)
     # the fans start at state.pos, so its cell is the cell of record
     route = fan_route(zgroups, m)
+    if route == "culled" and not culled:
+        route = "dense"
     if route == "v9":
         # per-ray offsets, spread by a cached index: no host sync
         t = ray_fans_culled_v9(pos, _ray_zoffs(zgf, zgroups), flat_dirs,

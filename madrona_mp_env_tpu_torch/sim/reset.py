@@ -6,8 +6,10 @@ world and selected per world by the reset predicate. With
 SimFlags.EnableCurriculum a resetting world draws its world curriculum
 (LearnShooting or FullMatch) over its first 50 episodes; with
 EnvConfig.enable_spawn_curriculum (on a map whose every tier has region
-pairs) an episode draws its spawn tier and pair. The trajectory
-curriculum restore is not ported (ROADMAP Queue 1 item 7).
+pairs) an episode draws its spawn tier and pair. On a map with
+trajectory-curriculum snapshots (Env's curriculum_path) a fresh episode
+outside eval mode restores one with probability
+EnvConfig.trajectory_curriculum_prob (level_gen.cpp:498-581).
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 from .. import consts
 from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
+from ..ops import geom
 from ..utils import rng
 from .spawn import spawn_agents
-from .types import WorldCurriculum, WorldState
+from .types import Pose, WorldCurriculum, WorldState
 
 # the world curriculum's schedule covers a world's first episodes
 CURRICULUM_EPISODES = 50
@@ -136,7 +139,71 @@ def init_world(cfg: EnvConfig, m: MapData, state: WorldState,
         goal_team_rewards=full((2,), 0.0, f),
     )
     state = spawn_agents(cfg, m, state, k_spawn, is_respawn=False)
-    return state.replace(start_pos=state.pos)
+    state = state.replace(start_pos=state.pos)
+    if m.num_curriculum_snapshots > 0:
+        state = _maybe_restore_snapshot(cfg, m, state, k_curr, sim_ctrl)
+    return state
+
+
+def _maybe_restore_snapshot(cfg: EnvConfig, m: MapData, state: WorldState,
+                            k_curr: torch.Tensor, sim_ctrl) -> WorldState:
+    """The trajectory-curriculum restore (level_gen.cpp:498-581), masked
+    per world: a world outside eval mode whose draw from ``k_curr`` [W,
+    2] (split into k_p and k_idx) falls below
+    cfg.trajectory_curriculum_prob takes snapshot randint(k_idx, 0, S):
+    its players (team halves swapped when team_a is 1), aim through
+    compute_aim, pose from the flag bits, the match step, and the zone
+    state where the snapshot's zone is held."""
+    W, A = state.hp.shape
+    dev = state.hp.device
+    k_p, k_idx = rng.split(k_curr, 2).unbind(-2)
+    do = rng.uniform(k_p) < cfg.trajectory_curriculum_prob
+    if sim_ctrl[0]:
+        do = torch.zeros_like(do)
+    idx = rng.randint(k_idx, (), 0, m.num_curriculum_snapshots).long()
+    ms = m.curriculum_match_state[idx]  # [W, 5]
+    players = m.curriculum_players[idx]  # [W, 12, 9]
+    controller = ms[:, 2]
+    captured = controller != -1
+
+    # players[i] goes to agent perm[i] (level_gen.cpp:527-539)
+    agent = torch.arange(A, device=dev)
+    swapped = torch.where(agent < A // 2, agent + A // 2, agent - A // 2)
+    perm = torch.where(state.team_a[:, None] == 0, agent, swapped)
+    src = torch.argsort(perm, dim=-1)
+    p = torch.gather(players, 1, src[..., None].expand(-1, -1, 9))
+    yaw, pitch = geom.compute_aim(p[..., 3], p[..., 4])
+    flags = p[..., 8].to(torch.int32)
+    pose = torch.where((flags & 8) != 0, Pose.Prone,
+                       torch.where((flags & 4) != 0, Pose.Crouch,
+                                   Pose.Stand)).to(torch.int32)
+
+    def w(new, old):
+        cond = do.reshape((W,) + (1,) * (old.dim() - 1))
+        return torch.where(cond, new.to(old.dtype), old)
+
+    return state.replace(
+        zone_cur=w(ms[:, 1], state.zone_cur),
+        zone_controlling=w(torch.where(captured, controller, -1),
+                           state.zone_controlling),
+        zone_captured=w(captured, state.zone_captured),
+        zone_steps_until_point=w(
+            torch.where(captured, ms[:, 4], state.zone_steps_until_point),
+            state.zone_steps_until_point),
+        zone_steps_remaining=w(
+            torch.where(captured, ms[:, 3], state.zone_steps_remaining),
+            state.zone_steps_remaining),
+        cur_step=w(ms[:, 0], state.cur_step),
+        pos=w(p[..., 0:3], state.pos),
+        yaw=w(yaw, state.yaw),
+        pitch=w(pitch, state.pitch),
+        hp=w(p[..., 7], state.hp),
+        mag_bullets=w(p[..., 5].to(torch.int32), state.mag_bullets),
+        mag_reloading=w(p[..., 6].to(torch.int32), state.mag_reloading),
+        stand_cur=w(pose, state.stand_cur),
+        stand_tgt=w(pose, state.stand_tgt),
+        stand_transition=w(torch.zeros_like(pose), state.stand_transition),
+    )
 
 
 def reset_system(cfg: EnvConfig, m: MapData, state: WorldState,

@@ -12,22 +12,26 @@ For Task.Zone with RewardMode.Default and no sub-zones, autoheal, zone,
 match info, rewards and done are one fused pass (ops/tail_fused.py, K5)
 after breadcrumbs, filters, goal regions and explore, as in the JAX
 package's step; the other tasks, Flank and SubZones take the unfused
-chain (unfused_tail). The Turret task's auto-aim overlay drives the
-turret rows before the movement, and EnvConfig.highlevel_move replaces
-the fire system by hl_battle. The reset runs only on steps where some
+chain (unfused_tail), and so does the logging step (``collect_log``),
+which exports the step log between the zone system and match info and
+the packed snapshot and game events after done (data/export.py), before
+the reset wipes a finished world. The Turret task's auto-aim overlay
+drives the turret rows before the movement, and EnvConfig.highlevel_move
+replaces the fire system by hl_battle. The reset runs only on steps where some
 world resets, as a masked update of those worlds, and the scripted bot's
 planner only on steps where some agent is a bot (policy idx -1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import consts
 from ..config import EnvConfig, SimFlags, Task
 from ..assets.map_data import MapData
+from ..data import export
 from ..ops.tail_fused import tail_fused, use_tail_fused
 from ..utils import rng
 from . import bot, breadcrumbs, combat, explore, hl_battle, movement
@@ -54,15 +58,19 @@ def fused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
 
 
 def unfused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
-                 force_reset: torch.Tensor):
+                 force_reset: torch.Tensor, log: Optional[Dict] = None):
     """The reference's system order, one system at a time (every task;
     equal to fused_tail bit for bit where that runs). Returns (state,
-    new_captured)."""
+    new_captured). ``log``, a dict, receives the step log under
+    "step_log", taken where pvpRecordSystem runs: after the zone systems,
+    before breadcrumbs and the match info's step increment."""
     state = combat.autoheal_system(cfg, state)
     if cfg.task in (Task.Zone, Task.ZoneCaptureDefend):
         state = zones.zone_system(cfg, m, state)
     if cfg.has_flag(SimFlags.SubZones):
         state = subzones.subzone_system(cfg, m, state)
+    if log is not None:
+        log["step_log"] = export.step_log_export(cfg, state)
     state = breadcrumbs.breadcrumb_system(cfg, state)
     finish = force_reset != 0
     if cfg.task in (Task.Zone, Task.ZoneCaptureDefend):
@@ -86,9 +94,11 @@ def unfused_tail(cfg: EnvConfig, m: MapData, state: WorldState, shot_victim,
 
 
 def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
-                    actions: Actions, force_reset: torch.Tensor
-                    ) -> Tuple[WorldState, Dict]:
-    """Everything before the reset and the observation tail."""
+                    actions: Actions, force_reset: torch.Tensor,
+                    collect_log: bool = False) -> Tuple[WorldState, Dict]:
+    """Everything before the reset and the observation tail; with
+    ``collect_log`` the outputs add "step_log", "snapshot" and
+    "game_events"."""
     stepk = rng.step_key(state.episode_key, state.cur_step)
 
     # the turret rows' auto-aim (turretFireSystem, sim.cpp:1617-1792)
@@ -109,9 +119,15 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
         state = spawn_agents(cfg, m, state,
                              rng.system_key(stepk, rng.Salt.SPAWN),
                              is_respawn=True)
-    tail = fused_tail if use_tail_fused(cfg) else unfused_tail
-    state, new_captured = tail(cfg, m, state, fire_events["shot_victim"],
-                               force_reset)
+    record = {} if collect_log else None
+    if use_tail_fused(cfg, collect_log):
+        state, new_captured = fused_tail(cfg, m, state,
+                                         fire_events["shot_victim"],
+                                         force_reset)
+    else:
+        state, new_captured = unfused_tail(cfg, m, state,
+                                           fire_events["shot_victim"],
+                                           force_reset, log=record)
     outputs = {
         "reward": state.reward,
         "done": state.done,
@@ -125,19 +141,28 @@ def step_world_core(cfg: EnvConfig, m: MapData, state: WorldState,
         "events": {**fire_events, "capture_event": new_captured,
                    "cur_step": state.cur_step},
     }
+    if collect_log:
+        # after match info, rewards and done (cur_step post-increment)
+        ev = export.event_export(cfg, state, fire_events, new_captured)
+        record["snapshot"] = export.packed_snapshot_export(
+            cfg, state, ev["num_events"], ev["event_mask"])
+        record["game_events"] = ev
+        outputs.update(record)
     return state, outputs
 
 
 def step_batched(cfg: EnvConfig, m: MapData, state: WorldState,
                  actions: Actions, init_key: torch.Tensor, sim_ctrl,
-                 force_reset: torch.Tensor) -> Tuple[WorldState, Dict]:
+                 force_reset: torch.Tensor, collect_log: bool = False
+                 ) -> Tuple[WorldState, Dict]:
     """All worlds: [bot overlay] -> core -> reset (only if some world
     resets) -> observation tail. The overlay (the JAX step's lax.cond)
     runs when some agent of some world is a bot; that check is the step's
     one read to the host before the reset's."""
     if bool((state.policy_idx == consts.a_star_policy_id).any()):
         actions = bot.bot_overlay(cfg, m, state, actions)
-    state, outputs = step_world_core(cfg, m, state, actions, force_reset)
+    state, outputs = step_world_core(cfg, m, state, actions, force_reset,
+                                     collect_log)
     should = force_reset != 0
     if cfg.auto_reset:
         should = should | state.is_finished

@@ -26,14 +26,24 @@ per step. ``EvalConfig.policy_dtype`` (``--bf16`` / ``--fp16``) is the
 policies' compute dtype: each ActorCriticNet must be built with it
 (build_actor_critic / load_policy_npz ``dtype``). ``--game-mode`` takes
 every Task (ZoneCaptureDefend with its hardcoded spawns, as the JAX CLI).
-Not ported yet: the record, event-log and behaviour-cloning dumps
-(ROADMAP M14).
+
+Dumps, as the JAX package's run writes them: ``record_path`` the step
+logs (data/recorder.py RecordLogWriter) and ``event_log_dir`` the packed
+snapshots and game events (EventLogWriter), both of an
+Env(collect_log=True) (the CLI's ``--record`` / ``--event-log`` build
+one); ``bc_dump_dir`` the behaviour-cloning data: one raw file per
+normalized observation key, ``actions``, ``action_logits``, ``rewards``
+and ``rnn_states`` (the recurrent state the step's forward started
+from), each appended per step in policy-block order, and the ``shapes``
+JSON. Each chunk crosses to the host once per output group.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -42,6 +52,7 @@ import torch
 
 from .. import consts
 from ..config import EnvConfig, SimFlags, Task
+from ..data.recorder import EventLogWriter, RecordLogWriter, host_arrays
 from ..sim.env import Env, resolve_device
 from ..sim.types import Actions
 from ..utils import rng
@@ -173,13 +184,20 @@ class EvalManager:
             out[k] = v.reshape(v.shape[:-3] + (-1,))
         return out
 
-    def forward(self, policies: Sequence[ActorCriticNet],
-                normalizer: EMANormalizerState, obs, rnn):
-        """Normalize, then each policy on its block: (dists with [P, B / P,
-        S] logits, values [P, B / P], new rnn [2, 2, P, B / P, H])."""
+    def normalized(self, normalizer: EMANormalizerState, obs):
+        """The policies' inputs: the observations in blocks [P, B / P,
+        ...], normalized, in the policy dtype."""
         blocks = {k: self.to_blocks(v)
                   for k, v in self._policy_obs(obs).items()}
-        norm_obs = normalize_obs(normalizer, blocks, self.ecfg.policy_dtype)
+        return normalize_obs(normalizer, blocks, self.ecfg.policy_dtype)
+
+    def forward(self, policies: Sequence[ActorCriticNet],
+                normalizer: EMANormalizerState, obs, rnn, norm_obs=None):
+        """Normalize (unless ``norm_obs`` is given), then each policy on
+        its block: (dists with [P, B / P, S] logits, values [P, B / P],
+        new rnn [2, 2, P, B / P, H])."""
+        if norm_obs is None:
+            norm_obs = self.normalized(normalizer, obs)
         outs = [net(rnn[:, :, p], {k: v[p] for k, v in norm_obs.items()})
                 for p, net in enumerate(policies)]
         dists = ActorDistributions(
@@ -193,9 +211,14 @@ class EvalManager:
         return dists, values, torch.stack([o[2] for o in outs], dim=2)
 
     def step(self, policies, normalizer, env_state, obs, rnn, elo,
-             step_key):
-        """One eval step: (env_state, obs, rnn, elo, step outputs)."""
-        dists, values, rnn2 = self.forward(policies, normalizer, obs, rnn)
+             step_key, bc: bool = False):
+        """One eval step: (env_state, obs, rnn, elo, step outputs). The
+        outputs carry the env's step log, snapshot and game events when
+        it logs, and with ``bc`` the normalized observations and the
+        recurrent state the forward started from."""
+        norm_obs = self.normalized(normalizer, obs)
+        dists, values, rnn2 = self.forward(policies, normalizer, obs, rnn,
+                                           norm_obs)
         if self.ecfg.use_deterministic_policy:
             actions = dists.best()
         else:
@@ -229,15 +252,21 @@ class EvalManager:
             "rewards": self.to_blocks(out["reward"]), "dones": done_b,
             "logits": logits, "episode_result": res,
         }
+        for k in ("step_log", "snapshot", "game_events"):
+            if k in out:
+                step_out[k] = out[k]
+        if bc:
+            step_out["obs"] = norm_obs
+            step_out["rnn_states_pre"] = rnn
         return env_state, out["obs"], rnn2, elo, step_out
 
     def rollout_chunk(self, policies, normalizer, env_state, obs, rnn, elo,
-                      keys):
+                      keys, bc: bool = False):
         """len(keys) steps; the outputs stacked on a leading step axis."""
         outs = []
         for t in range(keys.shape[0]):
             env_state, obs, rnn, elo, o = self.step(
-                policies, normalizer, env_state, obs, rnn, elo, keys[t])
+                policies, normalizer, env_state, obs, rnn, elo, keys[t], bc)
             outs.append(o)
         return (env_state, obs, rnn, elo), _stack(outs)
 
@@ -252,10 +281,13 @@ class EvalManager:
         """The eval rollout; returns the final per-policy ELO [P] (with
         ``vs_bot`` the given one, and the counts in ``self.vs_bot_wdl``).
         ``iter_cb`` gets each chunk's stacked outputs (tensors on the
-        eval's device)."""
-        if record_path or event_log_dir or bc_dump_dir:
-            raise NotImplementedError(
-                "record, event-log and BC dumps are not ported yet")
+        eval's device). ``record_path``, ``event_log_dir`` and
+        ``bc_dump_dir`` write the dumps (the module's docstring); the
+        writers' host seconds, bytes and steps are kept in
+        ``self.dump_stats``."""
+        if (record_path or event_log_dir) and not self.env.collect_log:
+            raise ValueError("record_path and event_log_dir need an "
+                             "Env(collect_log=True)")
         if len(policies) != self.P:
             raise ValueError(f"{len(policies)} policies for P = {self.P}")
         ecfg = self.ecfg
@@ -270,9 +302,20 @@ class EvalManager:
         total_swaps = np.zeros((consts.max_zones,), np.int64)
         wdl = np.zeros((self.P, 3), np.int64)
         world_policy = self.assignment[:, 0].cpu().numpy()
+        recorder = RecordLogWriter(record_path) if record_path else None
+        events = EventLogWriter(event_log_dir) if event_log_dir else None
+        bc = BCDumpWriter(bc_dump_dir) if bc_dump_dir else None
+        writers = {"record": recorder, "event_log": events, "bc": bc}
         for ci in range(num_chunks):
             (env_state, obs, rnn, elo), outs = self.rollout_chunk(
-                policies, normalizer, env_state, obs, rnn, elo, keys[ci])
+                policies, normalizer, env_state, obs, rnn, elo, keys[ci],
+                bc=bc is not None)
+            if recorder is not None:
+                recorder.append_chunk(outs["step_log"])
+            if events is not None:
+                events.append_chunk(outs["snapshot"], outs["game_events"])
+            if bc is not None:
+                bc.append_chunk(outs)
             # zone-swap accounting at episode ends
             res = outs["episode_result"]
             swaps = torch.where(res["match_finished"][..., None, None],
@@ -285,6 +328,17 @@ class EvalManager:
                              res["match_finished"].cpu(), world_policy)
             if iter_cb is not None:
                 iter_cb(outs)
+        self.dump_stats = {}
+        for name, w in writers.items():
+            if w is not None:
+                w.close()
+                self.dump_stats[name] = {"seconds": w.seconds,
+                                         "bytes": w.bytes_written,
+                                         "steps": w.steps}
+                if verbose:
+                    n = max(w.steps, 1)
+                    print(f"{name} dump: {w.seconds * 1e3 / n:.3f} host ms "
+                          f"and {w.bytes_written / n:.0f} bytes per step")
         if self.vs_bot:
             self.vs_bot_wdl = wdl
             if verbose:
@@ -294,6 +348,54 @@ class EvalManager:
                     print(f"policy {p} vs bot: {w}W/{d}D/{l}L win-rate "
                           f"{w / n:.1%} over {w + d + l} matches")
         return elo
+
+
+class BCDumpWriter:
+    """The behaviour-cloning dump (dump_for_bc_cb, jax_infer.py:175-191;
+    the JAX package's EvalManager._dump_bc): one raw file per observation
+    key of the policies' normalized inputs, ``actions`` (discrete then aim
+    heads, int32), ``action_logits``, ``rewards`` and ``rnn_states``, each
+    step appended in policy-block order, and the ``shapes`` JSON that
+    filter_bc_train reads (filter_bc_train.py:92-96) with one step's
+    shape of each. A chunk's outputs ([T, ...]) cross to the host in one
+    copy; bfloat16 is written as its raw bits."""
+
+    def __init__(self, dump_dir: str):
+        os.makedirs(dump_dir, exist_ok=True)
+        self.dir = dump_dir
+        self.files = {}
+        self.seconds = 0.0
+        self.bytes_written = 0
+        self.steps = 0
+
+    def append_chunk(self, outs) -> None:
+        t0 = time.perf_counter()
+        acts = torch.cat([outs["actions"]["discrete"],
+                          outs["actions"]["aim"]], dim=-1).to(torch.int32)
+        group = {**{k: outs["obs"][k] for k in sorted(outs["obs"])},
+                 "actions": acts, "action_logits": outs["logits"],
+                 "rewards": outs["rewards"],
+                 "rnn_states": outs["rnn_states_pre"]}
+        host = host_arrays(group)
+        if not self.files:
+            meta = {"obs": {k: list(host[k].shape[1:])
+                            for k in sorted(outs["obs"])}}
+            meta.update({k: list(host[k].shape[1:]) for k in
+                         ("actions", "action_logits", "rewards",
+                          "rnn_states")})
+            with open(os.path.join(self.dir, "shapes"), "w") as f:
+                json.dump(meta, f)
+            self.files = {k: open(os.path.join(self.dir, k), "wb")
+                          for k in host}
+        for k, v in host.items():
+            v.tofile(self.files[k])
+            self.bytes_written += v.nbytes
+        self.steps += acts.shape[0]
+        self.seconds += time.perf_counter() - t0
+
+    def close(self) -> None:
+        for f in self.files.values():
+            f.close()
 
 
 def _stack(steps):
@@ -334,10 +436,6 @@ def main(argv=None):
     the ELO before and after (and the win rates vs the bot). Returns
     (the EvalManager, the final ELO)."""
     args = parse_args(argv)
-    if args.record or args.event_log or args.bc_dump_dir:
-        raise NotImplementedError(
-            "not supported by the PyTorch port yet: --record / --event-log "
-            "/ --bc-dump-dir (dumps)")
     device = resolve_device("cpu" if args.cpu else None)
     dtype = (torch.float16 if args.fp16 else
              torch.bfloat16 if args.bf16 else torch.float32)
@@ -355,13 +453,16 @@ def main(argv=None):
     cfg = EnvConfig(task=game_mode, sim_flags=sim_flags,
                     team_size=args.team_size)
     scene = args.scene or os.path.join(REPO, "data", "simple_map")
-    env = Env(cfg, scene, num_worlds=args.num_worlds, seed=10, device=device)
+    collect = args.record is not None or args.event_log is not None
+    env = Env(cfg, scene, num_worlds=args.num_worlds, seed=10, device=device,
+              collect_log=collect)
     ecfg = EvalConfig(num_worlds=args.num_worlds,
                       num_eval_steps=args.num_steps, policy_dtype=dtype)
     mgr = EvalManager(cfg, ecfg, env, len(policies), vs_bot=args.vs_bot,
                       device=device)
     print_elos(elo.cpu())
-    elo = mgr.run(policies, normalizer, elo)
+    elo = mgr.run(policies, normalizer, elo, record_path=args.record,
+                  event_log_dir=args.event_log, bc_dump_dir=args.bc_dump_dir)
     print_elos(elo.cpu())
     return mgr, elo
 

@@ -31,6 +31,9 @@ def _imported_roots(path):
             yield node.module or ""
 
 
+DATA_MODULES = ("__init__", "build_db", "build_trajectory_curriculum",
+                "export", "formats", "recorder", "select_trajectories",
+                "trajectory_db")
 TRAIN_MODULES = ("__init__", "convert", "distributions", "elo",
                  "full_team_policy", "infer", "metrics", "models",
                  "normalizer", "pbt", "policy", "ppo", "train", "trainer")
@@ -47,6 +50,10 @@ def test_port_imports_no_jax():
                   "v9_scan_timing", "sc_mxu_probe"):
         assert os.path.join(PKG, "tools", "probes", f"{probe}.py") in files
     assert os.path.join(PKG, "sim", "bot.py") in files
+    assert os.path.join(PKG, "sim", "replay.py") in files
+    data = {os.path.relpath(p, PKG) for p in files
+            if os.sep + "data" + os.sep in p}
+    assert data == {f"data/{m}.py" for m in DATA_MODULES}
     for tool in ("fan_probe", "vpu_probe", "golden"):
         assert os.path.join(PKG, "tools", f"{tool}.py") in files
     for path in files:
@@ -76,27 +83,25 @@ def test_kernel_entries_refuse_other_devices():
 
 
 def test_unported_config_raises(simple_map_dir):
-    """FullTeamPolicy, EnableCurriculum, StaticFlipTeams and the spawn
-    curriculum construct and step on the CPU; the trajectory curriculum
-    restore (curriculum_path, trajectory_curriculum_prob) still raises,
-    naming the ROADMAP item that ports it."""
-    for cfg in (
-        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.FullTeamPolicy),
-        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.EnableCurriculum),
-        mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.StaticFlipTeams),
-        mt.EnvConfig(team_size=2, enable_spawn_curriculum=True),
+    """FullTeamPolicy, EnableCurriculum, StaticFlipTeams, the spawn
+    curriculum, a non-default trajectory_curriculum_prob and the logging
+    step construct and step on the CPU (the curriculum file's restore:
+    tests/test_torch_data.py); the full-team interface without two teams
+    raises."""
+    for cfg, kw in (
+        (mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.FullTeamPolicy), {}),
+        (mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.EnableCurriculum),
+         {}),
+        (mt.EnvConfig(team_size=2, sim_flags=mt.SimFlags.StaticFlipTeams),
+         {}),
+        (mt.EnvConfig(team_size=2, enable_spawn_curriculum=True), {}),
+        (mt.EnvConfig(team_size=2, trajectory_curriculum_prob=1.0),
+         dict(collect_log=True)),
     ):
-        env = mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu")
+        env = mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu", **kw)
         state, _ = env.reset()
         _, out = env.step(state, env.zero_actions())
         assert bool(torch.isfinite(out["reward"]).all())
-    cfg = mt.EnvConfig(team_size=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mt.Env(cfg, simple_map_dir, num_worlds=1, device="cpu",
-               curriculum_path="curriculum.bin")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mt.Env(mt.EnvConfig(team_size=2, trajectory_curriculum_prob=1.0),
-               simple_map_dir, num_worlds=1, device="cpu")
     with pytest.raises(ValueError, match="two full teams"):
         mt.Env(mt.EnvConfig(task=mt.Task.Explore,
                             sim_flags=mt.SimFlags.FullTeamPolicy),

@@ -210,16 +210,10 @@ class _Recording(EvalManager):
         return super().run(*args, iter_cb=self.chunks.append, **kw)
 
 
-def _env_with_seed(env_seed, cfg, scene, num_worlds, seed, device):
-    return mt.Env(cfg, scene, num_worlds, seed=env_seed, device=device)
-
-
-@pytest.mark.parametrize("flag", [["--record", "x"],
-                                  ["--bc-dump-dir", "x"]])
-def test_eval_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError):
-        infer.main(["--cpu", "--num-worlds", "2", "--ckpt-path", "x.npz"]
-                   + flag)
+def _env_with_seed(env_seed, cfg, scene, num_worlds, seed, device,
+                   collect_log=False):
+    return mt.Env(cfg, scene, num_worlds, seed=env_seed, device=device,
+                  collect_log=collect_log)
 
 
 @pytest.mark.parametrize("flag", ["--bf16", "--fp16"])
@@ -257,9 +251,9 @@ def test_eval_cli_runs_low_precision(flag, simple_map_dir, tmp_path,
 
 
 def test_eval_refuses_what_is_not_ported(simple_map_dir, monkeypatch):
+    """The eval runs on the card unless asked for the CPU (the dumps are
+    ported: tests/test_torch_record.py)."""
     mgr = _manager(simple_map_dir)
-    with pytest.raises(NotImplementedError, match="dumps"):
-        mgr.run([], None, torch.zeros(2), record_path="x")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         EvalManager(_cfg(), mgr.ecfg, mgr.env, 2)
