@@ -149,7 +149,7 @@ Phases, each of which fails the run loudly:
    worlds of team size 6 on simple_map: K1 at each new shape (the
    turret's and hl_battle's LOS, W x A x ts rays; Flank's LOS refresh,
    W x A x 8 ts) and, on Flank, K2 and K3 on the 48-ray LOS run, each
-   bit-equal to its plain version with its time and bound; reset + 30
+   bit-equal to its plain version with its time and bound; reset + 20
    steps (the configurations with the same map inputs sharing one loaded
    map) with every counter zeroed before and read after, each kernel
    held to its count (K1 once a step, twice with a turret or a Flank
@@ -185,7 +185,7 @@ Phases, each of which fails the run loudly:
    observations within 1e-3) and the full-team network's outputs cuda
    against cpu within FT_NET_BAR;
 13. record and replay (record_phase), 1024 worlds of Zone 6v6 on each
-   map: the logging step (Env(collect_log=True), reset + 30 steps, its
+   map: the logging step (Env(collect_log=True), reset + 20 steps, its
    exports through the record and event-log writers a chunk of 10 steps
    at a time) with every counter zeroed before and read after: K1, K4
    culled and 3 K4' a step, K2 (simple_map) or K6 and its cell order
@@ -202,15 +202,34 @@ Phases, each of which fails the run loudly:
    against "cpu" (step log, snapshot and events exact but floats, to
    phase 9's bars; an int16 snapshot field one count off only where its
    float sits within the pos bar of a truncation edge, counted); the
-   eval CLI's --record and --event-log over 30 steps and --bc-dump-dir
+   eval CLI's --record and --event-log over 20 steps and --bc-dump-dir
    over 5 (a whole chunk of 10 runs) at 1024 worlds, host ms and bytes
    per step; build_db -> select_windows -> build_curriculum on the
    simple_map event log (host seconds), then Env(curriculum_path,
    trajectory_curriculum_prob 0.5): the share of restored worlds within
-   4 sigma of 0.5, reset + 30 steps held to the 6v6 counts (K5 too), and
+   4 sigma of 0.5, reset + 20 steps held to the 6v6 counts (K5 too), and
    the restored reset at 4 worlds bit-equal cuda against cpu. The phase
    logs its own seconds;
-14. a line of kernel results (JSON, one row per kernel and map, each with
+14. behaviour cloning end to end and the attention backbone (bc_phase),
+   1024 worlds of Zone 6v6 on simple_map: the eval CLI over 20 steps with
+   --event-log and --bc-dump-dir in one run (the DB's join needs both),
+   every counter zeroed before and read after and held to the logging
+   step's counts (K1 20, K2 21, K3 21, K4 culled 20, K4' 60, K5 0), its
+   writers' host ms and bytes per step; build_db -> tokenize_steps ->
+   ngrams -> select_windows -> build_trajectory_training_dataset (host
+   seconds, the BC and KL sets' trajectories and bytes); train/bc.py's
+   CLI (1 epoch, minibatch 2048, lr 1e-4) from a TrainingManager
+   checkpoint of 2 seeded policies, on the step-block dump and on the
+   sequences set, in float32 and --bf16, each with kl_coef 0 and 0.1: ms
+   per minibatch update, the losses finite, each policy's loss on the
+   epoch's first minibatch lower after the epoch; restore_ckpt of BC's
+   output and one PPO update at 1024 worlds x 10 steps, finite losses;
+   ActorCriticNet(use_attention=True) beside ActorCriticNet() on the
+   dump's observations: a forward step of 12,288 agents and a 40 x 2,048
+   sequence forward + backward in float32 and bfloat16 (CUDA events),
+   and the attention policy cuda against cpu at 4 worlds x 8 steps within
+   FT_NET_BAR. The phase logs its own seconds;
+15. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS), then the card line, then the last line {"ok": true,
@@ -3050,7 +3069,7 @@ def train_parity(W=4, S=8, flags=()):
 # StaggerStarts | RandomFlipTeams and each configuration's own settings;
 # name: (EnvConfig settings, K1 launches a step, K5 launches a step, the
 # module whose K1 launch has a shape of its own)
-MODE_STEPS = 30
+MODE_STEPS = 20  # cut from 50, then 30, for the whole run's time
 MODE_TOWN_STEPS = 20
 MODE_BASE_FLAGS = ("StaggerStarts", "RandomFlipTeams")
 MODE_CONFIGS = {
@@ -3823,7 +3842,7 @@ def curriculum_phase(mt, card):
 
 # phase 13: the logging step, replay, the eval's dumps and the trajectory
 # curriculum, 1024 worlds of Zone 6v6 with StaggerStarts | RandomFlipTeams
-LOG_STEPS = 30
+LOG_STEPS = 20  # cut from 30 for the whole run's time
 LOG_CHUNK = 10  # steps a writer copy takes (the eval's chunk_steps)
 LOG_GROUPS = ("step_log", "snapshot", "game_events")
 # the eval CLI's dumps, reductions of its --num-steps 200: the record and
@@ -4311,6 +4330,331 @@ def record_phase(mt, cfg, card):
     return rows
 
 
+# phase 14: behaviour cloning end to end and the attention backbone, 1024
+# worlds of Zone 6v6 on simple_map: one eval CLI run with --event-log and
+# --bc-dump-dir (the DB's join needs both from one run), the DB and its
+# token tools, the trajectory training sets, train/bc.py on both layouts,
+# PPO resumed from BC's checkpoint
+BC_STEPS = 20  # the eval CLI's --num-steps: two chunks of 10
+BC_WINDOWS = 32  # select_windows' max: the BC set's trajectories
+BC_LR = 1e-4  # the CLI's default 0.01 overshoots from Adam's first steps
+BC_MB = 2048  # the CLI's default minibatch
+BC_RUNS = [(flags, kl) for flags in ([], ["--bf16"]) for kl in (0.0, 0.1)]
+# the PPO update resumed from BC: a reduction of the trainer's 40 steps
+BC_PPO_STEPS = 10
+# the attention policy at the rollout's shapes: one step of W x A agents,
+# a sequence of ATTN_SEQ_STEPS x ATTN_SEQ_ROWS; cuda against cpu at
+# ATTN_PARITY (worlds, steps)
+ATTN_SEQ_STEPS = 40
+ATTN_SEQ_ROWS = 2048
+ATTN_PARITY = (4, 8)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def bc_eval_cli(mt, tmp, card):
+    """The eval CLI at NUM_WORLDS worlds x BC_STEPS steps with --event-log
+    and --bc-dump-dir, every counter zeroed before and read after: the
+    logging step's counts (K1, K4 culled and 3 K4' a step, K2 and K3 once
+    a step and at the reset, K5 never). Returns (event log dir, dump
+    dir)."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import infer
+
+    npz = os.path.join(tmp, "policy.npz")
+    seeded_policy_npz(mt, npz, 4)
+    events, dump = os.path.join(tmp, "events"), os.path.join(tmp, "dump")
+    entries = zero_counts()
+    t0 = time.perf_counter()
+    mgr, elo = infer.main(["--num-worlds", str(NUM_WORLDS), "--ckpt-path",
+                           npz, "--num-steps", str(BC_STEPS), "--event-log",
+                           events, "--bc-dump-dir", dump])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_counts("eval CLI --event-log --bc-dump-dir", entries, [],
+                 MODE_NOT_LAUNCHED + ("ray_fans_culled", "fan_cell_order"),
+                 mode_expect(1, 0, BC_STEPS))
+    stats = mgr.dump_stats
+    if {s["steps"] for s in stats.values()} != {BC_STEPS}:
+        raise AssertionError(f"eval CLI dumps: {stats}")
+    if not np.isfinite(elo.cpu().numpy()).all():
+        raise AssertionError("eval CLI: non-finite ELO")
+    log(f"[bc] eval CLI {NUM_WORLDS} worlds x {BC_STEPS} steps with "
+        f"--event-log and --bc-dump-dir: {wall:.1f} s (the policies' load "
+        "and the Env's included); "
+        + ", ".join(f"{n} {s['seconds'] * 1e3 / s['steps']:.2f} host ms and "
+                    f"{s['bytes'] / s['steps']:.0f} bytes per step"
+                    for n, s in stats.items()) + f" on {card}")
+    del mgr
+    return events, dump
+
+
+def bc_tools(events, dump, tmp):
+    """build_db -> tokenize_steps -> ngrams -> select_windows ->
+    build_trajectory_training_dataset, each tool's host seconds logged.
+    Returns (BC set dir, KL set dir)."""
+    from madrona_mp_env_tpu_torch.data import build_db
+    from madrona_mp_env_tpu_torch.data.select_trajectories import (
+        select_windows)
+    from madrona_mp_env_tpu_torch.data.trajectory_db import write_dump_items
+    from madrona_mp_env_tpu_torch.tools import (
+        build_trajectory_training_dataset as btd, ngrams, tokenize_steps)
+
+    db = os.path.join(tmp, "analytics.db")
+    items = os.path.join(tmp, "items.bin")
+    sets = os.path.join(tmp, "bc_set"), os.path.join(tmp, "kl_set")
+    t = [time.perf_counter()]
+    n_matches, n_steps = build_db.build_db(events, db)
+    t.append(time.perf_counter())
+    n_tokens = tokenize_steps.tokenize(db, verbose=False)
+    t.append(time.perf_counter())
+    n_grams, top = ngrams.top_ngrams(db)
+    t.append(time.perf_counter())
+    sid, tid = select_windows(db, 0, btd.SEQ_LEN, BC_WINDOWS)
+    write_dump_items(items, sid, tid)
+    t.append(time.perf_counter())
+    btd.build(db, items, dump, *sets, NUM_WORLDS, team_size=TEAM_SIZE)
+    t.append(time.perf_counter())
+    rows = [os.path.getsize(os.path.join(d, "rewards")) // 4 for d in sets]
+    trajs = [r // (btd.SEQ_LEN * TEAM_SIZE) for r in rows]
+    if trajs[0] != BC_WINDOWS or trajs[1] < 1:
+        raise AssertionError(f"trajectory sets: {trajs} trajectories")
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[bc tools] build_db {n_matches} matches, {n_steps} steps in "
+        f"{dt[0]:.2f} s; tokenize_steps {n_tokens} tokens in {dt[1]:.2f} s; "
+        f"ngrams {n_grams} 5-grams ({len(top)} distinct in the top) in "
+        f"{dt[2]:.2f} s; select_windows {len(sid) // btd.SEQ_LEN} windows of "
+        f"{btd.SEQ_LEN} in {dt[3]:.2f} s; the training sets in {dt[4]:.2f} s "
+        f"(host): BC {trajs[0]} trajectories ({dir_bytes(sets[0])} bytes), "
+        f"KL {trajs[1]} ({dir_bytes(sets[1])} bytes)")
+    return sets
+
+
+def bc_runs(dump, blocks, sets, ckpts, card):
+    """bc.main (1 epoch, minibatch BC_MB, --lr BC_LR) on the step-block
+    dump (``blocks``: its load_bc_data on the card) and on the sequences
+    set, in float32 and --bf16, each with kl_coef 0 and 0.1, from the
+    save_ckpt file ``<ckpts>/seeded/0.pt``: each minibatch's bc_loss
+    finite, and each policy's loss on the epoch's first minibatch lower
+    after the epoch than before it. Returns the path of the first run's
+    output checkpoint."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import ActorCriticNet, bc
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    first = None
+    for layout, data_dir in (("step blocks", dump), ("sequences", sets[0])):
+        data = blocks if data_dir == dump else bc.load_bc_data(data_dir,
+                                                               "cuda")
+        N = data["actions"].shape[0]
+        for flags, kl in BC_RUNS:
+            name = (f"bc_{layout.split()[0]}_{'bf16' if flags else 'f32'}_"
+                    f"kl{kl}")
+            run = bc.main([
+                "--ckpt-dir", ckpts, "--in-run-name", "seeded",
+                "--out-run-name", name, "--start-update", "0",
+                "--bc-data-dir", data_dir, "--kl-data-dir", sets[1],
+                "--kl-coef", str(kl), "--lr", str(BC_LR), "--num-epochs",
+                "1", "--minibatch-size", str(BC_MB)] + flags)
+            first = first or run.path
+            E = len(run.params)
+            per_e = N // E
+            mb = min(BC_MB, per_e)
+            # the epoch's first minibatch again, with the trained params
+            _, sub = rng.split(rng.prng_key(7, device="cuda"), 2)
+            idx = rng.permutation(sub, N).reshape(E, per_e)[:, :mb]
+            model = ActorCriticNet(
+                torch.bfloat16 if flags else torch.float32).cuda()
+            with torch.no_grad():
+                after = np.array([float(bc.bc_loss(
+                    model, run.params[e], bc.gather(data, idx[e]), kl)[1])
+                    for e in range(E)])
+            before = run.losses[0, 0]
+            if not (np.isfinite(run.losses).all() and np.isfinite(after).all()
+                    and (after < before).all()):
+                raise AssertionError(f"bc {name}: losses {run.losses}, the "
+                                     f"first minibatch after {after}")
+            num_mb = run.losses.shape[1]
+            log(f"[bc] {name}: {N} samples, E = {E}, {num_mb} minibatches of "
+                f"{mb} a policy; "
+                f"{run.epoch_seconds[0] * 1e3 / num_mb:.2f} ms per minibatch "
+                f"update (E policies); bc_loss first {before.mean():.4f}, "
+                f"last {run.losses[0, -1].mean():.4f}, the first minibatch "
+                f"after the epoch {after.mean():.4f} on {card}")
+        del data
+    return first
+
+
+def attention_phase(data, card):
+    """ActorCriticNet(use_attention=True) beside ActorCriticNet() (seeded
+    weights) on the eval dump's observations (``data``: its load_bc_data
+    on the card): one forward step of
+    NUM_WORLDS x 12 agents and the sequence forward + backward over
+    ATTN_SEQ_STEPS x ATTN_SEQ_ROWS, in float32 and bfloat16, by CUDA
+    events; then the attention policy cuda against cpu over ATTN_PARITY's
+    worlds and steps (forward and sequence) within FT_NET_BAR."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import (build_actor_critic,
+                                                init_rnn_states)
+
+    B = NUM_WORLDS * 2 * TEAM_SIZE
+    T, R = ATTN_SEQ_STEPS, ATTN_SEQ_ROWS
+    acts = data["actions"][:T * R].reshape(T, R, 6)
+    acts = {"discrete": acts[..., :4], "aim": acts[..., 4:]}
+    dones = torch.zeros(T, R, device="cuda")
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        step_obs = {k: v[:B].to(dt) for k, v in data["obs"].items()}
+        seq_obs = {k: v[:T * R].reshape((T, R) + v.shape[1:]).to(dt)
+                   for k, v in data["obs"].items()}
+        for attn in (True, False):
+            net = build_actor_critic(seed=0, device="cuda", dtype=dt,
+                                     use_attention=attn)
+            rnn = init_rnn_states((B,), device="cuda")
+
+            def fwd():
+                with torch.no_grad():
+                    return net(rnn, step_obs)
+
+            net.requires_grad_(True)
+            start = init_rnn_states((R,), device="cuda")
+
+            def seq():
+                lp, ent, v = net.sequence(start, dones, seq_obs, acts)
+                loss = (lp["discrete"].sum() + lp["aim"].sum() + v.sum())
+                loss.backward()
+                net.zero_grad(set_to_none=True)
+                if not bool(torch.isfinite(loss)):
+                    raise AssertionError("attention: non-finite sequence")
+
+            times[(str(dt)[6:], attn)] = (cuda_time_ms(fwd, 5),
+                                          cuda_time_ms(seq, 2))
+            del net
+    # ATTN_PARITY's worlds (the first rows of each step) and steps
+    W, S = ATTN_PARITY
+    rows = (torch.arange(S, device="cuda")[:, None] * B
+            + torch.arange(W * 2 * TEAM_SIZE, device="cuda")).reshape(-1)
+    parity = ({k: v[rows].cpu() for k, v in data["obs"].items()},
+              data["actions"][rows].cpu())
+    log(f"[attention] {B} agents one step / {T} x {R} sequence fwd + bwd "
+        "(CUDA events), attention against MaxPoolNet: "
+        + "; ".join(f"{dt} {'attention' if a else 'maxpool'} forward "
+                    f"{f:.3f} ms, sequence {s:.2f} ms"
+                    for (dt, a), (f, s) in times.items()) + f" on {card}")
+    attention_parity(*parity)
+
+
+def attention_parity(obs, actions):
+    """The attention policy (weights from a seed) cuda against cpu on
+    ATTN_PARITY's observations ``obs`` and ``actions`` (rows [S * n, ...],
+    step-major): each step's logits, values and recurrent state, then the
+    sequence's log probs, entropies and values, within FT_NET_BAR *
+    max(1, |x|)."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import (build_actor_critic,
+                                                init_rnn_states)
+
+    W, S = ATTN_PARITY
+    n = W * 2 * TEAM_SIZE
+    obs = {k: v.reshape((S, n) + v.shape[1:]) for k, v in obs.items()}
+    a = actions.reshape(S, n, 6)
+    res = {}
+    for d in ("cuda", "cpu"):
+        net = build_actor_critic(seed=0, device=d, use_attention=True)
+        rnn = init_rnn_states((n,), device=d)
+        outs = []
+        with torch.no_grad():
+            for s in range(S):
+                dists, v, rnn = net(rnn, {k: x[s].to(d)
+                                          for k, x in obs.items()})
+                outs.append(torch.cat([dists.discrete.logits.flatten(),
+                                       dists.aim.logits.flatten(), v,
+                                       rnn.flatten()]).cpu())
+            lp, ent, vals = net.sequence(
+                init_rnn_states((n,), device=d), torch.zeros(S, n, device=d),
+                {k: x.to(d) for k, x in obs.items()},
+                {"discrete": a[..., :4].to(d), "aim": a[..., 4:].to(d)})
+        res[d] = {"step": torch.stack(outs), "seq": torch.cat(
+            [x.flatten().cpu() for x in (lp["discrete"], lp["aim"],
+                                         ent["discrete"], ent["aim"],
+                                         vals)])}
+    worst = {}
+    for k in ("step", "seq"):
+        x, y = res["cuda"][k], res["cpu"][k]
+        worst[k] = float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+        if worst[k] > FT_NET_BAR:
+            raise AssertionError(f"attention policy {k}: cuda vs cpu rel err "
+                                 f"{worst[k]}")
+    log(f"[parity] attention policy cuda vs cpu, {W} worlds x {S} steps: "
+        f"forward max rel err {worst['step']:.3g}, sequence "
+        f"{worst['seq']:.3g} (bar {FT_NET_BAR})")
+
+
+def bc_phase(mt, card):
+    """Phase 14: the eval CLI's event log and BC dump, the tool chain, BC
+    on both layouts (f32 / bf16, kl_coef 0 / 0.1), PPO resumed from BC's
+    checkpoint, the attention policy. The phase logs its own seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from madrona_mp_env_tpu_torch.train import bc
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    t = [time.perf_counter()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bc_")
+    try:
+        events, dump = bc_eval_cli(mt, tmp, card)
+        t.append(time.perf_counter())
+        sets = bc_tools(events, dump, tmp)
+        blocks = bc.load_bc_data(dump, "cuda")
+        t.append(time.perf_counter())
+        # the checkpoint BC starts from: a TrainingManager of 2 policies
+        args = train_cli.parse_args([
+            "--scene", SCENE, "--num-worlds", str(NUM_WORLDS),
+            "--pbt-ensemble-size", "2", "--steps-per-update",
+            str(BC_PPO_STEPS), "--num-bptt-chunks", "2"])
+        _, _, env, mgr = train_cli.build(args)
+        ts = mgr.init()
+        ckpts = os.path.join(tmp, "ckpts")
+        mgr.save_ckpt(ts, os.path.join(ckpts, "seeded"))
+        out = bc_runs(dump, blocks, sets, ckpts, card)
+        t.append(time.perf_counter())
+        # PPO from BC's checkpoint
+        back = mgr.restore_ckpt(ts, out)
+        moved = max(float((back.params[0][k] - v).abs().max())
+                    for k, v in ts.params[0].items())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ts2, metrics = mgr.update_iter(back)
+        ev[1].record()
+        torch.cuda.synchronize()
+        loss = metrics["loss"].cpu().numpy()
+        if not np.isfinite(loss).all() or moved == 0.0 or \
+                ts2.update_idx != 1:
+            raise AssertionError(f"PPO from BC: loss {loss}, BC moved the "
+                                 f"params by {moved}")
+        log(f"[bc] PPO resumed from {os.path.basename(os.path.dirname(out))}"
+            f"/0.pt: one update at {NUM_WORLDS} worlds x {BC_PPO_STEPS} "
+            f"steps, E = 2, {ev[0].elapsed_time(ev[1]):.1f} ms (CUDA events), "
+            f"losses {loss.tolist()} on {card}")
+        del mgr, env, ts, ts2, back
+        t.append(time.perf_counter())
+        attention_phase(blocks, card)
+        del blocks
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[bc] phase {t[-1] - t[0]:.1f} s: eval CLI {dt[0]:.1f}, tools "
+        f"and the dump's load {dt[1]:.1f}, checkpoint and BC runs "
+        f"{dt[2]:.1f}, PPO from BC "
+        f"{dt[3]:.1f}, attention {dt[4]:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4533,7 +4877,11 @@ def main() -> int:
     kernels += record_phase(mt, cfg, card)
     mark(13)
 
-    # 14. results
+    # 14. behaviour cloning end to end, the attention backbone
+    bc_phase(mt, card)
+    mark(14)
+
+    # 15. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

@@ -3,7 +3,9 @@ package's train/): ActorCriticNet and its distributions, the observation
 normalizer, PPO and the TrainingManager (rollout, GAE, recurrent PPO, the
 PBT population, mixed precision), the JAX weight conversion, ELO and
 EvalManager; the full-team policy (FullTeamActorCriticNet, one policy
-for a whole team over the full-team observations)."""
+for a whole team over the full-team observations); behaviour cloning
+(``train.bc``), the DreamerV3 / HL-Gauss critics (``train.models``) and
+the hash-grid encoder (``train.hash_encoder``)."""
 
 from .convert import (full_team_params_from_jax, load_policy_npz,
                       normalizer_from_jax, opt_state_from_jax,

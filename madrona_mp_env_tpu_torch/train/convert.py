@@ -78,6 +78,43 @@ def _conv(flat, src, dst, out):
     out[f"{dst}.bias"] = flat.pop(f"{src}/bias")
 
 
+def _dense_general(flat, src, dst, out):
+    """flax DenseGeneral: query / key / value kernels [in, heads, head_dim]
+    with biases [heads, head_dim], the out projection's kernel [heads,
+    head_dim, out] -> Linear weights [out, in] over the flattened heads."""
+    k = flat.pop(f"{src}/kernel")
+    if dst.endswith(".out"):
+        k = k.reshape(-1, k.shape[-1])
+    else:
+        k = k.reshape(k.shape[0], -1)
+    out[f"{dst}.weight"] = k.T
+    out[f"{dst}.bias"] = flat.pop(f"{src}/bias").reshape(-1)
+
+
+def _attention_net(flat, net, out):
+    """EntitySelfAttentionNet: EmbedBlock_0..3, the attention, its
+    LayerNorm and the 2-layer MLP."""
+    for i in range(4):
+        _dense(flat, f"{net}/EmbedBlock_{i}/Dense_0",
+               f"{net}.embeds.{i}.dense", out, bias=False)
+        _ln(flat, f"{net}/EmbedBlock_{i}/LayerNorm_0",
+            f"{net}.embeds.{i}.ln", out)
+    for proj in ("query", "key", "value", "out"):
+        _dense_general(flat, f"{net}/MultiHeadDotProductAttention_0/{proj}",
+                       f"{net}.attn.{proj}", out)
+    _ln(flat, f"{net}/LayerNorm_0", f"{net}.ln", out)
+    for i in range(2):
+        _dense(flat, f"{net}/MLP_0/dense_{i}", f"{net}.mlp.layers.{i}.dense",
+               out, bias=False)
+        _ln(flat, f"{net}/MLP_0/LayerNorm_{i}", f"{net}.mlp.layers.{i}.ln",
+            out)
+
+
+def uses_attention(state_dict) -> bool:
+    """Whether an ActorCriticNet state_dict is of the attention backbone."""
+    return "actor_net.attn.query.weight" in state_dict
+
+
 def _lstm(flat, rnn, out):
     cell = f"{rnn}/OptimizedLSTMCell_0"
     # LSTMCellParams: columns of Wi, Wh and b concatenated in (i, f, g, o)
@@ -107,6 +144,9 @@ def _policy_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
                bias=False)
         _ln(flat, f"prefix/{name}/LayerNorm_0", f"prefix.{name}.ln", out)
     for net in ("actor_net", "critic_net"):
+        if f"{net}/EmbedBlock_0/Dense_0/kernel" in flat:
+            _attention_net(flat, net, out)
+            continue
         for i in range(3):
             _dense(flat, f"{net}/MLP_0/dense_{i}",
                    f"{net}.mlp.layers.{i}.dense", out, bias=False)
@@ -159,7 +199,8 @@ def full_team_params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(tree) -> List[Dict[str, torch.Tensor]]:
     """The flax param tree (nested dicts of arrays, every leaf [P, ...])
-    -> P state_dicts of ActorCriticNet, float32 on the CPU."""
+    -> P state_dicts of ActorCriticNet (of its attention backbone where
+    the tree holds EntitySelfAttentionNets), float32 on the CPU."""
     flat = flatten(tree)
     P = {v.shape[0] for v in flat.values()}
     if len(P) != 1:
@@ -225,7 +266,8 @@ def load_policy_npz(path: str, device=None, dtype=torch.float32
     export_policy.py file, on ``device`` (None: the first CUDA device)."""
     with np.load(path) as z:
         tree = unflatten({k: z[k] for k in z.files})
-    nets = [build_actor_critic(sd, device=device, dtype=dtype)
+    nets = [build_actor_critic(sd, device=device, dtype=dtype,
+                               use_attention=uses_attention(sd))
             for sd in params_from_jax(tree["params"])]
     dev = next(nets[0].parameters()).device
     norm = normalizer_from_jax(tree["normalizer"]).to(dev)

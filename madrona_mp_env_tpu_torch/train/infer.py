@@ -108,6 +108,25 @@ def tally_vs_bot(wdl: np.ndarray, win, finished, world_policy) -> None:
         np.add.at(wdl[:, col], world_policy[m.nonzero()[1]], 1)
 
 
+def block_assignment(num_worlds: int, num_agents: int, team_size: int,
+                     num_policies: int, vs_bot: bool = False):
+    """The eval's routing: (the policy of each actor [W, A] int32, the flat
+    actor index of each block slot [B], B = W * A): policy p's block is
+    perm[p * B / P:(p + 1) * B / P]. Crossplay takes the trainer's static
+    block routing; with ``vs_bot`` world w fields policy w % P on every
+    agent, each policy whole teams against the bot."""
+    W, A, P = num_worlds, num_agents, num_policies
+    if vs_bot:
+        if W % P:
+            raise ValueError("num_worlds must divide by the policies")
+        assign = np.repeat((np.arange(W) % P)[:, None], A,
+                           axis=1).astype(np.int32)
+        return assign, np.argsort(assign.reshape(-1), kind="stable")
+    assign, _ = make_matchmaking(W, A, team_size,
+                                 PBTConfig(num_train_policies=P))
+    return assign, slot_permutations(assign, P, 0)[0].reshape(-1)
+
+
 class EvalManager:
     """Forward-only rollout over a P-policy ensemble, with crossplay
     matchmaking (the trainer's static block routing) or, with
@@ -131,18 +150,8 @@ class EvalManager:
         self.B = self.W * self.A
         self.BP = self.B // self.P
 
-        if vs_bot:
-            # world w -> policy w % P on every agent: each policy fields
-            # whole teams against the bot
-            if self.W % self.P:
-                raise ValueError("num_worlds must divide by the policies")
-            assign = np.repeat((np.arange(self.W) % self.P)[:, None],
-                               self.A, axis=1).astype(np.int32)
-            perm = np.argsort(assign.reshape(-1), kind="stable")
-        else:
-            assign, _ = make_matchmaking(self.W, self.A, cfg.team_size,
-                                         PBTConfig(num_train_policies=self.P))
-            perm = slot_permutations(assign, self.P, 0)[0].reshape(-1)
+        assign, perm = block_assignment(self.W, self.A, cfg.team_size,
+                                        self.P, vs_bot)
         dev = self.device
         self.assignment = torch.as_tensor(assign, device=dev)
         self.perm = torch.as_tensor(perm, device=dev)

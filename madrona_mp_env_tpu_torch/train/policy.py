@@ -9,7 +9,9 @@ the rollouts, ``sequence`` the BPTT recomputation of the PPO loss.
 ``ActorCriticNet(dtype=...)`` runs in float32, bfloat16 or float16 as the
 flax net does (models.py): float32 parameters, the observations arriving
 in the compute dtype (normalize_obs), float32 logits, values and
-recurrent state out.
+recurrent state out. ``use_attention=True`` swaps both MaxPoolNets for
+EntitySelfAttentionNet (4 heads over 64-wide tokens, MLP 512 x 2), as the
+flax net's option does.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ from ..sim.env import resolve_device
 from ..sim.types import OTHER_OB_DIM, SELF_OB_DIM
 from .distributions import AIM_BUCKETS, DISCRETE_BUCKETS, ActorDistributions
 from .models import (DenseLayerCritic, DenseLayerDiscreteActor, EmbedBlock,
-                     DTYPES, MLP, PolicyLSTM, check_dtype,
-                     rounded)
+                     DTYPES, MLP, EntitySelfAttentionNet, PolicyLSTM,
+                     check_dtype, rounded)
 
 RNN_HIDDEN = 512
 EMBED_CHANNELS = 64
+ATTENTION_HEADS = 4
 NUM_FREQS = 16
 FWD_LIDAR_DIM = consts.fwd_lidar_height * consts.fwd_lidar_width * 4
 REAR_LIDAR_DIM = consts.rear_lidar_height * consts.rear_lidar_width * 4
@@ -111,14 +114,24 @@ class MaxPoolNet(nn.Module):
 
 class ActorCriticNet(nn.Module):
     """Prefix + (masked actor net + LSTM) and (critic net + LSTM), then the
-    actor heads and the critic head, in the compute ``dtype``."""
+    actor heads and the critic head, in the compute ``dtype``; the actor
+    and critic nets are MaxPoolNets, or EntitySelfAttentionNets with
+    ``use_attention``."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 use_attention: bool = False):
         super().__init__()
         self.dtype = check_dtype(dtype)
+        self.use_attention = use_attention
         self.prefix = PrefixCommon(dtype=dtype)
-        self.actor_net = MaxPoolNet(dtype=dtype)
-        self.critic_net = MaxPoolNet(dtype=dtype)
+        if use_attention:
+            self.actor_net = EntitySelfAttentionNet(
+                EMBED_CHANNELS, RNN_HIDDEN, ATTENTION_HEADS, dtype)
+            self.critic_net = EntitySelfAttentionNet(
+                EMBED_CHANNELS, RNN_HIDDEN, ATTENTION_HEADS, dtype)
+        else:
+            self.actor_net = MaxPoolNet(dtype=dtype)
+            self.critic_net = MaxPoolNet(dtype=dtype)
         self.actor_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN, dtype)
         self.critic_rnn = PolicyLSTM(RNN_HIDDEN, RNN_HIDDEN, dtype)
         self.actor_head_discrete = DenseLayerDiscreteActor(
@@ -183,13 +196,14 @@ def _seeded_init(net: nn.Module, seed: int) -> None:
 
 def build_actor_critic(state_dict: Optional[Dict[str, torch.Tensor]] = None,
                        seed: int = 0, device=None,
-                       dtype: torch.dtype = torch.float32) -> ActorCriticNet:
+                       dtype: torch.dtype = torch.float32,
+                       use_attention: bool = False) -> ActorCriticNet:
     """The policy on ``device`` (None: the first CUDA device, raising
     without one) in eval mode, computing in ``dtype``, with
     ``state_dict`` (e.g. from convert.params_from_jax) or else weights made
-    from ``seed``."""
+    from ``seed``; ``use_attention`` picks the attention backbone."""
     dev = resolve_device(device)
-    net = ActorCriticNet(dtype)
+    net = ActorCriticNet(dtype, use_attention)
     if state_dict is None:
         _seeded_init(net, seed)
     else:

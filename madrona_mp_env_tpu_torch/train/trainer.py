@@ -180,27 +180,39 @@ class _Sequence(nn.Module):
         return self.net.sequence(*args)
 
 
+def init_adam(params: Params) -> AdamState:
+    """optax.scale_by_adam's initial state: count 0, zero moments."""
+    dev = next(iter(params.values())).device
+    return AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                     mu={k: torch.zeros_like(v) for k, v in params.items()},
+                     nu={k: torch.zeros_like(v) for k, v in params.items()})
+
+
 def global_norm(tensors) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves of sum(x ** 2)."""
     return torch.sqrt(sum((g * g).sum() for g in tensors))
 
 
-def adam_step(params: Params, grads: Params, opt: AdamState, lr, max_norm
-              ) -> tuple:
+def adam_step(params: Params, grads: Params, opt: AdamState, lr,
+              max_norm: Optional[float]) -> tuple:
     """optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
     scale(-1)), then x lr and apply_updates, written out: the gradients
     are scaled by max_norm / norm only when their global norm reaches
     max_norm (no epsilon), and Adam's bias corrections divide the
-    moments. Returns (params, opt_state)."""
-    g_norm = global_norm(grads.values())
-    keep = g_norm < max_norm
+    moments. ``max_norm`` None is optax.adam(lr), without the clip.
+    Returns (params, opt_state)."""
+    if max_norm is not None:
+        g_norm = global_norm(grads.values())
+        keep = g_norm < max_norm
     count = opt.count + 1
     cf = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.full_like(cf, ADAM_B1), cf)
     bc2 = 1.0 - torch.pow(torch.full_like(cf, ADAM_B2), cf)
     new_p, mu, nu = {}, {}, {}
     for k, p in params.items():
-        g = torch.where(keep, grads[k], grads[k] / g_norm * max_norm)
+        g = grads[k]
+        if max_norm is not None:
+            g = torch.where(keep, g, g / g_norm * max_norm)
         mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * opt.mu[k]
         nu[k] = (1.0 - ADAM_B2) * g ** 2 + ADAM_B2 * opt.nu[k]
         u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
@@ -332,11 +344,7 @@ class TrainingManager:
                    for k, v in p.items()} for p in params]
         if len(params) != self.E:
             raise ValueError(f"{len(params)} param sets for E = {self.E}")
-        opt_state = [AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev),
-            mu={k: torch.zeros_like(v) for k, v in p.items()},
-            nu={k: torch.zeros_like(v) for k, v in p.items()})
-            for p in params]
+        opt_state = [init_adam(p) for p in params]
         assignment, train_perm, past_perm = (
             torch.as_tensor(t, device=dev) for t in self._tables0)
         blocks = {k: self.to_blocks(v, train_perm) for k, v in pobs.items()}

@@ -16,13 +16,17 @@ import numpy as np
 SELF_DIM, OTHER_DIM, COEFS = 43, 32, 9
 FWD_DIM, REAR_DIM = 2 * 32 * 4, 2 * 8 * 4
 EMBED, HIDDEN = 64, 512
+ATTENTION_HEADS = 4
 HEADS = {"actor_head_discrete": 17, "actor_head_aim": 20, "critic_head": 1}
 
 
-def random_flax_params(seed: int = 0, num_policies: int = 1) -> dict:
+def random_flax_params(seed: int = 0, num_policies: int = 1,
+                       attention: bool = False) -> dict:
     """Nested dicts of float32 arrays, each [P, ...]. Dense kernels are
     N(0, 1 / fan_in); LayerNorm scales 1 + N(0, 0.1), biases N(0, 0.1),
-    so every parameter takes part in the comparison."""
+    so every parameter takes part in the comparison. ``attention``: the
+    tree of ActorCriticNet(use_attention=True), EntitySelfAttentionNets
+    (4 heads) for the MaxPoolNets' MLPs."""
     g = np.random.default_rng(seed)
     P = num_policies
 
@@ -51,6 +55,30 @@ def random_flax_params(seed: int = 0, num_policies: int = 1) -> dict:
             d[f"LayerNorm_{i}"] = ln(HIDDEN)
         return {"MLP_0": d}
 
+    def attention_net():
+        d = {f"EmbedBlock_{i}": embed(3 * EMBED if i == 0 else EMBED)
+             for i in range(4)}
+        heads, head_dim = ATTENTION_HEADS, EMBED // ATTENTION_HEADS
+        mha = {}
+        for proj in ("query", "key", "value"):
+            mha[proj] = {
+                "kernel": (g.standard_normal((P, EMBED, heads, head_dim))
+                           / np.sqrt(EMBED)).astype(np.float32),
+                "bias": (0.1 * g.standard_normal((P, heads, head_dim))
+                         ).astype(np.float32)}
+        mha["out"] = {
+            "kernel": (g.standard_normal((P, heads, head_dim, EMBED))
+                       / np.sqrt(EMBED)).astype(np.float32),
+            "bias": (0.1 * g.standard_normal((P, EMBED))).astype(np.float32)}
+        d["MultiHeadDotProductAttention_0"] = mha
+        d["LayerNorm_0"] = ln(EMBED)
+        mlp = {}
+        for i in range(2):
+            mlp[f"dense_{i}"] = dense(EMBED if i == 0 else HIDDEN, HIDDEN)
+            mlp[f"LayerNorm_{i}"] = ln(HIDDEN)
+        d["MLP_0"] = mlp
+        return d
+
     def lstm():
         cell = {}
         for gate in "ifgo":
@@ -67,8 +95,8 @@ def random_flax_params(seed: int = 0, num_policies: int = 1) -> dict:
             "opponents_embed": embed(OTHER_DIM),
             "opponents_last_known_embed": embed(OTHER_DIM),
         },
-        "actor_net": mlp(),
-        "critic_net": mlp(),
+        "actor_net": attention_net() if attention else mlp(),
+        "critic_net": attention_net() if attention else mlp(),
         "actor_rnn": lstm(),
         "critic_rnn": lstm(),
     }

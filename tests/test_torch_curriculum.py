@@ -42,7 +42,6 @@ import jax
 import jax.numpy as jnp
 
 import madrona_mp_env_tpu as mp
-from madrona_mp_env_tpu.ops import tail_pallas
 from madrona_mp_env_tpu.sim import rewards as jrewards
 from madrona_mp_env_tpu.sim.types import WorldState as JaxWorldState
 
@@ -63,7 +62,8 @@ import make_curriculum_fixture as cx  # noqa: E402
 import make_slice_fixture as fx  # noqa: E402
 from tail_states import NUM_WORLDS, tail_scenario  # noqa: E402
 from test_torch_slice import compare  # noqa: E402
-from test_torch_tail import _assert_leaves, _fused_order, _unfused_chain  # noqa: E402
+from test_torch_tail import (_assert_leaves, _fused_order,  # noqa: E402
+                             _unfused_chain, jax_tail)
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 BIT_EXACT = ("pos", "vel", "reward", "world_curriculum",
@@ -177,16 +177,13 @@ def _ls_cfg(mod, ts, task="Zone"):
 
 
 @pytest.mark.parametrize("ts", [2, 6])
-def test_tail_learn_shooting_matches_jax_kernel(ts, simple_map_dir,
-                                                monkeypatch):
-    monkeypatch.setenv("MPENV_PALLAS", "interpret")
+def test_tail_learn_shooting_matches_jax_kernel(ts, simple_map_dir):
+    """The JAX kernel function's outputs: fixtures_torch/tail_jax.npz
+    (make_tail_fixture.py, Pallas in interpret mode on these inputs)."""
     cfg = _ls_cfg(mt, ts)
     m = load_map(simple_map_dir, cfg, device="cpu")
     leaves, fr = _tail_states(ts, m, cfg)
-    js = JaxWorldState(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    js, jcap = tail_pallas._tail_batched(_ls_cfg(mp, ts), _jax_map(m), js,
-                                         jnp.asarray(fr))
-    want = {k: np.asarray(getattr(js, k)) for k in leaves}
+    want, jcap = jax_tail(f"ls/{ts}", leaves, fr)
     st, cap = tf.tail_fused_plain(cfg, m, world_state_from_numpy(leaves),
                                   torch.as_tensor(fr))
     got = world_state_to_numpy(st)

@@ -34,15 +34,19 @@ def _imported_roots(path):
 DATA_MODULES = ("__init__", "build_db", "build_trajectory_curriculum",
                 "export", "formats", "recorder", "select_trajectories",
                 "trajectory_db")
-TRAIN_MODULES = ("__init__", "convert", "distributions", "elo",
-                 "full_team_policy", "infer", "metrics", "models",
-                 "normalizer", "pbt", "policy", "ppo", "train", "trainer")
+TRAIN_MODULES = ("__init__", "bc", "convert", "distributions", "elo",
+                 "full_team_policy", "hash_encoder", "infer", "metrics",
+                 "models", "normalizer", "pbt", "policy", "ppo", "train",
+                 "trainer")
+TOOLS = ("fan_probe", "vpu_probe", "golden", "tokenize_steps", "ngrams",
+         "print_assignments", "build_trajectory_training_dataset")
 
 
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 30
-    train = {os.path.relpath(p, PKG) for p in files if "train" in p}
+    train = {os.path.relpath(p, PKG) for p in files
+             if os.sep + "train" + os.sep in p}
     assert train == {f"train/{m}.py" for m in TRAIN_MODULES}
     assert os.path.join(PKG, "ops", "tail_fused.py") in files
     assert os.path.join(PKG, "ops", "culling.py") in files
@@ -54,8 +58,9 @@ def test_port_imports_no_jax():
     data = {os.path.relpath(p, PKG) for p in files
             if os.sep + "data" + os.sep in p}
     assert data == {f"data/{m}.py" for m in DATA_MODULES}
-    for tool in ("fan_probe", "vpu_probe", "golden"):
+    for tool in TOOLS:
         assert os.path.join(PKG, "tools", f"{tool}.py") in files
+    assert os.path.join(PKG, "utils", "xla_math.py") in files
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -151,6 +156,23 @@ def test_train_cli_defaults_to_cuda(monkeypatch, simple_map_dir):
         train_cli.build(train_cli.parse_args(args))
     _, _, env, mgr = train_cli.build(train_cli.parse_args(args + ["--cpu"]))
     assert env.device.type == mgr.device.type == "cpu"
+
+
+def test_bc_cli_defaults_to_cuda(monkeypatch, tmp_path):
+    """train/bc.py (the CLI and load_bc_data) runs on the card unless
+    --cpu / device="cpu" asks for the CPU."""
+    from madrona_mp_env_tpu_torch.train import bc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--ckpt-dir", str(tmp_path), "--in-run-name", "a",
+            "--out-run-name", "b", "--start-update", "0", "--bc-data-dir",
+            str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bc.main(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bc.load_bc_data(str(tmp_path))
+    with pytest.raises(FileNotFoundError):  # past the device, to the files
+        bc.main(args + ["--cpu"])
 
 
 @pytest.mark.parametrize("cli", ["golden", "infer"])

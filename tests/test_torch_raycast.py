@@ -4,7 +4,11 @@ made with numpy.
 
 The JAX functions run eagerly, op by op: under jit, XLA's CPU backend
 contracts a + b * c into fused multiply-adds, which moves near-tangent
-sphere casts by up to 1e-3 relative and can change their winner.
+sphere casts by up to 1e-3 relative and can change their winner. Their
+outputs, with the inputs they were given (this module's helpers), are in
+fixtures_torch/raycast_jax.npz (make_raycast_fixture.py, which also runs
+the K9 TPU kernel in Pallas interpret mode): each case first checks that
+its inputs equal the stored ones.
 Tolerances: t within 1e-5 * max(1, |t|) where both hit, the same rays hit,
 winner rows and capsule indices exact, normals within 1e-5. The culled
 cast is checked against the port's own dense cast: bit-equal within the
@@ -15,7 +19,6 @@ and fall batches.
 import os
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,6 @@ import torch
 import madrona_mp_env_tpu as mp
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu.assets.map_data import load_map as jload_map
-from madrona_mp_env_tpu.ops import raycast as jrc
 from madrona_mp_env_tpu_torch.assets.map_data import load_map
 from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
 from madrona_mp_env_tpu_torch.ops.culling import short_cell_index
@@ -32,17 +34,37 @@ from madrona_mp_env_tpu_torch.sim import movement
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "fixtures_torch"))
+import make_raycast_fixture as rfx  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 R = 15.0  # agent radius
 SEG_H = 35.0  # capsule segment height
+ZGROUPS = [(24, 32, 32, 8, 8), (5, 13, 3, 83)]
+CAST_SEEDS = (8, 9)
+
+
+def load_maps(simple_map_dir):
+    cfg = dict(task=2, team_size=2)
+    return (jload_map(simple_map_dir, mp.EnvConfig(**cfg)),
+            load_map(simple_map_dir, mt.EnvConfig(**cfg), device="cpu"))
 
 
 @pytest.fixture(scope="module")
 def maps(simple_map_dir):
-    cfg = dict(task=2, team_size=2)
-    return (jload_map(simple_map_dir, mp.EnvConfig(**cfg)),
-            load_map(simple_map_dir, mt.EnvConfig(**cfg), device="cpu"))
+    return load_maps(simple_map_dir)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX outputs and their inputs (make_raycast_fixture.py)."""
+    return dict(np.load(rfx.PATH))
+
+
+def _stored(jx, case, **inputs):
+    """The inputs this run made equal those the fixture was made from."""
+    for k, v in inputs.items():
+        np.testing.assert_array_equal(np.asarray(v), jx[f"{case}/{k}"],
+                                      err_msg=f"{case}/{k}")
 
 
 def _walkable(m, n, seed, lift=(10.0, 60.0)):
@@ -69,67 +91,73 @@ def _check_t(want, got, rel=1e-5):
                   <= rel * np.maximum(1.0, np.abs(want[hit])))
 
 
-def test_ray_vs_tris(maps):
-    jm, tm = maps
-    o, d = _walkable(tm, 512, 0), _dirs(512, 1)
-    want = jrc._ray_vs_tris_dense(o, d, jm.tris)
+def ray_inputs(tm):
+    return _walkable(tm, 512, 0), _dirs(512, 1)
+
+
+def test_ray_vs_tris(maps, jx):
+    _, tm = maps
+    o, d = ray_inputs(tm)
+    _stored(jx, "ray_vs_tris", o=o, d=d)
+    want = jx["ray_vs_tris/t"]
     got = raycast.ray_vs_tris(torch.as_tensor(o), torch.as_tensor(d), tm.tris)
-    assert np.isfinite(np.asarray(want)).mean() > 0.5
+    assert np.isfinite(want).mean() > 0.5
     _check_t(want, got)
 
 
-@pytest.mark.parametrize("zgroups", [(24, 32, 32, 8, 8), (5, 13, 3, 83)])
-def test_ray_fans(maps, zgroups, monkeypatch):
-    """Sensor fans: the 6v6 runs, and runs that are not multiples of 8
-    (the JAX package's fallback kernel family K7); same F, so the eager JAX
-    ops compile once. The JAX entry is pinned to its dense path: other test
-    modules set MPENV_PALLAS=interpret when they are imported, and the
-    interpret-mode kernel takes bf16 direction dots."""
-    monkeypatch.setenv("MPENV_PALLAS", "dense")
-    jm, tm = maps
+def fan_inputs(tm, zgroups):
+    """(origins [N, 3], per-group z offsets [N, G], dirs [N, F, 3])."""
     N, G, F = 24, len(zgroups), sum(zgroups)
     g = np.random.default_rng(2)
     org = _walkable(tm, N, 3, lift=(0.0, 5.0))
     zg = g.uniform(10.0, 60.0, (N, G)).astype(np.float32)
-    d = _dirs(N * F, 4).reshape(N, F, 3)
-    zoff = np.repeat(zg, zgroups, axis=1)
-    want = jrc.ray_fans_vs_tris(org, zoff, d, jm.tris)
+    return org, zg, _dirs(N * F, 4).reshape(N, F, 3)
+
+
+@pytest.mark.parametrize("zgroups", ZGROUPS)
+def test_ray_fans(maps, jx, zgroups):
+    """Sensor fans: the 6v6 runs, and runs that are not multiples of 8
+    (the JAX package's fallback kernel family K7). The JAX entry ran its
+    dense path (MPENV_PALLAS=dense: the interpret-mode kernel takes bf16
+    direction dots)."""
+    _, tm = maps
+    case = f"ray_fans{ZGROUPS.index(zgroups)}"
+    org, zg, d = fan_inputs(tm, zgroups)
+    _stored(jx, case, org=org, zg=zg, d=d)
     got = raycast.ray_fans_vs_tris(
         torch.as_tensor(org), torch.as_tensor(zg),
         tuple(torch.as_tensor(d[..., k].copy()) for k in range(3)),
         zgroups, tm.tris)
-    assert got.shape == (N, F)
-    _check_t(want, got)
+    assert got.shape == (24, sum(zgroups))
+    _check_t(jx[f"{case}/t"], got)
 
 
-def test_fan_capsules(maps):
-    """Sensor rays vs the world's capsules: nearest t, lowest index among
-    ties, -1 on a miss, own capsule and dead agents excluded."""
-    _, tm = maps
+def capsule_inputs(tm):
+    """(pos [W, A, 3], alive [W, A], flat dirs [W, A, F, 3])."""
     W, A, F = 3, 8, 40
     g = np.random.default_rng(5)
     pos = (_walkable(tm, W * A, 6, lift=(0.0, 1.0)) * 0.05).reshape(W, A, 3)
     alive = g.random((W, A)) > 0.2
-    zoff = np.full((W, A, F), 50.0, np.float32)
-    d = _dirs(W * A * F, 7, flat=True).reshape(W, A, F, 3)
+    return pos, alive, _dirs(W * A * F, 7, flat=True).reshape(W, A, F, 3)
 
-    def one_world(p, al, dd):
-        o = p[:, None, :] + jnp.array([0.0, 0.0, 50.0])
-        t = jrc.ray_vs_capsules(o, dd, p, R, SEG_H, al)  # [A, F, A]
-        t = jnp.where(jnp.arange(A)[:, None, None] == jnp.arange(A), jnp.inf,
-                      t)
-        tm_, ix = jnp.min(t, -1), jnp.argmin(t, -1)
-        return tm_, jnp.where(jnp.isinf(tm_), -1, ix)
 
-    want_t, want_i = jax.vmap(one_world)(pos, alive, d)
+def test_fan_capsules(maps, jx):
+    """Sensor rays vs the world's capsules: nearest t, lowest index among
+    ties, -1 on a miss, own capsule and dead agents excluded."""
+    _, tm = maps
+    pos, alive, d = capsule_inputs(tm)
+    _stored(jx, "capsules", pos=pos, alive=alive, d=d)
+    W, A, F = d.shape[:3]
+    zoff = np.full((W, A, 1), 50.0, np.float32)
+    want_t, want_i = jx["capsules/t"], jx["capsules/idx"]
     got_t, got_i = raycast_cull.fan_capsules(
-        torch.as_tensor(pos), torch.as_tensor(zoff[..., :1]),
+        torch.as_tensor(pos), torch.as_tensor(zoff),
         tuple(torch.as_tensor(d[..., k].copy()) for k in range(3)), (F,),
         torch.as_tensor(alive.astype(np.float32)))
 
-    assert np.isfinite(np.asarray(want_t)).mean() > 0.05
+    assert np.isfinite(want_t).mean() > 0.05
     _check_t(want_t, got_t)
-    assert np.array_equal(np.asarray(want_i), got_i.numpy())
+    assert np.array_equal(want_i, got_i.numpy())
 
 
 def _casts(tm, n, seed):
@@ -139,23 +167,30 @@ def _casts(tm, n, seed):
     return o, d
 
 
-def test_sphere_cast_t_and_winner(maps):
-    jm, tm = maps
-    o, d = _casts(tm, 384, 8)
-    want_t, _ = jrc._sphere_cast_vs_tris_dense(o, d, R, jm.tris)
-    want_i = jrc._sphere_cast_winner_idx_dense(o, d, R, jm.tris)
+def cast_inputs(tm, seed):
+    return _casts(tm, 384, seed)
+
+
+def test_sphere_cast_t_and_winner(maps, jx):
+    _, tm = maps
+    o, d = cast_inputs(tm, CAST_SEEDS[0])
+    case = f"sphere{CAST_SEEDS[0]}"
+    _stored(jx, case, o=o, d=d)
+    want_t, want_i = jx[f"{case}/t"], jx[f"{case}/idx"]
     got_t, got_i = raycast.sphere_cast(torch.as_tensor(o),
                                        torch.as_tensor(d), R, tm.tris)
     _check_t(want_t, got_t)
-    assert np.array_equal(np.asarray(want_i)[np.isfinite(want_t)],
+    assert np.array_equal(want_i[np.isfinite(want_t)],
                           got_i.numpy()[np.isfinite(want_t)])
 
 
-def test_sc_normals_from_idx(maps):
+def test_sc_normals_from_idx(maps, jx):
     """The winner's normal equals the JAX dense sweep's contact normal."""
-    jm, tm = maps
-    o, d = _casts(tm, 384, 9)
-    want_t, want_n = jrc._sphere_cast_vs_tris_dense(o, d, R, jm.tris)
+    _, tm = maps
+    o, d = cast_inputs(tm, CAST_SEEDS[1])
+    case = f"sphere{CAST_SEEDS[1]}"
+    _stored(jx, case, o=o, d=d)
+    want_t, want_n = jx[f"{case}/t"], jx[f"{case}/normal"]
     ot, dt = torch.as_tensor(o), torch.as_tensor(d)
     _, idx = raycast.sphere_cast(ot, dt, R, tm.tris)
     got = raycast.sc_normals_from_idx(ot, dt, R, idx, tm.tris).numpy()
@@ -215,14 +250,21 @@ def test_packed_cast_equals_dense(maps):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def v9_fans(maps):
+def v9_fans(maps, jx):
+    fans = v9_inputs(maps[1])
+    org, zoff, dirs, cells = fans
+    _stored(jx, "v9", org=org, zoff=zoff, dx=dirs[0], dy=dirs[1],
+            dz=dirs[2], cells=cells)
+    return fans
+
+
+def v9_inputs(tm):
     """The sensor fans of a Zone 6v6 reset at 2 worlds on simple_map, as
     the step hands them to K9: (origins [N, 3], per-ray zoff [N, F], dirs
     (dx, dy, dz) [N, F], ray-table cells [N])."""
     from madrona_mp_env_tpu_torch.ops.culling import ray_cell_index
     from madrona_mp_env_tpu_torch.sim.observations import sensor_fan
 
-    tm = maps[1]
     cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=6)
     env = mt.Env(cfg, os.path.join(os.path.dirname(__file__), "..", "data",
                                    "simple_map"), num_worlds=2, seed=3,
@@ -274,26 +316,15 @@ def test_ray_tables_match_jax(maps):
         tri, os.path.dirname(__file__) + "/../data/simple_map") is None
 
 
-def test_fan_v9_plain_matches_jax_sweep(maps, v9_fans):
+def test_fan_v9_plain_matches_jax_sweep(maps, v9_fans, jx):
     """K9's plain version against the JAX package's jnp sweep over each
     ray's candidate rows (ops/culling.py verify_ray_tables's pair), within
     1e-6 relative; the wrapper takes it on the CPU and t_max cuts hits."""
-    from madrona_mp_env_tpu.ops import culling as jcull
-
-    jm, tm = maps
+    _, tm = maps
     org, zoff, dirs, cells = v9_fans
     got = raycast._ray_fans_v9_plain(org, zoff, dirs, cells, tm.ray_cells,
                                      tm.tris).numpy()
-    o, d = _v9_rays(org, zoff, dirs)
-    F = zoff.shape[1]
-    ids = np.asarray(jm.ray_cells.cand_idx)[np.repeat(cells.numpy(), F)]
-    safe = np.maximum(ids, 0)
-    s = jm.tris
-    want = np.asarray(jax.jit(jax.vmap(
-        lambda oo, dd, a, b, c, vv: jcull._dense_ray_idx(
-            oo, dd, a, b, c, vv)[0]))(
-        o.reshape(-1, 3), d.reshape(-1, 3), s.v0[safe], s.e1[safe],
-        s.e2[safe], s.valid[safe] & jnp.asarray(ids >= 0))).reshape(got.shape)
+    want = jx["v9/sweep"]
     assert np.array_equal(np.isfinite(want), np.isfinite(got))
     hit = np.isfinite(want)
     assert hit.mean() > 0.3
@@ -306,21 +337,15 @@ def test_fan_v9_plain_matches_jax_sweep(maps, v9_fans):
     assert np.array_equal(cut, np.where(got <= 500.0, got, np.inf))
 
 
-def test_fan_v9_plain_vs_jax_interpret_kernel(maps, v9_fans, monkeypatch):
-    """The TPU kernel itself (Pallas interpret mode) on the same fans and
-    tables, held to its own test's bar (tests/test_pallas_parity.py
-    TestFanKernelV9): its direction dots are bf16, so t within 2e-2
-    relative where both hit and hits and misses disagree on <= 2% of the
-    rays."""
-    monkeypatch.setenv("MPENV_PALLAS", "interpret")
-    from madrona_mp_env_tpu.ops.raycast_pallas import ray_fans_culled_v9
-
-    jm, tm = maps
+def test_fan_v9_plain_vs_jax_interpret_kernel(maps, v9_fans, jx):
+    """The TPU kernel itself (Pallas interpret mode, in the fixture) on the
+    same fans and tables, held to its own test's bar
+    (tests/test_pallas_parity.py TestFanKernelV9): its direction dots are
+    bf16, so t within 2e-2 relative where both hit and hits and misses
+    disagree on <= 2% of the rays."""
+    _, tm = maps
     org, zoff, dirs, cells = v9_fans
-    want = np.asarray(ray_fans_culled_v9(
-        jnp.asarray(org.numpy()), jnp.asarray(zoff.numpy()),
-        tuple(jnp.asarray(c.numpy()) for c in dirs),
-        jnp.asarray(cells.numpy()), jm.ray_cells))
+    want = jx["v9/interpret"]
     got = raycast._ray_fans_v9_plain(org, zoff, dirs, cells, tm.ray_cells,
                                      tm.tris).numpy()
     assert (np.isfinite(want) != np.isfinite(got)).mean() <= 0.02

@@ -2,7 +2,8 @@
 
 (a) ``tail_fused_plain`` against the JAX package's own fused-tail kernel
     function (ops/tail_pallas._tail_batched, Pallas in interpret mode, run
-    eagerly) on 4-world states made with numpy from a seed
+    eagerly; its outputs with their inputs in fixtures_torch/tail_jax.npz,
+    make_tail_fixture.py) on 4-world states made with numpy from a seed
     (fixtures_torch/tail_states.py: rotation, contest, take, capture,
     finish by points, by length and by a forced reset, first step), for
     team_size 2 (the states of zone_simple_map_systems.npz) and 6 (the
@@ -21,17 +22,12 @@
 import ctypes
 import os
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 import madrona_mp_env_tpu as mp
-from madrona_mp_env_tpu.ops import tail_pallas
-from madrona_mp_env_tpu.sim.types import WorldState as JaxWorldState
 
 import madrona_mp_env_tpu_torch as mt
 from madrona_mp_env_tpu_torch.assets.map_data import load_map
@@ -48,6 +44,7 @@ from tail_states import NUM_WORLDS, tail_scenario  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 SYSTEMS = os.path.join(HERE, "fixtures_torch", "zone_simple_map_systems.npz")
+TAIL_FIXTURE = os.path.join(HERE, "fixtures_torch", "tail_jax.npz")
 REL = 1e-5
 CLOSE = ("reward", "min_dist_to_zone", "team_rewards")
 
@@ -96,21 +93,29 @@ def _assert_leaves(got, want, close=(), rel=0.0):
             assert np.array_equal(g, w), k
 
 
-@pytest.mark.parametrize("ts", [2, 6])
-def test_tail_matches_jax_kernel(ts, maps, monkeypatch):
-    monkeypatch.setenv("MPENV_PALLAS", "interpret")
-    m = maps[ts]
-    leaves, fr, _ = _states(ts, m)
-    jm = SimpleNamespace(
-        num_zones=m.num_zones,
-        **{k: jnp.asarray(getattr(m, k).numpy()) for k in (
-            "zone_min", "zone_max", "zone_rot", "world_min", "world_max")})
-    jcfg = mp.EnvConfig(
+def jax_cfg(ts):
+    """The JAX package's EnvConfig of _cfg(ts) (make_tail_fixture.py)."""
+    return mp.EnvConfig(
         task=mp.Task.Zone, team_size=ts,
         sim_flags=mp.SimFlags.StaggerStarts | mp.SimFlags.RandomFlipTeams)
-    js = JaxWorldState(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    js, jcap = tail_pallas._tail_batched(jcfg, jm, js, jnp.asarray(fr))
-    want = {k: np.asarray(getattr(js, k)) for k in leaves}
+
+
+def jax_tail(case, leaves, fr):
+    """The JAX kernel function's (output leaves, captures) of ``case`` in
+    tail_jax.npz, after checking that ``leaves`` and ``fr`` are the
+    inputs it was run on."""
+    fx = np.load(TAIL_FIXTURE)
+    np.testing.assert_array_equal(fr, fx[f"{case}/fr"])
+    for k, v in leaves.items():
+        np.testing.assert_array_equal(v, fx[f"{case}/in/{k}"], err_msg=k)
+    return ({k: fx[f"{case}/out/{k}"] for k in leaves}, fx[f"{case}/cap"])
+
+
+@pytest.mark.parametrize("ts", [2, 6])
+def test_tail_matches_jax_kernel(ts, maps):
+    m = maps[ts]
+    leaves, fr, _ = _states(ts, m)
+    want, jcap = jax_tail(f"k5/{ts}", leaves, fr)
 
     st, cap = tf.tail_fused_plain(_cfg(ts), m, world_state_from_numpy(leaves),
                                   torch.as_tensor(fr))
