@@ -101,16 +101,16 @@ Phases, each of which fails the run loudly:
    steps at 1024 worlds: K1, K7 and K5 must launch (K7 and K3 51 times,
    K1 and K5 50), K2, K6 and K9 must not;
 8. the training path: the train CLI's TrainingManager at 1024 worlds x
-   40 steps per update, the LSTM-512 policy, E = 1: 2 updates of Zone 6v6
+   40 steps per update, the LSTM-512 policy, E = 1: 1 update of Zone 6v6
    on the default fan route (K2), 1 with MPENV_FAN_V9=1 (K9), 1 of
-   Zone 3v3 (K7) on each map, then 2 each of Zone 6v6 with --bf16 and
+   Zone 3v3 (K7) on each map, then 1 each of Zone 6v6 with --bf16 and
    --fp16 (the policy's compute dtype; no float32 fallback: the stored
    observations and BPTT start states must come out in it); updates/s,
    samples/s and each update's rollout and PPO-update ms (CUDA events);
    finite losses, parameters that move, the fan's launches; then the PBT
    population through the CLI's build at 1024 worlds, Zone 6v6, E = 2,
-   P = 2, play portions 0.25 / 0.5 / 0.25, --pbt-update-frequency 1, 2
-   updates, each followed by eval_elo, store_past_policy,
+   P = 2, play portions 0.25 / 0.5 / 0.25, --pbt-update-frequency 1, 1
+   update followed by eval_elo, store_past_policy,
    update_population and resample_matchmaking (CUDA events each), with
    episode_len 40 and 50 eval steps (reductions of EnvConfig's default
    and the CLI's 1000, so that eval matches end): each kernel of the 6v6
@@ -158,7 +158,7 @@ Phases, each of which fails the run loudly:
    on town_map for 20 steps (K6 on the 48-ray run, held to its plain
    version); each configuration's 4-world, 16-step rollout on "cuda"
    against "cpu" to phase 9's bars; one train-CLI update at 1024 worlds
-   x 40 steps of each --game-mode (TDM, ZoneCaptureDefend, Turret,
+   x 8 steps of each --game-mode (TDM, ZoneCaptureDefend, Turret,
    Explore): finite losses, parameters that move. SpawnInMiddle is not
    driven: the bundled maps' mid-map spawn boxes overflow the spawn-usage
    tables, and Env refuses it as the JAX package's spawn fails there;
@@ -229,11 +229,37 @@ Phases, each of which fails the run loudly:
    sequence forward + backward in float32 and bfloat16 (CUDA events),
    and the attention policy cuda against cpu at 4 worlds x 8 steps within
    FT_NET_BAR. The phase logs its own seconds;
-15. a line of kernel results (JSON, one row per kernel and map, each with
+15. data parallelism (parallel_phase), Zone 6v6 on simple_map at 1024
+   worlds x 40 steps: (a) the train CLI with --num-devices 1 (a one-rank
+   NCCL group) against the plain CLI from the same seed, one update
+   bit-equal (int32 views: params, Adam state, normalizer, env state,
+   key), every counter zeroed before the --num-devices 1 run and read
+   after (K1 40, K2 41, K3 41, K4 culled 40, K4' 120, K5 40); (b) two
+   ranks on the one card (gloo over CUDA tensors, each given cuda:0, 512
+   worlds each), E = 2 in cross play, a rotation then one update of 20
+   steps, against
+   the same update in one process: actions equal where the one-process
+   Gumbel margin exceeds 1e-4 and match results exact up to the first
+   step an action differs, params within 2.5 lr (the share beyond 0.5 lr
+   and the sign flips logged), loss terms within 1e-4 and the normalizer
+   within 1e-6 where every action agreed, each rank's env state bit-equal
+   to the one-process slice in every world whose actions all agreed, the
+   replicated state bit-equal across the ranks, and each rank's launches
+   of the six main-path kernels (20 each, K4' 60) on their rows
+   (``dp_launches``); (c) tools/scaling_bench.py at one device (512
+   worlds): env-steps/s and train env-steps/s with the card's name and
+   power limit; (d) --num-devices beyond the visible cards raising. The
+   phase logs its own seconds;
+16. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
-   REDESIGN_KEYS), then the card line, then the last line {"ok": true,
+   REDESIGN_KEYS; the six main-path rows their launches on each rank of
+   phase 15), then the card line, then the last line {"ok": true,
    "device": {...}}.
+
+``python3 chip_smoke.py --cards`` on a machine of several cards runs
+cards_phase alone: the scaling bench across the cards, one NCCL rank a
+card against one process, and the train CLI's --num-devices over them.
 
 Exits non-zero with no result line when there is no CUDA device or when
 the port's package is not beside this script.
@@ -309,14 +335,15 @@ OPS_TAIL_AGENT = 41
 # K3's share of (ray, live capsule) pairs that reach a square root and
 # K5's host us per call (with its predecessor's, on the same host path);
 # the rows of K4 dense, K8 and P3, which share K4's pair arithmetic, carry
-# ptxas -v's registers and spill bytes
+# ptxas -v's registers and spill bytes; the six simple_map main-path rows
+# their launches on each rank of phase 15 and that path
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "fmad_floor_ms", "registers", "spill_bytes",
                  "helper_launches", "helper_device_ms", "split",
                  "per_ray_ms", "per_ray_before_ms", "per_ray_plain_ms",
                  "per_ray_bound_ms", "root_share",
                  "host_us", "before_host_us", "vs_bot_launches",
-                 "vs_bot_path", "ls_share")
+                 "vs_bot_path", "ls_share", "dp_launches", "dp_path")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
                 "ray_fans_culled_v1", "sphere_cast_culled_v1",
@@ -2526,12 +2553,12 @@ TRAIN_STEPS = 40  # steps_per_update, the JAX bench's train row
 # route: (map, team size, MPENV_FAN_V9, updates, the sensor fan's entry,
 # the CLI's precision flags)
 TRAIN_ROUTES = {
-    "default": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", []),
+    "default": (SCENE, TEAM_SIZE, "0", 1, "ray_fans_vs_tris", []),
     "v9": (SCENE, TEAM_SIZE, "1", 1, "ray_fans_culled_v9", []),
     "zone3v3": (SCENE, 3, "0", 1, "ray_fans_vs_tris_flat", []),
     "zone3v3 town_map": (TOWN, 3, "0", 1, "ray_fans_vs_tris_flat", []),
-    "bf16": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", ["--bf16"]),
-    "fp16": (SCENE, TEAM_SIZE, "0", 2, "ray_fans_vs_tris", ["--fp16"]),
+    "bf16": (SCENE, TEAM_SIZE, "0", 1, "ray_fans_vs_tris", ["--bf16"]),
+    "fp16": (SCENE, TEAM_SIZE, "0", 1, "ray_fans_vs_tris", ["--fp16"]),
 }
 FAN_ENTRIES = ("ray_fans_vs_tris", "ray_fans_culled", "ray_fans_culled_v9",
                "ray_fans_vs_tris_flat")
@@ -2565,10 +2592,11 @@ def train_phase(card):
         train_run(route, scene, ts_, v9, n, fan, flags, card)
 
 
-def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=()):
-    """``n`` updates of one route of train_phase (``extra``: more flags of
-    the CLI, such as a --game-mode), checked and logged as train_phase
-    says."""
+def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=(),
+              steps=TRAIN_STEPS):
+    """``n`` updates of ``steps`` steps of one route of train_phase
+    (``extra``: more flags of the CLI, such as a --game-mode), checked and
+    logged as train_phase says."""
     import torch
     from madrona_mp_env_tpu_torch.train import train as train_cli
 
@@ -2576,7 +2604,7 @@ def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=()):
     with mock.patch.dict(os.environ, {"MPENV_FAN_V9": v9}):
         args = train_cli.parse_args([
             "--scene", scene, "--num-worlds", str(TRAIN_WORLDS),
-            "--steps-per-update", str(TRAIN_STEPS),
+            "--steps-per-update", str(steps),
             "--team-size", str(ts_)] + flags + list(extra))
         cfg, tcfg, env, mgr = train_cli.build(args)
         if mgr.model.dtype != dtype or tcfg.compute_dtype != dtype:
@@ -2611,12 +2639,12 @@ def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=()):
     if not all(np.isfinite(losses)) or moved == 0.0:
         raise AssertionError(f"train {route}: losses {losses}, params "
                              f"moved {moved}")
-    if counts[fan] != n * TRAIN_STEPS or any(
+    if counts[fan] != n * steps or any(
             counts[f] for f in FAN_ENTRIES if f != fan):
         raise AssertionError(f"train {route}: fan launches {counts}")
-    samples = TRAIN_WORLDS * cfg.num_agents * TRAIN_STEPS
+    samples = TRAIN_WORLDS * cfg.num_agents * steps
     ups = n / (t1 - t0)
-    log(f"[train {route}] {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps x "
+    log(f"[train {route}] {TRAIN_WORLDS} worlds x {steps} steps x "
         f"{n} updates, LSTM-512, E = 1, {str(dtype)[6:]}: {ups:.4f} "
         f"updates/s, "
         f"{ups * samples:.1f} samples/s; rollout ms "
@@ -2631,7 +2659,7 @@ def train_run(route, scene, ts_, v9, n, fan, flags, card, extra=()):
 
 
 PBT_WORLDS = 1024
-PBT_UPDATES = 2
+PBT_UPDATES = 1
 # reductions: EnvConfig's episode_len and the CLI's --eval-elo-steps 1000,
 # so that the eval's matches end inside a short run
 PBT_EPISODE_LEN = 40
@@ -3092,6 +3120,9 @@ K1_SITES = {"turret": "turret LOS", "hl_battle": "hl_battle LOS",
             "observations": "Flank LOS refresh"}
 # the train CLI's game modes other than Zone (phase 8 trains Zone)
 MODE_TRAIN = ("TDM", "ZoneCaptureDefend", "Turret", "Explore")
+# their updates hold losses and moving parameters, not rates: 8 steps (4
+# BPTT chunks of 2), cut from TRAIN_STEPS for the run's time
+MODE_TRAIN_STEPS = 8
 
 
 def shared_env(mt, cfg, scene, maps):
@@ -3325,7 +3356,8 @@ def modes_phase(mt, card):
     town_map (MODE_TOWN_STEPS steps, K6 on the 48-ray run, held to its
     plain version); each configuration's 4-world, 16-step rollout on
     "cuda" against "cpu" (phase 9's bars); one train-CLI update at 1024
-    worlds x 40 steps of each game mode of MODE_TRAIN. Returns the new
+    worlds x MODE_TRAIN_STEPS steps of each game mode of MODE_TRAIN.
+    Returns the new
     kernel rows."""
     import torch
 
@@ -3408,7 +3440,7 @@ def modes_phase(mt, card):
     # one update of the train CLI per game mode
     for mode in MODE_TRAIN:
         train_run(mode, SCENE, TEAM_SIZE, "0", 1, "ray_fans_vs_tris", [],
-                  card, extra=["--game-mode", mode])
+                  card, extra=["--game-mode", mode], steps=MODE_TRAIN_STEPS)
     t_end = time.perf_counter()
     log(f"[modes] phase {t_end - t_start:.1f} s: paths to the town path "
         f"{t_town - t_start:.1f}, parity {t_parity - t_town:.1f}, training "
@@ -4655,6 +4687,479 @@ def bc_phase(mt, card):
         f"{dt[3]:.1f}, attention {dt[4]:.1f}")
 
 
+# phase 15: data parallelism (parallel/, the trainer's sharded path, the
+# train CLI's --num-devices, tools/scaling_bench.py)
+DP_RANKS = 2
+# E = 2 train policies in cross play: the blocks are ragged on each rank
+# after a rotation; one minibatch an epoch (2 Adam steps), the CPU test's
+# count, which its 2.5 lr bar on the params is for
+DP_FLAGS = ["--pbt-ensemble-size", "2", "--num-minibatches", "1"]
+DP_MARGIN = 1e-4  # the Gumbel top-two margin that decides an action
+DP_STEPS = 20  # (b)'s steps an update, cut from TRAIN_STEPS for the time
+
+
+def dp_cli_args(tmp, name):
+    """The train CLI at TRAIN_WORLDS x TRAIN_STEPS, Zone 6v6 on
+    simple_map, one update, its metrics and checkpoint under tmp/name."""
+    return ["--scene", SCENE, "--num-worlds", str(TRAIN_WORLDS),
+            "--steps-per-update", str(TRAIN_STEPS), "--num-updates", "1",
+            "--metrics-buffer-size", "1",
+            "--ckpt-dir", os.path.join(tmp, name, "ck"),
+            "--tb-dir", os.path.join(tmp, name, "tb"), "--run-name", "r"]
+
+
+def dp_build(mesh, device):
+    """The train CLI's build of the (b) configuration on one rank of
+    ``mesh`` (or alone with None): (mgr, ts after global_init)."""
+    from madrona_mp_env_tpu_torch.parallel import global_init
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    args = train_cli.parse_args(
+        ["--scene", SCENE, "--num-worlds", str(TRAIN_WORLDS),
+         "--steps-per-update", str(DP_STEPS)] + DP_FLAGS)
+    _, _, _, mgr = train_cli.build(args, mesh, device)
+    return mgr, global_init(mgr)
+
+
+def dp_update(mgr, ts0, margins=False):
+    """A rotation, then one update_iter with every launch counter zeroed
+    just before and read just after it: each step's actions [S, W, A, 6]
+    and match results of this process's worlds, the params, loss terms,
+    key, normalizer and env state after it (on the CPU), the launches of
+    SIMPLE_PATH's kernels, the update's ms (CUDA events) and, with
+    ``margins``, each step's Gumbel top-two margins [S, W, A] and the
+    params before the update."""
+    import torch
+    from madrona_mp_env_tpu_torch.utils import rng
+
+    steps, dists = _record_steps(mgr)
+    ts = mgr.resample_matchmaking(ts0)
+    entries = zero_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ts1, m = mgr.update_iter(ts)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out = {"launches": {k: entries[k].launches for k in SIMPLE_PATH},
+           "ms": ev[0].elapsed_time(ev[1]),
+           "actions": torch.stack([s[0] for s in steps]),
+           "win": torch.stack([s[1] for s in steps]),
+           "finished": torch.stack([s[2] for s in steps]),
+           "params": [{k: v.cpu() for k, v in p.items()}
+                      for p in ts1.params],
+           "lr": ts.hyper_params["lr"].cpu(),
+           "metrics": {k: v.cpu() for k, v in m.items()},
+           "key": ts1.key.cpu(),
+           "normalizer": [{k: v.cpu() for k, v in d.items()}
+                          for d in (ts1.normalizer.mu, ts1.normalizer.var)],
+           "env": {k: v.cpu() for k, v in ts1.env_state.leaves().items()}}
+    if margins:
+        out["params0"] = [{k: v.cpu() for k, v in p.items()}
+                          for p in ts.params]
+        tb, pb = mgr.blocks(ts)
+        keys = rng.split(rng.split(ts.key, 2)[1], DP_STEPS)
+        out["margins"] = torch.stack([mgr.from_blocks(_gumbel_margin(
+            torch.cat([d.discrete.packed_log_probs(),
+                       d.aim.packed_log_probs()], -1),
+            rng.split(keys[t], 2)[0]), None, tb, pb).cpu()
+            for t, d in enumerate(dists[:DP_STEPS])])
+    return out
+
+
+def dp_rank(out_dir):
+    """One rank of (b): its share of the 2-rank update on cuda:0, written
+    to out_dir/rank<r>.pt."""
+    import torch
+    from madrona_mp_env_tpu_torch.parallel import global_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = global_mesh(TRAIN_WORLDS)
+    mgr, ts0 = dp_build(mesh, "cuda:0")
+    res = dp_update(mgr, ts0)
+    res["rank"] = mesh.rank
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def dp_bits(x):
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def dp_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(dp_bits(a), dp_bits(b))
+
+
+def dp_cli(tmp, card):
+    """(a): the train CLI with --num-devices 1 (a one-rank NCCL group)
+    against the plain CLI from the same seed: the update bit-equal (int32
+    views) in params, Adam state, normalizer, key and env state; the
+    --num-devices 1 run's launches with every counter zeroed before and
+    read after (the reset's fans, then every step's)."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = train_cli.main(dp_cli_args(tmp, "plain"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    entries = zero_counts()
+    one = train_cli.main(dp_cli_args(tmp, "one") + ["--num-devices", "1"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {k: entries[k].launches for k in SIMPLE_PATH}
+    expect = {k: TRAIN_STEPS * SIMPLE_PER_STEP.get(k, 1) + (
+        k in ("ray_fans_vs_tris", "fan_capsules")) for k in SIMPLE_PATH}
+    others = {k: f.launches for k, f in entries.items()
+              if k not in SIMPLE_PATH and f.launches}
+    if counts != expect or others:
+        raise AssertionError(f"[dp] --num-devices 1: launches {counts}, "
+                             f"expected {expect}; others {others}")
+    pairs = [(a[k], b[k]) for a, b in zip(one.params, plain.params)
+             for k in a]
+    pairs += [(getattr(a, f)[k], getattr(b, f)[k])
+              for a, b in zip(one.opt_state, plain.opt_state)
+              for f in ("mu", "nu") for k in a.mu]
+    pairs += [(d1[k], d2[k]) for d1, d2 in (
+        (one.normalizer.mu, plain.normalizer.mu),
+        (one.normalizer.var, plain.normalizer.var)) for k in d1]
+    pairs += [(v, plain.env_state.leaves()[k])
+              for k, v in one.env_state.leaves().items()]
+    pairs += [(one.key, plain.key)]
+    bad = sum(not dp_equal(a, b) for a, b in pairs)
+    if bad:
+        raise AssertionError(f"[dp] --num-devices 1: {bad} of {len(pairs)} "
+                             "tensors differ from the plain CLI's")
+    log(f"[dp] (a) train CLI --num-devices 1 (NCCL, one rank) at "
+        f"{TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps, one update: "
+        f"{len(pairs)} tensors bit-equal (int32 views) to the plain CLI's "
+        f"(params, Adam state, normalizer, env state, key); CLI wall "
+        f"{t2 - t1:.2f} s against {t1 - t0:.2f} s plain; launches "
+        + ", ".join(f"{k}={c}" for k, c in counts.items()) + f" on {card}")
+    del plain, one
+
+
+def dp_compare(ref, ranks):
+    """(b)'s bars, the CPU test's: the ranks' actions equal to the
+    one-process run's where its margin decides them and match results
+    exact, up to the first step an action differs; params within 2.5 lr;
+    where every action agreed, loss terms within 1e-4 relative and the
+    normalizer within 1e-6 * max(1, |x|); each rank's env state bit-equal
+    to the one-process slice in every world whose actions all agreed;
+    params, loss terms and key bit-equal across the ranks. The CPU test's
+    0.5 lr where every action agreed is reported, not held: at 1024
+    worlds some gradient elements sum to less than the rounding of their
+    terms, and Adam's first steps (~lr * sign(g)) move those either way
+    under another summation order. Returns a summary dict."""
+    import torch
+
+    Wl = TRAIN_WORLDS // len(ranks)
+    act = torch.cat([r["actions"] for r in ranks], 1)
+    win = torch.cat([r["win"] for r in ranks], 1)
+    fin = torch.cat([r["finished"] for r in ranks], 1)
+    compared = 0
+    for t in range(DP_STEPS):
+        same = (act[t] == ref["actions"][t]).all(-1)
+        if not bool(same[ref["margins"][t] > DP_MARGIN].all()):
+            raise AssertionError(f"[dp] (b) step {t}: decided actions "
+                                 "differ")
+        if not (torch.equal(win[t], ref["win"][t])
+                and torch.equal(fin[t], ref["finished"][t])):
+            raise AssertionError(f"[dp] (b) step {t}: match results differ")
+        compared = t + 1
+        if not bool(same.all()):
+            break
+    all_same = bool((act == ref["actions"]).all())
+    lr = ref["lr"]
+    worst, n, near, big_n, flipped = 0.0, 0, 0, 0, 0
+    for e, (p1, p0) in enumerate(zip(ref["params"], ref["params0"])):
+        for k, want in p1.items():
+            got = ranks[0]["params"][e][k]
+            d = (got - want).abs() / float(lr[e])
+            worst = max(worst, float(d.max()))
+            n += d.numel()
+            near += int((d <= 0.5).sum())
+            dw, dg = want - p0[k], got - p0[k]
+            big = dw.abs() > lr[e]
+            big_n += int(big.sum())
+            flipped += int((torch.sign(dg[big]) != torch.sign(dw[big])).sum())
+    if worst > 2.5:
+        raise AssertionError(f"[dp] (b) params differ by up to {worst} lr")
+    loss_err = max(float(((ranks[0]["metrics"][k] - ref["metrics"][k]).abs()
+                          / ref["metrics"][k].abs().clamp(min=1.0)).max())
+                   for k in ("loss", "pg_loss", "v_loss"))
+    norm_err = max(float(((g[k] - w[k]).abs() / w[k].abs().clamp(min=1.0))
+                         .max()) for g, w in zip(ranks[0]["normalizer"],
+                                                 ref["normalizer"])
+                   for k in w)
+    if all_same and (loss_err > 1e-4 or norm_err > 1e-6):
+        raise AssertionError(f"[dp] (b) loss terms {loss_err:.3g}, "
+                             f"normalizer {norm_err:.3g}")
+    agreed_worlds = 0
+    for r, res in enumerate(ranks):
+        sl = slice(r * Wl, (r + 1) * Wl)
+        agreed = (res["actions"] == ref["actions"][:, sl]).all(-1).all(
+            -1).all(0)
+        agreed_worlds += int(agreed.sum())
+        bad = [k for k, v in res["env"].items()
+               if not dp_equal(v[agreed], ref["env"][k][sl][agreed])]
+        if bad:
+            raise AssertionError(f"[dp] (b) rank {r}: env state differs "
+                                 f"from the one-process slice in {bad}")
+    a = ranks[0]
+    for b in ranks[1:]:
+        if not (all(dp_equal(x[k], y[k]) for x, y in zip(a["params"],
+                                                        b["params"])
+                    for k in x)
+                and all(dp_equal(a["metrics"][k], b["metrics"][k])
+                        for k in a["metrics"])
+                and torch.equal(a["key"], b["key"])):
+            raise AssertionError("[dp] (b) the ranks' replicated state "
+                                 "differs")
+    if not torch.equal(a["key"], ref["key"]):
+        raise AssertionError("[dp] (b) the key differs from one process's")
+    return {"compared": compared, "all_same": all_same,
+            "undecided": int((ref["margins"] <= DP_MARGIN).sum()),
+            "params_lr": worst, "over": n - near, "n": n, "flipped": flipped,
+            "big": big_n, "loss_err": loss_err, "norm_err": norm_err,
+            "agreed_worlds": agreed_worlds}
+
+
+def dp_ranks(tmp, rows, card):
+    """(b): DP_RANKS ranks on the one card (gloo over CUDA tensors, each
+    given cuda:0), TRAIN_WORLDS / DP_RANKS worlds each, the (b)
+    configuration: a rotation and one update, held to the one-process
+    run of the same configuration (dp_compare), which this process runs
+    while the ranks do. Each rank's launches of the six main-path
+    kernels are held to DP_STEPS steps' and stored on their rows."""
+    import threading
+
+    import torch
+    from madrona_mp_env_tpu_torch.parallel import launch
+
+    failed = []
+
+    def ranks():
+        try:
+            launch(dp_rank, DP_RANKS, (tmp,), "gloo",
+                   init_method="file://" + os.path.join(tmp, "rendezvous"),
+                   timeout_s=600)
+        except RuntimeError as e:
+            failed.append(e)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=ranks)
+    th.start()
+    try:
+        mgr, ts0 = dp_build(None, "cuda")
+        ref = dp_update(mgr, ts0, margins=True)
+        del mgr, ts0
+    finally:
+        th.join()
+    t1 = time.perf_counter()
+    if failed:
+        raise failed[0]
+    res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_RANKS)]
+    expect = {k: DP_STEPS * SIMPLE_PER_STEP.get(k, 1) for k in SIMPLE_PATH}
+    for r in res:
+        if r["launches"] != expect:
+            raise AssertionError(f"[dp] (b) rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {expect}")
+    summary = dp_compare(ref, res)
+    for row in rows:
+        entry = row["entry"].__name__
+        row["dp_launches"] = [r["launches"][entry] for r in res]
+        row["dp_path"] = (f"train update, {DP_RANKS} ranks x "
+                          f"{TRAIN_WORLDS // DP_RANKS} worlds on one card")
+    for r in res:
+        log(f"[dp] (b) rank {r['rank']} of {DP_RANKS} (gloo, cuda:0), "
+            f"{TRAIN_WORLDS // DP_RANKS} worlds: update_iter after a "
+            f"rotation {r['ms']:.1f} ms (CUDA events); launches "
+            + ", ".join(f"{k}={c}" for k, c in r["launches"].items()))
+    log(f"[dp] (b) {DP_RANKS} ranks against one process at {TRAIN_WORLDS} "
+        f"worlds x {DP_STEPS} steps, E = 2 (cross play), one rotation: "
+        f"{summary['compared']} of {DP_STEPS} steps compared, every "
+        f"action equal: {summary['all_same']} ({summary['undecided']} "
+        f"undecided actor-steps at margin {DP_MARGIN}); params within "
+        f"{summary['params_lr']:.4g} lr (bar 2.5), {summary['over']} of "
+        f"{summary['n']} beyond 0.5 lr, {summary['flipped']} of the "
+        f"{summary['big']} that moved more than lr moved the other way; "
+        f"loss terms {summary['loss_err']:.3g} relative, normalizer "
+        f"{summary['norm_err']:.3g}; env state "
+        f"bit-equal in {summary['agreed_worlds']} of {TRAIN_WORLDS} worlds; "
+        f"replicated state bit-equal across the ranks; one-process "
+        f"update_iter {ref['ms']:.1f} ms (the ranks and this process share "
+        f"the card); wall {t1 - t0:.1f} s on {card}")
+
+
+def dp_bench(card):
+    """(c): tools/scaling_bench.py at one device (512 worlds, 50 env
+    steps, one timed train update after a warm-up one), every counter
+    zeroed before and read after."""
+    from madrona_mp_env_tpu_torch.tools import scaling_bench
+
+    entries = zero_counts()
+    (line,) = scaling_bench.main(["--train", "--num-updates", "1",
+                                  "--max-devices", "1"])
+    counts = {k: entries[k].launches for k in SIMPLE_PATH}
+    if min(counts.values()) == 0 or line.get("card") != card:
+        raise AssertionError(f"[dp] (c) scaling bench: {line}, launches "
+                             f"{counts}")
+    log(f"[dp] (c) scaling_bench at 1 device, {line['num_worlds']} worlds: "
+        f"{line['env_steps_per_sec']:.1f} env-steps/s, "
+        f"{line['train_env_steps_per_sec']:.1f} train env-steps/s "
+        f"(efficiency {line['efficiency_vs_1dev']}) on {line['card']}; "
+        "launches " + ", ".join(f"{k}={c}" for k, c in counts.items()))
+
+
+def dp_refuses():
+    """(d): --num-devices beyond the visible cards raises before any
+    rank starts."""
+    import torch
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    n = torch.cuda.device_count() + 1
+    try:
+        train_cli.main(["--num-devices", str(n), "--num-updates", "1"])
+    except RuntimeError as e:
+        if "visible" not in str(e):
+            raise
+        log(f"[dp] (d) --num-devices {n} on {n - 1} card(s) raises: {e}")
+        return
+    raise AssertionError(f"[dp] (d) --num-devices {n} did not raise")
+
+
+def parallel_phase(rows, card):
+    """Phase 15: (a) dp_cli, (b) dp_ranks, (c) dp_bench, (d) dp_refuses.
+    The phase logs its own seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t = [time.perf_counter()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dp_cli(tmp, card)
+        t.append(time.perf_counter())
+        dp_ranks(tmp, rows, card)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dp_bench(card)
+    t.append(time.perf_counter())
+    dp_refuses()
+    t.append(time.perf_counter())
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[dp] phase {t[-1] - t[0]:.1f} s: (a) {dt[0]:.1f}, (b) "
+        f"{dt[1]:.1f}, (c) {dt[2]:.1f}, (d) {dt[3]:.1f}")
+
+
+def dp_card_rank(out_dir):
+    """One rank of cards_phase's update: rank r on cuda:r over NCCL, its
+    share written to out_dir/rank<r>.pt."""
+    import torch
+    from madrona_mp_env_tpu_torch.parallel import global_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = global_mesh(TRAIN_WORLDS)
+    dev = torch.device("cuda", mesh.rank)
+    torch.cuda.set_device(dev)
+    mgr, ts0 = dp_build(mesh, dev)
+    res = dp_update(mgr, ts0)
+    res["rank"] = mesh.rank
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def cards_phase(n, card):
+    """``python3 chip_smoke.py --cards`` on a machine of n > 1 cards, one
+    process a card over NCCL: tools/scaling_bench.py over 1, 2, 4, ...
+    cards (512 worlds a card, two timed train updates a point); n ranks
+    of phase 15 (b)'s update (TRAIN_WORLDS / n worlds each) against one
+    process on cuda:0 at dp_compare's bars, each rank's launches held to
+    DP_STEPS steps'; the train CLI with --num-devices n: two updates,
+    a checkpoint after each, then a restore to a third."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from madrona_mp_env_tpu_torch.parallel import launch
+    from madrona_mp_env_tpu_torch.tools import scaling_bench
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    t = [time.perf_counter()]
+    # its rank 0 prints a JSON line a point, with each card's name and limit
+    scaling_bench.main(["--train", "--num-updates", "2"])
+    t.append(time.perf_counter())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        failed = []
+
+        def ranks():
+            try:
+                launch(dp_card_rank, n, (tmp,), "nccl",
+                       init_method="file://" + os.path.join(tmp, "rdv"),
+                       timeout_s=600)
+            except RuntimeError as e:
+                failed.append(e)
+
+        th = threading.Thread(target=ranks)
+        th.start()
+        try:
+            mgr, ts0 = dp_build(None, "cuda:0")
+            ref = dp_update(mgr, ts0, margins=True)
+            del mgr, ts0
+        finally:
+            th.join()
+        if failed:
+            raise failed[0]
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(n)]
+        expect = {k: DP_STEPS * SIMPLE_PER_STEP.get(k, 1)
+                  for k in SIMPLE_PATH}
+        for r in res:
+            if r["launches"] != expect:
+                raise AssertionError(f"[cards] rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {expect}")
+            log(f"[cards] rank {r['rank']} of {n} (NCCL, cuda:{r['rank']}):"
+                f" update_iter {r['ms']:.1f} ms (CUDA events); launches "
+                + ", ".join(f"{k}={c}" for k, c in r["launches"].items()))
+        log(f"[cards] {n} ranks against one process at {TRAIN_WORLDS} "
+            f"worlds: {dp_compare(ref, res)}; one process {ref['ms']:.1f} "
+            "ms (sharing cuda:0 with rank 0)")
+        t.append(time.perf_counter())
+        base = ["--scene", SCENE, "--num-worlds", str(TRAIN_WORLDS),
+                "--steps-per-update", str(TRAIN_STEPS),
+                "--metrics-buffer-size", "1", "--ckpt-frequency", "1",
+                "--ckpt-dir", os.path.join(tmp, "ck"),
+                "--tb-dir", os.path.join(tmp, "tb"), "--run-name", "r",
+                "--num-devices", str(n)]
+        train_cli.main(base + ["--num-updates", "2"])
+        train_cli.main(base + ["--num-updates", "3", "--restore", "2"])
+        ckpts = sorted(os.listdir(os.path.join(tmp, "ck", "r")))
+        with open(os.path.join(tmp, "tb", "r", "metrics.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        keys = [(r["tag"], r["step"]) for r in rows]
+        if ckpts != ["1.pt", "2.pt", "3.pt"] or len(keys) != len(set(keys)):
+            raise AssertionError(f"[cards] CLI: checkpoints {ckpts}, "
+                                 f"{len(keys)} metric rows")
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[cards] CLI --num-devices {n}: checkpoints {ckpts}, {len(keys)} "
+        f"metric rows, each written once; seconds: bench {dt[0]:.1f}, "
+        f"ranks {dt[1]:.1f}, CLI {dt[2]:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4665,6 +5170,17 @@ def main() -> int:
     import madrona_mp_env_tpu_torch as mt
     from madrona_mp_env_tpu_torch.ops import cuda_build
 
+    if sys.argv[1:] == ["--cards"]:
+        card = card_line()
+        cuda_build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cards_phase(torch.cuda.device_count(), card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     t_main = time.perf_counter()
 
     def mark(phase):
@@ -4881,7 +5397,12 @@ def main() -> int:
     bc_phase(mt, card)
     mark(14)
 
-    # 15. results
+    # 15. data parallelism: the CLI's --num-devices, two ranks on the card,
+    # the scaling bench
+    parallel_phase(main_simple, card)
+    mark(15)
+
+    # 16. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

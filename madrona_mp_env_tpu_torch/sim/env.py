@@ -78,14 +78,21 @@ class Env:
                  seed: int = 5, device=None,
                  map_data: Optional[MapData] = None,
                  collect_log: bool = False,
-                 curriculum_path: Optional[str] = None):
+                 curriculum_path: Optional[str] = None,
+                 world_offset: int = 0):
         """``map_data``: a map that load_map loaded on ``device`` for a
         configuration of the same map_key (the curriculum file's
         snapshots included), shared instead of loading ``scene_dir``
-        again; raises ValueError on another key or kind of device."""
+        again; raises ValueError on another key or kind of device.
+        ``world_offset``: the global number of the first world, for a
+        data-parallel rank that steps worlds [world_offset, world_offset
+        + num_worlds) of a larger batch (parallel/sharding.py); its
+        resets and steps are those worlds' of the whole batch, bit for
+        bit."""
         _check_config(cfg)
         self.cfg = cfg
         self.num_worlds = num_worlds
+        self.world_offset = world_offset
         self.device = resolve_device(device)
         self.collect_log = collect_log
         snaps = None
@@ -107,7 +114,8 @@ class Env:
     def init_state(self) -> WorldState:
         """Blank pre-reset state of all worlds."""
         return init_world_state(self.cfg, self.map_data.num_goal_regions,
-                                self.num_worlds, device=self.device)
+                                self.num_worlds, device=self.device,
+                                world_offset=self.world_offset)
 
     def default_sim_ctrl(self, eval_mode: bool = False) -> Tuple[int, ...]:
         """TrainControl [evalMode, randomizeEpisodeLength,

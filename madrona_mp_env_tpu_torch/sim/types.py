@@ -189,8 +189,10 @@ class WorldState(_Leaves):
 
 
 def init_world_state(cfg: EnvConfig, num_goal_regions: int, num_worlds: int,
-                     device=None) -> WorldState:
-    """Zero-initialized state of W worlds before the first reset."""
+                     device=None, world_offset: int = 0) -> WorldState:
+    """Zero-initialized state of W worlds before the first reset, numbered
+    from ``world_offset`` (a data-parallel rank's first global world: a
+    world's keys derive from its number)."""
     W = num_worlds
     A = cfg.num_agents
     T = cfg.team_size
@@ -256,7 +258,8 @@ def init_world_state(cfg: EnvConfig, num_goal_regions: int, num_worlds: int,
         spawn_a_used=full((consts.max_spawns,), 0xFFFFFFFF, U32),
         spawn_b_used=full((consts.max_spawns,), 0xFFFFFFFF, U32),
         spawn_respawn_used=full((consts.max_spawns,), 0xFFFFFFFF, U32),
-        world_idx=torch.arange(W, dtype=i, device=device),
+        world_idx=torch.arange(world_offset, world_offset + W, dtype=i,
+                               device=device),
         episode_idx=full((), 0, U32), episode_counter=full((), 0, U32),
         episode_key=full((2,), 0, U32),
         world_curriculum=full((), WorldCurriculum.FullMatch, i),

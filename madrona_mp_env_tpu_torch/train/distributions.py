@@ -21,11 +21,12 @@ DISCRETE_BUCKETS = (3, 8, 3, 3)  # moveAmount, moveAngle, fire, stand
 AIM_BUCKETS = (13, 7)  # yaw, pitch
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, counters=None) -> torch.Tensor:
     """jax.random.gumbel(key, shape, float32) in its default ("low") mode:
-    -log(-log(u)), u uniform in [tiny, 1)."""
+    -log(-log(u)), u uniform in [tiny, 1); ``counters``: the elements of
+    that draw to take (rng.random_bits)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = rng.uniform(key, shape, minval=tiny, maxval=1.0)
+    u = rng.uniform(key, shape, minval=tiny, maxval=1.0, counters=counters)
     return -torch.log(-torch.log(u))
 
 
@@ -64,11 +65,19 @@ class DiscreteActionDistributions:
                             for o, b in self._segments()],
                            dim=-1).to(torch.int32)
 
-    def sample(self, key: torch.Tensor):
+    def sample(self, key: torch.Tensor, rows=None):
         """Gumbel-max per head from one packed noise draw. Returns
-        (actions [..., H] int32, total log_prob [...])."""
+        (actions [..., H] int32, total log_prob [...]). ``rows`` [N]: the
+        logits [N, S] are rows ``rows`` of a global [R, S] whose noise
+        the key draws (a data-parallel rank's share of the blocks)."""
         lp = self.packed_log_probs()
-        actions = self._argmax_heads(lp + gumbel(key, self.logits.shape))
+        if rows is None:
+            noise = gumbel(key, self.logits.shape)
+        else:
+            S = self.logits.shape[-1]
+            noise = gumbel(key, None, rows[:, None] * S + torch.arange(
+                S, dtype=torch.int64, device=rows.device))
+        actions = self._argmax_heads(lp + noise)
         alp = torch.gather(lp, -1, actions.long() + self.offsets())
         return actions, alp.sum(-1)
 
@@ -91,12 +100,13 @@ class ActorDistributions:
     discrete: DiscreteActionDistributions
     aim: DiscreteActionDistributions
 
-    def sample(self, key: torch.Tensor):
+    def sample(self, key: torch.Tensor, rows=None):
         """The JAX stream: split the key in two, discrete draws from the
-        first and aim from the second."""
+        first and aim from the second (``rows``: as
+        DiscreteActionDistributions.sample)."""
         k = rng.split(key, 2)
-        da, dlp = self.discrete.sample(k[0])
-        aa, alp = self.aim.sample(k[1])
+        da, dlp = self.discrete.sample(k[0], rows)
+        aa, alp = self.aim.sample(k[1], rows)
         return {"discrete": da, "aim": aa}, {"discrete": dlp, "aim": alp}
 
     def best(self):

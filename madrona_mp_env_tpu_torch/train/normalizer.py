@@ -8,7 +8,7 @@ each rollout step's batch by ``update_normalizer``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -72,10 +72,20 @@ def normalize_obs(state: EMANormalizerState, obs: Dict[str, torch.Tensor],
 
 def update_normalizer(state: EMANormalizerState,
                       obs: Dict[str, torch.Tensor],
-                      decay: float = EMA_DECAY) -> EMANormalizerState:
+                      decay: float = EMA_DECAY, mesh=None,
+                      num_actors: Optional[int] = None
+                      ) -> EMANormalizerState:
     """Fold a batch of raw observations into the EMA stats (every leading
     axis is batch). One update with decay^B equals B sequential
-    per-sample EMA updates against the batch statistics."""
+    per-sample EMA updates against the batch statistics.
+
+    ``mesh`` (a parallel.DataMesh of more than one rank): ``obs`` leaves
+    [N, ..., F] are this rank's share of ``num_actors`` actors, and the
+    batch is every rank's: its mean is the all-reduced sum over the
+    global count, its variance the all-reduced squared deviations from
+    that mean (two all-reduces for every key at once)."""
+    if mesh is not None and mesh.size > 1:
+        return _update_sharded(state, obs, decay, mesh, num_actors)
     mu, var = dict(state.mu), dict(state.var)
     for k in state.mu:
         v = obs[k].to(torch.float32)
@@ -86,4 +96,31 @@ def update_normalizer(state: EMANormalizerState,
         mu[k] = eff * state.mu[k] + (1.0 - eff) * batch_mu
         var[k] = eff * state.var[k] + (1.0 - eff) * (
             batch_var + (batch_mu - state.mu[k]) ** 2)
+    return EMANormalizerState(mu=mu, var=var, count=state.count + 1)
+
+
+def _update_sharded(state, obs, decay, mesh, num_actors):
+    from ..parallel.collectives import all_sum
+
+    keys = list(state.mu)
+    vs, counts = {}, {}
+    for k in keys:
+        v = obs[k].to(torch.float32)
+        rows_per_actor = 1
+        for d in v.shape[1:-1]:
+            rows_per_actor *= d
+        counts[k] = num_actors * rows_per_actor
+        vs[k] = v.reshape(-1, v.shape[-1])
+    sums = all_sum(mesh, torch.cat([vs[k].sum(0) for k in keys]))
+    batch_mu = dict(zip(keys, sums.split([vs[k].shape[1] for k in keys])))
+    batch_mu = {k: batch_mu[k] / counts[k] for k in keys}
+    dev = all_sum(mesh, torch.cat([((vs[k] - batch_mu[k]) ** 2).sum(0)
+                                   for k in keys]))
+    batch_var = dict(zip(keys, dev.split([vs[k].shape[1] for k in keys])))
+    mu, var = dict(state.mu), dict(state.var)
+    for k in keys:
+        eff = decay ** counts[k]
+        mu[k] = eff * state.mu[k] + (1.0 - eff) * batch_mu[k]
+        var[k] = eff * state.var[k] + (1.0 - eff) * (
+            batch_var[k] / counts[k] + (batch_mu[k] - state.mu[k]) ** 2)
     return EMANormalizerState(mu=mu, var=var, count=state.count + 1)

@@ -9,9 +9,14 @@ chunks (trainer.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+
+# ppo_loss's metrics, in the order a data-parallel rank packs them
+PPO_METRICS = ("loss", "pg_loss", "v_loss", "entropy_discrete",
+               "entropy_aim", "approx_kl", "clip_frac")
 
 
 @dataclass(frozen=True)
@@ -47,8 +52,20 @@ def compute_gae(rewards, values, dones, bootstrap_value, gamma: float,
 
 def ppo_loss(new_log_probs: Dict[str, torch.Tensor],
              entropies: Dict[str, torch.Tensor], new_values, old_log_probs,
-             old_values, advantages, returns, cfg: PPOConfig):
-    """All tensors [T, MB]. Returns (loss, metrics dict of scalars)."""
+             old_values, advantages, returns, cfg: PPOConfig,
+             count: Optional[int] = None):
+    """All tensors [T, MB]. Returns (loss, metrics dict of scalars).
+
+    ``count``: the tensors are a data-parallel rank's share of a global
+    minibatch of ``count`` elements, and every mean is this share's sum
+    over ``count`` (so that the ranks' losses, gradients and metrics sum
+    to the global minibatch's)."""
+    if count is None:
+        def mean(x):
+            return x.mean()
+    else:
+        def mean(x):
+            return x.sum() / count
     old_lp = old_log_probs["discrete"] + old_log_probs["aim"]
     new_lp = new_log_probs["discrete"] + new_log_probs["aim"]
     log_ratio = new_lp - old_lp
@@ -57,29 +74,29 @@ def ppo_loss(new_log_probs: Dict[str, torch.Tensor],
     pg1 = -advantages * ratio
     pg2 = -advantages * torch.clamp(ratio, 1.0 - cfg.clip_coef,
                                     1.0 + cfg.clip_coef)
-    pg_loss = torch.maximum(pg1, pg2).mean()
+    pg_loss = mean(torch.maximum(pg1, pg2))
 
     err = new_values - returns
     if cfg.clip_value_loss:
         v_clipped = old_values + torch.clamp(new_values - old_values,
                                              -cfg.clip_coef, cfg.clip_coef)
-        v_loss = 0.5 * torch.maximum(err ** 2,
-                                     (v_clipped - returns) ** 2).mean()
+        v_loss = 0.5 * mean(torch.maximum(err ** 2,
+                                          (v_clipped - returns) ** 2))
     elif cfg.huber_value_loss:
-        v_loss = (torch.square(torch.clamp(err.abs(), max=1.0)) * 0.5
-                  + torch.clamp(err.abs() - 1.0, min=0.0)).mean()
+        v_loss = mean(torch.square(torch.clamp(err.abs(), max=1.0)) * 0.5
+                      + torch.clamp(err.abs() - 1.0, min=0.0))
     else:
-        v_loss = 0.5 * (err ** 2).mean()
+        v_loss = 0.5 * mean(err ** 2)
 
-    ent_discrete = entropies["discrete"].mean()
-    ent_aim = entropies["aim"].mean()
+    ent_discrete = mean(entropies["discrete"])
+    ent_aim = mean(entropies["aim"])
     loss = (pg_loss + cfg.value_loss_coef * v_loss
             - cfg.entropy_coef_discrete * ent_discrete
             - cfg.entropy_coef_aim * ent_aim)
 
-    approx_kl = ((ratio - 1.0) - log_ratio).mean()
-    clip_frac = ((ratio - 1.0).abs() > cfg.clip_coef).to(
-        torch.float32).mean()
+    approx_kl = mean((ratio - 1.0) - log_ratio)
+    clip_frac = mean(((ratio - 1.0).abs() > cfg.clip_coef).to(
+        torch.float32))
     metrics = {
         "loss": loss,
         "pg_loss": pg_loss,

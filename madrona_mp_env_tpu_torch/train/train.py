@@ -18,20 +18,33 @@ population: ``--pbt-ensemble-size`` train policies, ``--pbt-past-policies``
 frozen ones and the play portions; every ``--pbt-update-frequency``
 updates (checked after each group of updates) the deterministic eval ELO
 (``--eval-elo-steps``) when there are two slots or more, then
-store_past_policy, update_population and resample_matchmaking. Flags of
-the JAX CLI that this port does not support yet raise: ``--num-devices``,
-``--distributed`` and the profiler server.
+store_past_policy, update_population and resample_matchmaking.
+
+Data parallelism (parallel/): ``--num-devices N`` runs N local ranks, one
+process each on its own CUDA device (raising when fewer are visible), the
+worlds sharded over them; with ``--cpu`` N CPU ranks over gloo. N = 1
+runs in this process. ``--distributed`` joins a multi-process group as
+rank ``--process-id`` of ``--num-processes`` at ``--coordinator-address``
+(host:port), on CUDA device process-id mod the visible devices. Rank 0
+alone prints, writes metrics and writes checkpoints; every rank restores
+(across hosts, ``--ckpt-dir`` must be a file system every host reads).
+``--profile-port`` raises: the JAX CLI starts ``jax.profiler.start_server``
+there, which has no PyTorch counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
+from typing import Optional
 
 import torch
 
 from ..config import EnvConfig, SimFlags, Task
+from ..parallel import distributed as pdist
+from ..parallel.sharding import DataMesh
 from ..sim.env import Env
 from .elo import print_elos
 from .metrics import MetricsWriter
@@ -93,20 +106,18 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise on a flag whose feature is not ported yet."""
-    unsupported = {
-        "--num-devices (data mesh)": args.num_devices > 0,
-        "--distributed (multi-host)": args.distributed,
-        "--profile-port": args.profile_port is not None,
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise NotImplementedError("not supported by the PyTorch port yet: "
-                                  + ", ".join(bad))
+    """Raise on a flag of the JAX CLI that the port cannot honour."""
+    if args.profile_port is not None:
+        raise NotImplementedError(
+            "--profile-port is not supported by the PyTorch port: the JAX "
+            "CLI starts jax.profiler.start_server, which has no PyTorch "
+            "counterpart")
 
 
-def build(args):
-    """(cfg, tcfg, env, mgr) from parsed flags."""
+def build(args, mesh: Optional[DataMesh] = None, device=None):
+    """(cfg, tcfg, env, mgr) from parsed flags; ``mesh``: this process's
+    rank of a data mesh, on ``device`` (default: the first CUDA device, or
+    the CPU with --cpu)."""
     check_supported(args)
     game_mode = getattr(Task, args.game_mode)
     sim_flags = SimFlags.Default
@@ -158,20 +169,70 @@ def build(args):
         compute_dtype=dtype,
         seed=args.seed,
     )
-    device = "cpu" if args.cpu else None
+    if device is None:
+        device = "cpu" if args.cpu else None
+    mesh = mesh or DataMesh(args.num_worlds)
     scene = args.scene or os.path.join(REPO, "data", "simple_map")
-    env = Env(cfg, scene, num_worlds=args.num_worlds, seed=args.seed,
-              device=device)
-    return cfg, tcfg, env, TrainingManager(cfg, tcfg, env, device=device)
+    env = Env(cfg, scene, num_worlds=mesh.local_worlds, seed=args.seed,
+              device=device, world_offset=mesh.world_lo)
+    return cfg, tcfg, env, TrainingManager(cfg, tcfg, env, device=device,
+                                           mesh=mesh)
 
 
 def main(argv=None):
+    """Train; returns the final TrainState of this process (None where it
+    only launched the ranks of --num-devices)."""
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    cfg, tcfg, env, mgr = build(args)
-    writer = MetricsWriter(os.path.join(args.tb_dir, args.run_name))
+    check_supported(args)
+    parallel = args.distributed or args.num_devices > 0
+    if not parallel or dist.is_initialized():
+        return run(args, parallel)
+    backend = "gloo" if args.cpu else "nccl"
+    n = args.num_devices
+    if not args.distributed and not args.cpu and torch.cuda.device_count() < n:
+        raise RuntimeError(f"--num-devices {n}: {torch.cuda.device_count()} "
+                           "CUDA device(s) visible")
+    if not args.distributed and n > 1:
+        if not args.cpu:
+            from ..ops import cuda_build
+
+            cuda_build.build_all()  # once, before the ranks load them
+        threads = max(1, torch.get_num_threads() // n) if args.cpu else None
+        pdist.launch(main, n, (argv,), backend, threads=threads)
+        return None
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.distributed:
+            pdist.init_distributed(backend,
+                                   f"tcp://{args.coordinator_address}",
+                                   args.num_processes, args.process_id)
+        else:  # one rank, in this process
+            pdist.init_distributed(backend, "file://" + os.path.join(
+                tmp, "rendezvous"), 1, 0)
+        try:
+            return run(args, parallel)
+        finally:
+            dist.destroy_process_group()
+
+
+def run(args, parallel: bool):
+    """The training loop on this process: one rank of the default
+    process group's data mesh (``parallel``), or alone."""
+    mesh, device = None, None
+    if parallel:
+        mesh = pdist.global_mesh(args.num_worlds, args.num_devices or None)
+        if not args.cpu:
+            device = torch.device(
+                "cuda", mesh.rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+    cfg, tcfg, env, mgr = build(args, mesh, device)
+    lead = mgr.mesh.rank == 0
+    writer = MetricsWriter(os.path.join(args.tb_dir, args.run_name)) \
+        if lead else None
     ckpt_dir = os.path.join(args.ckpt_dir, args.run_name)
 
-    ts = mgr.init()
+    ts = pdist.global_init(mgr)
     if args.restore:
         ts = mgr.restore_ckpt(ts, os.path.join(ckpt_dir,
                                                f"{args.restore}.pt"))
@@ -186,7 +247,8 @@ def main(argv=None):
             # the past ring, truncation selection and re-paired teams
             if mgr.E + mgr.P > 1:
                 ts, eval_elos = mgr.eval_elo(ts, args.eval_elo_steps)
-                print_elos(eval_elos.cpu())
+                if lead:
+                    print_elos(eval_elos.cpu())
             ts = mgr.store_past_policy(ts)
             ts = mgr.update_population(ts)
             ts = mgr.resample_matchmaking(ts)
@@ -195,6 +257,10 @@ def main(argv=None):
         fps = (args.num_worlds * args.steps_per_update
                * (update_id - last_update) / (now - last_time))
         last_time, last_update = now, update_id
+        if update_id % args.ckpt_frequency == 0:
+            mgr.save_ckpt(ts, ckpt_dir)
+        if not lead:
+            continue
         print(f"Update: {update_id}  FPS: {fps:.0f}", flush=True)
         for row in range(n):
             scalars = {}
@@ -209,10 +275,9 @@ def main(argv=None):
                 scalars["fps"] = fps
             writer.scalars(scalars, update_id - n + 1 + row)
         writer.flush()
-        if update_id % args.ckpt_frequency == 0:
-            mgr.save_ckpt(ts, ckpt_dir)
     mgr.save_ckpt(ts, ckpt_dir)
-    writer.close()
+    if lead:
+        writer.close()
     return ts
 
 

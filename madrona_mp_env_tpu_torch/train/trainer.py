@@ -36,8 +36,18 @@ TrainState converts to it (convert.py) and a checkpoint is a
 ``torch.save`` of dicts. ``TrainConfig.compute_dtype`` (float32,
 bfloat16 or float16) is the policy's compute dtype in the rollout, the
 stored observations and BPTT start states and the loss; parameters,
-Adam state, values, log probs and the loss terms stay float32. Not
-ported yet: the multi-device data mesh.
+Adam state, values, log probs and the loss terms stay float32.
+
+Data parallelism (``mesh``, a parallel.DataMesh of N ranks, one process
+and one device each): the env steps this rank's W / N worlds, and each
+policy block keeps only the members this rank owns, on one ragged axis
+(parallel.Blocks). Each rank draws its own actors' share of the global
+Gumbel noise, folds every rank's batch into the normalizer, takes the
+loss of its units of each global minibatch as a sum over the global
+minibatch size and sums the gradients over the ranks before Adam, so the
+update is the one-process update at W worlds (up to the order of the
+sums). The ELO folds gather every world's match results first, and
+rank 0 alone writes checkpoints. With one rank nothing of this runs.
 """
 
 from __future__ import annotations
@@ -52,6 +62,8 @@ from torch import nn
 from torch.func import functional_call
 
 from ..config import EnvConfig
+from ..parallel import collectives
+from ..parallel.sharding import Blocks, DataMesh
 from ..sim.env import Env, resolve_device
 from ..sim.types import Actions, WorldState
 from ..utils import rng
@@ -64,7 +76,7 @@ from .pbt import (ParamExplore, PBTConfig, make_matchmaking,
                   update_population)
 from .policy import (ActorCriticNet, _seeded_init, clear_rnn_states,
                      init_rnn_states)
-from .ppo import PPOConfig, compute_gae, ppo_loss
+from .ppo import PPO_METRICS, PPOConfig, compute_gae, ppo_loss
 
 # observation keys fed to the policy (the rest of the env obs dict is
 # train-time metadata)
@@ -223,19 +235,31 @@ def adam_step(params: Params, grads: Params, opt: AdamState, lr,
 class TrainingManager:
     """The env, the policy module, the routing tables and the update
     functions over a TrainState, all on one device (the env's: the first
-    CUDA device unless ``device="cpu"``)."""
+    CUDA device unless ``device="cpu"``). ``mesh``: this process is one
+    rank of a data mesh, and ``env`` steps its worlds of the
+    ``tcfg.num_worlds``."""
 
     def __init__(self, cfg: EnvConfig, tcfg: TrainConfig, env: Env,
-                 device=None):
+                 device=None, mesh: Optional[DataMesh] = None):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, the trainer on "
                              f"{self.device}")
-        if env.num_worlds != tcfg.num_worlds:
-            raise ValueError("env and TrainConfig disagree on num_worlds")
+        self.mesh = mesh or DataMesh(tcfg.num_worlds)
+        if self.mesh.num_worlds != tcfg.num_worlds:
+            raise ValueError("mesh and TrainConfig disagree on num_worlds")
+        if (env.num_worlds, env.world_offset) != (self.mesh.local_worlds,
+                                                  self.mesh.world_lo):
+            raise ValueError(
+                f"env steps worlds [{env.world_offset}, "
+                f"{env.world_offset + env.num_worlds}), rank "
+                f"{self.mesh.rank} owns [{self.mesh.world_lo}, "
+                f"{self.mesh.world_hi}) of TrainConfig's num_worlds")
+        self.sharded = self.mesh.size > 1
         self.cfg, self.tcfg, self.env = cfg, tcfg, env
         self.W, self.A = tcfg.num_worlds, cfg.num_agents
         self.B = self.W * self.A
+        self.Wl = self.mesh.local_worlds  # this rank's worlds
         self.E = tcfg.num_train_policies
         self.pbt = tcfg.pbt or PBTConfig(num_train_policies=self.E)
         if self.pbt.num_train_policies != self.E:
@@ -259,9 +283,10 @@ class TrainingManager:
             dev).requires_grad_(False)
         self._seq = _Sequence(self.model)
         self._obs_slots = None
-        self._zf = torch.zeros((self.W, self.A), dtype=torch.float32,
+        self._zf = torch.zeros((self.Wl, self.A), dtype=torch.float32,
                                device=dev)  # the aim rates
         self.eval_matches = None  # finished matches of the last eval_elo
+        self._sharded_blocks = None  # (train_perm, past_perm, Blocks x 2)
 
     # -------------------------------------------------- block routing
     def identity_blocks(self) -> bool:
@@ -269,29 +294,41 @@ class TrainingManager:
         train block 0 in index order, whatever matchmaking does."""
         return self.E == 1 and not self.has_past
 
-    def to_blocks(self, x, train_perm):
-        """[W, A, ...] -> train blocks [E, BE, ...] (``train_perm``: a
-        TrainState's table)."""
-        if self.identity_blocks():
-            return x.reshape((1, self.B) + x.shape[2:])
-        return x.reshape((self.B,) + x.shape[2:])[train_perm]
+    def blocks(self, ts: TrainState):
+        """(train, past) Blocks of ts's tables on this process: the dense
+        [E, BE] / [P, BPp] layout with one rank; with several, this rank's
+        members, rebuilt only when the tables change."""
+        if not self.sharded:
+            return (Blocks(ts.train_perm, self.identity_blocks()),
+                    Blocks(ts.past_perm))
+        c = self._sharded_blocks
+        if c is not None and not (c[0] is ts.train_perm
+                                  and c[1] is ts.past_perm):
+            if torch.equal(c[0], ts.train_perm) and torch.equal(
+                    c[1], ts.past_perm):
+                c = (ts.train_perm, ts.past_perm) + c[2:]
+            else:
+                c = None
+        if c is None:
+            lo, hi = self.mesh.world_lo * self.A, self.mesh.world_hi * self.A
+            c = (ts.train_perm, ts.past_perm,
+                 Blocks(ts.train_perm, self.identity_blocks(), lo, hi),
+                 Blocks(ts.past_perm, False, lo, hi))
+        self._sharded_blocks = c
+        return c[2], c[3]
 
-    def to_past_blocks(self, x, past_perm):
-        """[W, A, ...] -> past blocks [P, BPp, ...]."""
-        return x.reshape((self.B,) + x.shape[2:])[past_perm]
-
-    def from_blocks(self, train_b, past_b, train_perm, past_perm):
-        """Train blocks [E, BE, ...] (and past blocks [P, BPp, ...], or
-        None) back to [W, A, ...]."""
-        tail = train_b.shape[2:]
-        if self.identity_blocks():
-            return train_b.reshape((self.W, self.A) + tail)
-        flat = torch.zeros((self.B,) + tail, dtype=train_b.dtype,
+    def from_blocks(self, train_b, past_b, tb: Blocks, pb: Blocks):
+        """Train blocks (and past blocks, or None) back to [W, A, ...] of
+        this process's worlds."""
+        tail = train_b.shape[len(tb.shape):]
+        if tb.identity:
+            return train_b.reshape((self.Wl, self.A) + tail)
+        flat = torch.zeros((self.Wl * self.A,) + tail, dtype=train_b.dtype,
                            device=train_b.device)
-        flat[train_perm.reshape(-1)] = train_b.reshape((-1,) + tail)
+        tb.scatter(flat, train_b)
         if past_b is not None and self.has_past:
-            flat[past_perm.reshape(-1)] = past_b.reshape((-1,) + tail)
-        return flat.reshape((self.W, self.A) + tail)
+            pb.scatter(flat, past_b)
+        return flat.reshape((self.Wl, self.A) + tail)
 
     def _policy_obs(self, obs):
         out = {k: obs[k] for k in POLICY_OBS_KEYS}
@@ -312,10 +349,12 @@ class TrainingManager:
         return slots
 
     def _pack_obs(self, obs):
-        """Dict of [E, BE, *tail] -> one [E, BE, F] tensor, the keys in
-        POLICY_OBS_KEYS order."""
-        return torch.cat([obs[k].reshape(obs[k].shape[:2] + (e - s,))
-                          for k, s, e, _ in self._obs_slots], dim=-1)
+        """Dict of [*blocks, *tail] -> one [*blocks, F] tensor, the keys
+        in POLICY_OBS_KEYS order."""
+        return torch.cat([
+            obs[k].reshape(obs[k].shape[:obs[k].dim() - len(tail)]
+                           + (e - s,))
+            for k, s, e, tail in self._obs_slots], dim=-1)
 
     def _unpack_obs(self, packed):
         return {k: packed[..., s:e].reshape(packed.shape[:-1] + tail)
@@ -347,19 +386,17 @@ class TrainingManager:
         opt_state = [init_adam(p) for p in params]
         assignment, train_perm, past_perm = (
             torch.as_tensor(t, device=dev) for t in self._tables0)
-        blocks = {k: self.to_blocks(v, train_perm) for k, v in pobs.items()}
-        self._obs_slots = self._slots(blocks)
-        normalizer = init_normalizer({k: v[0] for k, v in blocks.items()})
+        assignment = assignment[self.mesh.world_lo:self.mesh.world_hi]
+        self._obs_slots = self._slots(pobs)
+        normalizer = init_normalizer({k: v[0] for k, v in pobs.items()})
         if self.tcfg.lr_explore is not None:
             lr0 = self.tcfg.lr_explore.init_values(k_hp, self.E)
         else:
             lr0 = torch.full((self.E,), self.tcfg.lr, dtype=torch.float32)
-        return TrainState(
+        ts = TrainState(
             params=params, opt_state=opt_state, normalizer=normalizer,
             env_state=env_state.replace(policy_idx=assignment.clone()),
-            cur_obs=pobs,
-            rnn_states=init_rnn_states((self.E, self.BE), device=dev),
-            past_rnn_states=init_rnn_states((self.P, self.BPp), device=dev),
+            cur_obs=pobs, rnn_states=None, past_rnn_states=None,
             key=k_state, update_idx=0,
             elo=torch.full((self.E + self.P,), 1000.0, device=dev),
             hyper_params={"lr": lr0.to(dev)},
@@ -367,24 +404,44 @@ class TrainingManager:
             past_ptr=0, assignment=assignment, train_perm=train_perm,
             past_perm=past_perm, pending_reset=False,
         )
+        return self._clear_rnn(ts)
+
+    def _clear_rnn(self, ts: TrainState) -> TrainState:
+        """ts with both recurrent states zeroed, in its tables' layout."""
+        tb, pb = self.blocks(ts)
+        dev = self.device
+        return replace(ts, rnn_states=init_rnn_states(tb.shape, device=dev),
+                       past_rnn_states=init_rnn_states(pb.shape, device=dev))
 
     # -------------------------------------------------- policy apply
-    def apply_blocks(self, params: List[Params], rnn_states, obs_blocks):
+    def apply_blocks(self, params: List[Params], rnn_states, obs_blocks,
+                     blocks: Optional[Blocks] = None):
         """Each policy on its block. rnn_states [2, 2, N, BN, H]; obs
         leaves [N, BN, ...] for N = len(params) -> (dists with [N, BN, S]
-        logits, values [N, BN], new rnn_states)."""
-        outs = [functional_call(self.model, params[e],
-                                (rnn_states[:, :, e],
-                                 {k: v[e] for k, v in obs_blocks.items()}))
-                for e in range(len(params))]
+        logits, values [N, BN], new rnn_states); ``blocks`` (ragged, a
+        rank's share): rnn_states [2, 2, M, H], obs leaves [M, ...] ->
+        [M, S] logits, [M] values, [2, 2, M, H]."""
+        split = blocks.split if blocks is not None else torch.unbind
+        join = blocks.join if blocks is not None else torch.stack
+        obs_parts = {k: split(v, 0) for k, v in obs_blocks.items()}
+        outs = [functional_call(self.model, params[e], (
+            rnn, {k: v[e] for k, v in obs_parts.items()}))
+            for e, rnn in enumerate(split(rnn_states, 2))]
         dists = ActorDistributions(
             discrete=DiscreteActionDistributions(
-                torch.stack([o[0].discrete.logits for o in outs]),
+                join([o[0].discrete.logits for o in outs], 0),
                 DISCRETE_BUCKETS),
             aim=DiscreteActionDistributions(
-                torch.stack([o[0].aim.logits for o in outs]), AIM_BUCKETS))
-        return (dists, torch.stack([o[1] for o in outs]),
-                torch.stack([o[2] for o in outs], dim=2))
+                join([o[0].aim.logits for o in outs], 0), AIM_BUCKETS))
+        return (dists, join([o[1] for o in outs], 0),
+                join([o[2] for o in outs], 2))
+
+    def _apply(self, params, rnn_states, obs_blocks, blocks: Blocks):
+        """apply_blocks on ``blocks``' layout (one process: its
+        three-argument form, which callers may wrap)."""
+        if blocks.ragged:
+            return self.apply_blocks(params, rnn_states, obs_blocks, blocks)
+        return self.apply_blocks(params, rnn_states, obs_blocks)
 
     def _policy_step(self, ts: TrainState, obs, rnn, past_rnn, norm,
                      keys=None):
@@ -395,26 +452,26 @@ class TrainingManager:
         blocks, normalized train obs, train actions, their log probs (None
         for the best), values, rnn, past_rnn)."""
         dt = self.tcfg.compute_dtype
-        tperm, pperm = ts.train_perm, ts.past_perm
-        obs_blocks = {k: self.to_blocks(v, tperm) for k, v in obs.items()}
+        tb, pb = self.blocks(ts)
+        obs_blocks = {k: tb.gather(v) for k, v in obs.items()}
         norm_obs = normalize_obs(norm, obs_blocks, dt)
-        dists, values, rnn = self.apply_blocks(ts.params, rnn, norm_obs)
+        dists, values, rnn = self._apply(ts.params, rnn, norm_obs, tb)
         if keys is None:
             actions, log_probs = dists.best(), None
         else:
-            actions, log_probs = dists.sample(keys[0])
+            actions, log_probs = dists.sample(
+                keys[0], tb.rows if tb.ragged else None)
         past = None
         if self.has_past:
-            past_obs = {k: self.to_past_blocks(v, pperm)
-                        for k, v in obs.items()}
-            pdists, _, past_rnn = self.apply_blocks(
-                ts.past_params, past_rnn, normalize_obs(norm, past_obs, dt))
+            past_obs = {k: pb.gather(v) for k, v in obs.items()}
+            pdists, _, past_rnn = self._apply(
+                ts.past_params, past_rnn, normalize_obs(norm, past_obs, dt),
+                pb)
             past = pdists.best() if keys is None else pdists.sample(
-                keys[1])[0]
+                keys[1], pb.rows if pb.ragged else None)[0]
         da = self.from_blocks(actions["discrete"],
-                              past and past["discrete"], tperm, pperm)
-        aa = self.from_blocks(actions["aim"], past and past["aim"], tperm,
-                              pperm)
+                              past and past["discrete"], tb, pb)
+        aa = self.from_blocks(actions["aim"], past and past["aim"], tb, pb)
         env_actions = Actions(
             move_amount=da[..., 0], move_angle=da[..., 1], fire=da[..., 2],
             stand=da[..., 3], aim_yaw=aa[..., 0], aim_pitch=aa[..., 1],
@@ -424,23 +481,24 @@ class TrainingManager:
 
     def _clear_done(self, ts: TrainState, done, rnn, past_rnn):
         """Zero the recurrent state of actors whose episode ended."""
-        done_b = self.to_blocks(done, ts.train_perm)
+        tb, pb = self.blocks(ts)
+        done_b = tb.gather(done)
         rnn = clear_rnn_states(rnn, done_b != 0)
         if self.has_past:
-            past_rnn = clear_rnn_states(
-                past_rnn, self.to_past_blocks(done, ts.past_perm) != 0)
+            past_rnn = clear_rnn_states(past_rnn, pb.gather(done) != 0)
         return done_b, rnn, past_rnn
 
     def _all_worlds(self) -> torch.Tensor:
-        return torch.ones(self.W, dtype=torch.int32, device=self.device)
+        return torch.ones(self.Wl, dtype=torch.int32, device=self.device)
 
     # -------------------------------------------------- rollout
     @torch.no_grad()
     def rollout(self, ts: TrainState):
         """``steps_per_update`` steps of every policy and the env. Returns
         (ts, rnn_starts [K, 2, 2, E, BE, H] in the compute dtype, outs
-        with [K, L, ...] leaves, bootstrap values [E, BE]). A pending
-        matchmaking rotation resets every world on the first step."""
+        with [K, L, ...] leaves, bootstrap values [E, BE]; a rank's share
+        [M] in place of [E, BE]). A pending matchmaking rotation resets
+        every world on the first step."""
         tcfg = self.tcfg
         K, L = tcfg.num_bptt_chunks, tcfg.chunk_len
         key, sub = rng.split(ts.key, 2)
@@ -449,6 +507,7 @@ class TrainingManager:
             ts.env_state, ts.cur_obs, ts.rnn_states, ts.past_rnn_states,
             ts.normalizer)
         rnn_starts, steps = [], []
+        tb, _ = self.blocks(ts)
         for t in range(K * L):
             if t % L == 0:
                 rnn_starts.append(rnn.to(tcfg.compute_dtype))
@@ -462,21 +521,23 @@ class TrainingManager:
             done_b, rnn, past_rnn = self._clear_done(ts, out["done"], rnn,
                                                      past_rnn)
             obs = self._policy_obs(out["obs"])
-            norm = update_normalizer(norm, obs_blocks)
+            norm = update_normalizer(norm, obs_blocks, mesh=self.mesh,
+                                     num_actors=self.E * self.BE)
             res = out["episode_result"]
             steps.append({
                 "obs_pack": self._pack_obs(norm_obs),
                 "act_pack": torch.cat([actions["discrete"], actions["aim"]],
                                       dim=-1),
                 "log_probs": log_probs, "values": values,
-                "rewards": self.to_blocks(out["reward"], ts.train_perm),
+                "rewards": tb.gather(out["reward"]),
                 "dones": done_b, "win_result": res["win_result"],
                 "match_finished": res["match_finished"],
             })
         outs = _stack(steps, (K, L))
-        final = {k: self.to_blocks(v, ts.train_perm) for k, v in obs.items()}
-        _, bootstrap, _ = self.apply_blocks(
-            ts.params, rnn, normalize_obs(norm, final, tcfg.compute_dtype))
+        final = {k: tb.gather(v) for k, v in obs.items()}
+        _, bootstrap, _ = self._apply(
+            ts.params, rnn, normalize_obs(norm, final, tcfg.compute_dtype),
+            tb)
         ts = replace(ts, env_state=env_state, cur_obs=obs, rnn_states=rnn,
                      past_rnn_states=past_rnn, normalizer=norm, key=key,
                      pending_reset=False)
@@ -512,8 +573,28 @@ class TrainingManager:
             "rnn": bufs["rnn"][k, :, :, e, b],
         }
 
-    def loss_and_grads(self, params: Params, batch):
-        """The PPO loss of one minibatch for one policy: (grads, metrics)."""
+    def _own_batch(self, bufs, tb: Blocks, e: int, idx):
+        """A rank's units of policy e's global minibatch idx [mb] from its
+        ragged buffers ([K, L, M, ...], rnn [K, 2, 2, M, H]), in the
+        minibatch's order, or None when it owns none of them."""
+        k, b = idx // self.BE, idx % self.BE
+        m = tb.inv[e * self.BE + b]
+        own = m >= 0
+        k, m = k[own], m[own]
+        if m.numel() == 0:
+            return None
+        ll = torch.arange(self.tcfg.chunk_len, device=idx.device)[:, None]
+        return {
+            "obs_pack": bufs["obs_pack"][k[None], ll, m[None]],
+            "act": bufs["act"][k[None], ll, m[None]],
+            "scal": bufs["scal"][k[None], ll, m[None]],
+            "rnn": bufs["rnn"][k, :, :, m],
+        }
+
+    def loss_and_grads(self, params: Params, batch,
+                       count: Optional[int] = None):
+        """The PPO loss of one minibatch for one policy: (grads, metrics);
+        ``count``: ppo_loss's (a rank's share of a global minibatch)."""
         p = {f"net.{k}": v.detach().requires_grad_(True)
              for k, v in params.items()}
         scal = batch["scal"]
@@ -525,7 +606,7 @@ class TrainingManager:
         loss, metrics = ppo_loss(
             new_lp, ent, new_v, {"discrete": scal[..., 4],
                                  "aim": scal[..., 5]},
-            scal[..., 0], scal[..., 2], scal[..., 3], self.tcfg.ppo)
+            scal[..., 0], scal[..., 2], scal[..., 3], self.tcfg.ppo, count)
         grads = torch.autograd.grad(loss, list(p.values()))
         return ({k: g for k, g in zip(params, grads)},
                 {k: v.detach() for k, v in metrics.items()})
@@ -561,6 +642,10 @@ class TrainingManager:
             order = self.minibatch_order(epoch_key, num_units)
             for i in range(pcfg.num_minibatches):
                 idx = order[:, i * mb:(i + 1) * mb]
+                if self.sharded:
+                    rows.append(self._sharded_minibatch(
+                        ts, bufs, params, opt_state, lr, idx))
+                    continue
                 per_e = []
                 for e in range(self.E):
                     grads, m = self.loss_and_grads(
@@ -577,6 +662,40 @@ class TrainingManager:
         return replace(ts, params=params, opt_state=opt_state, key=key), \
             metrics
 
+    def _sharded_minibatch(self, ts, bufs, params, opt_state, lr, idx):
+        """One global minibatch idx [E, mb] on a rank: the loss of its own
+        units of each policy over the global count, every policy's
+        gradients and loss terms summed over the ranks in one all-reduce,
+        then Adam (so that clip_by_global_norm sees the global norm).
+        Updates ``params`` and ``opt_state`` in place; returns the loss
+        terms [E] each."""
+        tb, _ = self.blocks(ts)
+        count = self.tcfg.chunk_len * idx.shape[1]
+        names = list(params[0])
+        parts = []
+        for e in range(self.E):
+            batch = self._own_batch(bufs, tb, e, idx[e])
+            if batch is None:
+                grads = {k: torch.zeros_like(v) for k, v in params[e].items()}
+                m = torch.zeros(len(PPO_METRICS), device=self.device)
+            else:
+                grads, m = self.loss_and_grads(params[e], batch, count)
+                m = torch.stack([m[k] for k in PPO_METRICS])
+            parts += [grads[k].reshape(-1) for k in names] + [m]
+        flat = collectives.all_sum(self.mesh, torch.cat(parts)).split(
+            [x.numel() for x in parts])
+        n = len(names) + 1
+        for e in range(self.E):
+            grads = {k: g.reshape(params[e][k].shape) for k, g in zip(
+                names, flat[e * n:(e + 1) * n - 1])}
+            with torch.no_grad():
+                params[e], opt_state[e] = adam_step(
+                    params[e], grads, opt_state[e], lr[e],
+                    self.tcfg.ppo.max_grad_norm)
+        return {k: torch.stack([flat[e * n + n - 1][j]
+                                for e in range(self.E)])
+                for j, k in enumerate(PPO_METRICS)}
+
     # -------------------------------------------------- full update
     def _match_elo(self, ratings, assignment, win, finished):
         """``ratings`` updated by every finished match of win and finished
@@ -589,18 +708,39 @@ class TrainingManager:
         return elo_update_masked(ratings, pairs, score_a,
                                  finished.reshape(n) & valid)
 
+    def _global_elo(self, ratings, assignment, win, finished):
+        """_match_elo over every rank's worlds: the match results [..., W /
+        N] and the assignment gathered in global world order, the ratings
+        rank 0's (index_add_'s atomics on CUDA add in no fixed order)."""
+        if not self.sharded:
+            return self._match_elo(ratings, assignment, win, finished)
+        m = self.mesh
+        elo = self._match_elo(
+            ratings, collectives.gather_worlds(m, assignment),
+            collectives.gather_worlds(m, win, -1),
+            collectives.gather_worlds(m, finished, -1))
+        return collectives.broadcast(m, elo)
+
     def update_iter(self, ts: TrainState):
         """One rollout + PPO update; (ts, metrics)."""
         ts, rnn_starts, outs, bootstrap = self.rollout(ts)
         ts, metrics = self.ppo_update(ts, rnn_starts, outs, bootstrap)
         with torch.no_grad():
-            metrics["reward_mean"] = outs["rewards"].mean()
-            metrics["value_mean"] = outs["values"].mean()
             finished = outs["match_finished"]
-            metrics["episodes_finished"] = finished.to(torch.int32).sum()
+            if self.sharded:
+                n = self.tcfg.steps_per_update * self.E * self.BE
+                for k, v in (("reward_mean", outs["rewards"]),
+                             ("value_mean", outs["values"])):
+                    metrics[k] = collectives.all_mean(self.mesh, v.sum(), n)
+                metrics["episodes_finished"] = collectives.all_sum(
+                    self.mesh, finished.to(torch.int32).sum())
+            else:
+                metrics["reward_mean"] = outs["rewards"].mean()
+                metrics["value_mean"] = outs["values"].mean()
+                metrics["episodes_finished"] = finished.to(torch.int32).sum()
             # ELO between the slots from every finished match
-            elo = self._match_elo(ts.elo, ts.assignment, outs["win_result"],
-                                  finished)
+            elo = self._global_elo(ts.elo, ts.assignment,
+                                   outs["win_result"], finished)
         metrics["elo"] = elo
         return replace(ts, update_idx=ts.update_idx + 1, elo=elo), metrics
 
@@ -628,15 +768,12 @@ class TrainingManager:
         n_train = self.E * self.BE
         past_perm = order[n_train:].reshape(self.P, self.BPp) \
             if self.has_past else ts.past_perm
-        dev = self.device
-        return replace(
+        assignment = assignment[self.mesh.world_lo:self.mesh.world_hi]
+        return self._clear_rnn(replace(
             ts, env_state=ts.env_state.replace(policy_idx=assignment.clone()),
             assignment=assignment,
             train_perm=order[:n_train].reshape(self.E, self.BE),
-            past_perm=past_perm,
-            rnn_states=init_rnn_states((self.E, self.BE), device=dev),
-            past_rnn_states=init_rnn_states((self.P, self.BPp), device=dev),
-            pending_reset=True, key=key)
+            past_perm=past_perm, pending_reset=True, key=key))
 
     # ------------------------------------------- deterministic eval ELO
     @torch.no_grad()
@@ -648,9 +785,8 @@ class TrainingManager:
         once. Returns (ts with that elo and a pending reset, elo); the
         count of finished matches is left in ``self.eval_matches``."""
         env_state, obs = ts.env_state, ts.cur_obs
-        dev = self.device
-        rnn = init_rnn_states((self.E, self.BE), device=dev)
-        past_rnn = init_rnn_states((self.P, self.BPp), device=dev)
+        cleared = self._clear_rnn(ts)
+        rnn, past_rnn = cleared.rnn_states, cleared.past_rnn_states
         wins, finished = [], []
         for t in range(num_steps):
             env_actions, *_, rnn, past_rnn = self._policy_step(
@@ -664,9 +800,10 @@ class TrainingManager:
             wins.append(out["episode_result"]["win_result"])
             finished.append(out["episode_result"]["match_finished"])
         win, finished = torch.stack(wins), torch.stack(finished)
-        self.eval_matches = (finished & (win >= 0)).sum()
-        elo = self._match_elo(torch.full_like(ts.elo, 1000.0),
-                              ts.assignment, win, finished)
+        self.eval_matches = collectives.all_sum(
+            self.mesh, (finished & (win >= 0)).sum())
+        elo = self._global_elo(torch.full_like(ts.elo, 1000.0),
+                               ts.assignment, win, finished)
         # the eval's episodes restart on the next training rollout
         return replace(ts, elo=elo, pending_reset=True), elo
 
@@ -704,9 +841,14 @@ class TrainingManager:
     def save_ckpt(self, ts: TrainState, path: str) -> str:
         """``<path>/<update_idx>.pt``: params, Adam state, normalizer,
         update index, ELO, hyperparameters, the past ring's pointer and,
-        when P > 0, its params (torch.save of dicts)."""
-        os.makedirs(path, exist_ok=True)
+        when P > 0, its params (torch.save of dicts). Every piece is
+        replicated: rank 0 alone writes, and every rank returns once the
+        file is there."""
         out = os.path.join(os.path.abspath(path), f"{ts.update_idx}.pt")
+        if self.mesh.rank != 0:
+            collectives.barrier(self.mesh)
+            return out
+        os.makedirs(path, exist_ok=True)
         ckpt = {
             "params": ts.params,
             "opt_state": [vars(o) for o in ts.opt_state],
@@ -719,6 +861,7 @@ class TrainingManager:
         if self.P > 0:
             ckpt["past_params"] = ts.past_params
         torch.save(ckpt, out)
+        collectives.barrier(self.mesh)
         return out
 
     def restore_ckpt(self, ts: TrainState, path: str) -> TrainState:

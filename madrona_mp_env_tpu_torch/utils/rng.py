@@ -87,14 +87,22 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, counters=None) -> torch.Tensor:
     """32 random bits per element: key [..., 2] -> [..., *shape] (uint32
-    values in int64). The counter of element j is its row-major index."""
-    shape = tuple(shape)
-    n = 1
-    for s in shape:
-        n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    values in int64). The counter of element j is its row-major index;
+    ``counters`` (int64, its shape taking the place of ``shape``) picks
+    the elements of a larger draw by their row-major indices in it, as a
+    data-parallel rank draws its own actors' share of a global draw."""
+    if counters is not None:
+        idx = counters
+        shape = tuple(counters.shape)
+    else:
+        shape = tuple(shape)
+        n = 1
+        for s in shape:
+            n *= s
+        idx = torch.arange(n, dtype=torch.int64,
+                           device=key.device).reshape(shape)
     batch = key.shape[:-1]
     k0 = key[..., 0].reshape(batch + (1,) * len(shape))
     k1 = key[..., 1].reshape(batch + (1,) * len(shape))
@@ -102,12 +110,13 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0
-            ) -> torch.Tensor:
-    """jax.random.uniform, float32: key [..., 2] -> [..., *shape]. XLA
-    evaluates floats * (hi - lo) + lo as one fused multiply-add; the
-    float64 product and sum rounded once to float32 reproduce it."""
-    bits = random_bits(key, shape)
+def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0,
+            counters=None) -> torch.Tensor:
+    """jax.random.uniform, float32: key [..., 2] -> [..., *shape] (or the
+    elements ``counters`` of such a draw, random_bits). XLA evaluates
+    floats * (hi - lo) + lo as one fused multiply-add; the float64
+    product and sum rounded once to float32 reproduce it."""
+    bits = random_bits(key, shape, counters)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)

@@ -39,7 +39,9 @@ TRAIN_MODULES = ("__init__", "bc", "convert", "distributions", "elo",
                  "models", "normalizer", "pbt", "policy", "ppo", "train",
                  "trainer")
 TOOLS = ("fan_probe", "vpu_probe", "golden", "tokenize_steps", "ngrams",
-         "print_assignments", "build_trajectory_training_dataset")
+         "print_assignments", "build_trajectory_training_dataset",
+         "scaling_bench")
+PARALLEL_MODULES = ("__init__", "collectives", "distributed", "sharding")
 
 
 def test_port_imports_no_jax():
@@ -61,6 +63,9 @@ def test_port_imports_no_jax():
     for tool in TOOLS:
         assert os.path.join(PKG, "tools", f"{tool}.py") in files
     assert os.path.join(PKG, "utils", "xla_math.py") in files
+    parallel = {os.path.relpath(p, PKG) for p in files
+                if os.sep + "parallel" + os.sep in p}
+    assert parallel == {f"parallel/{m}.py" for m in PARALLEL_MODULES}
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -75,6 +80,21 @@ def test_env_defaults_to_cuda_and_raises_without_it(monkeypatch,
         mt.Env(cfg, simple_map_dir, num_worlds=2)
     env = mt.Env(cfg, simple_map_dir, num_worlds=2, device="cpu")
     assert env.device.type == "cpu"
+
+
+def test_parallel_entry_points_default_to_cuda(monkeypatch):
+    """The train CLI's --num-devices and the scaling bench run on the card
+    unless asked for the CPU: without one they raise before any rank
+    starts."""
+    from madrona_mp_env_tpu_torch.tools import scaling_bench
+    from madrona_mp_env_tpu_torch.train import train as train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="visible"):
+        train_cli.main(["--num-devices", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaling_bench.main([])
 
 
 def test_kernel_entries_refuse_other_devices():

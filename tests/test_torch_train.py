@@ -37,8 +37,7 @@ same weights, zero Adam moments, env seed and key:
 
 The train CLI runs two tiny updates on the CPU with two policies,
 checkpoints, restores, runs the PBT flags (--pbt-update-frequency,
---pbt-past-policies) and --bf16 / --fp16, and raises on the flags it does
-not support.
+--pbt-past-policies) and --bf16 / --fp16, and raises on --profile-port.
 """
 
 import os
@@ -459,10 +458,11 @@ def test_train_cli_runs_checkpoints_and_restores(tmp_path, monkeypatch):
     assert int(ts3.normalizer.count) == 3 * 4
 
 
-@pytest.mark.parametrize("flags", [
-    ["--num-devices", "2"], ["--distributed"], ["--profile-port", "9999"],
-])
+@pytest.mark.parametrize("flags", [["--profile-port", "9999"]])
 def test_train_cli_rejects_unsupported_flags(flags):
+    """--profile-port starts jax.profiler.start_server in the JAX CLI,
+    which has no PyTorch counterpart (--num-devices and --distributed:
+    tests/test_torch_parallel.py)."""
     with pytest.raises(NotImplementedError, match="not supported"):
         train_cli.build(train_cli.parse_args(["--cpu"] + flags))
 
