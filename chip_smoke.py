@@ -250,12 +250,31 @@ Phases, each of which fails the run loudly:
    worlds): env-steps/s and train env-steps/s with the card's name and
    power limit; (d) --num-devices beyond the visible cards raising. The
    phase logs its own seconds;
-16. a line of kernel results (JSON, one row per kernel and map, each with
+16. the offline asset tools (asset_tools_phase): (a) make_town_map at its
+   defaults, its four .bin files byte-equal to data/town_map's; (b)
+   build_ray_tables for simple_map at a cut battery (ASSET_RAY_KW) on
+   cuda and on cpu: equal tables and per-round bits; (c)
+   build_cell_tables for town_map on cuda at a cut battery
+   (ASSET_CELL_KW, k_max 1152), then verify_tables on it: every counter
+   zeroed before, K4 dense the build's only launches, K4 dense and K1
+   the check's; the bits only in this build and only in the committed
+   table and the mismatch counts logged, with each build's seconds, its
+   battery chunks and its host share; (d) K4 dense on one chunk of the
+   cast battery and K1 on one chunk of the check's rays against their
+   plain versions (int32 views), timed, rows tagged "town_map tables";
+   (e) golden --generate (ASSET_GOLDEN_STEPS steps) into a temporary
+   path (the CPU), then --check on the card against it. The phase logs
+   its own seconds;
+17. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS; the six main-path rows their launches on each rank of
    phase 15), then the card line, then the last line {"ok": true,
    "device": {...}}.
+
+``python3 chip_smoke.py --tables`` runs tables_phase alone: the culling
+table builders at their full defaults (load_map(build_culling=True) on
+simple_map, tools/build_culling.py --verify on town_map), minutes.
 
 ``python3 chip_smoke.py --cards`` on a machine of several cards runs
 cards_phase alone: the scaling bench across the cards, one NCCL rank a
@@ -5160,6 +5179,314 @@ def cards_phase(n, card):
         f"ranks {dt[1]:.1f}, CLI {dt[2]:.1f}")
 
 
+# phase 16: the offline asset tools. The table builders' batteries are cut
+# to fit the run (the full builds' seconds: PERF.md, from
+# tools/build_culling.py and load_map(build_culling=True) runs)
+ASSET_RAY_KW = dict(rays_per_cell=1000, round_rays=1 << 16, max_rounds=2)
+ASSET_CELL_KW = dict(cells_per_side=16, rays_per_cell=2000,
+                     casts_per_cell=400, round_rays=1 << 16,
+                     round_casts=1 << 14, max_rounds=2, k_max=1152)
+ASSET_VERIFY = dict(n_rays=100000, n_casts=20000)
+ASSET_CASTS = 8192  # one chunk of the cast battery
+ASSET_RAYS = 16384  # one chunk of verify_tables' rays
+ASSET_GOLDEN_STEPS = 50  # golden --generate's rollout on the CPU, cut
+
+
+def map_inputs(scene):
+    """(Morton-ordered triangles, the builders' walkable points) of a map
+    directory, as load_map hands them to the builders."""
+    from madrona_mp_env_tpu_torch.assets import formats
+    from madrona_mp_env_tpu_torch.assets.map_data import walkable_points
+    from madrona_mp_env_tpu_torch.ops.raycast import morton_sort_tris
+
+    col = formats.load_collision_data(os.path.join(scene, "collisions.bin"))
+    nav = formats.load_navmesh(os.path.join(scene, "navmesh.bin"))
+    spawns = formats.load_spawns(os.path.join(scene, "spawns.bin"))
+    return morton_sort_tris(col.tri_verts), walkable_points(nav, spawns)
+
+
+def table_bits(new, old):
+    """(bits only in new, bits only in old): the (cell, triangle) pairs of
+    two [C, K] candidate tables."""
+    def bits(cand):
+        c, k = np.nonzero(cand >= 0)
+        return c.astype(np.int64) * (1 << 32) + cand[c, k]
+
+    a, b = bits(new), bits(old)
+    return len(np.setdiff1d(a, b)), len(np.setdiff1d(b, a))
+
+
+def build_line(label, stats, seconds):
+    return (f"{label} in {seconds:.1f} s ({stats['chunks']} battery chunks, "
+            f"device {stats['device_s']:.1f} s, host share "
+            f"{1 - stats['device_s'] / stats['total_s']:.3f} of "
+            f"{stats['total_s']:.1f} s after the near sets; round bits "
+            f"{stats['round_bits']})")
+
+
+def asset_chunk_rows(tv, wp, launches):
+    """K4 dense on one chunk of town_map's cast battery and K1 on one
+    chunk of verify_tables' rays, each against its plain version on the
+    card (int32 views: t and winner row, t), timed; rows tagged
+    "town_map tables" with the launches of the build + verify path."""
+    import torch
+    from madrona_mp_env_tpu_torch.ops import culling, raycast
+
+    b = culling._Battery(tv, ASSET_CELL_KW["cells_per_side"], 190.0,
+                         culling.QUERY_MARGIN, 0, wp,
+                         torch.device("cuda"), None)
+    soup = raycast.make_tri_soup(tv, pad_to=128, device="cuda")
+    T = len(tv)
+    rows = []
+    for name, n, src, replaces, entry in (
+            ("K4 sphere_cast (dense)", ASSET_CASTS, "sphere_cast.cu",
+             "raycast_pallas.py:1384", raycast.sphere_cast),
+            ("K1 ray_vs_tris", ASSET_RAYS, "ray_tris.cu",
+             "raycast_pallas.py:111", raycast.ray_vs_tris)):
+        o = torch.as_tensor(b.sample_origins(n), device="cuda")
+        d = torch.as_tensor(culling._unit_dirs(b.rng, n), device="cuda")
+        if entry is raycast.sphere_cast:
+            def kernel(o=o, d=d):
+                return raycast.sphere_cast(o, d, 15.0, soup)
+
+            def plain(o=o, d=d):
+                return sc_dense_plain(o, d, 15.0, soup)
+
+            nbytes, nops = n * 32 + T * 52, n * T * OPS_SPHERE_TRI
+        else:
+            def kernel(o=o, d=d):
+                return raycast.ray_vs_tris(o, d, soup)
+
+            def plain(o=o, d=d):
+                return chunked(lambda s: raycast._ray_vs_tris_dense(
+                    o[s], d[s], soup), n, max(64, 2 ** 22 // soup.num_tris))
+
+            nbytes, nops = n * 28 + T * 40, n * T * OPS_RAY_TRI
+        got, want = kernel(), plain()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got, want)]
+        err = check_equal(f"{name} [town_map tables]", *pairs)
+        hits = float(torch.isfinite(pairs[0][1]).float().mean())
+        row = kernel_row(
+            "town_map tables", name,
+            f"madrona_mp_env_tpu_torch/csrc/{src}",
+            f"madrona_mp_env_tpu/ops/{replaces}", entry, err,
+            cuda_time_ms(kernel, 10), cuda_time_ms(plain, 1), nbytes, nops,
+            [[n]], hit_share=round(hits, 4))
+        row["launches"] = launches[entry.__name__]
+        row["path"] = "town_map tables: build_cell_tables + verify_tables"
+        rows.append(row)
+    return rows
+
+
+def asset_tools_phase(card):
+    """Phase 16: (a) make_town_map at its defaults, byte-equal to
+    data/town_map; (b) build_ray_tables for simple_map on cuda and on cpu
+    (ASSET_RAY_KW), equal tables and round bits; (c) build_cell_tables for
+    town_map on cuda (ASSET_CELL_KW) and verify_tables on it
+    (ASSET_VERIFY), every launch counter zeroed before the build and read
+    after the build and after the check (K4 dense in both, K1 in the
+    check, nothing else), its bits against the committed table and the
+    mismatch counts logged; (d) asset_chunk_rows; (e) golden --generate
+    into a temporary path, then --check on the card against it. Returns
+    the two kernel rows; the phase logs its own seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from madrona_mp_env_tpu_torch.ops import culling
+    from madrona_mp_env_tpu_torch.tools import golden, make_town_map
+
+    torch.cuda.empty_cache()
+    t = [time.perf_counter()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_assets_")
+    try:
+        town = os.path.join(tmp, "town")
+        make_town_map.main(["--out", town])
+        for name in ("collisions.bin", "navmesh.bin", "spawns.bin",
+                     "zones.bin"):
+            with open(os.path.join(town, name), "rb") as f, open(
+                    os.path.join(TOWN, name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"[assets] make_town_map: {name} "
+                                         "differs from data/town_map's")
+        t.append(time.perf_counter())
+        log(f"[assets] (a) make_town_map at its defaults: the four .bin "
+            f"files byte-equal to data/town_map's, {t[-1] - t[-2]:.1f} s")
+
+        tv, wp = map_inputs(SCENE)
+        raws = {}
+        for dev in ("cuda", "cpu"):
+            stats, t0 = {}, time.perf_counter()
+            raws[dev] = culling.build_ray_tables(
+                tv, walkable_points=wp, device=dev, stats=stats,
+                **ASSET_RAY_KW), stats
+            log("[assets] (b) " + build_line(
+                f"build_ray_tables simple_map {ASSET_RAY_KW} on {dev}: K "
+                f"{raws[dev][0]['K']}", stats, time.perf_counter() - t0))
+        (gpu, gs), (cpu, cs) = raws["cuda"], raws["cpu"]
+        if (not np.array_equal(gpu["cand_idx"], cpu["cand_idx"])
+                or gs["round_bits"] != cs["round_bits"]):
+            raise AssertionError("[assets] (b) the sensor-ray tables on "
+                                 "cuda differ from the cpu build's")
+        log(f"[assets] (b) cuda and cpu tables equal ({gpu['cand_idx'].shape}"
+            f" cand_idx, round bits {gs['round_bits']})")
+        t.append(time.perf_counter())
+
+        tv, wp = map_inputs(TOWN)
+        entries = zero_counts()
+        stats, t0 = {}, time.perf_counter()
+        raw = culling.build_cell_tables(tv, walkable_points=wp,
+                                        device="cuda", stats=stats,
+                                        **ASSET_CELL_KW)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build = {n: f.launches for n, f in entries.items() if f.launches}
+        log("[assets] (c) " + build_line(
+            f"build_cell_tables town_map {ASSET_CELL_KW} on cuda: K "
+            f"{raw['K']}, k_raw {raw['k_raw']}, mean "
+            f"{raw['mean_count']:.1f}", stats, build_s)
+            + f"; launches {build}")
+        with np.load(os.path.join(TOWN, "culling.npz")) as z:
+            only_new, only_old = table_bits(raw["cand_idx"], z["cand_idx"])
+            n_old = int((z["cand_idx"] >= 0).sum())
+        tables = culling._grid_tables(culling.CellTables, raw, "cuda")
+        t0 = time.perf_counter()
+        res = culling.verify_tables(tv, tables, walkable_points=wp,
+                                    **ASSET_VERIFY)
+        verify_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in entries.items() if f.launches}
+        if set(build) != {"sphere_cast"} or set(launches) != {
+                "sphere_cast", "ray_vs_tris"}:
+            raise AssertionError(f"[assets] (c) launches: build {build}, "
+                                 f"build + verify {launches}")
+        log(f"[assets] (c) against the committed culling.npz ({n_old} bits,"
+            f" its full battery): {only_new} bits only in this cut build, "
+            f"{only_old} only in the committed; verify_tables "
+            f"{ASSET_VERIFY} in {verify_s:.1f} s: {res}; launches build + "
+            f"verify {launches} on {card}")
+        t.append(time.perf_counter())
+
+        rows = asset_chunk_rows(tv, wp, launches)
+        t.append(time.perf_counter())
+
+        path = os.path.join(tmp, "golden.npz")
+        golden.main(["--generate", "--path", path, "--num-steps",
+                     str(ASSET_GOLDEN_STEPS)])
+        rep = golden.check(path, "cuda", verbose=False)
+        log(f"[assets] (e) golden --generate ({ASSET_GOLDEN_STEPS} steps on "
+            f"the CPU), then --check on cuda: first pos divergence at step "
+            f"{rep['first_divergence_step']}, hp exact {rep['hp_exact']}, "
+            f"team points exact {rep['team_points_exact']}")
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[assets] phase {t[-1] - t[0]:.1f} s: (a) {dt[0]:.1f}, (b) "
+        f"{dt[1]:.1f}, (c) {dt[2]:.1f}, (d) {dt[3]:.1f}, (e) {dt[4]:.1f}")
+    return rows
+
+
+def tables_phase(card):
+    """``python3 chip_smoke.py --tables``: the table builders at their full
+    defaults on the card, outside the no-argument run (minutes): (a)
+    load_map(build_culling=True) on a copy of simple_map without
+    culling_ray.npz (it builds culling.npz too, which simple_map lacks),
+    each build's seconds, battery chunks, device seconds and K4 dense
+    launches, the new sensor-ray table's bits against the committed one
+    and verify_ray_tables on it; (b) tools/build_culling.py --k-max 1152
+    --verify on a copy of town_map without culling.npz, in a process of
+    its own, its JSON line, the new table's bits against the committed
+    one, and the committed table under the same check. The CLI's exit
+    code is logged, not held: its 1e-5 bar is not reached on town_map
+    (ROADMAP Queue 3)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from madrona_mp_env_tpu_torch import EnvConfig
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.ops import culling, raycast
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+    try:
+        scene = os.path.join(tmp, "simple_map")
+        shutil.copytree(SCENE, scene)
+        os.remove(os.path.join(scene, "culling_ray.npz"))
+        stats = {}
+
+        def with_stats(build):
+            def run(*args, **kw):
+                st = stats.setdefault(build.__name__, {})
+                raycast.sphere_cast.launches = 0
+                t0 = time.perf_counter()
+                out = build(*args, stats=st, **kw)
+                torch.cuda.synchronize()
+                st["seconds"] = time.perf_counter() - t0
+                st["k4_dense_launches"] = raycast.sphere_cast.launches
+                return out
+            return run
+
+        t0 = time.perf_counter()
+        with mock.patch.object(culling, "build_cell_tables", with_stats(
+                culling.build_cell_tables)), mock.patch.object(
+                culling, "build_ray_tables", with_stats(
+                    culling.build_ray_tables)):
+            m = load_map(scene, EnvConfig(team_size=TEAM_SIZE),
+                         device="cuda", build_culling=True)
+        log(f"[tables] (a) load_map(build_culling=True) simple_map: "
+            f"{time.perf_counter() - t0:.1f} s, PVS K {m.cells.K}, "
+            f"sensor-ray K {m.ray_cells.K}")
+        for name, st in stats.items():
+            log(f"[tables] (a) {build_line(name, st, st['seconds'])}: "
+                f"{len(st['round_bits'])} rounds, K4 dense launches "
+                f"{st['k4_dense_launches']} on {card}")
+        with np.load(os.path.join(scene, "culling_ray.npz")) as new, \
+                np.load(os.path.join(SCENE, "culling_ray.npz")) as old:
+            a, b = table_bits(new["cand_idx"], old["cand_idx"])
+            log(f"[tables] (a) culling_ray.npz: K {int(new['K'])} "
+                f"(committed {int(old['K'])}), k_raw {int(new['k_raw'])} "
+                f"({int(old['k_raw'])}); bits only new {a}, only committed "
+                f"{b}, of {int((old['cand_idx'] >= 0).sum())}")
+        tv, wp = map_inputs(scene)
+        log(f"[tables] (a) verify_ray_tables: "
+            f"{culling.verify_ray_tables(tv, m.ray_cells, walkable_points=wp)}")
+        del m
+
+        town = os.path.join(tmp, "town_map")
+        shutil.copytree(TOWN, town)
+        os.remove(os.path.join(town, "culling.npz"))
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "madrona_mp_env_tpu_torch.tools."
+             "build_culling", town, "--k-max", "1152", "--verify"],
+            cwd=REPO, capture_output=True, text=True, timeout=1800)
+        line = [x for x in p.stdout.splitlines() if x.startswith("{")]
+        if not line:
+            raise AssertionError(f"[tables] build_culling: {p.stderr[-2000:]}")
+        res = json.loads(line[-1])
+        log(f"[tables] (b) build_culling town_map --k-max 1152 --verify: "
+            f"exit {p.returncode} ({'passes' if p.returncode == 0 else 'fails'}"
+            f" the 1e-5 bar) in {time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps(res)} on {card}")
+        with np.load(os.path.join(town, "culling.npz")) as new, \
+                np.load(os.path.join(TOWN, "culling.npz")) as old:
+            a, b = table_bits(new["cand_idx"], old["cand_idx"])
+            log(f"[tables] (b) culling.npz: K {int(new['K'])} (committed "
+                f"{int(old['K'])}), k_raw {int(new['k_raw'])} "
+                f"({int(old['k_raw'])}), mean {float(new['mean_count']):.2f}"
+                f" ({float(old['mean_count']):.2f}); bits only new {a}, "
+                f"only committed {b}, of {int((old['cand_idx'] >= 0).sum())}")
+        tv, wp = map_inputs(TOWN)
+        committed = culling.load_or_build_cell_tables(
+            tv, TOWN, build_if_missing=False, device="cuda")
+        log(f"[tables] (b) the committed culling.npz under the same check: "
+            + str(culling.verify_tables(tv, committed, n_rays=500000,
+                                        n_casts=100000, walkable_points=wp)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5170,6 +5497,16 @@ def main() -> int:
     import madrona_mp_env_tpu_torch as mt
     from madrona_mp_env_tpu_torch.ops import cuda_build
 
+    if sys.argv[1:] == ["--tables"]:
+        card = card_line()
+        log(f"[card] {card}")
+        cuda_build.build_all()
+        tables_phase(card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--cards"]:
         card = card_line()
         cuda_build.build_all()
@@ -5402,7 +5739,12 @@ def main() -> int:
     parallel_phase(main_simple, card)
     mark(15)
 
-    # 16. results
+    # 16. the offline asset tools: make_town_map, the table builders and
+    # verifiers (K4 dense, K1), golden --generate
+    kernels += asset_tools_phase(card)
+    mark(16)
+
+    # 17. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

@@ -22,8 +22,9 @@ import torch
 from .. import consts
 from ..config import EnvConfig, SimFlags
 from ..ops.culling import (MOVE_MARGIN, CellTables, RayTables, ShortTables,
-                           load_cell_tables, load_ray_tables,
-                           load_short_tables)
+                           load_or_build_cell_tables,
+                           load_or_build_ray_tables, load_short_tables,
+                           spawn_box_points)
 from ..ops.geom import norm, rotate_z
 from ..ops.raycast import TriSoup, make_tri_soup, morton_sort_tris
 from . import formats
@@ -241,20 +242,42 @@ def map_key(scene_dir: str, cfg: EnvConfig,
             cfg.enable_spawn_curriculum, snaps)
 
 
+def walkable_points(nav_raw: formats.NavmeshData,
+                    spawns: formats.SpawnData) -> np.ndarray:
+    """The table builders' battery origins [M, 3]: navmesh vertices and
+    triangle centroids, and grids over the spawn boxes (at map edges the
+    navmesh-driven sampler under-covers; every episode's first sensor
+    fans start inside them)."""
+    return np.concatenate(
+        [
+            nav_raw.verts,
+            nav_raw.verts[nav_raw.tri_indices].mean(axis=1),
+            spawn_box_points(
+                (spawns.a_spawns, spawns.b_spawns, spawns.common_respawns)
+            ),
+        ],
+        axis=0,
+    ).astype(np.float32)
+
+
 def load_map(scene_dir: str, cfg: EnvConfig, device=None,
              tri_pad: int = 128,
-             curriculum_snapshots: Optional[np.ndarray] = None) -> MapData:
+             curriculum_snapshots: Optional[np.ndarray] = None,
+             build_culling: bool = False) -> MapData:
     """Load a map directory (collisions.bin, navmesh.bin, spawns.bin,
     zones.bin, culling.npz and culling_ray.npz when present,
     culling_short.npz and culling_short_mv.npz) onto ``device``, with the
     trajectory curriculum's ``curriculum_snapshots`` (records of
-    data/formats.py CURRICULUM_DTYPE, load_curriculum_snapshots)."""
+    data/formats.py CURRICULUM_DTYPE, load_curriculum_snapshots).
+    ``build_culling=True`` builds a missing or stale culling.npz and
+    culling_ray.npz with the builders' defaults (ops/culling.py; slow) on
+    ``device``, None meaning the first CUDA device, and writes them into
+    the map directory."""
     col = formats.load_collision_data(
         os.path.join(scene_dir, "collisions.bin")
     )
-    nav = build_navmesh_tables(
-        formats.load_navmesh(os.path.join(scene_dir, "navmesh.bin"))
-    )
+    nav_raw = formats.load_navmesh(os.path.join(scene_dir, "navmesh.bin"))
+    nav = build_navmesh_tables(nav_raw)
     spawns = formats.load_spawns(os.path.join(scene_dir, "spawns.bin"))
     zones = formats.load_zones(os.path.join(scene_dir, "zones.bin"))
 
@@ -262,8 +285,11 @@ def load_map(scene_dir: str, cfg: EnvConfig, device=None,
     # culling tables: candidate rows address the soup's rows
     tri_verts = morton_sort_tris(col.tri_verts)
     soup = make_tri_soup(tri_verts, pad_to=tri_pad, device=device)
-    cells = load_cell_tables(tri_verts, scene_dir, device=device)
-    ray_cells = load_ray_tables(tri_verts, scene_dir, device=device)
+    walkable = walkable_points(nav_raw, spawns) if build_culling else None
+    cells = load_or_build_cell_tables(tri_verts, scene_dir, build_culling,
+                                      device, walkable_points=walkable)
+    ray_cells = load_or_build_ray_tables(tri_verts, scene_dir, build_culling,
+                                         device, walkable_points=walkable)
     short = load_short_tables(tri_verts, scene_dir, device=device)
     short_mv = load_short_tables(tri_verts, scene_dir, margin=MOVE_MARGIN,
                                  tag="_mv", device=device)

@@ -189,11 +189,13 @@ def _rows16(soup: TriSoup) -> torch.Tensor:
 # K1: nearest-hit rays (hitscan)
 # ---------------------------------------------------------------------------
 
-def _ray_tri_t(o, d, v0, e1, e2, valid):
+def _ray_tri_t(o, d, v0, e1, e2, valid, t_min=0.0):
     """Two-sided Moller-Trumbore per (ray, triangle) pair: every argument
-    broadcasts to [..., T(, 3)] -> t [..., T] (inf on miss). geom.cross
-    and geom.dot written out on the x, y, z planes (the same operations
-    in the same order, without materializing [..., T, 3] products)."""
+    broadcasts to [..., T(, 3)] -> t [..., T] (inf on miss; a hit needs t
+    > t_min: 0 on the sim's queries, 1e-6 in the table builders' battery,
+    ops/culling.py _dense_ray_idx). geom.cross and geom.dot written out on
+    the x, y, z planes (the same operations in the same order, without
+    materializing [..., T, 3] products)."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     ax, ay, az = e1.unbind(-1)
@@ -209,7 +211,7 @@ def _ray_tri_t(o, d, v0, e1, e2, valid):
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (bx * qx + by * qy + bz * qz) * inv_det
     hit = (
-        det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+        det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
         & valid
     )
     return _where_inf(hit, t)

@@ -22,8 +22,14 @@ leaves 1e-4 * max(1, |reward|) before it, or when it comes before
 
     python -m madrona_mp_env_tpu_torch.tools.golden            # on the card
     python -m madrona_mp_env_tpu_torch.tools.golden --cpu      # plain path
+    python -m madrona_mp_env_tpu_torch.tools.golden --generate --path g.npz
 
-Regenerating the golden (``--generate``) stays with the JAX package.
+``--generate`` writes a golden from the port's rollout, in the JAX file's
+keys and dtypes, on the CPU only (the JAX tool's hard rule: a golden made
+on an accelerator would launder kernel divergence into the contract), so
+it pins the plain path and ``generate`` refuses any other device.
+``--check`` (the default) then compares against it. The committed golden
+stays the JAX package's CPU trajectory: ``--generate`` needs a ``--path``.
 """
 
 from __future__ import annotations
@@ -134,22 +140,48 @@ def check(path: str = DEFAULT_PATH, device=None, min_steps: int = 0,
     return report
 
 
+def generate(path: str, device="cpu",
+             num_steps: int = NUM_STEPS) -> Dict[str, np.ndarray]:
+    """Write the golden rollout of ``num_steps`` steps to ``path``
+    (np.savez_compressed, the JAX tool's keys); only on the CPU."""
+    device = resolve_device(device)
+    if device.type != "cpu":
+        raise RuntimeError(
+            f"golden generation requires the CPU, got {device}: the golden "
+            "is the plain path's trajectory")
+    hist = rollout(device, num_steps)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **hist)
+    print(f"wrote golden ({num_steps} steps) to {path}")
+    return hist
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", type=str, default=DEFAULT_PATH)
+    ap.add_argument("--path", type=str, default=None,
+                    help="the golden (default: the committed one; "
+                         "--generate needs a path of its own)")
     ap.add_argument("--min-steps", type=int, default=0,
                     help="fail if pos diverges before this step")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
     ap.add_argument("--generate", action="store_true",
-                    help="not ported: the JAX package writes the golden")
+                    help="write the golden from the CPU path's rollout")
+    ap.add_argument("--check", action="store_true",
+                    help="compare with the golden (the default without "
+                         "--generate)")
+    ap.add_argument("--num-steps", type=int, default=NUM_STEPS,
+                    help="steps of a generated golden")
     args = ap.parse_args(argv)
     if args.generate:
-        raise NotImplementedError(
-            "golden --generate is not ported; the golden is the JAX "
-            "package's CPU trajectory")
+        if args.path is None:
+            ap.error("--generate needs --path: the committed golden is the "
+                     "JAX package's CPU trajectory")
+        generate(args.path, "cpu", args.num_steps)
+        if not args.check:
+            return None
     device = resolve_device("cpu" if args.cpu else None)
-    return check(args.path, device, args.min_steps)
+    return check(args.path or DEFAULT_PATH, device, args.min_steps)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 - The navmesh tables: triangle adjacency and the all-pairs next-hop table
   equal element for element to the JAX package's numpy functions on both
-  maps (town_map's built once per module), and built by a map only when a
-  bot first plans.
+  maps (their tables stored in asset_tools_jax.npz; the port's town_map
+  table built once per module), and built by a map only when a bot first
+  plans.
 - The planner: the port's ``_nearest_nav_tri`` and ``plan_bot_actions`` on
   the inputs of tests/fixtures_torch/zone_simple_map_bots.npz
   (make_bot_fixture.py: numpy-drawn inputs on both maps, and the states
@@ -37,6 +38,7 @@ from madrona_mp_env_tpu_torch.sim.types import Actions
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures_torch")
 sys.path.insert(0, FIXTURES)
+import make_asset_tools_fixture as asset_fx  # noqa: E402
 import make_bot_fixture as fx  # noqa: E402
 import make_slice_fixture as slice_fx  # noqa: E402
 from test_torch_slice import compare  # noqa: E402
@@ -63,17 +65,22 @@ def maps():
 
 @pytest.fixture(scope="module")
 def graphs(maps):
-    """{map: (port adjacency, port next hop, JAX's, JAX's)}; each table
-    built once per module (town_map's Floyd-Warshall takes seconds)."""
-    from madrona_mp_env_tpu.assets import navmesh as jnav
-
+    """{map: (port adjacency, port next hop, JAX's, JAX's)}; the port's
+    built once per module (town_map's Floyd-Warshall takes seconds), the
+    JAX package's numpy tables from asset_tools_jax.npz
+    (make_asset_tools_fixture.py), whose navmesh inputs equal the map's."""
     out = {}
-    for s, m in maps.items():
-        tri = m.nav_tri_indices.numpy().astype(np.int32)
-        cent = m.nav_centroids.numpy().astype(np.float64)
-        jadj = jnav._tri_adjacency(tri)
-        out[s] = (navmesh.tri_adjacency(tri), m.nav_next_hop().numpy(),
-                  jadj, jnav._all_pairs_next_hop(cent, jadj))
+    with np.load(asset_fx.PATH) as z:
+        for s, m in maps.items():
+            tri = m.nav_tri_indices.numpy().astype(np.int32)
+            want_tri, cent = asset_fx.nav_inputs(os.path.join(REPO, "data",
+                                                             s))
+            assert np.array_equal(tri, want_tri) and np.array_equal(
+                tri, z[f"nav/{s}/tri"])
+            assert np.array_equal(m.nav_centroids.numpy().astype(np.float64),
+                                  cent)
+            out[s] = (navmesh.tri_adjacency(tri), m.nav_next_hop().numpy(),
+                      z[f"nav/{s}/adj"], z[f"nav/{s}/next_hop"])
     return out
 
 

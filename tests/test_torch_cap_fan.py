@@ -14,8 +14,9 @@ csrc/fan_capsules.cu fan_capsules_kernel), on the CPU.
 - The plain version on per-group offsets equals the per-ray one (K3's
   predecessor's arguments) bit for bit, and matches the JAX package's
   ``fan_capsules_planar`` (its Pallas kernel in interpret mode, as the
-  JAX tests run it on the CPU) at 2 worlds: t within 1e-5 * max(1, |t|),
-  the same rays hit, capsule indices equal.
+  JAX tests run it on the CPU; stored in kernel_refs_jax.npz) at 2
+  worlds: t within 1e-5 * max(1, |t|), the same rays hit, capsule
+  indices equal.
 """
 
 import os
@@ -36,11 +37,13 @@ from madrona_mp_env_tpu_torch.sim.types import world_state_from_numpy
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "fixtures_torch")
 sys.path.insert(0, FIX)
+import make_kernel_refs_fixture as refs  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 F32 = torch.float32
 INF = float("inf")
 SENSOR_RUNS = (24, 32, 32, 8, 8)
+PLANAR_FANS = (2, 12, 5)  # the JAX comparison's clustered fans: W, A, seed
 
 
 def _f(x):
@@ -195,21 +198,15 @@ def test_group_plain_equals_ray_plain():
         raycast_cull.fan_capsules_v1(pos, zoff, dirs, alive > 0.0)
 
 
-def test_plain_matches_jax_planar(monkeypatch):
-    monkeypatch.setenv("MPENV_PALLAS", "interpret")
-    import jax
-    import jax.numpy as jnp
-    from madrona_mp_env_tpu.ops.raycast_cull import fan_capsules_planar
-
-    pos, zg, dirs, zgroups, alive = _clustered_fans(2, 12, 5)
-    zoff = np.repeat(zg.numpy(), zgroups, axis=-1)
-    tj, ij = jax.vmap(lambda p, z, dx, dy, dz, al: fan_capsules_planar(
-        p, z, (dx, dy, dz), al, consts.agent_radius,
-        raycast_cull.CAPSULE_SEG_H))(
-        jnp.asarray(pos.numpy()), jnp.asarray(zoff),
-        *(jnp.asarray(c.numpy()) for c in dirs),
-        jnp.asarray(alive.numpy() > 0.0))
-    tj, ij = np.asarray(tj), np.asarray(ij)
+def test_plain_matches_jax_planar():
+    """JAX's outputs from tests/fixtures_torch/kernel_refs_jax.npz
+    (make_kernel_refs_fixture.py), on the same clustered fans."""
+    pos, zg, dirs, zgroups, alive = _clustered_fans(*PLANAR_FANS)
+    with np.load(refs.PATH) as want:
+        for k, v in (("pos", pos), ("zg", zg), ("dirs", torch.stack(dirs)),
+                     ("alive", alive)):
+            assert np.array_equal(v.numpy(), want[f"capfan/{k}"]), k
+        tj, ij = want["capfan/t"], want["capfan/idx"]
     t, idx = raycast_cull.fan_capsules(pos, zg, dirs, zgroups, alive)
     t, idx = t.numpy(), idx.numpy()
     hit = np.isfinite(t)

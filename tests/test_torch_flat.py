@@ -16,22 +16,20 @@ package's dense CPU functions, on simple_map:
 
 Every JAX call is pinned to its dense path and runs eagerly (the
 tolerances of tests/test_torch_raycast.py); the K7 cases go through one
-JAX call with a ray per fan, so its primitives compile once.
+JAX call with a ray per fan. The JAX outputs come from
+tests/fixtures_torch/kernel_refs_jax.npz (make_kernel_refs_fixture.py,
+which makes the inputs with this module's helpers); each case checks its
+inputs against the stored ones first.
 """
 
 import os
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import madrona_mp_env_tpu as mp
 import madrona_mp_env_tpu_torch as mt
-from madrona_mp_env_tpu.assets.map_data import load_map as jload_map
-from madrona_mp_env_tpu.ops import raycast as jrc
 from madrona_mp_env_tpu_torch.assets.map_data import load_map
 from madrona_mp_env_tpu_torch.ops import raycast, raycast_cull
 from madrona_mp_env_tpu_torch.sim import movement
@@ -39,6 +37,7 @@ from madrona_mp_env_tpu_torch.tools.kernel_bench import sensor_zgroups
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "fixtures_torch"))
+import make_kernel_refs_fixture as refs  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 R = 15.0  # agent radius
@@ -46,15 +45,22 @@ SEG_H = 35.0  # capsule segment height
 NUM_FANS = 24
 FAN_CASES = {"per_ray": None, "ts1": sensor_zgroups(1),
              "ts2": sensor_zgroups(2), "ts3": sensor_zgroups(3)}
+MAP_CFG = dict(task=2, team_size=3)
 
 
 @pytest.fixture(scope="module")
-def maps(simple_map_dir):
-    cfg = dict(task=2, team_size=3)
-    with pytest.MonkeyPatch.context() as mp_:
-        mp_.setenv("MPENV_PALLAS", "dense")
-        jm = jload_map(simple_map_dir, mp.EnvConfig(**cfg))
-    return jm, load_map(simple_map_dir, mt.EnvConfig(**cfg), device="cpu")
+def tmap(simple_map_dir):
+    return load_map(simple_map_dir, mt.EnvConfig(**MAP_CFG), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def want():
+    return dict(np.load(refs.PATH))
+
+
+def _same_inputs(want, prefix, **inputs):
+    for k, v in inputs.items():
+        assert np.array_equal(np.asarray(v), want[f"{prefix}/{k}"]), k
 
 
 def _walkable(m, n, g, lift):
@@ -83,11 +89,9 @@ def _check_t(want, got, rel=1e-5):
 # K7: the stacked-direction fan
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def fan_cases(maps):
+def fan_inputs(tm):
     """{case: (origins [N, 3], zg [N, G] or None, zoff [N, F], dirs [N, F,
-    3], JAX t [N, F])}; dirs are not unit (t is in units of |d|)."""
-    jm, tm = maps
+    3])}; dirs are not unit (t is in units of |d|)."""
     g = np.random.default_rng(40)
     cases = {}
     for name, zgroups in FAN_CASES.items():
@@ -103,15 +107,28 @@ def fan_cases(maps):
         d = (_unit(g, (NUM_FANS, F)) * g.uniform(0.5, 2.0, (NUM_FANS, F, 1))
              ).astype(np.float32)
         cases[name] = (org, zg, zoff, d)
-    # one JAX call, a ray per fan: origins [R, 3], zoffs [R, 1], dirs [R,
-    # 1, 3] (the dense path builds each ray's origin as for a fan)
+    return cases
+
+
+def fan_rays(cases):
+    """The cases as one JAX call's input, a ray per fan: origins [R, 3],
+    zoffs [R, 1], dirs [R, 1, 3] (the dense path builds each ray's
+    origin as for a fan)."""
     org = np.concatenate([np.repeat(c[0], c[2].shape[1], axis=0)
                           for c in cases.values()])
     zoff = np.concatenate([c[2].reshape(-1, 1) for c in cases.values()])
     d = np.concatenate([c[3].reshape(-1, 1, 3) for c in cases.values()])
-    with pytest.MonkeyPatch.context() as mp_:
-        mp_.setenv("MPENV_PALLAS", "dense")
-        t = np.asarray(jrc.ray_fans_vs_tris(org, zoff, d, jm.tris))[:, 0]
+    return org, zoff, d
+
+
+@pytest.fixture(scope="module")
+def fan_cases(tmap, want):
+    """{case: fan_inputs' tuple + (JAX t [N, F],)}, JAX's t from the
+    fixture."""
+    cases = fan_inputs(tmap)
+    org, zoff, d = fan_rays(cases)
+    _same_inputs(want, "fan", org=org, zoff=zoff, d=d)
+    t = want["fan/t"]
     out, i = {}, 0
     for name, c in cases.items():
         n = c[2].size
@@ -121,8 +138,8 @@ def fan_cases(maps):
 
 
 @pytest.mark.parametrize("case", list(FAN_CASES))
-def test_flat_fan_plain_matches_jax(maps, fan_cases, case):
-    _, tm = maps
+def test_flat_fan_plain_matches_jax(tmap, fan_cases, case):
+    tm = tmap
     org, zg, zoff, d, want = fan_cases[case]
     zgroups = FAN_CASES[case]
     ot, dt = torch.as_tensor(org), torch.as_tensor(d)
@@ -143,6 +160,9 @@ def test_flat_fan_plain_matches_jax(maps, fan_cases, case):
 # K8: the sphere cast with its winner normal
 # ---------------------------------------------------------------------------
 
+SC_T_MAX = (np.inf, 20.0)
+
+
 def _casts(tm, kind, g):
     """224 casts: random (a third of them ground checks), or the L1
     batch of 32 moving agents (7 casts each, movement.l1_casts)."""
@@ -159,14 +179,14 @@ def _casts(tm, kind, g):
 
 
 @pytest.mark.parametrize("kind", ["random", "movement"])
-def test_sphere_cast_normal_plain_matches_jax(maps, kind, monkeypatch):
-    monkeypatch.setenv("MPENV_PALLAS", "dense")
-    jm, tm = maps
+def test_sphere_cast_normal_plain_matches_jax(tmap, want, kind):
+    tm = tmap
     o, d = _casts(tm, kind, np.random.default_rng(41))
+    _same_inputs(want, f"sc_{kind}", o=o, d=d)
     ot, dt = torch.as_tensor(o), torch.as_tensor(d)
-    for t_max in (np.inf, 20.0):
-        want_t, want_n = (np.asarray(x) for x in jrc.sphere_cast_vs_tris(
-            o, d, R, jm.tris, t_max))
+    for t_max in SC_T_MAX:
+        want_t = want[f"sc_{kind}/t_{t_max}"]
+        want_n = want[f"sc_{kind}/n_{t_max}"]
         got_t, got_n = raycast.sphere_cast_vs_tris(ot, dt, R, tm.tris,
                                                    t_max=t_max)
         _check_t(want_t, got_t)
@@ -188,10 +208,10 @@ def test_sphere_cast_normal_plain_matches_jax(maps, kind, monkeypatch):
 # K3x: the explicit-origin capsule fan
 # ---------------------------------------------------------------------------
 
-def test_fan_capsules_explicit_plain_matches_jax(maps):
+def capsule_inputs(tm):
     """Zone 3v3's A = 6 capsules per world; origins beside the agents,
-    each ray skipping a capsule of its own (not always its caster's)."""
-    _, tm = maps
+    each ray skipping a capsule of its own (not always its caster's):
+    (o, d [W, A, F, 3], self_idx [W, A, F], pos [W, A, 3], alive [W, A])."""
     W, A, F = 4, 6, 24
     g = np.random.default_rng(42)
     pos = (_walkable(tm, W * A, g, (0.0, 1.0)) * 0.05).reshape(W, A, 3)
@@ -201,14 +221,16 @@ def test_fan_capsules_explicit_plain_matches_jax(maps):
     d = _unit(g, (W, A, F))
     self_idx = np.where(g.random((W, A, F)) < 0.7, np.arange(A)[:, None],
                         g.integers(0, A, (W, A, F))).astype(np.int32)
+    return o, d, self_idx, pos, alive
 
-    def one_world(oo, dd, si, p, al):
-        t = jrc.ray_vs_capsules(oo, dd, p, R, SEG_H, al)  # [A, F, A]
-        t = jnp.where(si[..., None] == jnp.arange(A), jnp.inf, t)
-        tm_, ix = jnp.min(t, -1), jnp.argmin(t, -1)
-        return tm_, jnp.where(jnp.isinf(tm_), -1, ix)
 
-    want_t, want_i = jax.vmap(one_world)(o, d, self_idx, pos, alive)
+def test_fan_capsules_explicit_plain_matches_jax(tmap, want):
+    """capsule_inputs against JAX's ray_vs_capsules with each ray's self
+    column masked, then min / argmin (-1 on a miss)."""
+    o, d, self_idx, pos, alive = capsule_inputs(tmap)
+    _same_inputs(want, "cap", o=o, d=d, self_idx=self_idx, pos=pos,
+                 alive=alive)
+    want_t, want_i = want["cap/t"], want["cap/idx"]
     got_t, got_i = raycast_cull.fan_capsules_explicit(
         torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(self_idx),
         torch.as_tensor(pos), torch.as_tensor(alive))

@@ -40,7 +40,7 @@ TRAIN_MODULES = ("__init__", "bc", "convert", "distributions", "elo",
                  "trainer")
 TOOLS = ("fan_probe", "vpu_probe", "golden", "tokenize_steps", "ngrams",
          "print_assignments", "build_trajectory_training_dataset",
-         "scaling_bench")
+         "scaling_bench", "build_culling", "make_town_map", "convert_assets")
 PARALLEL_MODULES = ("__init__", "collectives", "distributed", "sharding")
 
 
@@ -56,6 +56,7 @@ def test_port_imports_no_jax():
                   "v9_scan_timing", "sc_mxu_probe"):
         assert os.path.join(PKG, "tools", "probes", f"{probe}.py") in files
     assert os.path.join(PKG, "sim", "bot.py") in files
+    assert os.path.join(PKG, "assets", "nav_build.py") in files
     assert os.path.join(PKG, "sim", "replay.py") in files
     data = {os.path.relpath(p, PKG) for p in files
             if os.sep + "data" + os.sep in p}
@@ -95,6 +96,34 @@ def test_parallel_entry_points_default_to_cuda(monkeypatch):
         train_cli.main(["--num-devices", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         scaling_bench.main([])
+
+
+def test_table_builders_default_to_cuda(monkeypatch, simple_map_dir,
+                                       tmp_path):
+    """tools/build_culling.py and load_map(build_culling=True) build the
+    culling tables on the card unless asked for the CPU: without one they
+    raise before any battery runs."""
+    import shutil
+
+    from madrona_mp_env_tpu_torch.assets.map_data import load_map
+    from madrona_mp_env_tpu_torch.ops import culling
+    from madrona_mp_env_tpu_torch.tools import build_culling
+
+    scene = str(tmp_path / "simple_map")
+    shutil.copytree(simple_map_dir, scene)
+    os.remove(os.path.join(scene, "culling_ray.npz"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_culling.main([scene])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_map(scene, mt.EnvConfig(team_size=2), build_culling=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        culling.builder_device("cuda")
+    assert culling.builder_device("cpu").type == "cpu"
+    m = load_map(scene, mt.EnvConfig(team_size=2), device="cpu")
+    assert m.cells is None and m.ray_cells is None
+    assert sorted(os.listdir(scene)) == sorted(
+        n for n in os.listdir(simple_map_dir) if n != "culling_ray.npz")
 
 
 def test_kernel_entries_refuse_other_devices():

@@ -1,6 +1,14 @@
 """The port's threefry2x32 is bit-exact against jax.random (partitionable
 threefry, the jax default): fold_in, split, uniform, randint and the sim's
-keying helpers, over many keys and shapes. Tolerance: none, bits equal."""
+keying helpers, over many keys and shapes. Tolerance: none, bits equal.
+
+jax.random compiles each shape on its first eager call (seconds a test),
+so the JAX side of prng_key, fold_in, split, uniform and randint comes
+from tests/fixtures_torch/rng_jax.npz (make_rng_fixture.py, which runs
+the cases below); the keying helpers' case calls JAX here."""
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +19,29 @@ import torch
 from madrona_mp_env_tpu.utils import rng as jrng
 from madrona_mp_env_tpu_torch.utils import rng as trng
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "fixtures_torch"))
+import make_rng_fixture as fx  # noqa: E402
+
 SEEDS = (0, 5, 7, 123456, 2 ** 31 - 1)
+FOLD_DATA = (0, 1, 2, 3, 4, 5, 17, 2999, -1, 2 ** 31 - 1)
+SPLIT_NS = (2, 6, 8)
+UNIFORM_CASES = (((), 0.0, 1.0), ((7,), 0.0, 1.0),
+                 ((2, 12), float(np.finfo(np.float32).tiny), 1.0),
+                 ((12, 6), 0.0, 1.0), ((3, 4, 5), -2.0, 3.5))
+RANDINT_CASES = (((), 0, 2999), ((12,), 0, 1), ((12,), 1, 11), ((), 0, 3),
+                 ((5, 3), -7, 100000), ((4,), 3, 3))
 
 
-def _keys(seed, n=6):
-    """n distinct raw keys derived from a seed (jax and torch forms)."""
-    base = jax.random.PRNGKey(seed)
-    ks = np.asarray(jax.random.key_data(jax.random.split(base, n)))
+@pytest.fixture(scope="module")
+def want():
+    return dict(np.load(fx.PATH))
+
+
+def _keys(want, seed):
+    """The 6 distinct raw keys split from a seed (jax's, from the
+    fixture, and as the port's int64 tensor)."""
+    ks = want[f"{seed}/keys"]
     return ks, torch.as_tensor(ks.astype(np.int64))
 
 
@@ -26,50 +50,39 @@ def test_threefry_partitionable_is_on():
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_prng_key_and_fold_in(seed):
-    k = jax.random.PRNGKey(seed)
-    assert np.array_equal(np.asarray(jax.random.key_data(k)),
-                          trng.prng_key(seed).numpy())
+def test_prng_key_and_fold_in(want, seed):
+    assert np.array_equal(want[f"{seed}/key"], trng.prng_key(seed).numpy())
     kt = trng.prng_key(seed)
-    for data in (0, 1, 2, 3, 4, 5, 17, 2999, -1, 2 ** 31 - 1):
-        want = np.asarray(jax.random.key_data(
-            jax.random.fold_in(k, jnp.int32(data))))
-        assert np.array_equal(want, trng.fold_in(kt, data).numpy()), data
+    for i, data in enumerate(FOLD_DATA):
+        assert np.array_equal(want[f"{seed}/fold_in/{i}"],
+                              trng.fold_in(kt, data).numpy()), data
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_split(seed):
-    ks, kt = _keys(seed)
-    for n in (2, 6, 8):
-        want = np.stack([np.asarray(jax.random.key_data(jax.random.split(
-            jax.random.wrap_key_data(jnp.asarray(k)), n))) for k in ks])
-        assert np.array_equal(want, trng.split(kt, n).numpy())
+def test_split(want, seed):
+    ks, kt = _keys(want, seed)
+    for n in SPLIT_NS:
+        assert np.array_equal(want[f"{seed}/split/{n}"],
+                              trng.split(kt, n).numpy())
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_uniform(seed):
-    ks, kt = _keys(seed)
-    tiny = float(np.finfo(np.float32).tiny)
-    for shape, lo, hi in (((), 0.0, 1.0), ((7,), 0.0, 1.0),
-                          ((2, 12), tiny, 1.0), ((12, 6), 0.0, 1.0),
-                          ((3, 4, 5), -2.0, 3.5)):
-        want = np.stack([np.asarray(jax.random.uniform(
-            jax.random.wrap_key_data(jnp.asarray(k)), shape, minval=lo,
-            maxval=hi)) for k in ks])
+def test_uniform(want, seed):
+    ks, kt = _keys(want, seed)
+    for i, (shape, lo, hi) in enumerate(UNIFORM_CASES):
+        w = want[f"{seed}/uniform/{i}"]
         got = trng.uniform(kt, shape, lo, hi).numpy()
-        assert got.dtype == np.float32
-        assert np.array_equal(want.view(np.uint32), got.view(np.uint32))
+        assert got.dtype == np.float32 and w.shape == got.shape
+        assert np.array_equal(w.view(np.uint32), got.view(np.uint32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_randint(seed):
-    ks, kt = _keys(seed)
-    for shape, lo, hi in (((), 0, 2999), ((12,), 0, 1), ((12,), 1, 11),
-                          ((), 0, 3), ((5, 3), -7, 100000), ((4,), 3, 3)):
-        want = np.stack([np.asarray(jax.random.randint(
-            jax.random.wrap_key_data(jnp.asarray(k)), shape, lo, hi))
-            for k in ks])
-        assert np.array_equal(want, trng.randint(kt, shape, lo, hi).numpy())
+def test_randint(want, seed):
+    ks, kt = _keys(want, seed)
+    for i, (shape, lo, hi) in enumerate(RANDINT_CASES):
+        w = want[f"{seed}/randint/{i}"]
+        got = trng.randint(kt, shape, lo, hi).numpy()
+        assert w.shape == got.shape and np.array_equal(w, got)
 
 
 def test_sim_keying_helpers():
