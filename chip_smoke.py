@@ -265,12 +265,39 @@ Phases, each of which fails the run loudly:
    (e) golden --generate (ASSET_GOLDEN_STEPS steps) into a temporary
    path (the CPU), then --check on the card against it. The phase logs
    its own seconds;
-17. a line of kernel results (JSON, one row per kernel and map, each with
+17. the viewing tools and the weight export (viz_phase): (a) the viz
+   server (tools/viz_server.py serve) on an ephemeral 127.0.0.1 port
+   over a 10-step logging run of its own (4 worlds of Zone 6v6 on
+   simple_map: record, event log, build_db): the page's bytes, the map,
+   the replay's meta and frames (one past the record 400), each world's
+   events, each JSON equal to ViewerData's own; the canned queries and a
+   free-form one held to the same SQL on sqlite, a DELETE refused; then
+   the live session on cuda (one world, every agent the A* bot) at
+   simple_map 6v6, simple_map 3v3 (the CLI's default team size) and
+   town_map 6v6, 20 requests of one step each, every counter zeroed
+   before and read after: K1, K3, K4 culled and K5 once a step, K4' 3,
+   the fan (K2; K7 at 3v3; K6 and its cell order on town) once, no other
+   kernel, each row getting the path on its "live" list; every frame
+   held to a CPU session of the same seed (step, hp, alive, cur_zone,
+   controller and team points exact, pos and yaw within 1e-4 relative),
+   /api/live/reset and one request of 3 steps too; wall ms per request,
+   a step's ms in process and CUDA launches per step (torch.profiler)
+   beside the card's name and limit; (b) tools/convert_weights.py on
+   phase 14's seeded checkpoint (2 LSTM-512 policies written on the
+   card): each file read back bit-equal to params_to_jax of the
+   loaded state_dicts, and params_from_jax(params_to_jax(sd)) bit-equal
+   to sd; (c) tools/viewer.py's frame readers on the card's record and
+   event log: the record's frames equal to replay_frame's fields, the
+   snapshots' frames at every event's step and within the int16
+   truncation of the record's positions; nothing rendered (matplotlib is
+   not on the card's machine; rendering is tested on the CPU), as the
+   phase prints. The phase logs its own seconds;
+18. a line of kernel results (JSON, one row per kernel and map, each with
    the path whose launches it counts, and for the rows of the vs-bot
    eval's paths its launches there; K2's and K6's rows with the keys of
    REDESIGN_KEYS; the six main-path rows their launches on each rank of
-   phase 15), then the card line, then the last line {"ok": true,
-   "device": {...}}.
+   phase 15; the live paths' rows their launches there), then the card
+   line, then the last line {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --tables`` runs tables_phase alone: the culling
 table builders at their full defaults (load_map(build_culling=True) on
@@ -355,14 +382,16 @@ OPS_TAIL_AGENT = 41
 # K5's host us per call (with its predecessor's, on the same host path);
 # the rows of K4 dense, K8 and P3, which share K4's pair arithmetic, carry
 # ptxas -v's registers and spill bytes; the six simple_map main-path rows
-# their launches on each rank of phase 15 and that path
+# their launches on each rank of phase 15 and that path; the rows of the
+# viz server's live paths (phase 17) a "live" list of {"path", "launches"}
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "fmad_floor_ms", "registers", "spill_bytes",
                  "helper_launches", "helper_device_ms", "split",
                  "per_ray_ms", "per_ray_before_ms", "per_ray_plain_ms",
                  "per_ray_bound_ms", "root_share",
                  "host_us", "before_host_us", "vs_bot_launches",
-                 "vs_bot_path", "ls_share", "dp_launches", "dp_path")
+                 "vs_bot_path", "ls_share", "dp_launches", "dp_path",
+                 "live")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
                 "ray_fans_culled_v1", "sphere_cast_culled_v1",
@@ -4644,10 +4673,12 @@ def attention_parity(obs, actions):
         f"{worst['seq']:.3g} (bar {FT_NET_BAR})")
 
 
-def bc_phase(mt, card):
+def bc_phase(mt, card, keep=None):
     """Phase 14: the eval CLI's event log and BC dump, the tool chain, BC
     on both layouts (f32 / bf16, kl_coef 0 / 0.1), PPO resumed from BC's
-    checkpoint, the attention policy. The phase logs its own seconds."""
+    checkpoint, the attention policy. The phase logs its own seconds.
+    ``keep``: a directory that gets a copy of the seeded checkpoint
+    (phase 17 exports it)."""
     import shutil
     import tempfile
 
@@ -4671,7 +4702,9 @@ def bc_phase(mt, card):
         _, _, env, mgr = train_cli.build(args)
         ts = mgr.init()
         ckpts = os.path.join(tmp, "ckpts")
-        mgr.save_ckpt(ts, os.path.join(ckpts, "seeded"))
+        seeded = mgr.save_ckpt(ts, os.path.join(ckpts, "seeded"))
+        if keep is not None:
+            shutil.copy(seeded, keep)
         out = bc_runs(dump, blocks, sets, ckpts, card)
         t.append(time.perf_counter())
         # PPO from BC's checkpoint
@@ -5387,6 +5420,453 @@ def asset_tools_phase(card):
     return rows
 
 
+# phase 17: the viewing tools and the weight export. The viz server
+# (tools/viz_server.py) on cuda over a logging run of its own, its live
+# session (one world, every agent the A* bot) on each configuration of
+# VIZ_LIVE against a CPU session of the same seed, convert_weights on the
+# seeded checkpoint of phase 14 and the viewer's frame readers
+VIZ_STEPS = 20  # live steps a configuration, one request each
+VIZ_LOG_WORLDS = 4  # the server's record, event log and DB
+VIZ_LOG_STEPS = 10
+VIZ_TIMEOUT = 120  # s an HTTP call may take
+VIZ_BAR = 1e-4  # live pos and yaw, cuda against cpu: phase 9's bar
+VIZ_REPLAY = ((0, 0), (4, 1), (VIZ_LOG_STEPS - 1, VIZ_LOG_WORLDS - 1))
+# each canned query with parameters that select rows of the logging run's
+# DB
+VIZ_CANNED = {
+    "matches": {},
+    "match_steps": {"match_id": 1},
+    "players_at_step": {"step_id": 3},
+    "kills_in_match": {"match_id": 1},
+    "kills_near": {"x": 0.0, "y": 0.0, "r": 5000.0},
+    "captures_in_match": {"match_id": 1},
+    "team_positions": {"match_id": 1},
+}
+# the live configurations: (label, scene, team size, the scene tags of
+# its kernel rows (the fan's first), the fan's entries, its CUDA kernels
+# by name); the kernels of every configuration besides the fan
+VIZ_LIVE = (
+    ("live simple_map 6v6", SCENE, TEAM_SIZE, ("simple_map",),
+     ("ray_fans_vs_tris",), {"fan_tris_rb_kernel": 1}),
+    ("live simple_map 3v3", SCENE, 3, ("simple_map Zone 3v3", "simple_map"),
+     ("ray_fans_vs_tris_flat",), {"fan_flat_rb_kernel": 1}),
+    ("live town_map 6v6", TOWN, TEAM_SIZE, ("town_map",),
+     ("ray_fans_culled", "fan_cell_order"),
+     {"fan_culled_rb_kernel": 1, "fan_cell_order_kernel": 1}),
+)
+VIZ_PER_STEP = {"ray_vs_tris": 1, "fan_capsules": 1, "sphere_cast_culled": 1,
+                "sphere_cast_packed": 3, "tail_fused": 1}
+VIZ_KERNELS = {"ray_tris_rb_kernel": 1, "fan_capsules_kernel": 1,
+               "sc_culled_kernel": 4, "tail_fused_kernel": 1}
+VIZ_ROWS = ("K1 ray_vs_tris", "K2 ray_fans_vs_tris",
+            "K7 ray_fans_vs_tris_flat", "K6 ray_fans_culled",
+            "K6 cell order", "K3 fan_capsules", "K4 sphere_cast_culled",
+            "K4' sphere_cast_packed", "K5 tail_fused")
+
+
+def viz_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=VIZ_TIMEOUT) as r:
+        return json.loads(r.read())
+
+
+def viz_post(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=VIZ_TIMEOUT) as r:
+        return json.loads(r.read())
+
+
+def viz_refused(url):
+    """The status and JSON of a GET the server refuses; a 200 fails."""
+    import urllib.error
+
+    try:
+        viz_get(url)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+    raise AssertionError(f"viz {url}: answered 200")
+
+
+def viz_query(url, body):
+    """Submit a DB query and poll its ticket until the worker answers."""
+    ticket = viz_post(url + "/api/db/submit", body)["ticket"]
+    deadline = time.monotonic() + VIZ_TIMEOUT
+    while True:
+        res = viz_get(url + f"/api/db/result?ticket={ticket}")
+        if res["status"] != "pending":
+            return res
+        if time.monotonic() > deadline:
+            raise AssertionError(f"viz: query {body} still pending")
+        time.sleep(0.01)
+
+
+def viz_start(data):
+    """(base URL, server): ``data`` served on an ephemeral 127.0.0.1 port
+    from a daemon thread."""
+    import socket
+    import threading
+
+    from madrona_mp_env_tpu_torch.tools import viz_server
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = viz_server.serve(data, port)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{port}", httpd
+
+
+def viz_logs(mt, cfg, tmp):
+    """A VIZ_LOG_STEPS-step logging run of VIZ_LOG_WORLDS worlds of
+    ``cfg`` on simple_map on the card (bench.py's actions, every agent
+    reloading on every third step so that the event log holds events):
+    its record, event log and build_db DB in ``tmp``."""
+    from madrona_mp_env_tpu_torch.data import EventLogWriter, RecordLogWriter
+    from madrona_mp_env_tpu_torch.data.build_db import build_db
+
+    env = mt.Env(cfg, SCENE, num_worlds=VIZ_LOG_WORLDS, seed=5,
+                 device="cuda", collect_log=True)
+    acts = bench_actions(VIZ_LOG_WORLDS, cfg.num_agents, VIZ_LOG_STEPS)
+    acts["fire"][::3] = 2
+    record = os.path.join(tmp, "record.bin")
+    events = os.path.join(tmp, "events")
+    state, _ = env.reset()
+    with RecordLogWriter(record) as rw, EventLogWriter(events) as ew:
+        for s in range(VIZ_LOG_STEPS):
+            state, out = env.step(state, actions_at(env, acts, s))
+            rw.append(out["step_log"])
+            ew.append(out["snapshot"], out["game_events"])
+    db = os.path.join(tmp, "analytics.db")
+    build_db(events, db, team_size=cfg.team_size)
+    return record, events, db
+
+
+def viz_routes(url, data, db):
+    """(a) Every route of the server but the live ones, each JSON equal to
+    ``data``'s own answer: the page (viewer_web.html's bytes), the map,
+    the replay's meta and VIZ_REPLAY's frames (a frame past the record
+    400), each world's events; the canned queries and a free-form one,
+    their rows those of the same SQL on a read-only connection of their
+    own; a DELETE an error with the rows untouched."""
+    import sqlite3
+    import urllib.request
+
+    from madrona_mp_env_tpu_torch.tools import viz_server
+
+    with urllib.request.urlopen(url + "/", timeout=VIZ_TIMEOUT) as r:
+        page = r.read()
+    with open(os.path.join(os.path.dirname(viz_server.__file__),
+                           "viewer_web.html"), "rb") as f:
+        if page != f.read():
+            raise AssertionError("viz: / is not viewer_web.html")
+
+    def same(route, want):
+        got = viz_get(url + route)
+        if got != json.loads(json.dumps(want)):
+            raise AssertionError(f"viz {route}: {str(got)[:300]} against "
+                                 f"{str(want)[:300]}")
+        return got
+
+    same("/api/map", data.map_json)
+    same("/api/replay/meta", {"available": True, "num_steps": VIZ_LOG_STEPS,
+                              "num_worlds": VIZ_LOG_WORLDS})
+    for step, world in VIZ_REPLAY:
+        same(f"/api/replay/frame?step={step}&world={world}",
+             data.replay_frame(step, world))
+    code, _ = viz_refused(url + f"/api/replay/frame?step={VIZ_LOG_STEPS}")
+    if code != 400:
+        raise AssertionError(f"viz: a frame past the record answered {code}")
+    n_events = sum(len(same(f"/api/events?world={w}",
+                            data.event_list(w))["events"])
+                   for w in range(VIZ_LOG_WORLDS))
+    same("/api/db/canned", {"queries": sorted(viz_server.CANNED_QUERIES)})
+    conn = sqlite3.connect(f"file:{db}?mode=ro", uri=True)
+    try:
+        bodies = [{"canned": n, "params": p} for n, p in VIZ_CANNED.items()]
+        bodies.append({"sql": "SELECT COUNT(*), MAX(hp) FROM player_states"})
+        rows = {}
+        for body in bodies:
+            sql = viz_server.CANNED_QUERIES.get(body.get("canned"),
+                                                body.get("sql"))
+            want = [list(r) for r in conn.execute(sql, body.get("params",
+                                                                {}))]
+            res = viz_query(url, body)
+            if res["status"] != "done" or res["rows"] != json.loads(
+                    json.dumps(want)):
+                raise AssertionError(f"viz: query {body}: {str(res)[:300]}")
+            rows[body.get("canned", "free")] = res["rows"]
+    finally:
+        conn.close()
+    players = VIZ_LOG_WORLDS * VIZ_LOG_STEPS * 2 * TEAM_SIZE
+    if rows["free"][0][0] != players:
+        raise AssertionError(f"viz: player_states holds {rows['free']}, "
+                             f"not {players} rows")
+    matches = viz_query(url, {"canned": "matches"})
+    bad = viz_query(url, {"sql": "DELETE FROM matches"})
+    if bad["status"] != "error" or viz_query(
+            url, {"canned": "matches"}) != matches:
+        raise AssertionError(f"viz: a DELETE answered {bad}")
+    return n_events, {k: len(v) for k, v in rows.items()}
+
+
+def viz_frame_check(label, got, want, err):
+    """A live frame of the card against the CPU session's: step, hp,
+    alive, cur_zone, controller and team_points exact, pos and yaw within
+    VIZ_BAR * max(1, |x|); ``err`` keeps the largest relative errors."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: frame keys {sorted(got)}")
+    for k in ("step", "hp", "alive", "cur_zone", "controller",
+              "team_points"):
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} {got[k]} on cuda, {want[k]} "
+                                 f"on cpu at step {want['step']}")
+    for k in ("pos", "yaw"):
+        g, w = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        e = float((np.abs(g - w) / np.maximum(1.0, np.abs(w))).max())
+        err[k] = max(err[k], e)
+        if e > VIZ_BAR:
+            raise AssertionError(f"{label}: {k} {e:.3g} relative from the "
+                                 f"cpu at step {want['step']}")
+
+
+def viz_live(label, url, live, cpu, rows, fan, kernels, card):
+    """(a) One live configuration: VIZ_STEPS /api/live/step?n=1 requests
+    with every launch counter zeroed before and read after, each frame
+    held to the CPU session's (viz_frame_check); each kernel of the path
+    launched VIZ_PER_STEP times a request (``fan``'s entries once) and no
+    other, each row of ``rows`` getting {"path", "launches"} on its "live"
+    list; wall ms per request; /api/live/reset and a request of n = 3
+    against the CPU session reset; then MODE_PROFILE_STEPS steps of the
+    server's session ``live`` in this thread timed on the host clock and
+    MODE_PROFILE_STEPS under torch.profiler (the device alone): CUDA
+    launches per step, and per step of each of ``kernels`` (CUDA kernel
+    names) beside the counters'."""
+    import torch
+
+    err = {"pos": 0.0, "yaw": 0.0}
+    entries = zero_counts()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(VIZ_STEPS):
+        t0 = time.perf_counter()
+        got = viz_get(url + "/api/live/step?n=1")
+        ms.append((time.perf_counter() - t0) * 1e3)
+        viz_frame_check(label, got, cpu.step(1), err)
+    expect = {n: k * VIZ_STEPS for n, k in VIZ_PER_STEP.items()}
+    expect.update({n: VIZ_STEPS for n in fan})
+    counts = {n: f.launches for n, f in entries.items()}
+    wrong = {n: c for n, c in counts.items() if c != expect.get(n, 0)}
+    if wrong:
+        raise AssertionError(f"{label}: launches {wrong}, expected "
+                             f"{expect} and no other")
+    for row in rows:
+        row.setdefault("live", []).append(
+            {"path": label, "launches": row["entry"].launches})
+    if viz_get(url + "/api/live/reset") != {"ok": True}:
+        raise AssertionError(f"{label}: /api/live/reset")
+    cpu.reset()
+    viz_frame_check(label + " after a reset", viz_get(
+        url + "/api/live/step?n=3"), cpu.step(3), err)
+
+    live.step(1)
+    t0 = time.perf_counter()
+    for _ in range(MODE_PROFILE_STEPS):
+        live.step(1)
+    step_ms = (time.perf_counter() - t0) * 1e3 / MODE_PROFILE_STEPS
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(MODE_PROFILE_STEPS):
+            live.step(1)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no CUDA kernels")
+    seen = {k: sum(k in n for n in dev) / MODE_PROFILE_STEPS
+            for k in kernels}
+    log(f"[viz] {label}: 1 world, {VIZ_STEPS} requests of one step, each "
+        f"frame within the cpu session's bars (max rel err pos "
+        f"{err['pos']:.3g}, yaw {err['yaw']:.3g}); wall ms per request "
+        f"mean {np.mean(ms):.2f}, median {np.median(ms):.2f}, min "
+        f"{min(ms):.2f} (HTTP and JSON included); a step in process "
+        f"{step_ms:.2f} ms; CUDA launches per step "
+        f"{len(dev) / MODE_PROFILE_STEPS:.1f} (torch.profiler); per step by "
+        f"the counters "
+        + ", ".join(f"{n}={c // VIZ_STEPS}" for n, c in counts.items() if c)
+        + ", by the profiler "
+        + ", ".join(f"{k}={v:g}" for k, v in seen.items())
+        + f" on {card}")
+
+
+def viz_weights(ckpt, tmp, card):
+    """(b) tools/convert_weights.py on ``ckpt`` (phase 14's seeded
+    save_ckpt file: 2 LSTM-512 policies at full width, written on the
+    card): every file read back (ndim, shape, data) bit-equal to
+    params_to_jax of the loaded state_dicts, no other file; and
+    params_from_jax(params_to_jax(sd)) bit-equal to each sd."""
+    import torch
+    from madrona_mp_env_tpu_torch.tools import convert_weights
+    from madrona_mp_env_tpu_torch.train.convert import (flatten,
+                                                        params_from_jax,
+                                                        params_to_jax)
+
+    out = os.path.join(tmp, "weights")
+    t0 = time.perf_counter()
+    convert_weights.convert(ckpt, out, verbose=False)
+    secs = time.perf_counter() - t0
+    sds = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+    want = {k.replace("/", "_"): v
+            for k, v in flatten(params_to_jax(sds)).items() if v.ndim >= 2}
+    nbytes = 0
+    for e in range(len(sds)):
+        d = os.path.join(out, str(e))
+        if sorted(os.listdir(d)) != sorted(want):
+            raise AssertionError(f"convert_weights: {d} holds "
+                                 f"{sorted(os.listdir(d))}")
+        for name, v in want.items():
+            with open(os.path.join(d, name), "rb") as f:
+                ndim = int(np.fromfile(f, np.int32, 1)[0])
+                shape = tuple(int(x) for x in np.fromfile(f, np.int32, ndim))
+                data = np.fromfile(f, np.float32)
+            ref = np.ascontiguousarray(v[e], np.float32).reshape(-1)
+            if ndim != v.ndim - 1 or shape != v.shape[1:] or not \
+                    np.array_equal(data.view(np.int32), ref.view(np.int32)):
+                raise AssertionError(f"convert_weights: {e}/{name} is not "
+                                     f"params_to_jax's")
+            nbytes += os.path.getsize(os.path.join(d, name))
+    for sd, back in zip(sds, params_from_jax(params_to_jax(sds))):
+        if sd.keys() != back.keys() or not all(torch.equal(
+                sd[k].view(torch.int32), back[k].view(torch.int32))
+                for k in sd):
+            raise AssertionError("params_from_jax(params_to_jax(sd)) is not "
+                                 "sd")
+    if sorted(os.listdir(out)) != sorted(str(e) for e in range(len(sds))):
+        raise AssertionError(f"convert_weights: {sorted(os.listdir(out))}")
+    hidden = sds[0]["actor_rnn.h_proj.weight"].shape[1]
+    log(f"[viz] (b) convert_weights on phase 14's checkpoint ({len(sds)} "
+        f"policies, LSTM-{hidden}, written on {card}): {len(want)} files a "
+        f"policy, {nbytes} bytes, {secs:.2f} s on the host; each file "
+        f"bit-equal to params_to_jax, params_from_jax(params_to_jax(sd)) "
+        f"bit-equal to sd")
+
+
+def viz_viewer(data, record):
+    """(c) tools/viewer.py's frame readers on the card's record and event
+    log: frames_from_record's pos, yaw, hp, alive, fired and step equal to
+    ViewerData.replay_frame's for every step and world;
+    frames_from_snapshots one frame a step, every event of event_list at
+    a step of its world's frames, its positions those of the record
+    within the snapshot's int16 truncation (< 1). Nothing is rendered:
+    that needs matplotlib (tests/test_torch_viewer_tools.py on the
+    CPU)."""
+    import importlib.util
+
+    from madrona_mp_env_tpu_torch.tools import viewer
+
+    n_events = 0
+    gap = 0.0
+    for w in range(VIZ_LOG_WORLDS):
+        rec = list(viewer.frames_from_record(record, VIZ_LOG_WORLDS, w))
+        snaps = list(viewer.frames_from_snapshots(data.snapshots, w))
+        if len(rec) != VIZ_LOG_STEPS or len(snaps) != VIZ_LOG_STEPS:
+            raise AssertionError(f"viewer: {len(rec)} / {len(snaps)} frames "
+                                 f"of world {w}")
+        for s, fr in enumerate(rec):
+            want = data.replay_frame(s, w)
+            for k in ("pos", "yaw", "hp", "alive", "fired", "step"):
+                if np.asarray(fr[k]).tolist() != want[k]:
+                    raise AssertionError(f"viewer: {k} of step {s} world {w}"
+                                         f" differs from replay_frame's")
+        steps = {fr["step"] for fr in snaps}
+        events = data.event_list(w)["events"]
+        lost = [e for e in events if e["step"] not in steps]
+        if lost:
+            raise AssertionError(f"viewer: events at steps without a frame:"
+                                 f" {lost[:5]}")
+        n_events += len(events)
+        gap = max(gap, max(float(np.abs(a["pos"] - b["pos"]).max())
+                           for a, b in zip(rec, snaps)))
+    if gap >= 1.0 or n_events == 0:
+        raise AssertionError(f"viewer: snapshot positions {gap} from the "
+                             f"record's, {n_events} events")
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"[viz] (c) viewer frame readers on the card's record and event log "
+        f"({VIZ_LOG_WORLDS} worlds x {VIZ_LOG_STEPS} steps): record frames "
+        f"equal to replay_frame, {n_events} events at snapshot frames, "
+        f"snapshot pos within {gap:.3f} of the record's; not rendered "
+        f"(matplotlib {'present' if mpl else 'absent'} here; rendering is "
+        f"tested on the CPU)")
+
+
+def viz_phase(mt, cfg, rows_of, ckpt, card):
+    """Phase 17: the viz server on cuda (VIZ_LIVE; the routes once, on the
+    first configuration's server, given the record, event log and DB of
+    viz_logs), convert_weights on ``ckpt``, the viewer's frame readers.
+    ``rows_of(scene, *names)`` gives the kernel rows of a scene tag. The
+    phase logs its own seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from madrona_mp_env_tpu_torch.tools import viz_server
+
+    t = [time.perf_counter()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_viz_")
+    try:
+        record, events, db = viz_logs(mt, cfg, tmp)
+        t.append(time.perf_counter())
+        for i, (label, scene, ts, tags, fan, kernels) in enumerate(VIZ_LIVE):
+            t_cfg = time.perf_counter()
+            logs = dict(record=record, num_worlds=VIZ_LOG_WORLDS,
+                        event_log=events, db=db) if i == 0 else {}
+            data = viz_server.ViewerData(scene, live=True, team_size=ts,
+                                         device="cuda", **logs)
+            cpu = viz_server.LiveSession(scene, team_size=ts, device="cpu")
+            # each kernel's row: the first tag that holds it
+            rows, names = [], set()
+            for tag in tags:
+                for row in rows_of(tag, *VIZ_ROWS):
+                    name = row["name"].split(" [")[0]
+                    if name not in names and row["entry"].__name__ in (
+                            tuple(VIZ_PER_STEP) + fan):
+                        rows.append(row)
+                        names.add(name)
+            url, httpd = viz_start(data)
+            try:
+                if i == 0:
+                    n_events, n_rows = viz_routes(url, data, db)
+                    log(f"[viz] (a) the routes on cuda: page, map, replay "
+                        f"meta and frames, {n_events} events, the canned "
+                        f"queries' rows {n_rows} held to sqlite, a DELETE "
+                        f"refused")
+                viz_live(label, url, data.live, cpu, rows, fan,
+                         dict(VIZ_KERNELS, **kernels), card)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            if i == 0:
+                first = data
+            del data, cpu
+            torch.cuda.empty_cache()
+            log(f"[viz] {label}: {time.perf_counter() - t_cfg:.1f} s, the "
+                f"sessions' set-up on cuda and cpu included")
+        t.append(time.perf_counter())
+        viz_weights(ckpt, tmp, card)
+        t.append(time.perf_counter())
+        viz_viewer(first, record)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = [b - a for a, b in zip(t, t[1:])]
+    log(f"[viz] phase {t[-1] - t[0]:.1f} s: logging run {dt[0]:.1f}, "
+        f"server and live sessions {dt[1]:.1f}, convert_weights "
+        f"{dt[2]:.1f}, viewer {dt[3]:.1f}")
+
+
 def tables_phase(card):
     """``python3 chip_smoke.py --tables``: the table builders at their full
     defaults on the card, outside the no-argument run (minutes): (a)
@@ -5488,6 +5968,9 @@ def tables_phase(card):
 
 
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5730,21 +6213,32 @@ def main() -> int:
     kernels += record_phase(mt, cfg, card)
     mark(13)
 
-    # 14. behaviour cloning end to end, the attention backbone
-    bc_phase(mt, card)
-    mark(14)
+    # phase 14's seeded checkpoint, which phase 17 exports
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # 14. behaviour cloning end to end, the attention backbone
+        bc_phase(mt, card, keep)
+        mark(14)
 
-    # 15. data parallelism: the CLI's --num-devices, two ranks on the card,
-    # the scaling bench
-    parallel_phase(main_simple, card)
-    mark(15)
+        # 15. data parallelism: the CLI's --num-devices, two ranks on the
+        # card, the scaling bench
+        parallel_phase(main_simple, card)
+        mark(15)
 
-    # 16. the offline asset tools: make_town_map, the table builders and
-    # verifiers (K4 dense, K1), golden --generate
-    kernels += asset_tools_phase(card)
-    mark(16)
+        # 16. the offline asset tools: make_town_map, the table builders
+        # and verifiers (K4 dense, K1), golden --generate
+        kernels += asset_tools_phase(card)
+        mark(16)
 
-    # 17. results
+        # 17. the viewing tools and the weight export: the viz server and
+        # its live sim on cuda (K1, K2 / K7 / K6, K3, K4 culled, K4', K5),
+        # convert_weights, the viewer's frame readers
+        viz_phase(mt, cfg, rows, os.path.join(keep, "0.pt"), card)
+        mark(17)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+    # 18. results
     missing = [k["name"] for k in kernels if "launches" not in k]
     if missing:
         raise AssertionError(f"no path drove {missing}")

@@ -7,9 +7,10 @@ for a whole team over the full-team observations); behaviour cloning
 (``train.bc``), the DreamerV3 / HL-Gauss critics (``train.models``) and
 the hash-grid encoder (``train.hash_encoder``)."""
 
-from .convert import (full_team_params_from_jax, load_policy_npz,
-                      normalizer_from_jax, opt_state_from_jax,
-                      params_from_jax, pbt_fields_from_jax)
+from .convert import (full_team_params_from_jax, full_team_params_to_jax,
+                      load_policy_npz, normalizer_from_jax,
+                      opt_state_from_jax, params_from_jax, params_to_jax,
+                      pbt_fields_from_jax)
 from .full_team_policy import (FullTeamActorCriticNet,
                                build_full_team_policy, init_team_rnn_states)
 from .infer import EvalConfig, EvalManager
@@ -33,6 +34,7 @@ __all__ = [
     "build_full_team_policy",
     "compute_gae",
     "full_team_params_from_jax",
+    "full_team_params_to_jax",
     "init_normalizer",
     "init_rnn_states",
     "init_team_rnn_states",
@@ -41,6 +43,7 @@ __all__ = [
     "normalizer_from_jax",
     "opt_state_from_jax",
     "params_from_jax",
+    "params_to_jax",
     "pbt_fields_from_jax",
     "ppo_loss",
     "update_normalizer",

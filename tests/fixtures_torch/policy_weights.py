@@ -21,12 +21,14 @@ HEADS = {"actor_head_discrete": 17, "actor_head_aim": 20, "critic_head": 1}
 
 
 def random_flax_params(seed: int = 0, num_policies: int = 1,
-                       attention: bool = False) -> dict:
+                       attention: bool = False, embed_dim: int = EMBED,
+                       hidden: int = HIDDEN) -> dict:
     """Nested dicts of float32 arrays, each [P, ...]. Dense kernels are
     N(0, 1 / fan_in); LayerNorm scales 1 + N(0, 0.1), biases N(0, 0.1),
     so every parameter takes part in the comparison. ``attention``: the
     tree of ActorCriticNet(use_attention=True), EntitySelfAttentionNets
-    (4 heads) for the MaxPoolNets' MLPs."""
+    (4 heads) for the MaxPoolNets' MLPs. ``embed_dim`` and ``hidden``
+    narrow the tree (the policy's widths by default)."""
     g = np.random.default_rng(seed)
     P = num_policies
 
@@ -46,45 +48,49 @@ def random_flax_params(seed: int = 0, num_policies: int = 1,
         }}
 
     def embed(n_in):
-        return {"Dense_0": dense(n_in, EMBED), "LayerNorm_0": ln(EMBED)}
+        return {"Dense_0": dense(n_in, embed_dim),
+                "LayerNorm_0": ln(embed_dim)}
 
     def mlp():
         d = {}
         for i in range(3):
-            d[f"dense_{i}"] = dense(6 * EMBED if i == 0 else HIDDEN, HIDDEN)
-            d[f"LayerNorm_{i}"] = ln(HIDDEN)
+            d[f"dense_{i}"] = dense(6 * embed_dim if i == 0 else hidden,
+                                    hidden)
+            d[f"LayerNorm_{i}"] = ln(hidden)
         return {"MLP_0": d}
 
     def attention_net():
-        d = {f"EmbedBlock_{i}": embed(3 * EMBED if i == 0 else EMBED)
-             for i in range(4)}
-        heads, head_dim = ATTENTION_HEADS, EMBED // ATTENTION_HEADS
+        d = {f"EmbedBlock_{i}": embed(
+            3 * embed_dim if i == 0 else embed_dim) for i in range(4)}
+        heads, head_dim = ATTENTION_HEADS, embed_dim // ATTENTION_HEADS
         mha = {}
         for proj in ("query", "key", "value"):
             mha[proj] = {
-                "kernel": (g.standard_normal((P, EMBED, heads, head_dim))
-                           / np.sqrt(EMBED)).astype(np.float32),
+                "kernel": (g.standard_normal((P, embed_dim, heads, head_dim))
+                           / np.sqrt(embed_dim)).astype(np.float32),
                 "bias": (0.1 * g.standard_normal((P, heads, head_dim))
                          ).astype(np.float32)}
         mha["out"] = {
-            "kernel": (g.standard_normal((P, heads, head_dim, EMBED))
-                       / np.sqrt(EMBED)).astype(np.float32),
-            "bias": (0.1 * g.standard_normal((P, EMBED))).astype(np.float32)}
+            "kernel": (g.standard_normal((P, heads, head_dim, embed_dim))
+                       / np.sqrt(embed_dim)).astype(np.float32),
+            "bias": (0.1 * g.standard_normal((P, embed_dim))).astype(
+                np.float32)}
         d["MultiHeadDotProductAttention_0"] = mha
-        d["LayerNorm_0"] = ln(EMBED)
+        d["LayerNorm_0"] = ln(embed_dim)
         mlp = {}
         for i in range(2):
-            mlp[f"dense_{i}"] = dense(EMBED if i == 0 else HIDDEN, HIDDEN)
-            mlp[f"LayerNorm_{i}"] = ln(HIDDEN)
+            mlp[f"dense_{i}"] = dense(embed_dim if i == 0 else hidden,
+                                      hidden)
+            mlp[f"LayerNorm_{i}"] = ln(hidden)
         d["MLP_0"] = mlp
         return d
 
     def lstm():
         cell = {}
         for gate in "ifgo":
-            cell[f"i{gate}"] = dense(HIDDEN, HIDDEN)
-            cell[f"h{gate}"] = dense(HIDDEN, HIDDEN, bias=True)
-        return {"OptimizedLSTMCell_0": cell, "LayerNorm_0": ln(HIDDEN)}
+            cell[f"i{gate}"] = dense(hidden, hidden)
+            cell[f"h{gate}"] = dense(hidden, hidden, bias=True)
+        return {"OptimizedLSTMCell_0": cell, "LayerNorm_0": ln(hidden)}
 
     tree = {
         "prefix": {
@@ -101,7 +107,7 @@ def random_flax_params(seed: int = 0, num_policies: int = 1,
         "critic_rnn": lstm(),
     }
     for name, n in HEADS.items():
-        tree[name] = {"Dense_0": dense(HIDDEN, n, bias=True)}
+        tree[name] = {"Dense_0": dense(hidden, n, bias=True)}
     return tree
 
 

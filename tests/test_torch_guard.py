@@ -40,7 +40,8 @@ TRAIN_MODULES = ("__init__", "bc", "convert", "distributions", "elo",
                  "trainer")
 TOOLS = ("fan_probe", "vpu_probe", "golden", "tokenize_steps", "ngrams",
          "print_assignments", "build_trajectory_training_dataset",
-         "scaling_bench", "build_culling", "make_town_map", "convert_assets")
+         "scaling_bench", "build_culling", "make_town_map", "convert_assets",
+         "viz_server", "viewer", "convert_weights")
 PARALLEL_MODULES = ("__init__", "collectives", "distributed", "sharding")
 
 
@@ -238,6 +239,24 @@ def test_golden_and_eval_cli_default_to_cuda(monkeypatch, cli):
         else:
             infer.main(["--num-worlds", "2", "--vs-bot", "--ckpt-path",
                         "policy.npz"])
+
+
+def test_viz_server_defaults_to_cuda(monkeypatch, simple_map_dir):
+    """tools/viz_server.py's live session (LiveSession, ViewerData(live=
+    True)) and its CLI run on the card unless asked for the CPU: without
+    one they raise before the server listens."""
+    from madrona_mp_env_tpu_torch.tools import viz_server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        viz_server.LiveSession(simple_map_dir, team_size=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        viz_server.ViewerData(simple_map_dir, live=True, team_size=2)
+    for args in ([], ["--live"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            viz_server.main(["--scene", simple_map_dir] + args)
+    live = viz_server.LiveSession(simple_map_dir, team_size=2, device="cpu")
+    assert live.env.device.type == "cpu"
 
 
 def test_kernel_bench_defaults_to_cuda(monkeypatch):
