@@ -27,31 +27,38 @@ Phases, each of which fails the run loudly:
    soup on K6's fans, with how often the two agree (the PVS's quality at
    full width). K1, K2, K6 and K7 (the register-blocked sweep,
    csrc/fan_sweep_rb.cuh), K4 culled and K4' (a warp per group of
-   casts, csrc/sc_sweep.cuh), K3 (a block per fan, the (z-group,
-   capsule) terms hoisted) and K5 (a group of lanes per world) are held
-   bit for bit (K4: t and winner row; K3: t and capsule index; K5 every
-   output) against their plain versions and their predecessors
-   (ray_tris_v1, P2's exact entry,
-   fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1, fan_capsules_v1,
-   tail_fused_v1), timed beside them in turns (new, old, old, new), with
+   casts, csrc/sc_sweep.cuh), K4 dense and K8 (the rows split over a
+   cluster, csrc/sphere_cast.cu sc_dense_kernel), K3 (a block per fan,
+   the (z-group, capsule) terms hoisted) and K5 (a group of lanes per
+   world) are held bit for bit (K4: t and winner row; K8: t and normal;
+   K3: t and capsule index; K5 every output) against their plain
+   versions and their predecessors (ray_tris_v1, P2's exact entry,
+   fan_culled_v1, fan_flat_v1, sphere_cast_culled_v1, sphere_cast_v1,
+   sphere_cast_vs_tris_v1, fan_capsules_v1, tail_fused_v1), timed
+   beside them in turns (new, old, old, new), with
    their device time (torch.profiler), ptxas' registers and spills, the
-   floor at one f32 instruction per operation, K1's and K7's row split,
+   floor at one f32 instruction per operation, K1's, K7's, K4 dense's
+   and K8's row split,
    K6's helper launches (the cell order), K3's share of pairs that reach
    a square root and K5's host us per call. Every check_equal row
    compares int32 views of its float outputs, -0 against +0 too, but K4
    culled on town_map against its plain version, held as values (the
    sign of 0 of its directionless casts); float outputs equal as values
-   but not as bits are counted and logged. K4 dense, K8 and P3, which
-   share K4's pair arithmetic, with their registers and spills. Zone 3v3
+   but not as bits are counted and logged. P3, which shares K4's pair
+   arithmetic, with its registers and spills. Zone 3v3
    (team size 3: a LOS run of 12 rays, not a multiple of 8) on each map:
    K1, K7, the stacked-direction fan over the whole soup, and K5 on one
    real step's launches; K8 on that step's L1
-   casts over the whole soup and K3x on its sensor rays with explicit
+   casts over the whole soup (also against its predecessor, the two
+   timed in turns) and K3x on its sensor rays with explicit
    origins (equal to K3's hits too), and the unfused tail chain at team
    size 3. The kernel bench's shapes (tools/kernel_bench.py make_inputs,
    1024 worlds, team sizes 6 and 3, each map): K7 (at team size 3 also
-   with a z offset per ray), K8 with and without normals and K3x, each
-   bit-equal to its plain version, then the kernel
+   with a z offset per ray), K8 with and without normals and K4 dense,
+   each on the JAX bench's casts (all start overlapping) and on the
+   moving ones (none does), and K3x, each bit-equal to its plain version
+   (K8 and K4 dense also to their predecessors, timed in turns), then
+   the kernel
    bench itself, whose launches those rows count. The probes: P3, the
    fused movement (csrc/move_fused.cu), on each map under both cast
    routes on the state a step hands the movement pair (reset + 5 steps at
@@ -91,7 +98,8 @@ Phases, each of which fails the run loudly:
    checkpoint needs JAX to read), 100 sampled steps, every counter zeroed
    before and read after; agent-steps/s, env-steps/s and the policy
    forward's ms per step;
-6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0;
+6. K4 dense's own path: 10 simple_map steps with MPENV_SC_PACK=0, K4
+   dense launched 3 times a step;
 7. the town_map path: reset + 100 steps at 1024 worlds: K1, K3, K4
    culled, K4', K5 and K6 must launch (K6 and K3 101 times, K1, K4
    culled and K5 100, K4' 300), K2 and K4
@@ -261,7 +269,8 @@ Phases, each of which fails the run loudly:
    table and the mismatch counts logged, with each build's seconds, its
    battery chunks and its host share; (d) K4 dense on one chunk of the
    cast battery and K1 on one chunk of the check's rays against their
-   plain versions (int32 views), timed, rows tagged "town_map tables";
+   plain versions and their predecessors (int32 views), timed in turns,
+   rows tagged "town_map tables";
    (e) golden --generate (ASSET_GOLDEN_STEPS steps) into a temporary
    path (the CPU), then --check on the card against it. The phase logs
    its own seconds;
@@ -380,8 +389,10 @@ OPS_TAIL_AGENT = 41
 # bench's Zone 3v3 rows K7 and its predecessor with a z offset per ray,
 # K3's share of (ray, live capsule) pairs that reach a square root and
 # K5's host us per call (with its predecessor's, on the same host path);
-# the rows of K4 dense, K8 and P3, which share K4's pair arithmetic, carry
-# ptxas -v's registers and spill bytes; the six simple_map main-path rows
+# the rows of K4 dense and K8 (redesigned in one kernel, csrc/sphere_cast.cu
+# sc_dense_kernel) also their predecessor's registers and spill bytes, the
+# share of casts that start overlapping (t = 0) and K8's times without
+# normals; P3's rows ptxas -v's registers and spill bytes; the six simple_map main-path rows
 # their launches on each rank of phase 15 and that path; the rows of the
 # viz server's live paths (phase 17) a "live" list of {"path", "launches"}
 REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
@@ -391,11 +402,14 @@ REDESIGN_KEYS = ("before_ms", "device_ms", "before_device_ms",
                  "per_ray_bound_ms", "root_share",
                  "host_us", "before_host_us", "vs_bot_launches",
                  "vs_bot_path", "ls_share", "dp_launches", "dp_path",
-                 "live")
+                 "live", "before_registers", "before_spill_bytes",
+                 "no_normal_ms", "no_normal_before_ms",
+                 "start_overlap_share")
 # the predecessors, which no path may launch
 PREDECESSORS = ("ray_vs_tris_v1", "ray_fans_vs_tris_flat_v1",
                 "ray_fans_culled_v1", "sphere_cast_culled_v1",
-                "tail_fused_v1", "fan_capsules_v1")
+                "tail_fused_v1", "fan_capsules_v1", "sphere_cast_v1",
+                "sphere_cast_vs_tris_v1")
 EVAL_WORLDS = 1024
 EVAL_STEPS = 100
 EVAL_POLICIES = 2
@@ -515,17 +529,6 @@ def check_t(name, t_k, t_p, rel=1e-4, miss_frac=1e-5):
     return max_err
 
 
-def check_idx(name, i_k, i_p, gap, t_p):
-    """Winner indices equal wherever the plain version's best two t differ
-    by more than 1e-4 (and it hit)."""
-    import torch
-
-    decided = (gap > 1e-4) & torch.isfinite(t_p)
-    wrong = int(((i_k != i_p) & decided).sum())
-    if wrong:
-        raise AssertionError(f"{name}: {wrong} winner indices differ")
-
-
 def check_tail(name, got, want):
     """K5's outputs (state, new_captured) against another run's: every
     leaf of the same dtype and shape, bit-equal (int32 views of the float
@@ -540,14 +543,6 @@ def check_tail(name, got, want):
         pairs.append((g, w))
     check_equal(name, *pairs, (ck, cp))
     return max(max_abs_err(g, w) for g, w in pairs)
-
-
-def best_two_gap(t_pairs):
-    """Second-best minus best t over the last axis (inf when < 2 hits)."""
-    import torch
-
-    two = torch.topk(t_pairs, 2, dim=-1, largest=False).values
-    return two[..., 1] - two[..., 0]
 
 
 def turns_ms(new, old, reps):
@@ -668,18 +663,6 @@ def chunked(fn, n, size):
     return torch.cat(outs)
 
 
-def sc_gap(o, d, r, soup):
-    """best-two gap of the dense per-triangle sweep of casts o, d."""
-    from madrona_mp_env_tpu_torch.ops import raycast
-
-    o2, d2 = o.reshape(-1, 3), d.reshape(-1, 3)
-    gap = chunked(lambda s: best_two_gap(raycast._sc_pairs(
-        o2[s][:, None], d2[s][:, None], r, soup.v0, soup.e1, soup.e2,
-        soup.normal, soup.valid)["t_tri"]), o2.shape[0],
-        max(64, 2 ** 20 // soup.num_tris))
-    return gap.reshape(o.shape[:-1])
-
-
 def sc_normal_plain(o, d, r, soup):
     """K8's plain version over chunks of the leading axis of o, d [N, ...,
     3], each chunk ~2^23 (cast, triangle) pairs."""
@@ -696,6 +679,37 @@ def sc_dense_plain(o, d, r, soup):
 
     return chunked(lambda s: raycast._sphere_cast_dense(o[s], d[s], r, soup),
                    o.shape[0], max(64, 2 ** 19 // soup.num_tris))
+
+
+def sc_dense_usage(normal):
+    """ptxas -v's registers and spill bytes of K4 dense's (or, with
+    ``normal``, K8's) kernel and of its predecessor."""
+    from madrona_mp_env_tpu_torch.ops import cuda_build
+
+    b = "ILb1E" if normal else "ILb0E"
+    regs, spill = cuda_build.ptxas_usage("sphere_cast",
+                                         f"sc_dense_kernel{b}")
+    before = cuda_build.ptxas_usage("sphere_cast",
+                                    f"sphere_cast_dense_kernel{b}")
+    return dict(registers=regs, spill_bytes=spill,
+                before_registers=before[0], before_spill_bytes=before[1])
+
+
+def sc_dense_extra(kernel, before, nops, normal, T, R, reps):
+    """The redesign keys of a K4 dense or K8 row of one launch: device
+    times of the kernel and its predecessor, the floor, registers, the
+    split."""
+    from madrona_mp_env_tpu_torch.ops import raycast
+
+    import torch
+
+    return dict(
+        device_ms=device_ms(kernel, "sc_dense_kernel", reps),
+        before_device_ms=device_ms(before, "sphere_cast_dense_kernel", reps),
+        fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+        helper_launches=0, **sc_dense_usage(normal),
+        split=raycast.sc_split(T, R, raycast._sm_count(
+            torch.device("cuda"))))
 
 
 def kernel_row(scene, name, source, replaces, entry, err, ms, pms, nbytes,
@@ -1040,12 +1054,14 @@ class KernelPhase:
             registers=regs, spill_bytes=spill, helper_launches=0,
             split=raycast.flat_split(soup.num_tris), **extra)
 
-    def k8(self, o, d, r, reps=10):
+    def k8(self, o, d, r, reps=10, label=""):
         """K8 over the whole soup with the winner's contact normal: t and
-        normal bit-equal to the plain version; without normals, the same
-        t and zero normals."""
+        normal bit-equal to the plain version and to its earlier kernel
+        (sphere_cast_vs_tris_v1, timed with it in turns); without
+        normals, the same t and zero normals. ``label`` names the casts in
+        the row's name."""
         import torch
-        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
+        from madrona_mp_env_tpu_torch.ops import raycast
 
         soup = self.soup
         R = o[..., 0].numel()
@@ -1054,27 +1070,77 @@ class KernelPhase:
             return raycast.sphere_cast_vs_tris(o, d, r, soup,
                                                with_normal=with_normal)
 
+        def before(with_normal=True):
+            return raycast.sphere_cast_vs_tris_v1(o, d, r, soup,
+                                                  with_normal=with_normal)
+
         (tk, nk), ((tp, np_), pms) = kernel(), timed_once(
             lambda: sc_normal_plain(o, d, r, soup))
-        err = check_equal("K8 sphere_cast_vs_tris", (tk, tp), (nk, np_))
+        err = check_equal(f"K8 sphere_cast_vs_tris{label}", (tk, tp),
+                          (nk, np_))
+        check_equal(f"K8{label} against its predecessor",
+                    *zip((tk, nk), before()))
         t0, n0 = kernel(False)
-        torch.cuda.synchronize()
+        check_equal(f"K8{label} without normals against its predecessor",
+                    *zip((t0, n0), before(False)))
         if not torch.equal(t0, tk) or bool(n0.any()):
             raise AssertionError("K8 without normals: t differs or a "
                                  "normal is not 0")
-        regs, spill = cuda_build.ptxas_usage("sphere_cast",
-                                             "sphere_cast_dense_kernelILb1E")
+        ms, before_ms = turns_ms(kernel, before, reps)
+        nn_ms, nn_before = turns_ms(lambda: kernel(False),
+                                    lambda: before(False), reps)
+        nops = (R * self.T_real * OPS_SPHERE_TRI
+                + R * (OPS_SPHERE_TRI + OPS_SC_NORMAL))
         self.record(
-            "K8 sphere_cast_vs_tris",
+            f"K8 sphere_cast_vs_tris{label}",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:1364",
-            raycast.sphere_cast_vs_tris, err, cuda_time_ms(kernel, reps),
-            pms, R * 24 + R * 16 + self.T_real * 52,
-            R * self.T_real * OPS_SPHERE_TRI
-            + R * (OPS_SPHERE_TRI + OPS_SC_NORMAL), [list(o.shape[:-1])],
-            registers=regs, spill_bytes=spill,
-            no_normal_ms=round(cuda_time_ms(lambda: kernel(False), reps), 4),
-            hit_share=round(float(torch.isfinite(tk).float().mean()), 4))
+            raycast.sphere_cast_vs_tris, err, ms, pms,
+            R * 24 + R * 16 + self.T_real * 52, nops, [list(o.shape[:-1])],
+            **sc_dense_extra(kernel, before, nops, True, soup.num_tris, R,
+                             reps),
+            before_ms=round(before_ms, 4),
+            no_normal_ms=round(nn_ms, 4),
+            no_normal_before_ms=round(nn_before, 4),
+            hit_share=round(float(torch.isfinite(tk).float().mean()), 4),
+            start_overlap_share=round(float((tk == 0).float().mean()), 4))
+
+    def k4_bench(self, o, d, r, reps=10, label=""):
+        """K4 dense on the kernel bench's casts: t and winner row bit-equal
+        to the plain version and to its earlier kernel (sphere_cast_v1),
+        the two timed in turns."""
+        import torch
+        from madrona_mp_env_tpu_torch.ops import raycast
+
+        soup = self.soup
+        R = o[..., 0].numel()
+
+        def kernel():
+            return raycast.sphere_cast(o, d, r, soup)
+
+        def before():
+            return raycast.sphere_cast_v1(o, d, r, soup)
+
+        (tk, ik), ((tp, ip), pms) = kernel(), timed_once(
+            lambda: sc_dense_plain(o.reshape(R, 3), d.reshape(R, 3), r,
+                                   soup))
+        name = f"K4 sphere_cast (dense){label}"
+        err = check_equal(name, (tk, tp.reshape(tk.shape)),
+                          (ik, ip.reshape(ik.shape)))
+        check_equal(f"{name} against its predecessor",
+                    *zip((tk, ik), before()))
+        ms, before_ms = turns_ms(kernel, before, reps)
+        nops = R * self.T_real * OPS_SPHERE_TRI
+        self.record(
+            name, "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
+            "madrona_mp_env_tpu/ops/raycast_pallas.py:1384",
+            raycast.sphere_cast, err, ms, pms, R * 32 + self.T_real * 52,
+            nops, [list(o.shape[:-1])],
+            **sc_dense_extra(kernel, before, nops, False, soup.num_tris, R,
+                             reps),
+            before_ms=round(before_ms, 4),
+            hit_share=round(float(torch.isfinite(tk).float().mean()), 4),
+            start_overlap_share=round(float((tk == 0).float().mean()), 4))
 
     def k3x(self, o, d, self_idx, pos, alive, reps=50):
         """K3x: explicit origins, a capsule to skip per ray; t and hit
@@ -1168,14 +1234,18 @@ class KernelPhase:
 
     def k4_dense(self, calls):
         """The L2 pair, the L3 snap and the fall cast over the whole soup
-        (a step with MPENV_SC_PACK=0)."""
-        from madrona_mp_env_tpu_torch.ops import cuda_build, raycast
+        (a step with MPENV_SC_PACK=0): t and winner row bit-equal to the
+        plain version and to its earlier kernel (sphere_cast_v1), the two
+        timed in turns, summed over the three launches."""
+        from madrona_mp_env_tpu_torch.ops import raycast
 
         soup = self.soup
         sc_calls = calls["sphere_cast"]
         if len(sc_calls) != 3:
             raise AssertionError(f"step made {len(sc_calls)} dense casts")
-        err, ms, pms, R4, shapes = 0.0, 0.0, 0.0, 0, []
+        err = ms = before_ms = pms = 0.0
+        dev = dev_before = 0.0
+        R4, shapes, splits = 0, [], []
         for i, (o4, d4, r, _) in enumerate(sc_calls):
             def sc_plain(o4=o4, d4=d4, r=r):
                 return sc_dense_plain(o4, d4, r, soup)
@@ -1183,24 +1253,37 @@ class KernelPhase:
             def sc_kernel(o4=o4, d4=d4, r=r):
                 return raycast.sphere_cast(o4, d4, r, soup)
 
-            (tk, ik), (tp, ip) = sc_kernel(), sc_plain()
+            def sc_before(o4=o4, d4=d4, r=r):
+                return raycast.sphere_cast_v1(o4, d4, r, soup)
+
+            (tk, ik), ((tp, ip), p_ms) = sc_kernel(), timed_once(sc_plain)
             name = f"K4 sphere_cast launch {i} {list(o4.shape[:-1])}"
-            err = max(err, check_t(name, tk, tp))
-            check_idx(name, ik, ip, sc_gap(o4, d4, r, soup), tp)
-            ms += cuda_time_ms(sc_kernel, 50)
-            pms += cuda_time_ms(sc_plain, 2)
-            R4 += o4[..., 0].numel()
+            err = max(err, check_equal(name, (tk, tp), (ik, ip)))
+            check_equal(f"{name} against its predecessor",
+                        *zip((tk, ik), sc_before()))
+            new, old = turns_ms(sc_kernel, sc_before, 50)
+            ms, before_ms, pms = ms + new, before_ms + old, pms + p_ms
+            dev = add_or_none(dev, device_ms(sc_kernel, "sc_dense_kernel",
+                                             20, None))
+            dev_before = add_or_none(dev_before, device_ms(
+                sc_before, "sphere_cast_dense_kernel", 20, None))
+            R = o4[..., 0].numel()
+            R4 += R
             shapes.append(list(o4.shape[:-1]))
-        regs, spill = cuda_build.ptxas_usage("sphere_cast",
-                                             "sphere_cast_dense_kernelILb0E")
+            splits.append(raycast.sc_split(soup.num_tris, R,
+                                           raycast._sm_count(o4.device)))
+        nops = R4 * self.T_real * OPS_SPHERE_TRI
         self.record(
             "K4 sphere_cast (dense)",
             "madrona_mp_env_tpu_torch/csrc/sphere_cast.cu",
             "madrona_mp_env_tpu/ops/raycast_pallas.py:1384",
             raycast.sphere_cast, err, ms, pms,
-            R4 * 32 + 3 * self.T_real * 52,
-            R4 * self.T_real * OPS_SPHERE_TRI, shapes, registers=regs,
-            spill_bytes=spill)
+            R4 * 32 + 3 * self.T_real * 52, nops, shapes,
+            **sc_dense_usage(False), split=splits,
+            before_ms=round(before_ms, 4), device_ms=round_or_none(dev),
+            before_device_ms=round_or_none(dev_before),
+            fmad_floor_ms=round(nops / PEAK_F32_INSNS * 1e3, 4),
+            helper_launches=0)
 
     def k4_launches(self, label, entry, calls):
         """K4 culled or K4' on each of the step's launches of ``entry``: t
@@ -1567,12 +1650,20 @@ def team3_kernels(env, state, actions, scene):
     def k8():
         return raycast.sphere_cast_vs_tris(o7, d7, r, soup)
 
+    def k8_before():
+        return raycast.sphere_cast_vs_tris_v1(o7, d7, r, soup)
+
     (tk, nk), ((tp, np_), pms) = k8(), timed_once(
         lambda: sc_normal_plain(o7, d7, r, soup))
     check_equal("K8 on the step's L1 casts", (tk, tp), (nk, np_))
+    check_equal("K8 on the step's L1 casts against its predecessor",
+                *zip((tk, nk), k8_before()))
+    ms, before_ms = turns_ms(k8, k8_before, 20)
     log(f"[kernel] K8 sphere_cast_vs_tris [{ph.scene}] on the step's L1 "
-        f"casts {list(o7.shape[:-1])}: bit-equal, kernel "
-        f"{cuda_time_ms(k8, 20):.4f} ms plain {pms:.4f} ms")
+        f"casts {list(o7.shape[:-1])}: bit-equal to its plain version and "
+        f"its predecessor, kernel {ms:.4f} ms (split "
+        f"{raycast.sc_split(soup.num_tris, o7[..., 0].numel(), raycast._sm_count(o7.device))}) "
+        f"predecessor {before_ms:.4f} ms plain {pms:.4f} ms")
     (pos, zg, df, zgroups, alive_f), = calls["fan_capsules"]
     zf = torch.repeat_interleave(
         zg, torch.tensor(zgroups, device=zg.device), dim=-1)
@@ -1605,10 +1696,12 @@ BENCH_ITERS = 5
 
 
 def bench_kernels(mt, scene, team_size, card):
-    """K7, K8 and K3x at the kernel bench's own shapes and inputs
+    """K7, K8, K4 dense and K3x at the kernel bench's own shapes and inputs
     (tools/kernel_bench.py make_inputs) at NUM_WORLDS worlds, each
     bit-equal to its plain version and timed (K7 also with a z offset per
-    ray at team size 3); then the kernel bench
+    ray at team size 3; K8 and K4 dense on the JAX bench's casts, which
+    all start overlapping, and on the moving casts, beside their
+    predecessors in turns); then the kernel bench
     itself (its main, as the command line runs it) with every launch
     counter zeroed just before and read just after: its launches are
     these rows'."""
@@ -1619,10 +1712,13 @@ def bench_kernels(mt, scene, team_size, card):
 
     name = os.path.basename(scene)
     m = load_map(scene, mt.EnvConfig(team_size=team_size), device="cuda")
-    x = kernel_bench.make_inputs(NUM_WORLDS, team_size, "cuda")
+    x = kernel_bench.make_inputs(NUM_WORLDS, team_size, "cuda", soup=m.tris)
     ph = KernelPhase(m.tris, f"{name} bench ts{team_size}")
     ph.k7(x["origins"], x["zoff"], x["dirs"], per_ray=team_size == 3)
-    ph.k8(x["o_sc"], x["d_sc"], consts.agent_radius)
+    reps = 10 if m.tris.num_tris <= 1024 else 3
+    for o_key, label in (("o_sc", ""), ("o_mv", ", moving casts")):
+        ph.k8(x[o_key], x["d_sc"], consts.agent_radius, reps, label)
+        ph.k4_bench(x[o_key], x["d_sc"], consts.agent_radius, reps, label)
     ph.k3x(x["o_caps"], x["d_caps"], x["self_idx"], x["cap_pos"],
            x["alive"])
     del x, m
@@ -2330,7 +2426,8 @@ def all_entries():
         raycast.ray_fans_vs_tris_flat, raycast_cull.fan_capsules,
         raycast_cull.fan_capsules_v1,
         raycast_cull.fan_capsules_explicit, raycast.sphere_cast,
-        raycast.sphere_cast_vs_tris, raycast.sphere_cast_culled,
+        raycast.sphere_cast_v1, raycast.sphere_cast_vs_tris,
+        raycast.sphere_cast_vs_tris_v1, raycast.sphere_cast_culled,
         raycast.sphere_cast_packed, raycast.sphere_cast_culled_v1,
         tail_fused.tail_fused, tail_fused.tail_fused_v1,
         movement_fused_probe.apply_velocity_fall_fused,
@@ -5259,9 +5356,10 @@ def build_line(label, stats, seconds):
 
 def asset_chunk_rows(tv, wp, launches):
     """K4 dense on one chunk of town_map's cast battery and K1 on one
-    chunk of verify_tables' rays, each against its plain version on the
-    card (int32 views: t and winner row, t), timed; rows tagged
-    "town_map tables" with the launches of the build + verify path."""
+    chunk of verify_tables' rays, each against its plain version and its
+    predecessor on the card (int32 views: t and winner row, t), timed in
+    turns with it; rows tagged "town_map tables" with the launches of the
+    build + verify path."""
     import torch
     from madrona_mp_env_tpu_torch.ops import culling, raycast
 
@@ -5285,6 +5383,9 @@ def asset_chunk_rows(tv, wp, launches):
             def plain(o=o, d=d):
                 return sc_dense_plain(o, d, 15.0, soup)
 
+            def before(o=o, d=d):
+                return raycast.sphere_cast_v1(o, d, 15.0, soup)
+
             nbytes, nops = n * 32 + T * 52, n * T * OPS_SPHERE_TRI
         else:
             def kernel(o=o, d=d):
@@ -5294,18 +5395,31 @@ def asset_chunk_rows(tv, wp, launches):
                 return chunked(lambda s: raycast._ray_vs_tris_dense(
                     o[s], d[s], soup), n, max(64, 2 ** 22 // soup.num_tris))
 
+            def before(o=o, d=d):
+                return raycast.ray_vs_tris_v1(o, d, soup)
+
             nbytes, nops = n * 28 + T * 40, n * T * OPS_RAY_TRI
         got, want = kernel(), plain()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got, want)]
         err = check_equal(f"{name} [town_map tables]", *pairs)
+        old = before()
+        check_equal(f"{name} [town_map tables] against its predecessor",
+                    *(zip(got, old) if isinstance(got, tuple)
+                      else [(got, old)]))
+        ms, before_ms = turns_ms(kernel, before, 10)
         hits = float(torch.isfinite(pairs[0][1]).float().mean())
+        extra = {}
+        if entry is raycast.sphere_cast:
+            extra = sc_dense_extra(kernel, before, nops, False,
+                                   soup.num_tris, n, 10)
         row = kernel_row(
             "town_map tables", name,
             f"madrona_mp_env_tpu_torch/csrc/{src}",
             f"madrona_mp_env_tpu/ops/{replaces}", entry, err,
-            cuda_time_ms(kernel, 10), cuda_time_ms(plain, 1), nbytes, nops,
-            [[n]], hit_share=round(hits, 4))
+            ms, cuda_time_ms(plain, 1), nbytes, nops,
+            [[n]], hit_share=round(hits, 4), before_ms=round(before_ms, 4),
+            **extra)
         row["launches"] = launches[entry.__name__]
         row["path"] = "town_map tables: build_cell_tables + verify_tables"
         rows.append(row)
@@ -6027,12 +6141,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or "properties" in line:
             log(f"[build] move_fused: {line.strip()}")
     # the register-blocked kernels K2, K6, K7 and K1 (csrc/fan_sweep_rb.cuh),
-    # K4 dense and K8 (the K4 culled and K4' rows carry their own), K3, K3x
-    # and K5 with their predecessors
+    # K4 dense and K8 (the K4 culled and K4' rows carry their own), K3,
+    # K3x and K5 with their predecessors
     for src, kern in (("fan_tris", "fan_tris_rb_kernel"),
                       ("fan_culled", "fan_culled_rb_kernel"),
                       ("fan_flat", "fan_flat_rb_kernelILi4E"),
                       ("ray_tris", "ray_tris_rb_kernelILi2E"),
+                      ("sphere_cast", "sc_dense_kernelILb0E"),
+                      ("sphere_cast", "sc_dense_kernelILb1E"),
                       ("sphere_cast", "sphere_cast_dense_kernelILb0E"),
                       ("sphere_cast", "sphere_cast_dense_kernelILb1E"),
                       ("fan_capsules", "fan_capsules_kernel"),
@@ -6140,9 +6256,10 @@ def main() -> int:
 
     # 6. K4 dense: the L2/L3/fall casts over the soup (MPENV_SC_PACK=0)
     with mock.patch.dict(os.environ, MPENV_SC_PACK="0"):
+        forced = rows("simple_map", "K4 sphere_cast (dense)")
         drive_path("dense casts simple_map", env, acts, FORCED_STEPS,
-                   rows("simple_map", "K4 sphere_cast (dense)"),
-                   ("sphere_cast_packed",), card)
+                   forced, ("sphere_cast_packed",), card)
+        expect_launches(forced, "K4 sphere_cast (dense)", 3 * FORCED_STEPS)
     del env
 
     # 7. the town_map path on the card, then its forced-dense fan route

@@ -51,13 +51,17 @@ LAUNCHES = {
                         [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P] * 3),
     "fan_capsules_explicit": ("fan_capsules",
                               [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 3),
-    "sphere_cast": ("sphere_cast", [_P] * 3 + [_F, _I, _I] + [_P] * 3),
+    "sphere_cast": ("sphere_cast", [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3),
+    "sphere_cast_dense_v1": ("sphere_cast", [_P] * 3 + [_F, _I, _I]
+                             + [_P] * 3),
     "sphere_cast_culled": ("sphere_cast", [_P] * 3 + [_F, _I, _I]
                            + [_P] * 3 + [_I] + [_P] * 3),
     "sphere_cast_culled_v1": ("sphere_cast", [_P] * 3 + [_F, _I] + [_P] * 2
                               + [_I] * 2 + [_P] * 3),
-    "sphere_cast_normal": ("sphere_cast", [_P] * 3 + [_F, _I, _I, _F, _I]
-                           + [_P] * 3),
+    "sphere_cast_normal": ("sphere_cast", [_P] * 3 + [_F] + [_I] * 3
+                           + [_F, _I] + [_P] * 3),
+    "sphere_cast_normal_v1": ("sphere_cast", [_P] * 3 + [_F, _I, _I, _F, _I]
+                              + [_P] * 3),
     # a pointer to the argument struct (ops/tail_fused.py _TailArgs)
     "tail_fused": ("tail_fused", [_P, _P]),
     "tail_fused_v1": ("tail_fused", [_P, _P]),

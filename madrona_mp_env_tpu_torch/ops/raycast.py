@@ -177,8 +177,8 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _rows16(soup: TriSoup) -> torch.Tensor:
-    """The soup's [T, 16] rows, which K1, K2, K4 culled, K4', K6 and K7
-    read as 16-byte vectors."""
+    """The soup's [T, 16] rows, which K1, K2, K4 dense, K4 culled, K4', K6,
+    K7 and K8 read as 16-byte vectors."""
     rows = soup.tri_rows
     if rows.data_ptr() % 16 or not rows.is_contiguous():
         raise ValueError("tri_rows must be contiguous and 16-byte aligned")
@@ -802,24 +802,86 @@ def _sphere_cast_dense(o, d, r, soup: TriSoup):
     return _cpu_passes(sweep, o, d, soup.num_tris)
 
 
+# K4 dense's and K8's launch (csrc/sphere_cast.cu sc_dense_kernel): threads
+# per cast (kScParts), threads per block (kScDenseThreads), the most blocks
+# of a cluster (kScMaxSplit); the split aims at SC_FILL_WARPS warps per SM
+# over the card, two waves of the 32 warps an SM holds at once (8 blocks
+# at the kernel's 64-67 registers a thread, 7 at 32 KB of staged rows),
+# and gives each block at least SC_MIN_ROWS rows
+SC_PARTS = 2
+SC_DENSE_THREADS = 128
+SC_MAX_SPLIT = 8
+SC_FILL_WARPS = 64
+SC_MIN_ROWS = 32
+
+
+def sc_split(T: int, R: int, sms: int) -> int:
+    """The blocks of a cluster over which K4 dense and K8 split T rows for
+    R casts (SC_PARTS threads each) on a card of ``sms`` SMs: enough
+    clusters' warps for SC_FILL_WARPS per SM, at most SC_MAX_SPLIT, at
+    least SC_MIN_ROWS rows each (1 for a soup under that)."""
+    tiles = max(1, -(-R * SC_PARTS // SC_DENSE_THREADS))
+    want = -(-SC_FILL_WARPS * sms // (tiles * SC_DENSE_THREADS // 32))
+    return max(1, min(SC_MAX_SPLIT, want, T // SC_MIN_ROWS))
+
+
+def _sc_dense_launch(o, d, r, soup: TriSoup, t_max=None, with_normal=True,
+                     split=None):
+    """The dense entries' CUDA launch: K4 dense ((t, winner row)) when
+    ``t_max`` is None, else K8 ((t, normal)); ``split`` blocks per cluster
+    (sc_split unless given)."""
+    shape, R, o2, d2 = _rays_flat(o, d)
+    T = soup.num_tris
+    if split is None:
+        split = sc_split(T, R, _sm_count(o.device))
+    t = torch.empty(R, device=o.device, dtype=torch.float32)
+    head = (_ptr(o2), _ptr(d2), _ptr(_rows16(soup)), float(r), T, R, split)
+    if t_max is None:
+        idx = torch.empty(R, device=o.device, dtype=torch.int32)
+        cuda_build.check(cuda_build.launcher("sphere_cast")(
+            *head, _ptr(t), _ptr(idx), _stream(o)), "sphere_cast")
+        return t.reshape(shape), idx.reshape(shape)
+    n = torch.empty((R, 3), device=o.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_normal")(
+        *head, float(t_max), int(with_normal), _ptr(t), _ptr(n), _stream(o)),
+        "sphere_cast_normal")
+    return t.reshape(shape), n.reshape(shape + (3,))
+
+
 def sphere_cast(o, d, r: float, soup: TriSoup):
     """Sphere sweep of radius r from o along unit d against the soup.
-    Returns (t [...], winner row [...] i32). CUDA: one thread per cast
-    (csrc/sphere_cast.cu, dense entry)."""
+    Returns (t [...], winner row [...] i32). CUDA: the dense entry of
+    csrc/sphere_cast.cu, the rows split over the blocks of a cluster
+    (sc_split), the partial (t, row) minima combined in the cluster: one
+    launch."""
     if not _route(o):
         return _sphere_cast_dense(o, d, r, soup)
-    shape, R, o2, d2 = _rays_flat(o, d)
-    t = torch.empty(R, device=o.device, dtype=torch.float32)
-    idx = torch.empty(R, device=o.device, dtype=torch.int32)
-    cuda_build.check(cuda_build.launcher("sphere_cast")(
-        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris, R,
-        _ptr(t), _ptr(idx), _stream(o),
-    ), "sphere_cast")
+    out = _sc_dense_launch(o, d, r, soup)
     sphere_cast.launches += 1
-    return t.reshape(shape), idx.reshape(shape)
+    return out
 
 
 sphere_cast.launches = 0
+
+
+def sphere_cast_v1(o, d, r: float, soup: TriSoup):
+    """K4 dense's earlier kernel (csrc/sphere_cast.cu sphere_cast_dense_v1:
+    one thread per cast, every block over every row), on CUDA tensors
+    only: the predecessor that chip_smoke.py times beside sphere_cast."""
+    if not _route(o):
+        raise ValueError("sphere_cast_v1 takes CUDA tensors")
+    shape, R, o2, d2 = _rays_flat(o, d)
+    t = torch.empty(R, device=o.device, dtype=torch.float32)
+    idx = torch.empty(R, device=o.device, dtype=torch.int32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_dense_v1")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris, R,
+        _ptr(t), _ptr(idx), _stream(o),
+    ), "sphere_cast_dense_v1")
+    sphere_cast_v1.launches += 1
+    return t.reshape(shape), idx.reshape(shape)
+
+
+sphere_cast_v1.launches = 0
 
 
 def _sphere_cast_culled_plain(o, d, r, cells, short, soup: TriSoup):
@@ -983,24 +1045,38 @@ def sphere_cast_vs_tris(o, d, r: float, soup: TriSoup, t_max=INF,
     sphere_cast_vs_tris, its dense path's normal rule). o, d [..., 3] ->
     (t [...], normal [..., 3]); a miss or t > t_max gives t = inf and
     normal 0; with_normal=False returns zero normals. CUDA: the normal
-    entry of csrc/sphere_cast.cu, one thread per cast, which computes
-    the normal of its winner row in the same kernel."""
+    entry of csrc/sphere_cast.cu, K4 dense's sweep (sc_split), whose
+    block 0 of each cluster computes the normal of each cast's winner row
+    in the same launch."""
     if not _route(o):
         return _sphere_cast_normal_plain(o, d, r, soup, t_max, with_normal)
-    shape = o.shape[:-1]
-    R = int(np.prod(shape)) if shape else 1
-    o2, d2 = _f32(o.reshape(R, 3)), _f32(d.reshape(R, 3))
-    t = torch.empty(R, device=o.device, dtype=torch.float32)
-    n = torch.empty((R, 3), device=o.device, dtype=torch.float32)
-    cuda_build.check(cuda_build.launcher("sphere_cast_normal")(
-        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris,
-        R, float(t_max), int(with_normal), _ptr(t), _ptr(n), _stream(o),
-    ), "sphere_cast_normal")
+    out = _sc_dense_launch(o, d, r, soup, t_max, with_normal)
     sphere_cast_vs_tris.launches += 1
-    return t.reshape(shape), n.reshape(shape + (3,))
+    return out
 
 
 sphere_cast_vs_tris.launches = 0
+
+
+def sphere_cast_vs_tris_v1(o, d, r: float, soup: TriSoup, t_max=INF,
+                           with_normal=True):
+    """K8's earlier kernel (csrc/sphere_cast.cu sphere_cast_normal_v1: one
+    thread per cast, every block over every row), on CUDA tensors only:
+    the predecessor that chip_smoke.py times beside sphere_cast_vs_tris."""
+    if not _route(o):
+        raise ValueError("sphere_cast_vs_tris_v1 takes CUDA tensors")
+    shape, R, o2, d2 = _rays_flat(o, d)
+    t = torch.empty(R, device=o.device, dtype=torch.float32)
+    n = torch.empty((R, 3), device=o.device, dtype=torch.float32)
+    cuda_build.check(cuda_build.launcher("sphere_cast_normal_v1")(
+        _ptr(o2), _ptr(d2), _ptr(soup.tri_rows), float(r), soup.num_tris,
+        R, float(t_max), int(with_normal), _ptr(t), _ptr(n), _stream(o),
+    ), "sphere_cast_normal_v1")
+    sphere_cast_vs_tris_v1.launches += 1
+    return t.reshape(shape), n.reshape(shape + (3,))
+
+
+sphere_cast_vs_tris_v1.launches = 0
 
 
 def sphere_cast_grouped(o, d, r: float, soup: TriSoup, t_max=INF,

@@ -1,11 +1,12 @@
 """The redesigned kernels (csrc/fan_sweep_rb.cuh: the sensor fans K2, K6
 and K7, the hitscan K1; csrc/sc_sweep.cuh: the culled sphere casts K4
-culled and K4') against their predecessors and against launches with one
+culled and K4'; csrc/sphere_cast.cu sc_dense_kernel: the dense sphere
+casts K4 dense) against their predecessors and against launches with one
 of their arguments changed, on the arguments of real steps.
 
     python -m madrona_mp_env_tpu_torch.tools.fan_rb_probe \
         [--worlds 1024] [--steps 0,40] [--iters 10] \
-        [--kernels k2,k6,k7,k1,k4,k4p] [--sass-ref DIR]
+        [--kernels k2,k6,k7,k1,k4,k4p,k4d] [--sass-ref DIR]
 
   full_span      K6 walks every cell's K slots, not up to its last
                  candidate (CellTables.valid_span)
@@ -15,8 +16,9 @@ of their arguments changed, on the arguments of real steps.
                  grouped by cell
   threads T      K7 with T threads per block (raycast.FLAT_THREADS is
                  shipped)
-  split S        K7's or K1's rows over S blocks of a cluster
-                 (raycast.flat_split's or ray_split's choice is shipped)
+  split S        K7's, K1's or K4 dense's rows over S blocks of a
+                 cluster (raycast.flat_split's, ray_split's or sc_split's
+                 choice is shipped)
   octet          K7 with 8 rays per thread, not a quad (FLAT_RAYS)
   rays k         K1 with k rays per thread, at the shipped split
   full_k         K4 culled / K4' walking every cell's K slots, not up to
@@ -24,22 +26,25 @@ of their arguments changed, on the arguments of real steps.
   predecessor    the earlier kernel: P2's exact entry for K2
                  (csrc/fan_probe.cu), fan_culled_v1 for K6, fan_flat_v1
                  for K7, ray_tris_v1 for K1, sphere_cast_culled_v1 for K4
-                 culled and K4'
+                 culled and K4', sphere_cast_v1 for K4 dense
 
 The arguments are those the step hands each entry at each step of
 --steps (Env.reset at --worlds worlds, then bench.py's run-and-shoot
 actions): on Zone 6v6, K2 on simple_map, K2 over town_map's soup
 (MPENV_FAN_CULL=0, the first step only), K6 on town_map and K1 on each
 map, K4 culled (the L1 batch, 7 casts a group) and K4' (the L2 pair,
-the L3 snap, the fall cast: one row per launch) on each map; on Zone
+the L3 snap, the fall cast: one row per launch) on each map, K4 dense on
+the same three launches of a step with MPENV_SC_PACK=0 on each map; on
+Zone
 3v3, K7 and K1 on each map. Every variant's output equals the shipped
 kernel's bit for bit (t and winner row for K4). Times are CUDA events
 (kernel_bench.time_ms), in turns: each variant once, then again in the
-reverse order, the two averaged (K4: also each variant's device time,
-torch.profiler). Also prints the shipped kernels' registers and spill
+reverse order, the two averaged (K4, K4 dense: also each variant's device
+time, torch.profiler). Also prints the shipped kernels' registers and spill
 bytes (ptxas -v), and with --sass-ref, a build directory of another
-checkout, whether the kernels K4 dense, K8, P3 (and its warp_cast) and K3
-compile to the same SASS there and here (cuobjdump -sass).
+checkout, whether the predecessors of K4 dense and K8, P3 (and its
+warp_cast) and K3x compile to the same SASS there and here (cuobjdump
+-sass).
 Prints one JSON object; needs a CUDA device.
 """
 
@@ -175,6 +180,7 @@ K7_THREADS = (64, 128, 256)
 K7_SPLITS = (1, 2, 4, 8)
 K1_SPLITS = (1, 2, 4, 8)
 K1_RAYS = (1, 2, 4)
+K4D_SPLITS = tuple(range(1, raycast.SC_MAX_SPLIT + 1))
 
 
 def k7_variants(args, iters, device):
@@ -254,8 +260,37 @@ def k4_variants(args, iters, device):
     return res
 
 
+def k4d_variants(args, iters, device):
+    """One launch of K4 dense (args: o, d, r, soup): every split against
+    the shipped one and the predecessor, CUDA-event times in turns, then
+    each variant's device time."""
+    o, d, r, soup = args[:4]
+    R = o[..., 0].numel()
+    split = raycast.sc_split(soup.num_tris, R, raycast._sm_count(o.device))
+    fns = {"shipped": lambda: raycast.sphere_cast(o, d, r, soup)}
+    for s in K4D_SPLITS:
+        if s != split:
+            fns[f"split {s}"] = (lambda s=s: raycast._sc_dense_launch(
+                o, d, r, soup, split=s))
+    fns["predecessor"] = lambda: raycast.sphere_cast_v1(o, d, r, soup)
+    outs = {n: f() for n, f in fns.items()}
+    shape = list(o.shape[:-1])
+    _check_equal(f"K4 dense {shape} t", {n: t for n, (t, _) in outs.items()})
+    _check_equal(f"K4 dense {shape} row",
+                 {n: i for n, (_, i) in outs.items()})
+    res = in_turns(fns, iters, device)
+    for n, f in fns.items():
+        kern = ("sphere_cast_dense_kernel" if n == "predecessor"
+                else "sc_dense_kernel")
+        res[f"{n} dev"] = round(kernel_bench.device_ms(f, kern, iters)[0], 4)
+    res["shipped launch"] = f"split {split}, R {R}, T {soup.num_tris}"
+    return res
+
+
 # the kernels whose SASS a redesign of another kernel must leave as it
-# was (--sass-ref): (source, part of the mangled name)
+# was (--sass-ref): (source, part of the mangled name). K4 dense's and
+# K8's predecessors (sphere_cast_dense_kernel, which the two entries ran
+# until their redesign, sc_dense_kernel) keep the kernel's name and code
 SASS_SAME = (("sphere_cast", "sphere_cast_dense_kernelILb0E"),
              ("sphere_cast", "sphere_cast_dense_kernelILb1E"),
              ("move_fused", "move_fused_kernel"),
@@ -326,6 +361,12 @@ def sweep_step(row, env, state, actions, scene, ts, first, kernels, iters,
         for i, args in enumerate(capture_calls(
                 env, state, actions, "sphere_cast_packed", movement)):
             row[f"k4p {tag} launch {i}"] = k4_variants(args, iters, device)
+    if "k4d" in kernels:
+        with mock.patch.dict(os.environ, MPENV_SC_PACK="0"):
+            calls = capture_calls(env, state, actions, "sphere_cast",
+                                  movement)
+        for i, args in enumerate(calls):
+            row[f"k4d {tag} launch {i}"] = k4d_variants(args, iters, device)
     if scene == "simple_map":
         if "k2" in kernels:
             row["k2 simple_map"] = k2_variants(capture_fans(
@@ -346,7 +387,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", default="0,40",
                     help="steps after Env.reset whose fans are swept")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--kernels", default="k2,k6,k7,k1,k4,k4p",
+    ap.add_argument("--kernels", default="k2,k6,k7,k1,k4,k4p,k4d",
                     help="which kernels' variants to run")
     ap.add_argument("--sass-ref", default=None,
                     help="a build directory (lib<name>.so) to compare the "
@@ -370,6 +411,7 @@ def main(argv=None) -> dict:
                    ("ray_tris", "ray_tris_rb_kernelILi4E"))}}
     usage = res["registers, spill bytes"]
     for kern in ("sc_culled_kernel", "sphere_cast_culled_v1_kernel",
+                 "sc_dense_kernelILb0E", "sc_dense_kernelILb1E",
                  "move_fused_kernel"):
         src = "move_fused" if kern.startswith("move") else "sphere_cast"
         usage[kern] = cuda_build.ptxas_usage(src, kern)
@@ -379,7 +421,7 @@ def main(argv=None) -> dict:
     for scene in ("simple_map", "town_map"):
         for ts in (6, 3):
             if not kernels & ({"k7", "k1"} if ts == 3 else
-                              {"k2", "k6", "k1", "k4", "k4p"}):
+                              {"k2", "k6", "k1", "k4", "k4p", "k4d"}):
                 continue
             cfg = mt.EnvConfig(task=mt.Task.Zone, team_size=ts,
                                sim_flags=flags)

@@ -12,7 +12,16 @@ phases at the sim's shapes (W worlds, A = 2 ts agents, N = W A fans):
   each run, over the whole soup -> ``ray_fans_vs_tris_flat`` (K7);
   Grays/s and Gpairs/s;
 * 7 sphere casts per agent (the L1 batch's shape), with and without the
-  contact normal -> ``sphere_cast_grouped`` (K8); Gcasts/s, Gpairs/s;
+  contact normal -> ``sphere_cast_grouped`` (K8), and the same casts
+  without it -> ``sphere_cast`` (K4 dense), each on two sets of casts:
+  the JAX bench's, from the fan origins at z = 10, within agent_radius of
+  the floor, so that every cast starts overlapping and ends at t = 0
+  (``sc_kernel(normals)``, ``sc_kernel(no-normal)``,
+  ``sc_dense(overlapping)``); and casts that sweep (``sc_kernel(moving,
+  ...)``, ``sc_dense(moving)``), from origins at stand height outside
+  every triangle's box grown by agent_radius + 1 (``clear_origins``), so
+  that none starts overlapping; Gcasts/s, Gpairs/s, and each set's share
+  of casts that end at t = 0;
 * the same rays against the agent capsules with explicit origins ->
   ``fan_capsules_explicit`` (K3x); Grays/s;
 * ``Env.step`` with zero actions at the same world count; env-steps/s.
@@ -59,10 +68,43 @@ def sensor_zgroups(team_size: int):
             + (consts.rear_lidar_width,) * consts.rear_lidar_height)
 
 
-def make_inputs(worlds: int, team_size: int, device, seed: int = 0):
+def clear_origins(g, n: int, soup, z: float, margin: float) -> np.ndarray:
+    """n origins [n, 3] uniform in [-1500, 1500]^2 at height z, each
+    outside every valid triangle's bounding box grown by ``margin`` (so
+    that a sphere of a smaller radius there touches no triangle): an
+    origin inside one is drawn again from ``g`` until none is. The boxes
+    are tested in float64 on the soup's device (exact compares: the same
+    origins on every device)."""
+    f64 = torch.float64
+    v0 = soup.v0[soup.valid].to(f64)
+    corners = torch.stack([v0, v0 + soup.e1[soup.valid].to(f64),
+                           v0 + soup.e2[soup.valid].to(f64)])
+    lo = corners.amin(dim=0) - margin
+    hi = corners.amax(dim=0) + margin
+    band = (lo[:, 2] <= z) & (hi[:, 2] >= z)
+    lo, hi = lo[band, :2], hi[band, :2]
+    xy = np.empty((n, 2))
+    todo = np.arange(n)
+    while todo.size:
+        xy[todo] = g.uniform(-1500.0, 1500.0, (todo.size, 2))
+        inside = []
+        for p in np.array_split(xy[todo], -(-todo.size // 4096)):
+            q = torch.as_tensor(p, dtype=f64, device=lo.device)[:, None]
+            inside.append(((q >= lo) & (q <= hi)).all(-1).any(-1).cpu()
+                          .numpy())
+        todo = todo[np.concatenate(inside)]
+    return np.concatenate([xy, np.full((n, 1), z)], axis=1)
+
+
+def make_inputs(worlds: int, team_size: int, device, seed: int = 0,
+                soup=None):
     """The bench's operands on ``device``, drawn with numpy: fan origins
     uniform in [-1500, 1500]^2 at z = 10, one offset in [20, 60] per run,
-    unit directions; the casts start at the fan origins."""
+    unit directions; the casts start at the fan origins. Given the map's
+    ``soup``, also the moving casts' origins ``o_mv`` (the same shape and
+    directions as the casts ``o_sc``): at stand height, clear of every
+    triangle by agent_radius + 1 (``clear_origins``, its own stream of
+    ``seed`` + 1)."""
     g = np.random.default_rng(seed)
     W, A = worlds, 2 * team_size
     N = W * A
@@ -86,7 +128,13 @@ def make_inputs(worlds: int, team_size: int, device, seed: int = 0):
 
     o_w = origins.reshape(W, A, 3)
     o_caps = o_w[:, :, None, :] + np.zeros((W, A, F, 3))
-    return {
+    moving = {}
+    if soup is not None:
+        o_mv = clear_origins(np.random.default_rng(seed + 1), N, soup,
+                             consts.stand_height, consts.agent_radius + 1.0)
+        moving["o_mv"] = dev(np.broadcast_to(o_mv[:, None, :],
+                                             (N, CASTS_PER_AGENT, 3)))
+    return moving | {
         "zgroups": zgroups,
         "origins": dev(origins), "zoff": dev(zoff), "dirs": dev(dirs),
         "o_sc": dev(np.broadcast_to(origins[:, None, :],
@@ -203,7 +251,7 @@ def main(argv=None) -> dict:
     soup = m.tris
     T = soup.num_tris
     W, A = args.worlds, 2 * ts
-    x = make_inputs(W, ts, device)
+    x = make_inputs(W, ts, device, soup=soup)
     N, F = x["zoff"].shape
     it = args.iters
     print(device_line(device))
@@ -221,16 +269,31 @@ def main(argv=None) -> dict:
           f"{rays / dt / 1e6:.3f} Grays/s ({rays * T / dt / 1e6:.1f} "
           f"Gpairs/s)", flush=True)
 
-    # --- grouped movement sphere casts (K8), the L1 shape ---
+    # --- grouped movement sphere casts (K8; K4 dense), the L1 shape, on
+    # the JAX bench's overlapping casts and on the moving ones ---
     casts = N * CASTS_PER_AGENT
-    for with_normal, label in ((True, "normals"), (False, "no-normal")):
-        dt = time_ms(lambda: raycast.sphere_cast_grouped(
-            x["o_sc"], x["d_sc"], consts.agent_radius, soup,
-            with_normal=with_normal), it, device)
-        res[f"sc_{label}_ms"] = dt
-        print(f"sc_kernel({label}): {dt:.3f} ms for {casts / 1e6:.2f} Mcasts"
-              f" -> {casts / dt / 1e6:.3f} Gcasts/s "
-              f"({casts * T / dt / 1e6:.1f} Gpairs/s)", flush=True)
+
+    def rate(dt):
+        return (f"{dt:.3f} ms for {casts / 1e6:.2f} Mcasts -> "
+                f"{casts / dt / 1e6:.3f} Gcasts/s "
+                f"({casts * T / dt / 1e6:.1f} Gpairs/s)")
+
+    for o, key, tag in ((x["o_sc"], "", "overlapping"),
+                        (x["o_mv"], "moving_", "moving")):
+        for with_normal, label in ((True, "normals"), (False, "no-normal")):
+            dt = time_ms(lambda: raycast.sphere_cast_grouped(
+                o, x["d_sc"], consts.agent_radius, soup,
+                with_normal=with_normal), it, device)
+            res[f"sc_{key}{label}_ms"] = dt
+            name = f"moving, {label}" if key else label  # the JAX bench's
+            print(f"sc_kernel({name}): {rate(dt)}", flush=True)
+        dt = time_ms(lambda: raycast.sphere_cast(
+            o, x["d_sc"], consts.agent_radius, soup), it, device)
+        t, _ = raycast.sphere_cast(o, x["d_sc"], consts.agent_radius, soup)
+        res[f"sc_dense_{key}ms"] = dt
+        print(f"sc_dense({tag}): {rate(dt)}; "
+              f"{float((t == 0).float().mean()):.4f} of casts end at t = 0",
+              flush=True)
 
     # --- explicit-origin capsule fan (K3x) ---
     dt = time_ms(lambda: raycast_cull.fan_capsules_explicit(

@@ -9,8 +9,10 @@ CPU.
     and done exact, the float observations within 1e-3 * max(1, |x|));
     the team reward is the sum of its members' and done their all.
 (f) ``FullTeamActorCriticNet`` against flax's (train/full_team_policy.py,
-    under jax.jit) from the same parameters (flax's tree filled from a
-    seed, carried by convert.full_team_params_from_jax), at team
+    under jax.jit; at team size 6 and in bfloat16 from
+    fixtures_torch/flax_refs_jax.npz, make_flax_refs_fixture.py) from the
+    same parameters (flax's tree filled from a seed, carried by
+    convert.full_team_params_from_jax), at team
     sizes 2 and 6 on 2 worlds' teams: in float32 the forward's logits,
     value and recurrent state and the sequence's log probs, entropies and
     values (3 steps, dones in the first two) within 1e-5 * max(1, |x|),
@@ -44,6 +46,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
 sys.path.insert(0, HERE)
 import make_curriculum_fixture as cx  # noqa: E402
+import make_flax_refs_fixture as frf  # noqa: E402
 from test_torch_curriculum import (compare_case, data,  # noqa: E402,F401
                                    group)
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
@@ -51,6 +54,7 @@ from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 BF16_EPS = 2.0 ** -7
 MARGIN = 1e-5
 T, WORLDS = 3, 2
+FLAX_REFS = dict(np.load(frf.PATH))
 
 
 def test_full_team_rollout_matches_jax(data, simple_map_dir):  # noqa: F811
@@ -193,7 +197,10 @@ def _margins(dist, noise):
 def test_full_team_policy_matches_flax(ts):
     grad = ts == 2  # the gradient at one team size: its compile is long
     case = _case(ts)
-    want, grads = _flax(ts, jnp.float32, *case, grad=grad)
+    if grad:
+        want, grads = _flax(ts, jnp.float32, *case, grad=grad)
+    else:  # fixtures_torch/flax_refs_jax.npz: _flax at team size 6
+        want = frf.load_full_team(FLAX_REFS, "ts6")
     got, net, noise, d = _port(ts, torch.float32, *case, grad=grad)
     for k, g in got.items():
         w = want[k]
@@ -223,7 +230,7 @@ def test_full_team_policy_matches_flax(ts):
 def test_full_team_policy_bf16_matches_flax():
     ts = 2
     case = _case(ts, seed=3)
-    want, _ = _flax(ts, jnp.bfloat16, *case, grad=False)
+    want = frf.load_full_team(FLAX_REFS, "bf16")  # _flax in bfloat16
     got, *_ = _port(ts, torch.bfloat16, *case, grad=False)
     for k, g in got.items():
         w = want[k].astype(np.float32)

@@ -3,11 +3,16 @@ and its Env runs on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
+import sys
 
 import pytest
 import torch
 
 import madrona_mp_env_tpu_torch as mt
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "fixtures_torch"))
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "madrona_mp_env_tpu_torch")

@@ -477,7 +477,9 @@ def test_ray_vs_tris_huge_edges(gpu_map, town_map):
 def test_sphere_cast_normal_kernel(gpu_map, town_map, scene):
     """K8: t and the winner's contact normal over the whole soup, on the
     L1 batch's casts (overlaps, face and edge hits, standing agents'
-    directionless casts) and random casts; a finite t_max; no normals."""
+    directionless casts) and random casts; a finite t_max; no normals.
+    Bit-equal to the plain version and to the predecessor
+    (sphere_cast_vs_tris_v1), and at S = 1 and 8 blocks a cluster."""
     m = gpu_map if scene == "simple_map" else town_map
     N = 512
     x = _points(m, N, 43, (0, 2))
@@ -498,6 +500,87 @@ def test_sphere_cast_normal_kernel(gpu_map, town_map, scene):
                                                         t_max, with_normal)
             assert _eq(tk, tp) and _eq(nk, np_)
             assert bool(torch.isfinite(tk).float().mean() > 0.2)
+            tb, nb = raycast.sphere_cast_vs_tris_v1(o, d, R, m.tris, t_max,
+                                                    with_normal)
+            assert _eq(tk, tb) and _eq(nk, nb)
+            for split in (1, 8):
+                t, n = raycast._sc_dense_launch(o, d, R, m.tris, t_max,
+                                                with_normal, split)
+                assert _eq(t, tk) and _eq(n, nk)
+
+
+def _rows_of(soup, idx):
+    """The soup's rows ``idx`` (in that order) as a soup of their own."""
+    return raycast.TriSoup(
+        v0=soup.v0[idx], e1=soup.e1[idx], e2=soup.e2[idx],
+        normal=soup.normal[idx], valid=soup.valid[idx],
+        tri_rows=soup.tri_rows[idx].contiguous())
+
+
+def _dense_soup(gpu_map, town_map, kind):
+    """A soup for the dense entries' row split: simple_map's; its first
+    20 rows (under one staged tile); town_map's first 6,107 rows (a prime
+    count times 31: no split divides it); simple_map's rows twice over
+    (each triangle at rows i and i + 256, in different blocks of a
+    cluster of 2 or more)."""
+    s, t = gpu_map.tris, town_map.tris
+    ar = torch.arange
+    return {"simple": s, "stage": _rows_of(s, ar(20, device="cuda")),
+            "odd": _rows_of(t, ar(6107, device="cuda")),
+            "twice": _rows_of(s, ar(512, device="cuda") % 256)}[kind]
+
+
+def _dense_casts(m, soup, N, seed):
+    """N casts around map m: from random points along random directions,
+    every 5th straight down from 100 above a valid row's centroid of
+    ``soup`` (a hit), every 11th straight down, every 7th directionless
+    (every row ties at t = +-0: the lowest row wins), every 9th upward
+    from 5000 above the map (a miss everywhere)."""
+    o = _points(m, N, seed, (0, 60))
+    d = _dirs(N, seed + 1)
+    up = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    rows = torch.nonzero(soup.valid)[:, 0]
+    aim = rows[torch.arange(0, N, 5, device="cuda") % rows.numel()]
+    o[::5] = (soup.v0[aim] + (soup.v0[aim] + soup.e1[aim])
+              + (soup.v0[aim] + soup.e2[aim])) / 3.0 + 100.0 * up
+    d[::5] = -up
+    d[::11] = -up
+    d[::7] = 0.0
+    o[::9, 2] += 5000.0
+    d[::9] = up
+    return o, d
+
+
+@pytest.mark.parametrize("kind", ["simple", "stage", "odd", "twice"])
+def test_sphere_cast_dense_split(gpu_map, town_map, kind):
+    """K4 dense (csrc/sphere_cast.cu sc_dense_kernel) at R = 2,049 casts,
+    not a multiple of a block's 64 casts: t and winner row bit-equal to
+    the plain version and to the predecessor (sphere_cast_v1) at every
+    split a launch may take (1 .. 8 blocks a cluster), on soups under one
+    staged tile, of a row count no split divides, and with every triangle
+    twice (equal t in different blocks: the lower row wins); misses
+    report row 0; one launch counted."""
+    soup = _dense_soup(gpu_map, town_map, kind)
+    o, d = _dense_casts(gpu_map if kind != "odd" else town_map, soup, 2049,
+                        70)
+    n0 = raycast.sphere_cast.launches
+    tk, ik = raycast.sphere_cast(o, d, R, soup)
+    assert raycast.sphere_cast.launches == n0 + 1
+    tp, ip = raycast._sphere_cast_dense(o, d, R, soup)
+    assert _eq(tk, tp) and _eq(ik, ip)
+    tb, ib = raycast.sphere_cast_v1(o, d, R, soup)
+    assert _eq(tk, tb) and _eq(ik, ib)
+    for split in range(1, raycast.SC_MAX_SPLIT + 1):
+        t, i = raycast._sc_dense_launch(o, d, R, soup, split=split)
+        assert _eq(t, tk) and _eq(i, ik), split
+    hit = torch.isfinite(tk)
+    assert bool((ik[~hit] == 0).all()) and bool((~hit[::9]).all())
+    assert bool(hit.float().mean() > 0.1)
+    if kind == "twice":
+        assert bool((ik < 256).all())
+    for bad in (0, raycast.SC_MAX_SPLIT + 1):
+        with pytest.raises(RuntimeError):
+            raycast._sc_dense_launch(o, d, R, soup, split=bad)
 
 
 def test_fan_capsules_explicit_kernel(gpu_map):
@@ -557,15 +640,22 @@ def test_fan_capsules_kernel(gpu_map, A):
 
 
 def test_sphere_cast_kernels(gpu_map):
+    """K4 dense and K4 culled on the L1 batch's casts: t and winner row
+    bit-equal to their plain versions, K4 dense also to its predecessor
+    (sphere_cast_v1), one launch counted."""
     N = 2048
     x = _points(gpu_map, N, 8, (0, 2))
     v = _dirs(N, 9, flat=True)
     top = torch.full((N,), 50.0, device="cuda")
     low = torch.full((N,), 30.0, device="cuda")
     o1, d1, _ = movement.l1_casts(x, v, top, low)
+    n0 = raycast.sphere_cast.launches
     tk, ik = raycast.sphere_cast(o1, d1, R, gpu_map.tris)
+    assert raycast.sphere_cast.launches == n0 + 1
     tp, ip = raycast._sphere_cast_dense(o1, d1, R, gpu_map.tris)
     assert _eq(tk, tp) and _eq(ik, ip)
+    tb, ib = raycast.sphere_cast_v1(o1, d1, R, gpu_map.tris)
+    assert _eq(tk, tb) and _eq(ik, ib)
     cells = short_cell_index(gpu_map.short, x)
     tk, ik = raycast.sphere_cast_culled(o1, d1, R, cells, gpu_map.short,
                                         gpu_map.tris)

@@ -26,7 +26,8 @@ Units, on random inputs made with numpy (bars per array):
   jax.jit: logits, values and the float32 recurrent state within
   4 eps * max |x| of the array (measured 1.2-1.6 eps in bfloat16,
   1.0-1.3 eps in float16: a few roundings apart in every layer);
-- ``PolicyLSTM.sequence`` within 4 eps * max |x|.
+- ``PolicyLSTM.sequence`` within 4 eps * max |x| of flax's (jitted;
+  fixtures_torch/flax_refs_jax.npz, make_flax_refs_fixture.py).
 
 The trainer in bfloat16 against fixtures_torch/zone_train_bf16.npz
 (make_train_fixture.py --bf16, the float32 fixture's configuration with
@@ -66,7 +67,6 @@ import numpy as np
 import pytest
 import torch
 
-from madrona_mp_env_tpu.train import models as jmodels
 from madrona_mp_env_tpu.train import normalizer as jnorm
 from madrona_mp_env_tpu.train import policy as jpolicy
 
@@ -88,6 +88,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 SCENE = os.path.join(REPO, "data", "simple_map")
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
+import make_flax_refs_fixture as frf  # noqa: E402
 import make_train_fixture as mtf  # noqa: E402
 from policy_weights import random_flax_params, random_obs  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
@@ -204,19 +205,14 @@ def test_forward_matches_flax(name):
 
 
 def test_lstm_sequence_matches_flax():
-    C, H, T, Bs = 8, 16, 5, 3
-    g = np.random.default_rng(2)
-    model = jmodels.PolicyLSTM(hidden_dim=H, dtype=jnp.bfloat16)
-    xs = g.normal(size=(T, Bs, C)).astype(np.float32)
-    start = g.normal(size=(2, Bs, H)).astype(np.float32)
-    dones = (g.uniform(size=(T, Bs)) < 0.3).astype(np.float32)
-    tree = jax.jit(model.init, static_argnames="method")(
-        jax.random.PRNGKey(0), start, dones, xs, method=model.sequence)
-    tree = jax.tree_util.tree_map(
-        lambda x: g.normal(size=x.shape).astype(np.float32) * 0.5,
-        tree["params"])
-    want = jax.jit(lambda p: model.apply({"params": p}, start, dones, xs,
-                                         method=model.sequence))(tree)
+    """Against flax's PolicyLSTM(dtype=bfloat16).sequence under jax.jit,
+    from fixtures_torch/flax_refs_jax.npz (make_flax_refs_fixture.py,
+    bf16)."""
+    xs, start, dones, tree, want = frf.load_lstm(
+        dict(np.load(frf.PATH)), "bf16")
+    for got_in, want_in in zip(frf.lstm_inputs()[1:], (xs, start, dones)):
+        assert np.array_equal(got_in, want_in)
+    C, H = frf.LSTM_SHAPE["C"], frf.LSTM_SHAPE["H"]
     cell = tree["OptimizedLSTMCell_0"]
     gates = ("i", "f", "g", "o")
     net = PolicyLSTM(C, H, torch.bfloat16)

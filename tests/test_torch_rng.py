@@ -22,6 +22,7 @@ from madrona_mp_env_tpu_torch.utils import rng as trng
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "fixtures_torch"))
 import make_rng_fixture as fx  # noqa: E402
+from torch_threads import one_thread_under_xdist  # noqa: E402,F401
 
 SEEDS = (0, 5, 7, 123456, 2 ** 31 - 1)
 FOLD_DATA = (0, 1, 2, 3, 4, 5, 17, 2999, -1, 2 ** 31 - 1)

@@ -19,6 +19,8 @@ reach.
   sweep runs on the row it reads), emulated per f32 operation in numpy
   with a group's casts against the same rows: equal to ``_sc_pairs``'s
   t_tri bit for bit on random and adversarial pairs.
+- The dense entries' split of the rows over a cluster (K4 dense, K8:
+  ``raycast.sc_split``): the blocks' row chunks cover every row once.
 """
 
 import os
@@ -445,3 +447,33 @@ def test_sc_pair_per_op_matches_plain_pair():
     hit = np.isfinite(want)
     assert 0.1 < hit.mean() < 0.9 and (want[hit] > 0).mean() > 0.3
     assert (want == 0).any()  # start overlaps, directionless casts
+
+
+# ---------------------------------------------------------------------------
+# (e) K4 dense / K8: the rows split over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+def test_sc_split_from_rows_and_casts():
+    """The dense entries' launch choice (raycast.sc_split, 2 threads a
+    cast): the town battery's chunk and the forced step's L3 / fall
+    launches split 8 ways, its L2 pair 6, K8 at the kernel bench's 86,016
+    casts 2 ways, many casts need no split, a soup under SC_MIN_ROWS rows
+    none; each block of a cluster gets at least SC_MIN_ROWS rows and the
+    blocks' row chunks cover every row once."""
+    sms = 132
+    assert raycast.SC_PARTS == 2
+    assert raycast.sc_split(6144, 8192, sms) == 8  # the cast battery
+    assert raycast.sc_split(256, 24576, sms) == 6  # the forced L2 pair
+    assert raycast.sc_split(256, 12288, sms) == 8  # L3 snap, fall cast
+    assert raycast.sc_split(6144, 86016, sms) == 2  # the kernel bench
+    assert raycast.sc_split(20, 5, sms) == 1
+    assert raycast.sc_split(6144, 2 ** 22, sms) == 1
+    for T in (0, 1, 31, 32, 100, 256, 6144):
+        for R in (0, 1, 13, 129, 2049, 2 ** 20):
+            S = raycast.sc_split(T, R, sms)
+            assert 1 <= S <= raycast.SC_MAX_SPLIT
+            assert S == 1 or T // S >= raycast.SC_MIN_ROWS
+            c = -(-T // S)
+            rows = np.concatenate([np.arange(min(T, s * c), min(T, s * c + c))
+                                   for s in range(S)] + [np.arange(0)])
+            assert np.array_equal(rows, np.arange(T))

@@ -6,8 +6,9 @@ Units, on random inputs made with numpy:
   (one and two rounds of its sort);
 - ``compute_gae`` and ``ppo_loss`` (its three value-loss branches) within
   1e-5 * max(1, |x|) of JAX's;
-- ``PolicyLSTM.sequence`` within 1e-5 + 1e-5 * |x| of flax's (jitted),
-  with states cleared on dones;
+- ``PolicyLSTM.sequence`` within 1e-5 + 1e-5 * |x| of flax's (jitted;
+  fixtures_torch/flax_refs_jax.npz, make_flax_refs_fixture.py), with
+  states cleared on dones;
 - ``update_normalizer`` within 1e-6 * max(1, |x|);
 - ``adam_step`` against the optax chain clip_by_global_norm ->
   scale_by_adam -> scale(-1), x lr (jitted), from non-zero moments, with
@@ -50,7 +51,6 @@ import optax
 import pytest
 import torch
 
-from madrona_mp_env_tpu.train import models as jmodels
 from madrona_mp_env_tpu.train import normalizer as jnorm
 from madrona_mp_env_tpu.train import ppo as jppo
 
@@ -70,9 +70,12 @@ REPO = os.path.dirname(HERE)
 SCENE = os.path.join(REPO, "data", "simple_map")
 FIXTURE = os.path.join(HERE, "fixtures_torch", "zone_train.npz")
 sys.path.insert(0, os.path.join(HERE, "fixtures_torch"))
+import make_flax_refs_fixture as frf  # noqa: E402
 import make_train_fixture as mtf  # noqa: E402
 from policy_weights import random_flax_params  # noqa: E402
 from torch_threads import one_thread_under_xdist  # noqa: E402,F401
+
+FLAX_REFS = dict(np.load(frf.PATH))
 
 
 def _close(got, want, rel, atol=0.0, scale_floor=1.0):
@@ -141,19 +144,12 @@ def test_ppo_loss_matches_jax(mode):
 
 
 def test_lstm_sequence_matches_flax():
-    C, H, T, B = 8, 16, 5, 3
-    g = np.random.default_rng(2)
-    model = jmodels.PolicyLSTM(hidden_dim=H, dtype=jnp.float32)
-    xs = g.normal(size=(T, B, C)).astype(np.float32)
-    start = g.normal(size=(2, B, H)).astype(np.float32)
-    dones = (g.uniform(size=(T, B)) < 0.3).astype(np.float32)
-    tree = jax.jit(model.init, static_argnames="method")(
-        jax.random.PRNGKey(0), start, dones, xs, method=model.sequence)
-    tree = jax.tree_util.tree_map(
-        lambda x: g.normal(size=x.shape).astype(np.float32) * 0.5,
-        tree["params"])
-    want = jax.jit(lambda p: model.apply({"params": p}, start, dones, xs,
-                                         method=model.sequence))(tree)
+    """Against flax's PolicyLSTM.sequence under jax.jit, from
+    fixtures_torch/flax_refs_jax.npz (make_flax_refs_fixture.py, f32)."""
+    xs, start, dones, tree, want = frf.load_lstm(FLAX_REFS, "f32")
+    for got_in, want_in in zip(frf.lstm_inputs()[1:], (xs, start, dones)):
+        assert np.array_equal(got_in, want_in)
+    C, H = frf.LSTM_SHAPE["C"], frf.LSTM_SHAPE["H"]
     cell = tree["OptimizedLSTMCell_0"]
     gates = ("i", "f", "g", "o")
     net = PolicyLSTM(C, H)
